@@ -1,0 +1,32 @@
+"""Architecture registry of the port: `get_config(name)` /
+`get_smoke_config(name)`, as in `repro.configs`.  Only the archs whose
+families are ported are registered; the rest raise KeyError naming the
+reference's list."""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "lram-tiered": "lram_tiered",
+}
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"arch {name!r} is not ported to torch yet; ported: "
+                       f"{sorted(_MODULES)} (see ROADMAP queue A)")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    cfg = _module(name).config()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def get_smoke_config(name: str, **overrides) -> ModelConfig:
+    cfg = _module(name).smoke_config()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

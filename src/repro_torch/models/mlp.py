@@ -1,0 +1,37 @@
+"""Dense feed-forward blocks: SwiGLU and GELU (torch counterpart of
+`repro.models.mlp`)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import nn as tnn
+from repro_torch.models.config import ModelConfig
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, d_ff: int | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        self.act = cfg.act
+        if cfg.act == "swiglu":
+            self.wi_gate = tnn.Dense(d, f, use_bias=cfg.mlp_bias,
+                                     generator=generator)
+            self.wi_up = tnn.Dense(d, f, use_bias=cfg.mlp_bias,
+                                   generator=generator)
+        else:
+            self.wi = tnn.Dense(d, f, use_bias=cfg.mlp_bias,
+                                generator=generator)
+        self.wo = tnn.Dense(f, d, use_bias=cfg.mlp_bias, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.act == "swiglu":
+            g = self.wi_gate(x)
+            h = F.silu(g.float()).to(x.dtype) * self.wi_up(x)
+        else:
+            # jax.nn.gelu defaults to the tanh approximation
+            h = F.gelu(self.wi(x).float(), approximate="tanh").to(x.dtype)
+        return self.wo(h)

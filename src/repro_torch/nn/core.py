@@ -1,0 +1,138 @@
+"""Core layers: dense, embedding, norms and initializers (torch counterpart
+of `repro.nn.core`).
+
+Parameters keep the reference's layout and names, so a JAX pytree maps
+onto a module's `state_dict` key for key: a dense kernel is stored
+(in, out) and applied as `x @ kernel`; batchnorm keeps its running
+`mean`/`var` as buffers.  Inits draw from an explicit `torch.Generator`
+(the numbers differ from `jax.random`'s; tests convert weights instead).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+# truncation at +-2 standard deviations, as jax.random.truncated_normal(-2, 2)
+_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+
+
+@torch.no_grad()
+def truncated_normal_(t: torch.Tensor, stddev: float,
+                      generator: torch.Generator | None) -> torch.Tensor:
+    """Fill `t` with stddev * N(0, 1) truncated to [-2, 2] (inverse CDF)."""
+    t.uniform_(2 * _LO - 1, 2 * _HI - 1, generator=generator)
+    t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(stddev)
+    return t
+
+
+def fan_in_init_(t: torch.Tensor, generator: torch.Generator | None,
+                 scale: float = 1.0) -> torch.Tensor:
+    """LeCun-style: stddev = scale / sqrt(fan_in), fan_in = shape[0]."""
+    return truncated_normal_(t, scale / math.sqrt(max(1, t.shape[0])),
+                             generator)
+
+
+class Dense(nn.Module):
+    """y = x @ kernel (+ bias), kernel stored (in, out) as in the reference."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, use_bias: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            fan_in_init_(torch.empty(in_dim, out_dim), generator)
+        )
+        self.bias = (nn.Parameter(torch.zeros(out_dim)) if use_bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.kernel.to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, dim: int, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.embedding = nn.Parameter(
+            truncated_normal_(torch.empty(vocab, dim), 1.0, generator)
+        )
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embedding[tokens]
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, self.scale)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.scale, self.bias)
+
+
+class BatchNorm(nn.Module):
+    """Feature-wise batchnorm over all leading dims, as the reference's:
+    running stats move with momentum 0.99 (new = 0.99 * old + 0.01 *
+    batch), the batch variance is the biased one, eps is 1e-5.  Not
+    `torch.nn.BatchNorm*`, whose momentum and variance differ.
+
+    In train mode the running `mean`/`var` buffers are updated in place
+    (the reference returns them as a new state instead).
+    """
+
+    def __init__(self, dim: int, *, momentum: float = 0.99,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x32 = x.float()
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = x32.mean(dims)
+            var = ((x32 - mean) ** 2).mean(dims)
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean
+                                + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var
+                               + (1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
