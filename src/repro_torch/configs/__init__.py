@@ -12,6 +12,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "lram-tiered": "lram_tiered",
+    "lram-tiered-q8": "lram_tiered_q8",
 }
 
 

@@ -224,8 +224,11 @@ def canonicalize(t: torch.Tensor):
 @functools.lru_cache(maxsize=None)
 def _candidates_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     cand, nsq = candidate_arrays()
-    return (torch.from_numpy(cand).to(device),
-            torch.from_numpy(nsq).to(device))
+    # a cached tensor made under inference_mode (a serve) could never enter
+    # an autograd graph later: make it a normal tensor
+    with torch.inference_mode(False):
+        return (torch.from_numpy(cand).to(device),
+                torch.from_numpy(nsq).to(device))
 
 
 def _dot_candidates(z: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:

@@ -2,24 +2,37 @@
 `repro.core.lookup`).
 
 A config resolves once into a :class:`LookupPlan` that owns the memory
-read's two steps: the top-k `query` and the weighted `interp` gather.
-This slice ports the dense fp32 placement only.  The kernel axis keeps
-the reference's names so configs and CLI flags carry over:
+read: how the table is built (`build_table` from the init-time fp32 draw,
+`table_from_payload` from a 1-byte payload and its scales), the top-k
+`query`, and the weighted `interp` gather.  Axes:
 
-* ``pallas`` — the port's hand-written CUDA kernels (`lram_query`, K2, and
-  `gather_interp`, K1); on CPU tensors their plain versions.
-* ``reference`` — the plain torch functions, for CPU tensors only: on a
-  CUDA table it raises, so no run on the card silently skips the kernels.
+* **placement** — ``dense`` (one tensor on the device) | ``tiered`` (host
+  shards + a device hot cache, `repro_torch.memstore`).  ``sharded`` and
+  ``sharded-tiered`` are not ported yet and raise.
+* **storage** — ``fp32`` | ``int8`` | ``fp8`` (1-byte payload + per-row
+  fp32 scales, `repro_torch.quant`).
+* **kernel** — the reference's names, so configs and CLI flags carry over:
+  ``pallas`` is the port's hand-written CUDA kernels (their plain versions
+  on CPU tensors); ``reference`` is the plain torch functions, for CPU
+  tables only: on a CUDA table it raises, so no run on the card silently
+  skips the kernels.  ``auto`` resolves to ``pallas`` for the tiered
+  placement (the reference picks ``reference`` there only because its
+  Pallas kernels run interpreted off a TPU).
 
-Every other cell raises :class:`LookupPlanError` naming the ROADMAP item
-that will port it.
+Unsupported cells raise :class:`LookupPlanError` at resolve time.  The
+serve engine reads the plan's ``supports_prefetch`` flag to find the
+tiered stores it warms and prefetches.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+import importlib
+from typing import Any, Callable
+
+import torch
+from torch import nn
 
 STORAGES = ("fp32", "int8", "fp8")
 KERNELS = ("reference", "pallas")
@@ -34,13 +47,23 @@ IMPL_PLACEMENT = {
     "sharded-tiered": "sharded-tiered",
 }
 
-# cells not ported yet -> the ROADMAP item that ports them
+# placements not ported yet -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "tiered": "ROADMAP A8 (tiered store) with kernels B5/B6",
     "sharded": "ROADMAP A12 (distribution)",
-    "sharded-tiered": "ROADMAP A12 (distribution) after A8",
-    "int8": "ROADMAP A6 (quantized storage) with kernel B4",
-    "fp8": "ROADMAP A6 (quantized storage) with kernel B4",
+    "sharded-tiered": "ROADMAP A12 (distribution)",
+}
+
+# (kernel, storage class) -> (module, function).  The storage class names a
+# calling convention: "fp32" (values, idx, w), "quant" (q, scale, idx, w),
+# "tiered" / "tiered-quant" (the cache-indirected gathers of
+# repro_torch.kernels.tiered_gather).
+_KERNEL_IMPLS = {
+    ("pallas", "fp32"): ("gather_interp", "gather_interp"),
+    ("pallas", "quant"): ("gather_interp", "gather_interp_quant"),
+    ("pallas", "tiered"): ("tiered_gather", "tiered_gather"),
+    ("pallas", "tiered-quant"): ("tiered_gather", "tiered_gather_quant"),
+    ("reference", "fp32"): ("gather_interp", "gather_interp_plain"),
+    ("reference", "quant"): ("gather_interp", "gather_interp_quant_plain"),
 }
 
 
@@ -58,78 +81,204 @@ class LookupPlanError(ValueError):
 class LookupPlan:
     """A resolved lookup backend.
 
-    ``query(q, spec, top_k) -> (idx, w)`` and ``interp(values, idx, w)``
-    together are one memory read.
+    ``query(q, spec, top_k) -> (idx, w)`` and ``interp(table, idx, w)``
+    together are one memory read.  ``build_table(dense)`` turns the fp32
+    draw (N, m) into the table object an LRAM layer holds (an fp32
+    `Parameter`, a `QuantizedTable` or a `TieredValueStore`);
+    ``table_from_payload(q, scale)`` builds it from a quantized payload
+    carried bit for bit (quantized storages only).
     """
 
     placement: str
     storage: str
     kernel: str
     query: Callable
+    build_table: Callable[[torch.Tensor], Any]
     interp: Callable
+    table_from_payload: Callable | None = None
+    supports_prefetch: bool = False
 
     @property
     def cell(self) -> tuple[str, str, str]:
         return (self.placement, self.storage, self.kernel)
 
 
+def _cpu_only(fn: Callable, cell) -> Callable:
+    @functools.wraps(fn)
+    def run(x, *args, **kw):
+        if x.is_cuda:
+            raise LookupPlanError(
+                *cell, "the plain reference path is for CPU tables; on the "
+                "card use the pallas cell (the CUDA kernels)",
+            )
+        return fn(x, *args, **kw)
+    return run
+
+
+def kernel_gather(kernel: str, storage_class: str) -> Callable:
+    """The gather for (kernel, storage class): a CUDA kernel's wrapper for
+    ``pallas``, a CPU-only plain version for ``reference``."""
+    key = (kernel, storage_class)
+    if key not in _KERNEL_IMPLS:
+        raise KeyError(f"no kernel registered for {key}")
+    module, name = _KERNEL_IMPLS[key]
+    fn = getattr(importlib.import_module(f"repro_torch.kernels.{module}"),
+                 name)
+    return fn if kernel == "pallas" else _cpu_only(fn, ("?", storage_class,
+                                                        kernel))
+
+
+def query_fn(kernel: str) -> Callable:
+    """The top-k query of a kernel cell: K2, or its plain version (CPU)."""
+    from repro_torch.kernels import e8_lookup
+
+    if kernel == "pallas":
+        return e8_lookup.lram_query
+    return _cpu_only(e8_lookup.lram_query_plain, ("?", "?", kernel))
+
+
+# ---------------------------------------------------------------------------
+# resolution
+# ---------------------------------------------------------------------------
+
 def resolve(cfg, override: str | None = None) -> LookupPlan:
     """Resolve an `LRAMConfig` (plus an optional per-call placement
-    override, `lram_apply`'s `interp_impl`) into a plan."""
+    override, `lram_apply`'s `interp_impl`) into a plan, once per
+    (config, impl)."""
     impl = override if override is not None else cfg.interp_impl
-    return _resolve_cached(impl, cfg.table_quant, cfg.lookup_kernel)
+    return _resolve_cached(cfg, impl)
 
 
 @functools.lru_cache(maxsize=None)
-def _resolve_cached(impl: str, table_quant: str,
-                    lookup_kernel: str) -> LookupPlan:
+def _resolve_cached(cfg, impl: str) -> LookupPlan:
     placement = IMPL_PLACEMENT.get(impl)
     if placement is None:
         raise LookupPlanError(
             impl, "?", "?",
             f"unknown interp_impl {impl!r}; known: {sorted(IMPL_PLACEMENT)}",
         )
-    storage = "fp32" if table_quant in (None, "none") else table_quant
+    storage = _resolve_storage(cfg, placement)
+    kernel = _resolve_kernel(cfg, placement, impl)
+    if placement in _NOT_PORTED:
+        raise LookupPlanError(
+            placement, storage, kernel,
+            f"{placement!r} is not ported to torch yet: "
+            f"{_NOT_PORTED[placement]}",
+        )
+    if placement == "tiered":
+        from repro_torch.memstore import interp
+
+        return interp.tiered_plan(cfg, storage, kernel)
+    return _dense_plan(storage, kernel)
+
+
+def _resolve_storage(cfg, placement: str) -> str:
+    storage = "fp32" if cfg.table_quant in (None, "none") else cfg.table_quant
+    spec = cfg.tiered
+    if placement in ("tiered", "sharded-tiered") and spec is not None \
+            and spec.quant != "none":
+        if storage not in ("fp32", spec.quant):
+            raise LookupPlanError(
+                placement, storage, "?",
+                f"LRAMConfig.table_quant={storage!r} conflicts with "
+                f"TieredSpec.quant={spec.quant!r}",
+            )
+        storage = spec.quant
     if storage not in STORAGES:
         raise LookupPlanError(placement, storage, "?",
                               f"unknown storage {storage!r}; known: "
                               f"{STORAGES}")
-    kernel = lookup_kernel
+    return storage
+
+
+def _resolve_kernel(cfg, placement: str, impl: str) -> str:
+    kernel = cfg.lookup_kernel
     if kernel == "auto":
-        kernel = "pallas" if impl == "pallas" else "reference"
+        if placement == "dense":
+            kernel = "pallas" if impl == "pallas" else "reference"
+        elif placement == "tiered":
+            kernel = "pallas"
+        else:
+            kernel = "reference"
     if kernel not in KERNELS:
-        raise LookupPlanError(placement, storage, kernel,
+        raise LookupPlanError(placement, "?", kernel,
                               f"unknown kernel {kernel!r}; known: {KERNELS}")
-    for axis in (placement, storage):
-        if axis in _NOT_PORTED:
-            raise LookupPlanError(
-                placement, storage, kernel,
-                f"{axis!r} is not ported to torch yet: "
-                f"{_NOT_PORTED[axis]}",
-            )
-    return _dense_fp32(kernel)
+    return kernel
 
 
-def _dense_fp32(kernel: str) -> LookupPlan:
-    from repro_torch.kernels import e8_lookup, gather_interp
+def model_plans(model_cfg) -> list[LookupPlan]:
+    """The plans a model config implies ([] without a memory layer): how
+    the serve engine discovers capabilities."""
+    if model_cfg.lram is None or not model_cfg.lram_layers:
+        return []
+    return [resolve(model_cfg.lram)]
 
-    if kernel == "pallas":
-        return LookupPlan("dense", "fp32", kernel,
-                          query=e8_lookup.lram_query,
-                          interp=gather_interp.gather_interp)
 
-    def cpu_only(fn):
-        @functools.wraps(fn)
-        def run(x, *args):
-            if x.is_cuda:
+# ---------------------------------------------------------------------------
+# the dense placement
+# ---------------------------------------------------------------------------
+
+def _dense_plan(storage: str, kernel: str) -> LookupPlan:
+    from repro_torch import quant
+
+    cell = ("dense", storage, kernel)
+    if storage == "fp32":
+        gather = kernel_gather(kernel, "fp32")
+
+        def interp(values, idx, w):
+            if not isinstance(values, torch.Tensor):
                 raise LookupPlanError(
-                    "dense", "fp32", "reference",
-                    "the plain reference path is for CPU tensors; on the "
-                    "card use --placement pallas (the CUDA kernels)",
+                    *cell, f"the table is a {type(values).__name__}, not an "
+                    f"fp32 tensor: init and apply must use the same plan",
                 )
-            return fn(x, *args)
-        return run
+            return gather(values, idx, w)
 
-    return LookupPlan("dense", "fp32", kernel,
-                      query=cpu_only(e8_lookup.lram_query_plain),
-                      interp=cpu_only(gather_interp.gather_interp_plain))
+        return LookupPlan(*cell, query=query_fn(kernel),
+                          build_table=lambda dense: nn.Parameter(dense),
+                          interp=interp)
+
+    gather = kernel_gather(kernel, "quant")
+
+    def interp_quant(table, idx, w):
+        if not isinstance(table, quant.QuantizedTable):
+            raise LookupPlanError(
+                *cell, f"the table must be a QuantizedTable for "
+                f"storage={storage!r}; got {type(table).__name__}",
+            )
+        return gather(table.q, table.scale, idx, w)
+
+    return LookupPlan(
+        *cell, query=query_fn(kernel),
+        build_table=lambda dense: quant.QuantizedTable.from_dense(
+            dense.detach().cpu().numpy(), storage),
+        interp=interp_quant,
+        table_from_payload=lambda q, scale: quant.QuantizedTable.from_payload(
+            q, scale, storage),
+    )
+
+
+def merged_tiered_spec(cfg, storage: str, kernel: str):
+    """The TieredSpec a tiered plan builds: the config's spec (or the
+    defaults) with the resolved storage and kernel axes folded in."""
+    from repro_torch.memstore import TieredSpec
+
+    spec = cfg.tiered or TieredSpec()
+    quant_kind = "none" if storage == "fp32" else storage
+    if spec.quant != quant_kind or spec.use_pallas != (kernel == "pallas"):
+        spec = dataclasses.replace(
+            spec, quant=quant_kind, use_pallas=(kernel == "pallas")
+        )
+    return spec
+
+
+def is_store(x) -> bool:
+    """A tiered value store (the tables the engine warms and prefetches)."""
+    from repro_torch.memstore import TieredValueStore
+
+    return isinstance(x, TieredValueStore)
+
+
+def find_stores(model: nn.Module) -> list[tuple[str, Any]]:
+    """(name, store) for every distinct tiered store in a model."""
+    return [(name, mod) for name, mod in model.named_modules()
+            if is_store(mod)]

@@ -9,10 +9,11 @@
 plus the memory-augmented FFN block dense(w -> w) . LRAM(w -> 4w) .
 dense(4w -> w) that replaces a transformer FFN (paper §3.1).
 
-The two memory-read steps come from the resolved lookup plan
-(`repro_torch.core.lookup`).  Not ported yet, and listed in ROADMAP: the
-mesh sharding constraint on the per-head queries and the per-tenant
-overlay hook of the reference's `lram_apply`.
+The table and the two memory-read steps come from the resolved lookup
+plan (`repro_torch.core.lookup`): an fp32 `Parameter`, a `QuantizedTable`
+or a `TieredValueStore`.  Not ported yet, and listed in ROADMAP: the mesh
+sharding constraint on the per-head queries and the per-tenant overlay
+hook of the reference's `lram_apply`.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ class LRAMConfig:
     # --- the lookup plan's three axes (repro_torch.core.lookup) ---
     interp_impl: str = "reference"  # placement: reference/pallas (dense) |
     #                                 tiered | sharded | sharded-tiered
+    tiered: Any = None              # memstore.TieredSpec for tiered placements
     table_quant: str = "none"       # storage: none | int8 | fp8
     lookup_kernel: str = "auto"     # kernel: auto | reference | pallas
 
@@ -82,15 +84,17 @@ class LRAMConfig:
 # ---------------------------------------------------------------------------
 
 class LRAM(nn.Module):
-    """The memory layer's state: `values` (N, m) and the query norm
-    (`qnorm`); `lram_apply` runs it."""
+    """The memory layer's state: the table `values` (the plan's table
+    object over (N, m) rows) and the query norm (`qnorm`); `lram_apply`
+    runs it."""
 
     def __init__(self, cfg: LRAMConfig, *,
                  generator: torch.Generator | None = None):
         super().__init__()
-        lookup.resolve(cfg)  # unsupported cells fail at build time
+        plan = lookup.resolve(cfg)  # unsupported cells fail at build time
         self.cfg = cfg
-        self.values = nn.Parameter(tnn.truncated_normal_(
+        # every plan starts from the same fp32 draw
+        self.values = plan.build_table(tnn.truncated_normal_(
             torch.empty(cfg.num_locations, cfg.m), cfg.value_init_scale,
             generator,
         ))

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exports plain C functions (pointers, ints and the
 stream as `void*`; the return value is `cudaGetLastError()`).  It is
 compiled for `sm_90a` into `build/kernels/lib<name>-<hash>.so` at the root
-of the checkout, keyed by the source's content hash, the first time a
-kernel is called, and loaded with `ctypes`.  Nothing is compiled when a
+of the checkout, keyed by the content hash of the source and of the shared
+headers (`csrc/*.cuh`), the first time a kernel is called, and loaded with
+`ctypes`.  Nothing is compiled when a
 module is imported: the CPU tests import every module and have no nvcc.
 """
 
@@ -20,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gather_interp", "e8_lookup")
+SOURCES = ("gather_interp", "e8_lookup", "gather_interp_quant",
+           "tiered_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,9 +47,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -102,6 +106,16 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(_target(name)))
                 _libs[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C function `symbol` of `csrc/<name>.cu`, with its argument types
+    declared and an int (the CUDA error code) as its result."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check(status: int, what: str) -> None:

@@ -45,18 +45,13 @@ def _padded_candidates(device: torch.device):
     pad = NUM_PADDED - cand.shape[0]
     cand_t = np.concatenate([cand, np.zeros((pad, 8), np.float32)]).T
     nsq_p = np.concatenate([nsq, np.zeros((pad,), np.float32)])
-    return (torch.from_numpy(np.ascontiguousarray(cand_t)).to(device),
-            torch.from_numpy(nsq_p).to(device))
+    with torch.inference_mode(False):  # cached: usable under autograd too
+        return (torch.from_numpy(np.ascontiguousarray(cand_t)).to(device),
+                torch.from_numpy(nsq_p).to(device))
 
 
-def _lib():
-    lib = _build.load("e8_lookup")
-    fn = lib.lram_query_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
-            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
 
 
 def lram_query(q: torch.Tensor, spec: indexing.TorusSpec,
@@ -85,7 +80,7 @@ def lram_query(q: torch.Tensor, spec: indexing.TorusSpec,
     if n:
         cand_t, nsq = _padded_candidates(q.device)
         wrap = (ctypes.c_int * lattice.DIM)(*spec.K)
-        status = _lib()(
+        status = _build.function("e8_lookup", "lram_query_f32", _ARGS)(
             qf.data_ptr(), cand_t.data_ptr(), nsq.data_ptr(),
             idx.data_ptr(), w.data_ptr(), n, top_k, wrap, q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream,

@@ -1,9 +1,9 @@
 """Serving entry point of the port: a thin CLI over the continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lram-tiered \\
-        --placement pallas --json                       # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch lram-tiered \\
-        --placement pallas --json --device cpu --smoke  # plain versions
+        --json                                          # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch lram-tiered-q8 \\
+        --json --device cpu --smoke                     # plain versions
 
 Builds the model from `--seed` (weights drawn on the CPU, then moved to
 `--device`), a mixed-length request trace (all requests queued at t=0),
@@ -11,10 +11,15 @@ and replays it through `repro_torch.serving.ServeEngine`.  The device is
 `cuda` unless `--device cpu` is given; with no card it raises rather
 than falling back.  `--warmup` runs every prefill bucket and one decode
 tick before the trace, so its timings exclude each shape's first call.
-`--placement` overrides the memory
-layer's placement: `pallas` runs the hand-written CUDA kernels (their
-plain versions on the CPU), `reference` the plain path (CPU only).
-`lram-tiered`'s own default, `tiered`, is not ported yet and raises.
+
+`lram-tiered` and `lram-tiered-q8` serve on their own placement, `tiered`:
+the table lives in host RAM, a device cache holds the hot shards, and the
+gathers run the CUDA kernels (their plain versions on the CPU).  The
+report's `cache` carries the store's hit rate, hits, misses, uncached
+rows, fills and evictions; `--cache-slots` resizes the device cache (128
+holds the whole full-width table).  `--placement` overrides the placement:
+`pallas` serves from a dense table on the device with the CUDA kernels,
+`reference` runs the plain path (CPU only).
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["", "reference", "pallas", "tiered", "sharded",
                             "sharded-tiered"],
                    help="override the memory arch's lookup placement")
+    p.add_argument("--cache-slots", type=int, default=0,
+                   help="device cache size of a tiered table, in shards "
+                        "(default: the arch's TieredSpec)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain versions)")
@@ -75,6 +83,13 @@ def main(argv=None):
             cfg, lram=dataclasses.replace(cfg.lram,
                                           interp_impl=args.placement)
         )
+    if args.cache_slots:
+        if cfg.lram is None or cfg.lram.tiered is None:
+            raise SystemExit(f"--cache-slots needs a tiered arch; {cfg.name} "
+                             f"has no TieredSpec")
+        cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
+            cfg.lram, tiered=dataclasses.replace(
+                cfg.lram.tiered, cache_slots=args.cache_slots)))
     model = transformer.init(cfg, seed=args.seed).to(device)
     trace = synthetic_trace(
         np.random.default_rng(args.seed),
@@ -102,6 +117,7 @@ def main(argv=None):
             "tokens_per_sec": round(report.tokens_per_sec, 2),
             "decode_p50_ms": round(report.p50_ms(), 3),
             "decode_p99_ms": round(report.p99_ms(), 3),
+            "cache": report.cache,
         }))
     return report
 

@@ -1,0 +1,383 @@
+"""Tiered value table: host-RAM shards + a device-resident hot cache (torch
+counterpart of `repro.memstore.store`, its serving subset).
+
+The (N, m) table is split into shards of `shard_rows` consecutive rows:
+
+    global row id  r  ->  shard  r >> log2(shard_rows)
+                          row    r &  (shard_rows - 1)
+
+  * **Host tier** — one `(num_shards, shard_rows, m)` numpy array in host
+    RAM: fp32, or a 1-byte payload (int8, or e4m3 bytes as uint8) plus
+    `(num_shards, shard_rows)` fp32 scales for a quantized store.
+  * **Device tier** — `cache_slots` shard-sized slots on the store's device
+    (`.to(device)` moves it; the host tier stays on the host) and the
+    indirection `shard -> slot` (-1 = not resident).
+  * **Fills** are batched per lookup: the shards a batch touches are made
+    resident first (LRU eviction, the batch's shards pinned), and every
+    slot filled since the last lookup is copied host -> device in one
+    stacked copy (`_sync_device`).  `prefetch` runs the same fill from a
+    predicted index set; the serve engine feeds it the previous tick's
+    accesses (`prefetch_last`).
+  * **Overflow** — when a batch touches more shards than there are slots,
+    the rows of the shards left out are served from the host tier (counted
+    in `stats["uncached"]`): correctness never depends on the cache size.
+  * **Gather** — all touched shards resident: the indirected kernels B5
+    (fp32) or B6 (1-byte rows) gather straight from the cache.  Otherwise
+    the overflow rows are appended to the cache and the flat gather K1 or
+    B4 reads cache + overflow through precomputed rows, as the reference's
+    XLA path does.  On a CPU store the plain versions run.
+
+Every mutation of residency, LRU order and `stats` takes the store's
+re-entrant lock.  Not ported yet (ROADMAP A8): the training write-back and
+dirty shards, `mmap` backing, checkpoint shard I/O and `grow_rows`.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from typing import Iterable
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import quant
+from repro_torch.core import lookup
+from repro_torch.kernels import tiered_gather
+
+
+@dataclasses.dataclass(frozen=True)
+class TieredSpec:
+    """Static configuration of a tiered table (hashable: rides LRAMConfig)."""
+
+    shard_rows: int = 2048      # rows per shard (power of two)
+    cache_slots: int = 32       # device-resident shards
+    backing: str = "ram"        # ram | mmap (mmap is not ported yet)
+    use_pallas: bool = False    # the CUDA kernels (plain on CPU) vs the
+    #                             reference cell (plain, CPU only)
+    quant: str = "none"         # none | int8 | fp8: 1-byte rows + row scales
+
+    def __post_init__(self):
+        if self.shard_rows < 1 or self.shard_rows & (self.shard_rows - 1):
+            raise ValueError("shard_rows must be a power of two")
+        if self.cache_slots < 1:
+            raise ValueError("need at least one cache slot")
+        if self.backing not in ("ram", "mmap"):
+            raise ValueError(f"unknown backing {self.backing!r}")
+        if self.quant != "none":
+            quant.check_kind(self.quant)
+
+
+class TieredValueStore(nn.Module):
+    """Host-resident (N, m) value table with a device hot cache.
+
+    An `nn.Module` with no parameters or buffers: it sits at an LRAM
+    layer's `values`, `model.to(device)` moves its device tier (the next
+    lookup re-uploads the resident slots there) and the state_dict skips
+    it.  The table's payload enters through `from_dense` / `from_payload`.
+    """
+
+    def __init__(self, num_rows: int, m: int, spec: TieredSpec):
+        super().__init__()
+        if num_rows % spec.shard_rows:
+            raise ValueError(f"num_rows={num_rows} not divisible by "
+                             f"shard_rows={spec.shard_rows}")
+        self.spec = spec
+        self.num_rows = num_rows
+        self.m = m
+        self.quant = spec.quant
+        quantized = self.quant != "none"
+        self.storage_dtype = (quant.storage_dtype(self.quant) if quantized
+                              else np.dtype(np.float32))
+        self.shard_rows = spec.shard_rows
+        self.num_shards = num_rows // spec.shard_rows
+        self.cache_slots = min(spec.cache_slots, self.num_shards)
+        self._log2R = self.shard_rows.bit_length() - 1
+
+        shape = (self.num_shards, self.shard_rows, m)
+        self._host = np.zeros(shape, self.storage_dtype)
+        self._host_scale = (np.zeros(shape[:-1], np.float32) if quantized
+                            else None)
+        # device tier: (cache_slots * shard_rows, m) in the payload's raw
+        # dtype (fp8 as uint8) and its scales; None until the first sync
+        self.device = torch.device("cpu")
+        self._cache_dev: torch.Tensor | None = None
+        self._scale_dev: torch.Tensor | None = None
+        self._shard_slot = np.full(self.num_shards, -1, np.int32)
+        self._slot_shard = np.full(self.cache_slots, -1, np.int32)
+        self._lru: collections.OrderedDict[int, int] = \
+            collections.OrderedDict()
+        self._free = list(range(self.cache_slots - 1, -1, -1))
+        self._dev_stale: set[int] = set()
+        self.last_access: np.ndarray | None = None
+        # guards residency, LRU order, the device tier and `stats`; reads of
+        # a single stat stay lock-free
+        self._lock = threading.RLock()
+        self.reset_stats()
+
+    # ------------------------------------------------------------ builders
+
+    @classmethod
+    def from_dense(cls, values, spec: TieredSpec) -> "TieredValueStore":
+        """A store holding fp32 `values` (N, m), quantized (nearest) on the
+        way in if the spec is quantized."""
+        if isinstance(values, torch.Tensor):
+            values = values.detach().cpu().numpy()
+        values = np.asarray(values, np.float32)
+        store = cls(values.shape[0], values.shape[1], spec)
+        shaped = values.reshape(store._host.shape)
+        if store.quant == "none":
+            store._host[...] = shaped
+        else:
+            store._host[...], store._host_scale[...] = \
+                quant.quantize_rows_np(shaped, store.quant)
+        return store
+
+    @classmethod
+    def from_payload(cls, q: np.ndarray, scale: np.ndarray,
+                     spec: TieredSpec) -> "TieredValueStore":
+        """A quantized store holding exactly this (N, m) payload (int8, or
+        e4m3 bytes as uint8) and these (N,) scales, bit for bit."""
+        q = np.asarray(q)
+        store = cls(q.shape[0], q.shape[1], spec)
+        if store.quant == "none" or q.dtype != store.storage_dtype:
+            raise ValueError(f"a {q.dtype} payload does not fit a store of "
+                             f"quant={store.quant!r}")
+        store._host[...] = q.reshape(store._host.shape)
+        store._host_scale[...] = np.asarray(scale, np.float32).reshape(
+            store._host_scale.shape)
+        return store
+
+    def to_dense(self) -> np.ndarray:
+        """The full (dequantized) table as an (N, m) fp32 array."""
+        if self.quant == "none":
+            return self._host.reshape(self.num_rows, self.m).copy()
+        return quant.dequantize_rows_np(self._host, self._host_scale) \
+            .reshape(self.num_rows, self.m)
+
+    def _apply(self, fn, recurse=True):
+        # `.to()` / `.cuda()`: the host tier stays; the device tier follows
+        # and is uploaded whole from the host tier on the next sync
+        device = fn(torch.empty(0, device=self.device)).device
+        if device != self.device:
+            with self._lock:
+                self.device = device
+                self._cache_dev = self._scale_dev = None
+        return self
+
+    # ----------------------------------------------------------- addressing
+
+    def _split(self, flat_idx: np.ndarray):
+        flat_idx = flat_idx.astype(np.int64)
+        return flat_idx >> self._log2R, flat_idx & (self.shard_rows - 1)
+
+    # -------------------------------------------------- residency / mapping
+
+    def _ensure_resident(self, shards: Iterable[int]) -> None:
+        """Make `shards` resident where capacity allows (LRU eviction, the
+        request's own shards pinned); filled slots go stale on the device
+        until the next `_sync_device`."""
+        pinned = set(int(s) for s in shards)
+        with self._lock:
+            for s in sorted(pinned):
+                if self._shard_slot[s] >= 0:  # hit: touch
+                    self._lru.move_to_end(s)
+                    continue
+                if self._free:
+                    slot = self._free.pop()
+                else:
+                    victim = next(
+                        (sh for sh in self._lru if sh not in pinned), None
+                    )
+                    if victim is None:  # whole cache pinned by this batch
+                        continue
+                    slot = self._lru.pop(victim)
+                    self._shard_slot[victim] = -1
+                    self.stats["evictions"] += 1
+                self._shard_slot[s] = slot
+                self._slot_shard[slot] = s
+                self._lru[s] = slot
+                self._lru.move_to_end(s)
+                self._dev_stale.add(slot)
+                self.stats["fills"] += 1
+
+    def _map(self, flat_idx: np.ndarray):
+        """(shard, row, slot, resident mask) for flat global row ids,
+        filling misses along the way and counting hits / misses /
+        uncached over every element."""
+        shard, row = self._split(flat_idx)
+        resident_before = self._shard_slot[shard] >= 0
+        self._ensure_resident(np.unique(shard))
+        slot = self._shard_slot[shard]
+        mask = slot >= 0
+        with self._lock:
+            self.last_access = flat_idx  # feeds prefetch_last()
+            self.stats["lookups"] += 1
+            self.stats["hits"] += int(resident_before.sum())
+            self.stats["misses"] += int((~resident_before & mask).sum())
+            self.stats["uncached"] += int((~mask).sum())
+        return shard, row, slot.astype(np.int64), mask
+
+    def prefetch(self, idx, *, sync_device: bool = True) -> None:
+        """Fill the cache for a predicted index set without touching the
+        hit/miss stats; with `sync_device` the host -> device copy is
+        issued now (asynchronous on a card), else at the next lookup."""
+        flat = np.asarray(idx).reshape(-1)
+        shard, _ = self._split(flat)
+        self._ensure_resident(np.unique(shard))
+        if sync_device:
+            self._sync_device()
+
+    def prefetch_last(self, *, sync_device: bool = False) -> None:
+        """Prefetch the previous lookup's accesses (decode locality): they
+        turn most recently used, and shards that overflowed or were
+        evicted get another fill attempt."""
+        if self.last_access is not None:
+            self.prefetch(self.last_access, sync_device=sync_device)
+
+    def warm(self, shards: Iterable[int] | None = None) -> None:
+        """Fill the cache ahead of serving (default: the lowest shards)."""
+        if shards is None:
+            shards = range(self.cache_slots)
+        self._ensure_resident(shards)
+        self._sync_device()
+
+    # ------------------------------------------------------- device mirror
+
+    def _raw_dtype(self) -> torch.dtype:
+        """torch dtype of the host payload (fp8 as its uint8 bytes)."""
+        return {"none": torch.float32, "int8": torch.int8,
+                "fp8": torch.uint8}[self.quant]
+
+    def _payload(self, raw: torch.Tensor) -> torch.Tensor:
+        """A raw payload tensor viewed as its storage type (fp8 bytes as
+        float8_e4m3fn)."""
+        return raw.view(torch.float8_e4m3fn) if self.quant == "fp8" else raw
+
+    def _staging(self, shape, dtype) -> torch.Tensor:
+        # pinned on a card so the copy is asynchronous.  Each sync takes a
+        # fresh buffer from torch's caching host allocator, which does not
+        # hand a block out again until the copy recorded on it has finished,
+        # so no staging buffer is rewritten while a copy from it is in flight
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _sync_device(self) -> None:
+        """Copy every stale slot host -> device in one stacked copy (the
+        whole cache on the first sync after a move)."""
+        with self._lock:
+            full = self._cache_dev is None
+            if not full and not self._dev_stale:
+                return
+            slots = (np.arange(self.cache_slots) if full
+                     else np.fromiter(sorted(self._dev_stale), np.int64))
+            shards = self._slot_shard[slots]
+            live = shards >= 0
+            R, m = self.shard_rows, self.m
+            block = self._staging((len(slots), R, m), self._raw_dtype())
+            dst = block.numpy()
+            dst[live] = self._host[shards[live]]
+            dst[~live] = 0
+            sblock = None
+            if self.quant != "none":
+                sblock = self._staging((len(slots), R), torch.float32)
+                sdst = sblock.numpy()
+                sdst[live] = self._host_scale[shards[live]]
+                sdst[~live] = 0
+            dev = block.to(self.device, non_blocking=True)
+            sdev = (sblock.to(self.device, non_blocking=True)
+                    if sblock is not None else None)
+            if full:
+                self._cache_dev = dev.reshape(-1, m)
+                self._scale_dev = (sdev.reshape(-1) if sdev is not None
+                                   else None)
+            else:
+                at = torch.from_numpy(slots).to(self.device)
+                self._cache_dev.view(-1, R, m).index_copy_(0, at, dev)
+                if sdev is not None:
+                    self._scale_dev.view(-1, R).index_copy_(0, at, sdev)
+            self._dev_stale.clear()
+            self.stats["fill_bytes"] += block.nbytes + (
+                sblock.nbytes if sblock is not None else 0)
+
+    # ------------------------------------------------------------- lookups
+
+    def gather(self, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """sum_k w[..., k] * values[idx[..., k]] -> (..., m) float32 on the
+        store's device.  idx (..., k) int32 and w (..., k) float32 live on
+        the store's device; idx is read on the host to map shards."""
+        lead, top_k = idx.shape[:-1], idx.shape[-1]
+        flat = idx.reshape(-1).cpu().numpy()
+        shard, row, slot, mask = self._map(flat)
+        self._sync_device()
+        cache = self._payload(self._cache_dev)
+        scales = self._scale_dev
+        quantized = self.quant != "none"
+        w2 = w.reshape(-1, top_k).float().contiguous()
+        all_resident = bool(mask.all())
+        if self.spec.use_pallas and all_resident:
+            slot_table = torch.from_numpy(self._shard_slot).to(self.device)
+            idx2 = idx.reshape(-1, top_k).to(torch.int32).contiguous()
+            if quantized:
+                out = tiered_gather.tiered_gather_quant(
+                    cache, scales, idx2, slot_table, w2,
+                    shard_rows=self.shard_rows, resident=True)
+            else:
+                out = tiered_gather.tiered_gather(
+                    cache, idx2, slot_table, w2,
+                    shard_rows=self.shard_rows, resident=True)
+            return out.reshape(*lead, self.m)
+        # the reference's XLA route: flat rows into the cache with the
+        # overflow rows appended from the host tier
+        slot_rows = np.where(mask, slot * self.shard_rows + row, 0)
+        table, table_scale = cache, scales
+        if not all_resident:
+            inv = ~mask
+            ovf = self._host[shard[inv], row[inv]]
+            slot_rows[inv] = cache.shape[0] + np.arange(len(ovf))
+            raw = torch.cat([self._cache_dev,
+                             torch.from_numpy(ovf).to(self.device)])
+            table = self._payload(raw)
+            if quantized:  # overflow rows stay 1-byte: scales ride along
+                ovf_scale = self._host_scale[shard[inv], row[inv]]
+                table_scale = torch.cat(
+                    [scales, torch.from_numpy(ovf_scale).to(self.device)])
+        sr = torch.from_numpy(
+            slot_rows.reshape(-1, top_k).astype(np.int32)).to(self.device)
+        kernel = "pallas" if self.spec.use_pallas else "reference"
+        if quantized:
+            out = lookup.kernel_gather(kernel, "quant")(table, table_scale,
+                                                       sr, w2)
+        else:
+            out = lookup.kernel_gather(kernel, "fp32")(table, sr, w2)
+        return out.reshape(*lead, self.m)
+
+    # --------------------------------------------------------------- stats
+
+    def reset_stats(self) -> None:
+        with self._lock:
+            self.stats = {
+                "lookups": 0, "hits": 0, "misses": 0, "uncached": 0,
+                "fills": 0, "evictions": 0, "fill_bytes": 0,
+            }
+
+    def bytes_per_entry(self) -> int:
+        """Host-tier storage bytes per table row (payload + scale)."""
+        return quant.bytes_per_entry(self.m, self.quant)
+
+    def hit_rate(self) -> float:
+        total = self.stats["hits"] + self.stats["misses"] \
+            + self.stats["uncached"]
+        return self.stats["hits"] / total if total else 0.0
+
+    def resident_shards(self) -> list[int]:
+        """Shards currently cached, least- to most-recently used."""
+        return list(self._lru)
+
+    def extra_repr(self) -> str:
+        return (f"rows={self.num_rows}, m={self.m}, "
+                f"shards={self.num_shards}x{self.shard_rows}, "
+                f"slots={self.cache_slots}, quant={self.quant!r}, "
+                f"device={self.device}")

@@ -44,7 +44,8 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _frequencies_on(head_dim: int, theta: float,
                     device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
+    with torch.inference_mode(False):  # cached: usable under autograd too
+        return torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

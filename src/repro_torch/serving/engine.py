@@ -19,9 +19,16 @@ tick over the whole pool:
 `continuous` admits into any free slot every tick; `static` admits only
 when every slot is free (gang admission).  The KV cache is updated IN
 PLACE (decode writes its row, admission copies into the slot); the
-reference donates and replaces the cache instead.  Not ported yet:
-per-tenant overlays, the memory controller, tiered-store prefetch and the
-observability spans.
+reference donates and replaces the cache instead.
+
+Tiered memory: when the model's lookup plan `supports_prefetch`, the
+engine collects the model's tiered stores, warms them and resets their
+stats at the start of `run`, attributes each prefill's and each tick's
+hit / miss / uncached deltas to the requests in flight, and calls
+`prefetch_last()` after every tick.  Prefill lookups count every position
+of the padded bucket, as the reference's traced path does.  Not ported
+yet: per-tenant overlays, the memory controller and the observability
+spans.
 """
 
 from __future__ import annotations
@@ -33,8 +40,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import lookup
 from repro_torch.models import transformer
 from repro_torch.serving.requests import Request, RequestQueue
+
+_STAT_KEYS = ("hits", "misses", "uncached")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +72,9 @@ class _Slot:
     admit_s: float
     prefill_s: float
     first_logits: np.ndarray    # (V,) logits of the first generated token
+    stats: dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(_STAT_KEYS, 0)
+    )
     decode_steps: int = 0
 
 
@@ -112,7 +125,7 @@ class EngineReport:
     step_s: list[float]
     prefill_s: list[float]
     requests: list[FinishedRequest]
-    cache: dict[str, Any] | None = None   # tiered-store stats (not ported)
+    cache: dict[str, Any] | None = None   # tiered-store stats
 
     @property
     def tokens_per_sec(self) -> float:
@@ -174,6 +187,12 @@ class ServeEngine:
         self.cache = transformer.init_cache(
             cfg, engine_cfg.slots, engine_cfg.max_len, self.device
         )
+        # prefetch handles come from the plan's capability flag
+        self.stores = (
+            lookup.find_stores(model)
+            if any(p.supports_prefetch for p in lookup.model_plans(cfg))
+            else []
+        )
 
     @torch.inference_mode()
     def warmup(self) -> None:
@@ -218,7 +237,44 @@ class ServeEngine:
             admit_s=now, prefill_s=prefill_s, first_logits=first_logits,
         ), sub_cache
 
+    def _store_stats(self) -> dict[str, int]:
+        out = dict.fromkeys(_STAT_KEYS, 0)
+        for _, store in self.stores:
+            for k in _STAT_KEYS:
+                out[k] += store.stats[k]
+        return out
+
+    def _attribute(self, slots: list[_Slot], prev: dict[str, int]
+                   ) -> dict[str, int]:
+        """Add the store-stat deltas since `prev` to every slot in
+        `slots` (shared-batch attribution); returns the new totals."""
+        cur = self._store_stats()
+        for sl in slots:
+            for k in _STAT_KEYS:
+                sl.stats[k] += cur[k] - prev[k]
+        return cur
+
+    def _cache_summary(self) -> dict[str, Any] | None:
+        if not self.stores:
+            return None
+        agg = dict.fromkeys(
+            ("hits", "misses", "uncached", "fills", "evictions"), 0)
+        for _, store in self.stores:
+            for k in agg:
+                agg[k] += store.stats[k]
+        return {
+            "hit_rate": round(float(np.mean(
+                [s.hit_rate() for _, s in self.stores])), 4),
+            **agg,
+        }
+
     def _finish(self, slot: _Slot, now: float) -> FinishedRequest:
+        total = sum(slot.stats.values())
+        if not self.stores:
+            hit_rate = None
+        else:
+            hit_rate = (round(slot.stats["hits"] / total, 4) if total
+                        else 0.0)
         return FinishedRequest(
             id=slot.request.id,
             prompt_len=slot.request.prompt_len,
@@ -227,7 +283,7 @@ class ServeEngine:
             finish_s=now,
             prefill_s=slot.prefill_s,
             decode_steps=slot.decode_steps,
-            cache_hit_rate=None,
+            cache_hit_rate=hit_rate,
             first_logits=slot.first_logits,
         )
 
@@ -241,6 +297,10 @@ class ServeEngine:
         B = self.engine_cfg.slots
         static = self.engine_cfg.mode == "static"
         queue = RequestQueue(requests)
+        for _, store in self.stores:
+            store.warm()
+            store.reset_stats()
+        prev_stats = self._store_stats()
         slots: list[_Slot | None] = [None] * B
         tok_buf = np.zeros((B, 1), np.int64)
         pos_buf = np.zeros((B,), np.int64)
@@ -265,6 +325,8 @@ class ServeEngine:
                                                  self._axes)
                     prefill_s.append(slot.prefill_s)
                     generated += 1  # the first token comes from the prefill
+                    # the prefill's stat deltas belong to this request
+                    prev_stats = self._attribute([slot], prev_stats)
                     now = time.perf_counter() - t0
                     if self._done(slot):  # 1-token budget: no decode steps
                         finished.append(self._finish(slot, now))
@@ -290,6 +352,15 @@ class ServeEngine:
             next_tok = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
             step_s.append(time.perf_counter() - t_step)
 
+            if self.stores:
+                prev_stats = self._attribute([slots[b] for b in active],
+                                             prev_stats)
+                # the union of the active sequences' accesses turns most
+                # recently used and its overflowed shards get another fill;
+                # the copies go up with the next lookup's stacked sync
+                for _, store in self.stores:
+                    store.prefetch_last()
+
             now = time.perf_counter() - t0
             for b in active:
                 sl = slots[b]
@@ -311,6 +382,7 @@ class ServeEngine:
             step_s=step_s,
             prefill_s=prefill_s,
             requests=finished,
+            cache=self._cache_summary(),
         )
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import neither
-JAX nor the JAX package, and import no triton or CUDA build at import."""
+JAX, nor the JAX package, nor `ml_dtypes` (the card's machine lacks it),
+and import no triton or CUDA build at import."""
 
 import json
 import os
@@ -14,7 +15,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)(\.|\s)"
-    r"|import\s+triton|from\s+triton)", re.M)
+    r"|import\s+(triton|ml_dtypes)|from\s+(triton|ml_dtypes))", re.M)
 
 
 def _port_files():
@@ -34,6 +35,7 @@ def test_port_files_have_no_forbidden_imports():
     ("from repro.core import lram", True), ("import repro", True),
     ("from repro_torch.core import lram", False),
     ("import repro_torch", False), ("    import triton", True),
+    ("import ml_dtypes", True), ("from ml_dtypes import float8_e4m3fn", True),
 ])
 def test_forbidden_pattern(line, hit):
     assert bool(FORBIDDEN.search(line)) == hit
@@ -46,16 +48,19 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 from repro_torch.launch import serve
-rep = serve.main(["--smoke", "--placement", "pallas", "--device", "cpu",
-                  "--batch", "1", "--prompt-len", "4", "--gen", "2",
-                  "--requests", "1"])
-bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
-print(json.dumps({"bad": bad, "requests": len(rep.requests)}))
+served = 0
+for args in (["--placement", "pallas"], [], ["--arch", "lram-tiered-q8"]):
+    rep = serve.main(args + ["--smoke", "--device", "cpu", "--batch", "1",
+                             "--prompt-len", "4", "--gen", "2",
+                             "--requests", "1"])
+    served += len(rep.requests)
+bad = sorted(n for n in sys.modules if n.split(".")[0]
+             in ("jax", "jaxlib", "repro", "triton", "ml_dtypes"))
+print(json.dumps({"bad": bad, "requests": served}))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"bad": [], "requests": 1}
+    assert out == {"bad": [], "requests": 3}

@@ -15,7 +15,8 @@ from repro.kernels import e8_lookup as j_e8
 from repro.kernels import gather_interp as j_gather
 from repro_torch.core import indexing, lookup
 from repro_torch.core.lram import LRAMConfig
-from repro_torch.kernels import e8_lookup, gather_interp
+from repro_torch.kernels import e8_lookup, gather_interp, tiered_gather
+from repro_torch.memstore import TieredSpec
 
 SPEC, J_SPEC = indexing.choose_torus(16), j_indexing.choose_torus(16)
 
@@ -77,9 +78,9 @@ def test_lram_query_interpolates_lattice_points():
 
 
 @pytest.mark.parametrize("cell,item", [
-    (dict(interp_impl="tiered"), "A8"),
+    (dict(interp_impl="tiered", tiered=TieredSpec(backing="mmap")), "A8"),
     (dict(interp_impl="sharded"), "A12"),
-    (dict(interp_impl="pallas", table_quant="int8"), "A6"),
+    (dict(interp_impl="sharded-tiered", table_quant="int8"), "A12"),
 ])
 def test_unported_cells_raise(cell, item):
     with pytest.raises(lookup.LookupPlanError, match=item):
@@ -89,6 +90,16 @@ def test_unported_cells_raise(cell, item):
 def test_plans_name_their_kernels():
     pallas = lookup.resolve(LRAMConfig(interp_impl="pallas"))
     assert pallas.query is e8_lookup.lram_query
-    assert pallas.interp is gather_interp.gather_interp
+    assert lookup.kernel_gather("pallas", "fp32") \
+        is gather_interp.gather_interp
+    assert lookup.kernel_gather("pallas", "quant") \
+        is gather_interp.gather_interp_quant
+    assert lookup.kernel_gather("pallas", "tiered") \
+        is tiered_gather.tiered_gather
+    assert lookup.kernel_gather("pallas", "tiered-quant") \
+        is tiered_gather.tiered_gather_quant
     assert lookup.resolve(LRAMConfig()).cell == ("dense", "fp32",
                                                  "reference")
+    assert lookup.resolve(LRAMConfig(interp_impl="pallas",
+                                     table_quant="fp8")).cell \
+        == ("dense", "fp8", "pallas")

@@ -143,3 +143,34 @@ def test_reference_and_pallas_cells_agree_on_cpu():
     torch.testing.assert_close(
         lram.lram_apply(layer, x, interp_impl="reference"),
         lram.lram_apply(layer, x, interp_impl="pallas"), rtol=0, atol=0)
+
+
+def test_cached_tensors_from_a_serve_do_not_break_autograd():
+    """The port caches device tensors (candidate tables, RoPE
+    frequencies).  When the first call came from a serve, under
+    torch.inference_mode, a cached inference tensor used to make every
+    later autograd call raise ("Inference tensors cannot be saved for
+    backward"); the caches now hold normal tensors."""
+    from repro_torch.core import lattice
+    from repro_torch.kernels import e8_lookup
+    from repro_torch.models import attention
+
+    for cached in (lattice._candidates_on, e8_lookup._padded_candidates,
+                   attention._frequencies_on):
+        cached.cache_clear()
+    _, _, _, layer = _lram_pair("rms", seed=3)
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(4, 64)).astype(np.float32))
+    with torch.inference_mode():
+        lram.lram_apply(layer, x)
+        attention.apply_rope(torch.ones(1, 2, 1, 8),
+                             torch.zeros(1, 2, dtype=torch.long), 1e4)
+        e8_lookup._padded_candidates(torch.device("cpu"))
+    xg = x.clone().requires_grad_(True)
+    lram.lram_apply(layer, xg).sum().backward()
+    assert xg.grad is not None and torch.isfinite(xg.grad).all()
+    r = torch.ones(1, 2, 1, 8, requires_grad=True)
+    attention.apply_rope(r, torch.ones(1, 2, dtype=torch.long), 1e4) \
+        .sum().backward()
+    assert not e8_lookup._padded_candidates(torch.device("cpu"))[0] \
+        .is_inference()

@@ -3,6 +3,7 @@ weights converted from the JAX package, against the JAX model and engine
 with `--placement reference` (the same function, fast on the CPU)."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -131,14 +132,31 @@ def test_serve_cli_on_cpu(capsys):
                       "pallas", "--device", "cpu", "--batch", "2",
                       "--prompt-len", "6", "--gen", "3", "--json"])
     assert len(rep.requests) == 4
-    assert '"arch": "lram-tiered"' in capsys.readouterr().out
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert doc["arch"] == "lram-tiered" and doc["cache"] is None
+
+
+@pytest.mark.parametrize("arch", ["lram-tiered", "lram-tiered-q8"])
+def test_serve_cli_tiered_on_cpu(capsys, arch):
+    """Both archs on their own tiered placement (no --placement); `--json`
+    carries the store's cache summary and per-request hit rates."""
+    rep = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "6", "--gen", "3",
+                      "--json"])
+    assert len(rep.requests) == 4
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert doc["arch"] == arch
+    cache = doc["cache"]
+    assert cache["hits"] + cache["misses"] + cache["uncached"] > 0
+    assert 0.0 <= cache["hit_rate"] <= 1.0 and cache["fills"] > 0
+    assert all(r["cache_hit_rate"] is not None for r in doc["requests"])
 
 
 def test_serve_cli_refuses_unported_and_missing_device():
     from repro_torch.core.lookup import LookupPlanError
 
-    with pytest.raises(LookupPlanError, match="A8"):
-        serve.main(["--smoke", "--device", "cpu"])  # default: tiered
+    with pytest.raises(LookupPlanError, match="A12"):
+        serve.main(["--smoke", "--device", "cpu", "--placement", "sharded"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--smoke", "--placement", "pallas"])
