@@ -15,6 +15,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
        B5 `tiered_gather` and B6 `tiered_gather_quant` (int8, e4m3) on a
        full-width device cache (32 slots x 8192 rows) with resident
        indices;
+       the backward kernel `lookup_bwd` in both instantiations (B3's
+       backward with dq, B1's VJP with dw) on the full table with K2's
+       indices, library yardstick for the dw instance: the backward of
+       `F.embedding_bag` through `torch.autograd.grad`;
   4. serve at full width through `repro_torch.launch.serve.main --warmup`
      (every prefill bucket and one decode tick first; then 8 requests, 4
      slots, prompts <= 64, generation <= 32, all queued at t=0).  Each
@@ -32,10 +36,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
      dense path's first logits and (d) those of (b), to 1e-5;
   5. a shorter serve of each path's warmed engine under torch.profiler:
      kernel time by name and the device's busy share;
-  6. serve the smoke configs (tiered and q8) on the card and on the CPU
+  6. train `lram-bert-medium` at full width through
+     `repro_torch.launch.train.main` (`--placement pallas --batch 8 --seq
+     256 --steps 20`: 2,048 tokens, n = 65,536 lookups a step), with every
+     launch count set to 0 just before and read just after; fails unless
+     K2, K1 and the backward kernel `lookup_bwd` launched (the backward
+     once a step), every loss and grad norm is finite and the mean loss of
+     steps 16-20 is below that of steps 1-5.  Step-time median over steps
+     6-20, tokens/s, peak device memory; then one more step under
+     torch.profiler (busy share, top kernels);
+  7. serve the smoke configs (tiered and q8) on the card and on the CPU
      (plain versions), and tiered against dense on the card, with the same
-     weights, comparing every request's first logits to 1e-5;
-  7. last lines: the card again, the `kernels` JSON line, and
+     weights, comparing every request's first logits to 1e-5; train the
+     lram-bert-medium smoke config 5 steps on the card and on the CPU from
+     the same seed's weights and batches, per-step losses and gradient
+     norms to rtol 1e-4;
+  8. last lines: the card again, the `kernels` JSON line, and
      {"ok": true, "device": {...}}.
 
 It imports nothing of JAX, of the JAX package or of ml_dtypes.
@@ -59,11 +75,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 # fails here, printing nothing, when the checkout around the script is missing
-from repro_torch import configs, quant  # noqa: E402
+from repro_torch import configs, data, quant  # noqa: E402
 from repro_torch.core import indexing  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, e8_lookup, gather_interp, tiered_gather)
-from repro_torch.launch import serve  # noqa: E402
+    _build, e8_lookup, gather_interp, ops, tiered_gather)
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EngineConfig, ServeEngine, synthetic_trace)
@@ -96,7 +112,13 @@ KERNELS = {
     "tiered_gather_quant": (tiered_gather.tiered_gather_quant,
                             f"{CSRC}/tiered_gather.cu",
                             "src/repro/kernels/tiered_gather.py:162"),
+    "lookup_bwd": (ops.lookup_bwd, f"{CSRC}/lookup_bwd.cu",
+                   "src/repro/kernels/ops.py:51 (backward :78); "
+                   "src/repro/kernels/gather_interp.py:189 (backward :206)"),
 }
+# the shape of the kernels line's headline numbers: the serving decode tick
+# (n = 128), or the train step's n = 65,536 for the backward kernel
+HEAD_N = {"lookup_bwd": 65536}
 
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "64", "--gen", "32",
               "--requests", "8", "--seed", "0", "--warmup"]
@@ -176,9 +198,10 @@ def _self_device_us(evt) -> float:
 
 
 def profile(fn):
-    """Run fn under torch.profiler; (result, {device activity: us}).
-    Only device-side events count (kernels, copies): the CPU ops that
-    launched them would count the same time twice."""
+    """Run fn under torch.profiler; (result, {device activity: us},
+    {device activity: calls}).  Only device-side events count (kernels,
+    copies): the CPU ops that launched them would count the same time
+    twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -188,21 +211,30 @@ def profile(fn):
                        acc_events=True) as prof:
         out = fn()
         torch.cuda.synchronize()
-    per_kernel = {}
+    per_kernel, calls = {}, {}
     for evt in prof.key_averages():
         us = _self_device_us(evt)
         if us > 0 and evt.device_type == DeviceType.CUDA:
             per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + us
-    return out, per_kernel
+            calls[evt.key] = calls.get(evt.key, 0) + evt.count
+    return out, per_kernel, calls
+
+
+def device_split(fn, kernel: str, calls: int = 20):
+    """Device ms per call of `kernel` and of everything else the call ran
+    (profiler); None where the profiler saw no device time."""
+    fn()
+    _, per_kernel, _ = profile(lambda: [fn() for _ in range(calls)])
+    ours = sum(v for k, v in per_kernel.items() if kernel in k)
+    rest = sum(v for k, v in per_kernel.items() if kernel not in k)
+    return (ours / calls / 1e3 if ours > 0 else None,
+            rest / calls / 1e3 if rest > 0 else None)
 
 
 def device_ms(fn, kernel: str, calls: int = 20):
     """Device time of one call of `kernel` (profiler), or None if the
     profiler saw no device time."""
-    fn()
-    _, per_kernel = profile(lambda: [fn() for _ in range(calls)])
-    us = sum(v for k, v in per_kernel.items() if kernel in k)
-    return us / calls / 1e3 if us > 0 else None
+    return device_split(fn, kernel, calls)[0]
 
 
 def measure(name, n, fn, plain, tol, *, device_kernel, bound, extra=None,
@@ -224,6 +256,65 @@ def measure(name, n, fn, plain, tol, *, device_kernel, bound, extra=None,
             "device_ms": device_ms(fn, device_kernel),
             "plain_ms": time_ms(plain), "bound_ms": b, "bound_by": by,
             "library_ms": lib_ms, **(extra or {})}
+
+
+def backward_rows(n, spec, values, q, idx, w, gen):
+    """The backward kernel at one n, both instantiations, against
+    `lookup_bwd_plain`: dvalues to atol 1e-5 (atomics add in a varying
+    order), dq / dw to rtol 1e-4 / atol 1e-5."""
+    g = torch.randn(n, M, generator=gen, device=values.device)
+    distinct = torch.unique(idx).numel()
+    rows = []
+    for stage in ("dq", "dw"):
+        extra = {"q": q, "spec": spec} if stage == "dq" else {}
+        fn = lambda: ops.lookup_bwd(values, idx, w, g, **extra)  # noqa: E731
+        plain = lambda: ops.lookup_bwd_plain(  # noqa: E731
+            values, idx, w, g, **extra)
+        (dv, small), (dv_p, small_p) = fn(), plain()
+        torch.cuda.synchronize()
+        err_dv = (dv - dv_p).abs().max().item()
+        err_small = (small - small_p).abs().max().item()
+        check(torch.allclose(dv, dv_p, rtol=0, atol=1e-5)
+              and torch.allclose(small, small_p, rtol=1e-4, atol=1e-5),
+              f"lookup_bwd ({stage}) differs from its plain version at "
+              f"n={n}: dvalues {err_dv}, {stage} {err_small}")
+        lib_ms = None
+        if stage == "dw":  # one PyTorch call computing dvalues and dw
+            vals = values.detach().requires_grad_()
+            ww = w.detach().requires_grad_()
+            bag = F.embedding_bag(idx.long(), vals, per_sample_weights=ww,
+                                  mode="sum")
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                bag, (vals, ww), g, retain_graph=True)
+            l_dv, l_dw = lib()
+            check(torch.allclose(l_dv, dv_p, rtol=0, atol=1e-5)
+                  and torch.allclose(l_dw, small_p, rtol=1e-4, atol=1e-5),
+                  f"lookup_bwd: the embedding_bag yardstick disagrees at "
+                  f"n={n}")
+            lib_ms = time_ms(lib)
+            del vals, ww, bag, l_dv, l_dw
+        # g, idx + w, q; the output (dq or dw)
+        small = (4 * n * M + 8 * n * TOP_K
+                 + (64 * n if stage == "dq" else 4 * n * TOP_K))
+        fill = values.numel() * 4  # the dense dvalues, written once
+        ops_n = 4 * n * TOP_K * M + (n * TOP_K * 40 if stage == "dq" else 0)
+        # the function (the call): each distinct row read once, dvalues
+        # written once; the kernel alone, on the zeroed dvalues: each
+        # distinct row read once and its gradient row written once
+        b, by = bound_ms(distinct * 4 * M + fill + small, ops_n)
+        kb, kby = bound_ms(distinct * 8 * M + small, ops_n)
+        dev, rest = device_split(fn, "lookup_bwd_kernel")
+        rows.append({
+            "n": n, "stage": stage, "max_abs_err": max(err_dv, err_small),
+            "dvalues_max_abs_err": err_dv, f"{stage}_max_abs_err": err_small,
+            "ms": time_ms(fn), "device_ms": dev,
+            "zero_fill_device_ms": rest, "plain_ms": time_ms(plain),
+            "bound_ms": b, "bound_by": by,
+            "kernel_bound_ms": kb, "kernel_bound_by": kby,
+            "zero_fill_bound_ms": fill / HBM_BYTES_PER_S * 1e3,
+            "library_ms": lib_ms, "distinct_rows": distinct})
+        del dv, small, dv_p, small_p
+    return rows
 
 
 def kernel_phase(device):
@@ -298,6 +389,7 @@ def kernel_phase(device):
             library=lambda: F.embedding_bag(idx64, values,
                                             per_sample_weights=w,
                                             mode="sum")))
+        rows["lookup_bwd"] += backward_rows(n, spec, values, q, idx, w, gen)
         for kind in PAYLOADS:
             tq, ts = tables[kind]
             rows["gather_interp_quant"].append(measure(
@@ -431,7 +523,7 @@ def profile_path(name: str):
     trace = synthetic_trace(np.random.default_rng(0), 4,
                             vocab_size=cfg.vocab_size, max_prompt=64,
                             max_gen=16)
-    report, per_kernel = profile(lambda: engine.run(trace))
+    report, per_kernel, _ = profile(lambda: engine.run(trace))
     del engine, model
     kernels = {k: v for k, v in per_kernel.items()
                if not k.startswith(("Memcpy", "Memset"))}
@@ -483,6 +575,108 @@ def parity_phase():
     print(json.dumps({"parity": "smoke configs", **out}), flush=True)
 
 
+TRAIN_STEPS = 20
+TRAIN_ARGS = ["--arch", "lram-bert-medium", "--placement", "pallas",
+              "--batch", "8", "--seq", "256", "--steps", str(TRAIN_STEPS),
+              "--json"]
+
+
+def train_path():
+    """Train lram-bert-medium at full width; returns (launch counts, run).
+    The launch counts are reset just before and read just after."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run = train.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(run.records) == TRAIN_STEPS, "train: steps missing")
+    for kernel in ("lram_query", "gather_interp"):
+        check(launches[kernel] >= TRAIN_STEPS,
+              f"train: {kernel} launched {launches[kernel]} times in "
+              f"{TRAIN_STEPS} steps")
+    check(launches["lookup_bwd"] == TRAIN_STEPS,
+          f"train: the backward kernel launched {launches['lookup_bwd']} "
+          f"times in {TRAIN_STEPS} steps (one memory layer: once a step)")
+    losses = [r["loss"] for r in run.records]
+    norms = [r["grad_norm"] for r in run.records]
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"train: non-finite loss or grad norm: {losses} {norms}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"train: the loss did not fall (steps 1-5 mean "
+                        f"{first}, steps 16-20 mean {last})")
+    step_ms = [r["step_ms"] for r in run.records]
+    median_ms = float(np.median(step_ms[5:]))
+    tokens = run.dcfg.global_batch * run.dcfg.seq_len
+    print(json.dumps({
+        "train": "lram-bert-medium", "argv": TRAIN_ARGS,
+        "tokens_per_step": tokens, "lookups_per_step": tokens * 32,
+        "losses": losses, "grad_norms": norms,
+        "loss_mean_steps_1_5": first, "loss_mean_steps_16_20": last,
+        "step_ms": step_ms, "step_ms_median_steps_6_20": median_ms,
+        "tokens_per_sec": tokens / (median_ms / 1e3),
+        "peak_memory_bytes": peak, "wall_s_incl_init_and_eval": wall_s,
+        "final_eval_loss": run.final_eval_loss,
+        "final_fact_recall": run.final_fact_recall, "launches": launches,
+    }), flush=True)
+    return launches, run
+
+
+def profile_train_step(run) -> None:
+    """One more full-width train step under torch.profiler: device busy
+    share of the step's wall time and the top kernels."""
+    batch = train.batch_to(data.get_batch(run.dcfg, step=TRAIN_STEPS),
+                           next(run.model.parameters()).device)
+    wall = []
+
+    def step():
+        t0 = time.perf_counter()
+        out = run.step_fn(run.opt_state, batch)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        return out
+
+    _, per_kernel, calls = profile(step)
+    kernels = {k: v for k, v in per_kernel.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    copies = {k: v for k, v in per_kernel.items()
+              if k.startswith(("Memcpy", "Memset"))}
+    total_ms = sum(kernels.values()) / 1e3
+    ours = {name: sum(v for k, v in kernels.items() if name in k) / 1e3
+            for name in ("lram_query_kernel", "gather_interp_kernel",
+                         "lookup_bwd_kernel")}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    print(json.dumps({
+        "profile": "train step", "wall_ms": 1e3 * wall[0],
+        "kernel_ms": total_ms, "copy_ms": sum(copies.values()) / 1e3,
+        "busy_share": total_ms / (1e3 * wall[0]),
+        "kernel_launches": sum(c for k, c in calls.items() if k in kernels),
+        "memory_kernels_ms": ours,
+        "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top],
+    }), flush=True)
+
+
+def train_parity() -> None:
+    """The lram-bert-medium smoke config, 5 steps on the card and on the
+    CPU (plain versions) from the same seed's weights and batches:
+    per-step losses and gradient norms to rtol 1e-4 (atomics and another
+    summation order)."""
+    argv = ["--arch", "lram-bert-medium", "--smoke", "--placement", "pallas",
+            "--steps", "5", "--batch", "4", "--seq", "32", "--seed", "1"]
+    card = train.main(argv + ["--device", "cuda"])
+    cpu = train.main(argv + ["--device", "cpu"])
+    out = {"parity": "smoke train card vs CPU"}
+    for key in ("loss", "grad_norm"):
+        pairs = [(a[key], b[key]) for a, b in zip(card.records, cpu.records)]
+        err = max(abs(a - b) / abs(b) for a, b in pairs)
+        check(len(pairs) == 5 and err <= 1e-4,
+              f"smoke train {key} differs card vs CPU: {pairs}")
+        out.update({key: pairs, f"{key}_max_rel_err": err})
+    print(json.dumps(out), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -522,7 +716,11 @@ def main() -> None:
     del reports
     for name in PATHS:
         profile_path(name)
+    launches["train"], run = train_path()
+    profile_train_step(run)
+    del run
     parity_phase()
+    train_parity()
     check(not {"jax", "repro", "ml_dtypes"} & set(sys.modules),
           "the port pulled in JAX, the JAX package or ml_dtypes")
 
@@ -535,13 +733,16 @@ def main() -> None:
 
 
 def kernels_line(rows, launches) -> list[dict]:
-    """One entry per kernel: the decode-tick shape's numbers, every shape,
-    and its launches summed over the serve paths (and by path)."""
+    """One entry per kernel: the headline shape's numbers, every shape,
+    and its launches summed over the serve and train paths (and by
+    path)."""
     kernels = []
     for name, per_shape in rows.items():
         _, source, replaces = KERNELS[name]
-        head = per_shape[0]  # the decode tick (int8 for B4/B6): the
-        #                      serving path's most frequent call
+        # the decode tick (int8 for B4/B6), the serving path's most frequent
+        # call; the train step's shape (dq instance) for the backward kernel
+        head = next(r for r in per_shape
+                    if r["n"] == HEAD_N.get(name, SHAPES[0]))
         by_path = {p: c[name] for p, c in launches.items() if c[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -13,7 +13,9 @@ read: how the table is built (`build_table` from the init-time fp32 draw,
   fp32 scales, `repro_torch.quant`).
 * **kernel** — the reference's names, so configs and CLI flags carry over:
   ``pallas`` is the port's hand-written CUDA kernels (their plain versions
-  on CPU tensors); ``reference`` is the plain torch functions, for CPU
+  on CPU tensors), differentiable on the dense fp32 table through the
+  backward kernel (the plan's `lookup` = `kernels.ops.lram_lookup`);
+  ``reference`` is the plain torch functions (plain autograd), for CPU
   tables only: on a CUDA table it raises, so no run on the card silently
   skips the kernels.  ``auto`` resolves to ``pallas`` for the tiered
   placement (the reference picks ``reference`` there only because its
@@ -82,8 +84,12 @@ class LookupPlan:
     """A resolved lookup backend.
 
     ``query(q, spec, top_k) -> (idx, w)`` and ``interp(table, idx, w)``
-    together are one memory read.  ``build_table(dense)`` turns the fp32
-    draw (N, m) into the table object an LRAM layer holds (an fp32
+    together are one memory read; ``lookup(table, q, spec, top_k) ->
+    (out, idx, w)`` is that read as the one call `lram_apply` makes:
+    `query` then `interp` unless the plan sets it (the dense fp32
+    ``pallas`` cell: `kernels.ops.lram_lookup`, differentiable in the
+    table and q through the backward kernel).  ``build_table(dense)``
+    turns the fp32 draw (N, m) into the table object an LRAM layer holds (an fp32
     `Parameter`, a `QuantizedTable` or a `TieredValueStore`);
     ``table_from_payload(q, scale)`` builds it from a quantized payload
     carried bit for bit (quantized storages only).
@@ -97,6 +103,17 @@ class LookupPlan:
     interp: Callable
     table_from_payload: Callable | None = None
     supports_prefetch: bool = False
+    lookup: Callable | None = None
+
+    def __post_init__(self):
+        if self.lookup is None:
+            query, interp = self.query, self.interp
+
+            def query_then_interp(table, q, spec, top_k):
+                idx, w = query(q, spec, top_k)
+                return interp(table, idx, w), idx, w
+
+            object.__setattr__(self, "lookup", query_then_interp)
 
     @property
     def cell(self) -> tuple[str, str, str]:
@@ -225,17 +242,30 @@ def _dense_plan(storage: str, kernel: str) -> LookupPlan:
     if storage == "fp32":
         gather = kernel_gather(kernel, "fp32")
 
-        def interp(values, idx, w):
+        def check_table(values):
             if not isinstance(values, torch.Tensor):
                 raise LookupPlanError(
                     *cell, f"the table is a {type(values).__name__}, not an "
                     f"fp32 tensor: init and apply must use the same plan",
                 )
+
+        def interp(values, idx, w):
+            check_table(values)
             return gather(values, idx, w)
+
+        lookup_fn = None
+        if kernel == "pallas":
+            from repro_torch.kernels import ops
+
+            def lookup_fn(values, q, spec, top_k):
+                check_table(values)
+                out, (idx, w) = ops.lram_lookup(values, q, spec, top_k,
+                                                return_access=True)
+                return out, idx, w
 
         return LookupPlan(*cell, query=query_fn(kernel),
                           build_table=lambda dense: nn.Parameter(dense),
-                          interp=interp)
+                          interp=interp, lookup=lookup_fn)
 
     gather = kernel_gather(kernel, "quant")
 

@@ -117,8 +117,11 @@ def lram_apply(layer: LRAM, x: torch.Tensor, *, train: bool = False,
     """Apply the memory layer to x (..., 2*8*heads) -> y (..., heads*m).
 
     `interp_impl` overrides the config's placement for this call.  In
-    train mode the batchnorm running stats update in place.  With
-    `return_access` also returns (idx, w).
+    train mode the batchnorm runs on batch statistics and its running
+    stats update in place.  Gradients reach the table and x through the
+    plan: the dense ``pallas`` cell's `ops.lram_lookup` (the backward
+    kernel, analytic d query), or plain autograd in the ``reference`` cell
+    (CPU only).  With `return_access` also returns (idx, w).
     """
     cfg = layer.cfg
     if x.shape[-1] != cfg.in_dim:
@@ -133,8 +136,9 @@ def lram_apply(layer: LRAM, x: torch.Tensor, *, train: bool = False,
         xh = layer.qnorm(xh)
     spec = cfg.torus_spec
     q, scale = torus.torus_map(xh.float(), spec.K)
-    idx, w = plan.query(q.contiguous(), spec, cfg.top_k)
-    out = plan.interp(layer.values, idx, w) * scale  # (..., heads, m)
+    out, idx, w = plan.lookup(layer.values, q.contiguous(), spec,
+                              cfg.top_k)
+    out = out * scale  # (..., heads, m)
     y = out.reshape(*lead, cfg.out_dim).to(x.dtype)
     if return_access:
         return y, (idx, w)

@@ -19,10 +19,12 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gather_interp", "e8_lookup", "gather_interp_quant",
-           "tiered_gather")
+           "tiered_gather", "lookup_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -122,3 +124,15 @@ def check(status: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a forward kernel's
+    output: the kernels return tensors with no `grad_fn`.  Callers that
+    need one go through `ops.lram_lookup` or
+    `gather_interp.gather_interp_vjp`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel's output carries no gradient; use "
+            f"repro_torch.kernels.ops.lram_lookup or "
+            f"gather_interp.gather_interp_vjp (or run under torch.no_grad)")

@@ -59,10 +59,13 @@ def lram_query(q: torch.Tensor, spec: indexing.TorusSpec,
     """(idx, w) = top-k lattice memory slots + kernel weights for q (..., 8).
 
     q must be float32; on CUDA it is flattened to a contiguous (n, 8).
-    Not differentiable (the analytic backward comes with training).
+    On a CUDA tensor w carries no gradient, so it raises when grad mode is
+    on and q requires grad: `ops.lram_lookup` is the differentiable
+    lookup (its backward takes dq analytically).
     """
     if not q.is_cuda:
         return lram_query_plain(q, spec, top_k)
+    _build.refuse_grad("lram_query", q)
     if q.dtype != torch.float32:
         raise TypeError(f"lram_query kernel takes float32 queries, got "
                         f"{q.dtype}")

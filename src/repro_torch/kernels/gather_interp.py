@@ -4,8 +4,9 @@
     B4:  out[t] = sum_k (w[t,k] * scale[i]) * q[i], i = idx[t,k]  (int8 or
          float8_e4m3fn payload, one fp32 scale per row)
 
-Torch counterpart of `repro.kernels.gather_interp` (`gather_interp_pallas`
-and `gather_interp_quant_pallas`).  On a CUDA tensor `gather_interp` and
+Torch counterpart of `repro.kernels.gather_interp` (`gather_interp_pallas`,
+`gather_interp_quant_pallas` and the differentiable `gather_interp_vjp`,
+whose backward is `ops.lookup_bwd`).  On a CUDA tensor `gather_interp` and
 `gather_interp_quant` launch the hand-written kernels in
 `csrc/gather_interp.cu` and `csrc/gather_interp_quant.cu` (design and bound
 noted there) or raise; on a CPU tensor they take `gather_interp_plain` and
@@ -83,11 +84,13 @@ def gather_interp(values: torch.Tensor, idx: torch.Tensor,
     """sum_k w[..., k] * values[idx[..., k]] -> (..., m) float32.
 
     values (N, m) float32, contiguous; idx (..., k) int32 in [0, N);
-    w (..., k) float32.  Not differentiable (the serving path runs under
-    no_grad; the backward kernel comes with training).
+    w (..., k) float32.  On a CUDA tensor the output carries no gradient,
+    so it raises when grad mode is on and values or w require grad:
+    `gather_interp_vjp` is the differentiable form.
     """
     if not values.is_cuda:
         return gather_interp_plain(values, idx, w)
+    _build.refuse_grad("gather_interp", values, w)
     if values.dtype != torch.float32:
         raise TypeError(f"gather_interp kernel takes float32 tables, got "
                         f"{values.dtype}")
@@ -108,10 +111,13 @@ def gather_interp_quant(q: torch.Tensor, scale: torch.Tensor,
     """sum_k (w[..., k] * scale[i]) * q[i] -> (..., m) float32.
 
     q (N, m) int8 or float8_e4m3fn, contiguous; scale (N,) float32;
-    idx (..., k) int32 in [0, N); w (..., k) float32.  Not differentiable.
+    idx (..., k) int32 in [0, N); w (..., k) float32.  On a CUDA tensor
+    not differentiable (raises when w requires grad under grad mode); the
+    reference's dw-only VJP is not ported yet (ROADMAP A6).
     """
     if not q.is_cuda:
         return gather_interp_quant_plain(q, scale, idx, w)
+    _build.refuse_grad("gather_interp_quant", scale, w)
     if q.dtype not in _QUANT_SYMBOL:
         raise TypeError(f"gather_interp_quant kernel takes int8 or "
                         f"float8_e4m3fn payloads, got {q.dtype}")
@@ -130,6 +136,35 @@ def gather_interp_quant(q: torch.Tensor, scale: torch.Tensor,
         _build.check(status, "gather_interp_quant")
         gather_interp_quant.launches += 1
     return out.reshape(*lead, m)
+
+
+class _GatherInterpVJP(torch.autograd.Function):
+    """K1 forward; `ops.lookup_bwd` without dq (B1's VJP) backward."""
+
+    @staticmethod
+    def forward(ctx, values, idx, w):
+        ctx.save_for_backward(values, idx, w)
+        return gather_interp(values, idx, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels import ops
+
+        values, idx, w = ctx.saved_tensors
+        dvalues, dw = ops.lookup_bwd(values, idx, w.float().contiguous(),
+                                     g.float().contiguous())
+        return (dvalues.to(values.dtype) if ctx.needs_input_grad[0]
+                else None, None,
+                dw.to(w.dtype) if ctx.needs_input_grad[2] else None)
+
+
+def gather_interp_vjp(values: torch.Tensor, idx: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """`gather_interp`, differentiable in values and w (torch counterpart
+    of the reference's `gather_interp_vjp`): d values is the sparse
+    scatter-add of w (x) g over the touched rows, d w the gathered-row
+    dot g . values[idx], both from the backward kernel."""
+    return _GatherInterpVJP.apply(values, idx, w)
 
 
 #: kernel launches since the last reset (a run shows the path used K1, B4)

@@ -100,6 +100,7 @@ def tiered_gather(cache_flat: torch.Tensor, idx: torch.Tensor,
     if not cache_flat.is_cuda:
         return tiered_gather_plain(cache_flat, idx, slot_table, w,
                                    shard_rows=shard_rows)
+    _build.refuse_grad("tiered_gather", cache_flat, w)
     if cache_flat.dtype != torch.float32:
         raise TypeError(f"tiered_gather kernel takes a float32 cache, got "
                         f"{cache_flat.dtype}")
@@ -128,6 +129,7 @@ def tiered_gather_quant(cache_flat: torch.Tensor, scale_flat: torch.Tensor,
         return tiered_gather_quant_plain(cache_flat, scale_flat, idx,
                                          slot_table, w,
                                          shard_rows=shard_rows)
+    _build.refuse_grad("tiered_gather_quant", scale_flat, w)
     if cache_flat.dtype not in _QUANT_SYMBOL:
         raise TypeError(f"tiered_gather_quant kernel takes int8 or "
                         f"float8_e4m3fn caches, got {cache_flat.dtype}")

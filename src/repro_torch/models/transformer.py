@@ -7,8 +7,10 @@ memory block.  The reference scans each run over stacked parameters; here
 a run is a `ModuleList` walked by a Python loop, and the converter
 (`repro_torch.launch.convert`) splits the stacked arrays per layer.
 
-Modes: full sequence (`forward`, `prefill`, which also fills the KV cache)
-and single-token decode (`decode_step`) with one position per batch slot.
+Modes: full sequence (`forward`, in train mode too, and `prefill`, which
+also fills the KV cache) and single-token decode (`decode_step`) with one
+position per batch slot.  `loss_fn` is the masked cross-entropy of both
+objectives (clm next token, mlm masked positions).
 The KV cache keeps the reference's layout (a run's cache stacks a leading
 layer axis) and is updated IN PLACE by decode and by `write_cache_slot`.
 Other families (MoE, SSM, hybrid, enc-dec, VLM) and PKM memory layers are
@@ -22,6 +24,7 @@ from torch import nn
 
 from repro_torch import nn as tnn
 from repro_torch.core import lram as lram_mod
+from repro_torch.data import IGNORE
 from repro_torch.models import attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP
@@ -56,7 +59,7 @@ def _check_ported(cfg: ModelConfig) -> None:
             f"the {cfg.family} family is not yet ported to torch")
     if cfg.pkm_layers:
         raise NotImplementedError("PKM memory layers are not yet ported")
-    if cfg.pos_scheme not in ("rope", "none"):
+    if cfg.pos_scheme not in ("rope", "learned", "none"):
         raise NotImplementedError(
             f"pos_scheme {cfg.pos_scheme!r} is not yet ported to torch")
 
@@ -135,6 +138,9 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = tnn.Embedding(cfg.vocab_size, cfg.d_model,
                                    generator=generator)
+        self.pos_embed = None if cfg.pos_scheme != "learned" else \
+            nn.Parameter(tnn.truncated_normal_(
+                torch.empty(cfg.max_seq, cfg.d_model), 0.02, generator))
         self.final_norm = _norm(cfg)
         self.lm_head = None if cfg.tie_embeddings else tnn.Dense(
             cfg.d_model, cfg.vocab_size, use_bias=False, generator=generator
@@ -148,6 +154,17 @@ class Transformer(nn.Module):
             else:
                 segs[f"seg{si}"] = MemoryLayer(cfg, generator=generator)
         self.segments = nn.ModuleDict(segs)
+
+    def embed_tokens(self, tokens: torch.Tensor, positions) -> torch.Tensor:
+        """Token embeddings, plus the learned position rows where
+        configured: `positions` (an int tensor broadcastable to tokens, or
+        one int) clamped to the table, as the reference's decode does."""
+        x = self.embed(tokens)
+        if self.pos_embed is None:
+            return x
+        pos = torch.as_tensor(positions, device=tokens.device).long()
+        pos = torch.clamp(pos, max=self.pos_embed.shape[0] - 1)
+        return x + self.pos_embed[pos].to(x.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
@@ -177,11 +194,34 @@ def forward(model: Transformer, batch: dict, *,
     In train mode the memory layers' batchnorm stats update in place."""
     tokens = batch["tokens"]
     causal = model.cfg.objective == "clm"
-    x, positions = model.embed(tokens), _positions(tokens)
+    positions = _positions(tokens)
+    x = model.embed_tokens(tokens, positions)
     for seg in model.segments.values():
         for layer in (seg if isinstance(seg, nn.ModuleList) else (seg,)):
             x, _ = layer.full(x, positions, causal=causal, train=train)
     return model.logits(x)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(model: Transformer, batch: dict, *, train: bool = True):
+    """(loss, metrics): the mean cross-entropy over the positions whose
+    label is not `IGNORE` (denominator at least 1), plus the router aux
+    term (zero for the dense family).  In train mode the forward runs the
+    batchnorm on batch statistics and updates its running stats."""
+    logits = forward(model, batch, train=train)
+    labels = batch["labels"]
+    valid = labels != IGNORE
+    safe_labels = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tok_ll = torch.gather(logp, -1, safe_labels[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    xent = -(tok_ll * valid).sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    loss = xent + model.cfg.router_aux_weight * aux
+    return loss, {"xent": xent, "aux": aux, "ntokens": denom}
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +290,8 @@ def prefill(model: Transformer, tokens: torch.Tensor, max_len: int):
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len={max_len}")
     cache = init_cache(cfg, b, max_len, tokens.device)
-    x, positions = model.embed(tokens), _positions(tokens)
+    positions = _positions(tokens)
+    x = model.embed_tokens(tokens, positions)
     for layer, kc, vc in _layers_with_cache(model, cache):
         x, (k, v) = layer.full(x, positions, causal=True)
         kc[:, :s] = k
@@ -263,7 +304,8 @@ def decode_step(model: Transformer, tokens: torch.Tensor, pos,
     """One serving step: tokens (B, 1) at absolute positions `pos` (an int
     vector (B,), one per slot, or one int).  Updates `cache` in place and
     returns logits (B, 1, V)."""
-    x = model.embed(tokens)
+    x = model.embed_tokens(tokens, pos[:, None] if torch.is_tensor(pos)
+                           else pos)
     for layer, kc, vc in _layers_with_cache(model, cache):
         x = layer.decode(x, pos, kc, vc)
     return model.logits(x)

@@ -14,7 +14,7 @@ import torch
 from repro_torch import quant
 from repro_torch.core import indexing, lookup
 from repro_torch.core.lram import LRAMConfig
-from repro_torch.kernels import e8_lookup, gather_interp, tiered_gather
+from repro_torch.kernels import e8_lookup, gather_interp, ops, tiered_gather
 from repro_torch.memstore import TieredSpec, TieredValueStore
 
 
@@ -182,3 +182,79 @@ def test_tiered_store_on_card_matches_cpu_store(cuda_device, kind):
     with pytest.raises(lookup.LookupPlanError):
         ref.gather(torch.zeros(1, 32, dtype=torch.int32, device=cuda_device),
                    torch.zeros(1, 32, device=cuda_device))
+
+
+def _bwd_inputs(device, n, m=64, log2=20, seed=0):
+    """K2's (idx, w) for n random torus queries, a table and an upstream
+    gradient g, on the card."""
+    spec = indexing.choose_torus(log2)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.rand(n, 8, generator=gen, device=device) \
+        * torch.tensor(spec.K, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        idx, w = e8_lookup.lram_query(q, spec)
+    values = torch.randn(spec.num_locations, m, generator=gen,
+                         device=device)
+    g = torch.randn(n, m, generator=gen, device=device)
+    return spec, q, idx, w, values, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dq", [True, False])
+@pytest.mark.parametrize("n", [1, 128, 2048])
+def test_lookup_bwd_matches_plain_on_card(cuda_device, with_dq, n):
+    """Both instantiations of the backward kernel against
+    `lookup_bwd_plain`: dvalues to atol 1e-5 (atomics add in a varying
+    order), dq / dw to rtol 1e-4 / atol 1e-5 (sums in another order)."""
+    spec, q, idx, w, values, g = _bwd_inputs(cuda_device, n)
+    extra = {"q": q, "spec": spec} if with_dq else {}
+    before = ops.lookup_bwd.launches
+    dv, small = ops.lookup_bwd(values, idx, w, g, **extra)
+    assert ops.lookup_bwd.launches == before + 1
+    dv_p, small_p = ops.lookup_bwd_plain(values, idx, w, g, **extra)
+    torch.cuda.synchronize()
+    assert small.shape == small_p.shape == ((n, 8) if with_dq else (n, 32))
+    torch.testing.assert_close(dv, dv_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(small, small_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_forward_kernels_refuse_inputs_that_need_grad(cuda_device):
+    """The forward kernels' outputs carry no grad_fn, so under grad mode
+    they raise when an input requires grad; the differentiable forms
+    (lram_lookup, gather_interp_vjp) carry it, and no_grad is fine."""
+    spec, q, idx, w, values, g = _bwd_inputs(cuda_device, 16, log2=16)
+    values.requires_grad_()
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        gather_interp.gather_interp(values, idx, w)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        e8_lookup.lram_query(qg, spec)
+    with torch.no_grad():
+        gather_interp.gather_interp(values, idx, w)
+        e8_lookup.lram_query(qg, spec)
+    out = ops.lram_lookup(values, qg, spec)
+    (out * g).sum().backward()
+    assert values.grad is not None and qg.grad is not None
+    wg = w.clone().requires_grad_()
+    gather_interp.gather_interp_vjp(values, idx, wg).sum().backward()
+    assert wg.grad is not None
+
+
+@pytest.mark.cuda
+def test_smoke_train_steps_on_card_match_cpu(cuda_device):
+    """Three lram-bert-medium smoke steps through the training CLI on the
+    card (K2, K1 and the backward kernel) and on the CPU (plain versions)
+    from the same seed's weights and batches: losses and grad norms to
+    rtol 1e-4 (atomics and another summation order)."""
+    from repro_torch.launch import train
+
+    argv = ["--arch", "lram-bert-medium", "--smoke", "--placement",
+            "pallas", "--steps", "3", "--batch", "4", "--seq", "32"]
+    before = ops.lookup_bwd.launches
+    card = train.main(argv + ["--device", "cuda"])
+    assert ops.lookup_bwd.launches == before + 3
+    cpu = train.main(argv + ["--device", "cpu"])
+    for a, b in zip(card.records, cpu.records):
+        np.testing.assert_allclose([a["loss"], a["grad_norm"]],
+                                   [b["loss"], b["grad_norm"]], rtol=1e-4)

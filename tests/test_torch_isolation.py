@@ -54,13 +54,18 @@ for args in (["--placement", "pallas"], [], ["--arch", "lram-tiered-q8"]):
                              "--prompt-len", "4", "--gen", "2",
                              "--requests", "1"])
     served += len(rep.requests)
+from repro_torch.launch import train
+run = train.main(["--arch", "lram-bert-medium", "--smoke", "--device", "cpu",
+                  "--placement", "pallas", "--steps", "2", "--batch", "2",
+                  "--seq", "8"])
 bad = sorted(n for n in sys.modules if n.split(".")[0]
              in ("jax", "jaxlib", "repro", "triton", "ml_dtypes"))
-print(json.dumps({"bad": bad, "requests": served}))
+print(json.dumps({"bad": bad, "requests": served,
+                  "train_steps": len(run.records)}))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"bad": [], "requests": 3}
+    assert out == {"bad": [], "requests": 3, "train_steps": 2}
