@@ -19,6 +19,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
        backward with dq, B1's VJP with dw) on the full table with K2's
        indices, library yardstick for the dw instance: the backward of
        `F.embedding_bag` through `torch.autograd.grad`;
+       the tiered train step's kernels at n = 128, 2048, 16384 (its n)
+       and 65536, on a tiered store's flat route (32 of 128 shards
+       cached, the other rows appended): K2 at 16384, K1 and B4 (int8,
+       e4m3) over the flat table, and the backward's instances without
+       scatter, `lookup_bwd_rows` (fp32 rows, with dq: path (a)'s
+       backward; with dw, library yardstick the backward of
+       `F.embedding_bag` to its per-sample weights) and
+       `lookup_bwd_quant` (int8 and e4m3 rows, with dq: path (b)'s
+       backward; with dw: B4's VJP);
   4. serve at full width through `repro_torch.launch.serve.main --warmup`
      (every prefill bucket and one decode tick first; then 8 requests, 4
      slots, prompts <= 64, generation <= 32, all queued at t=0).  Each
@@ -45,13 +54,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
      steps 16-20 is below that of steps 1-5.  Step-time median over steps
      6-20, tokens/s, peak device memory; then one more step under
      torch.profiler (busy share, top kernels);
-  7. serve the smoke configs (tiered and q8) on the card and on the CPU
+  7. train `lram-tiered` (path (a)) and `lram-tiered-q8` (path (b)) at
+     full width on their own tiered spec through `train.main` (`--batch 8
+     --seq 64 --steps 20`: n = 16,384 lookups a step, the table in host
+     RAM, 32 of 128 shards cached, the write-back's sparse SGD at 1e-3),
+     each with the launch counts set to 0 just before and read just
+     after; fails unless K2, the gather (K1 or B4) and the path's backward
+     instance launched (the backward once a step), one write-back ran a
+     step, the loss fell (steps 16-20 below steps 1-5), and the host tier
+     changed on rows the write-back touched and nowhere else.  Step-time
+     median over steps 6-20, tokens/s, peak device memory, the write-back's
+     and the flat route's host ms a step, bytes copied to the host a step,
+     hit rate and overflow share; then one more step under torch.profiler;
+  8. serve the smoke configs (tiered and q8) on the card and on the CPU
      (plain versions), and tiered against dense on the card, with the same
      weights, comparing every request's first logits to 1e-5; train the
-     lram-bert-medium smoke config 5 steps on the card and on the CPU from
-     the same seed's weights and batches, per-step losses and gradient
-     norms to rtol 1e-4;
-  8. last lines: the card again, the `kernels` JSON line, and
+     lram-bert-medium, lram-tiered and lram-tiered-q8 smoke configs 5
+     steps on the card and on the CPU from the same seed's weights and
+     batches, per-step losses and gradient norms to rtol 1e-4;
+  9. last lines: the card again, the `kernels` JSON line, and
      {"ok": true, "device": {...}}.
 
 It imports nothing of JAX, of the JAX package or of ml_dtypes.
@@ -80,6 +101,7 @@ from repro_torch.core import indexing  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, e8_lookup, gather_interp, ops, tiered_gather)
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.memstore import TieredValueStore  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EngineConfig, ServeEngine, synthetic_trace)
@@ -89,6 +111,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 SHAPES = (128, 2048, 65536)  # decode tick (4 slots x 32 heads), 64-token
 #                              prefill (64 x 32 heads), a large batch
+ROWS_SHAPES = (128, 2048, 16384, 65536)  # + the tiered train step's n
 TOP_K = 32
 LOG2_LOCATIONS = 20
 M = 64
@@ -115,10 +138,18 @@ KERNELS = {
     "lookup_bwd": (ops.lookup_bwd, f"{CSRC}/lookup_bwd.cu",
                    "src/repro/kernels/ops.py:51 (backward :78); "
                    "src/repro/kernels/gather_interp.py:189 (backward :206)"),
+    "lookup_bwd_rows": (ops.lookup_bwd_rows, f"{CSRC}/lookup_bwd.cu",
+                        "src/repro/kernels/gather_interp.py:189 (B1's VJP "
+                        "dw, backward :206, without the scatter: the "
+                        "tiered VJP, src/repro/memstore/interp.py:99)"),
+    "lookup_bwd_quant": (ops.lookup_bwd_quant, f"{CSRC}/lookup_bwd.cu",
+                         "src/repro/kernels/gather_interp.py:148 (B4's "
+                         "VJP, backward :165)"),
 }
 # the shape of the kernels line's headline numbers: the serving decode tick
-# (n = 128), or the train step's n = 65,536 for the backward kernel
-HEAD_N = {"lookup_bwd": 65536}
+# (n = 128), or a train step's n for the backward kernel's instances
+HEAD_N = {"lookup_bwd": 65536, "lookup_bwd_rows": 16384,
+          "lookup_bwd_quant": 16384}
 
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "64", "--gen", "32",
               "--requests", "8", "--seed", "0", "--warmup"]
@@ -221,26 +252,38 @@ def profile(fn):
 
 
 def device_split(fn, kernel: str, calls: int = 20):
-    """Device ms per call of `kernel` and of everything else the call ran
-    (profiler); None where the profiler saw no device time."""
+    """Device ms of one launch of `kernel` and of one launch of everything
+    else the call ran (profiler), each the mean over the launches the
+    profiler recorded (it may drop some), and the instantiated kernel names
+    it matched (one: a call launches one instance); None where the
+    profiler saw no device time."""
     fn()
-    _, per_kernel, _ = profile(lambda: [fn() for _ in range(calls)])
-    ours = sum(v for k, v in per_kernel.items() if kernel in k)
-    rest = sum(v for k, v in per_kernel.items() if kernel not in k)
-    return (ours / calls / 1e3 if ours > 0 else None,
-            rest / calls / 1e3 if rest > 0 else None)
+    _, per_kernel, counts = profile(lambda: [fn() for _ in range(calls)])
+    ours = [k for k in per_kernel if kernel in k]
+    rest = [k for k in per_kernel if kernel not in k]
+
+    def mean_ms(keys):
+        seen = sum(counts[k] for k in keys)
+        return sum(per_kernel[k] for k in keys) / seen / 1e3 if seen else None
+
+    check(len(ours) <= 1, f"{kernel}: one call launched several "
+                          f"instances: {ours}")
+    return mean_ms(ours), mean_ms(rest), {
+        "device_events": sum(counts[k] for k in ours), "device_calls": calls,
+        "device_kernel": ours[0][:120] if ours else None}
 
 
 def device_ms(fn, kernel: str, calls: int = 20):
-    """Device time of one call of `kernel` (profiler), or None if the
+    """Device time of one launch of `kernel` (profiler), or None if the
     profiler saw no device time."""
     return device_split(fn, kernel, calls)[0]
 
 
 def measure(name, n, fn, plain, tol, *, device_kernel, bound, extra=None,
-            library=None):
+            library=None, library_tol=(1e-5, 1e-5)):
     """Hold `fn` against `plain` (allclose with tol = (rtol, atol)) and
-    time kernel, plain version and library call: one row of the table."""
+    time kernel, plain version and library call (held against the plain
+    version to library_tol): one row of the table."""
     out, want = fn(), plain()
     torch.cuda.synchronize()
     err = (out - want).abs().max().item()
@@ -248,12 +291,14 @@ def measure(name, n, fn, plain, tol, *, device_kernel, bound, extra=None,
           f"{name} differs from its plain version by {err} at n={n}")
     lib_ms = None
     if library is not None:
-        check(torch.allclose(library(), want, rtol=1e-5, atol=1e-5),
+        check(torch.allclose(library(), want, rtol=library_tol[0],
+                             atol=library_tol[1]),
               f"{name}: the library yardstick disagrees at n={n}")
         lib_ms = time_ms(library)
     b, by = bound
+    dev, _, seen = device_split(fn, device_kernel)
     return {"n": n, "max_abs_err": err, "ms": time_ms(fn),
-            "device_ms": device_ms(fn, device_kernel),
+            "device_ms": dev, **seen,
             "plain_ms": time_ms(plain), "bound_ms": b, "bound_by": by,
             "library_ms": lib_ms, **(extra or {})}
 
@@ -303,11 +348,11 @@ def backward_rows(n, spec, values, q, idx, w, gen):
         # distinct row read once and its gradient row written once
         b, by = bound_ms(distinct * 4 * M + fill + small, ops_n)
         kb, kby = bound_ms(distinct * 8 * M + small, ops_n)
-        dev, rest = device_split(fn, "lookup_bwd_kernel")
+        dev, rest, seen = device_split(fn, "lookup_bwd_kernel")
         rows.append({
             "n": n, "stage": stage, "max_abs_err": max(err_dv, err_small),
             "dvalues_max_abs_err": err_dv, f"{stage}_max_abs_err": err_small,
-            "ms": time_ms(fn), "device_ms": dev,
+            "ms": time_ms(fn), "device_ms": dev, **seen,
             "zero_fill_device_ms": rest, "plain_ms": time_ms(plain),
             "bound_ms": b, "bound_by": by,
             "kernel_bound_ms": kb, "kernel_bound_by": kby,
@@ -315,6 +360,39 @@ def backward_rows(n, spec, values, q, idx, w, gen):
             "library_ms": lib_ms, "distinct_rows": distinct})
         del dv, small, dv_p, small_p
     return rows
+
+
+def k2_row(rows, n, q, spec, values):
+    """K2 at one n against its plain version: the sorted weights to 1e-5
+    (they are bit-equal where the candidates agree) and the output they
+    gather to rtol 2e-5 / atol 1e-5; appends its row and returns the
+    kernel's (idx, w)."""
+    idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+    idx_p, w_p = e8_lookup.lram_query_plain(q, spec, TOP_K)
+    torch.cuda.synchronize()
+    w_err = (torch.sort(w, -1).values
+             - torch.sort(w_p, -1).values).abs().max().item()
+    out = gather_interp.gather_interp_plain(values, idx, w)
+    out_p = gather_interp.gather_interp_plain(values, idx_p, w_p)
+    check(w_err <= 1e-5, f"K2 weights differ by {w_err} at n={n}")
+    check(torch.allclose(out, out_p, rtol=2e-5, atol=1e-5),
+          f"K2 gathered output differs at n={n}: max "
+          f"{(out - out_p).abs().max().item()}")
+    k2 = lambda: e8_lookup.lram_query(q, spec, TOP_K)  # noqa: E731
+    # per query: 232 distances of 23 fp32 ops, and the compares a top-k of
+    # 232 needs (232 * log2 k), not the kernel's k full passes
+    b2 = bound_ms(n * 8 * 4 + n * TOP_K * 8,
+                  n * 232 * (23 + math.log2(TOP_K)))
+    dev, _, seen = device_split(k2, "lram_query_kernel")
+    rows["lram_query"].append({
+        "n": n, "max_abs_err": w_err,
+        "same_idx_frac": (idx == idx_p).float().mean().item(),
+        "out_max_abs_err": (out - out_p).abs().max().item(),
+        "ms": time_ms(k2), "device_ms": dev, **seen,
+        "plain_ms": time_ms(lambda: e8_lookup.lram_query_plain(
+            q, spec, TOP_K)),
+        "bound_ms": b2[0], "bound_by": b2[1], "library_ms": None})
+    return idx, w
 
 
 def kernel_phase(device):
@@ -352,31 +430,7 @@ def kernel_phase(device):
     for n in SHAPES:
         # torus coordinates in [0, K), as the memory layer hands them over
         q = torch.rand(n, 8, generator=gen, device=device) * wrap
-        idx, w = e8_lookup.lram_query(q, spec, TOP_K)
-        idx_p, w_p = e8_lookup.lram_query_plain(q, spec, TOP_K)
-        torch.cuda.synchronize()
-        w_err = (torch.sort(w, -1).values
-                 - torch.sort(w_p, -1).values).abs().max().item()
-        out = gather_interp.gather_interp_plain(values, idx, w)
-        out_p = gather_interp.gather_interp_plain(values, idx_p, w_p)
-        check(w_err <= 1e-5, f"K2 weights differ by {w_err} at n={n}")
-        check(torch.allclose(out, out_p, rtol=2e-5, atol=1e-5),
-              f"K2 gathered output differs at n={n}: max "
-              f"{(out - out_p).abs().max().item()}")
-        k2 = lambda: e8_lookup.lram_query(q, spec, TOP_K)  # noqa: E731
-        # per query: 232 distances of 23 fp32 ops, and the compares a
-        # top-k of 232 needs (232 * log2 k), not the kernel's k full passes
-        b2 = bound_ms(n * 8 * 4 + n * TOP_K * 8,
-                      n * 232 * (23 + math.log2(TOP_K)))
-        rows["lram_query"].append({
-            "n": n, "max_abs_err": w_err,
-            "same_idx_frac": (idx == idx_p).float().mean().item(),
-            "out_max_abs_err": (out - out_p).abs().max().item(),
-            "ms": time_ms(k2), "device_ms": device_ms(k2,
-                                                      "lram_query_kernel"),
-            "plain_ms": time_ms(lambda: e8_lookup.lram_query_plain(
-                q, spec, TOP_K)),
-            "bound_ms": b2[0], "bound_by": b2[1], "library_ms": None})
+        idx, w = k2_row(rows, n, q, spec, values)
 
         distinct = torch.unique(idx).numel()
         idx64 = idx.long()
@@ -385,7 +439,7 @@ def kernel_phase(device):
             lambda: gather_interp.gather_interp_plain(values, idx, w),
             (1e-5, 1e-5), device_kernel="gather_interp_kernel",
             bound=gather_bound(distinct, 4 * M, n),
-            extra={"distinct_rows": distinct},
+            extra={"route": "dense", "distinct_rows": distinct},
             library=lambda: F.embedding_bag(idx64, values,
                                             per_sample_weights=w,
                                             mode="sum")))
@@ -399,7 +453,8 @@ def kernel_phase(device):
                                                                 w),
                 (2e-5, 1e-6), device_kernel="gather_interp_quant_kernel",
                 bound=gather_bound(distinct, M + 4, n),
-                extra={"payload": kind, "distinct_rows": distinct}))
+                extra={"payload": kind, "route": "dense",
+                       "distinct_rows": distinct}))
 
         # the same access pattern moved into the resident shards
         gid = ((resident[(idx >> log2r) % CACHE_SLOTS] << log2r)
@@ -434,7 +489,115 @@ def kernel_phase(device):
                 (2e-5, 1e-6), device_kernel="tiered_gather_quant_kernel",
                 bound=gather_bound(distinct, M + 4, n),
                 extra={"payload": kind, "distinct_rows": distinct}))
+    for n in ROWS_SHAPES:
+        no_scatter_rows(rows, n, spec, values, tables, wrap, gen)
     return rows
+
+
+def flat_route(values, idx, resident):
+    """A tiered store's flat route over the full table: the resident
+    shards' rows (the device cache) with the other rows appended, one per
+    index, and each index's row in that flat table."""
+    log2r = SHARD_ROWS.bit_length() - 1
+    shard, row = idx.long() >> log2r, idx.long() & (SHARD_ROWS - 1)
+    slot_of = torch.full((values.shape[0] // SHARD_ROWS,), -1,
+                         dtype=torch.long, device=values.device)
+    slot_of[resident] = torch.arange(CACHE_SLOTS, device=values.device)
+    slot = slot_of[shard]
+    mask = slot >= 0
+    rows = torch.where(mask, slot * SHARD_ROWS + row, 0)
+    rows[~mask] = CACHE_SLOTS * SHARD_ROWS + torch.arange(
+        int((~mask).sum()), device=values.device)
+    cache_rows = (resident[:, None] * SHARD_ROWS + torch.arange(
+        SHARD_ROWS, device=values.device)).reshape(-1)
+    flat = torch.cat([cache_rows, idx.long()[~mask]])
+    return flat, rows.int().contiguous()
+
+
+def no_scatter_rows(rows, n, spec, values, tables, wrap, gen):
+    """The tiered train step's kernels at one n, on the flat route of K2's
+    indices (32 of 128 shards cached, the other rows appended): K2 itself
+    where the serving shapes do not hold n; the forward gathers over the
+    flat table, K1 (fp32) and B4 (int8, e4m3), to the serving rows'
+    tolerances; the backward's instances without scatter,
+    `lookup_bwd_rows` (fp32) and `lookup_bwd_quant` (int8, e4m3), each with
+    dq and with dw, against `lookup_bwd_plain` to rtol 1e-4 / atol 1e-5
+    (the scatter instances' tolerance for dq and dw)."""
+    q = torch.rand(n, 8, generator=gen, device=values.device) * wrap
+    if n in SHAPES:
+        idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+    else:
+        idx, w = k2_row(rows, n, q, spec, values)
+    g = torch.randn(n, M, generator=gen, device=values.device)
+    resident = torch.randperm(values.shape[0] // SHARD_ROWS,
+                              generator=gen, device=values.device)[
+                                  :CACHE_SLOTS]
+    flat, rws = flat_route(values, idx, resident)
+    rws64 = rws.long()
+    distinct = torch.unique(rws).numel()
+    overflow = float((rws >= CACHE_SLOTS * SHARD_ROWS).float().mean())
+    cells = [("lookup_bwd_rows", "fp32", values[flat].contiguous(), None)]
+    for kind in PAYLOADS:
+        tq, ts = tables[kind]
+        # rows taken through the payload's bytes (indexing takes no fp8)
+        cells.append(("lookup_bwd_quant", kind,
+                      tq.view(torch.uint8)[flat].view(tq.dtype),
+                      ts[flat].contiguous()))
+    route = {"route": "flat", "distinct_rows": distinct,
+             "overflow_share": overflow}
+    for name, payload, table, scale in cells:
+        fn = KERNELS[name][0]
+        row_bytes = 4 * M if scale is None else M + 4
+        if scale is None:
+            rows["gather_interp"].append(measure(
+                "K1 (flat route)", n,
+                lambda: gather_interp.gather_interp(table, rws, w),
+                lambda: gather_interp.gather_interp_plain(table, rws, w),
+                (1e-5, 1e-5), device_kernel="gather_interp_kernel",
+                bound=gather_bound(distinct, row_bytes, n), extra=route,
+                library=lambda: F.embedding_bag(rws64, table,
+                                                per_sample_weights=w,
+                                                mode="sum")))
+        else:
+            rows["gather_interp_quant"].append(measure(
+                f"B4 ({payload}, flat route)", n,
+                lambda: gather_interp.gather_interp_quant(table, scale, rws,
+                                                          w),
+                lambda: gather_interp.gather_interp_quant_plain(
+                    table, scale, rws, w),
+                (2e-5, 1e-6), device_kernel="gather_interp_quant_kernel",
+                bound=gather_bound(distinct, row_bytes, n),
+                extra={"payload": payload, **route}))
+        for stage in ("dq", "dw"):
+            extra = ({"idx": idx, "q": q, "spec": spec} if stage == "dq"
+                     else {})
+            args = (table, rws) if scale is None else (table, scale, rws)
+            call = lambda: fn(*args, w, g, **extra)  # noqa: E731
+            plain = lambda: ops.lookup_bwd_plain(  # noqa: E731
+                table, idx, w, g, extra.get("q"), spec, scale=scale,
+                rows=rws, scatter=False)[1]
+            library = None
+            if scale is None and stage == "dw":
+                # one PyTorch call computing dw alone: the backward of
+                # embedding_bag to its per-sample weights, the table
+                # taking no gradient
+                ww = w.detach().requires_grad_()
+                bag = F.embedding_bag(rws64, table, per_sample_weights=ww,
+                                      mode="sum")
+                library = lambda: torch.autograd.grad(  # noqa: E731
+                    bag, ww, g, retain_graph=True)[0]
+            # g, rows and w, and for dq idx and q; the output (dq or dw)
+            small = (4 * n * M + 8 * n * TOP_K
+                     + (4 * n * TOP_K + 32 * n + 32 * n if stage == "dq"
+                        else 4 * n * TOP_K))
+            ops_n = 2 * n * TOP_K * M + (n * TOP_K * 40 if stage == "dq"
+                                         else 0)
+            rows[name].append(measure(
+                f"{name} ({payload}, {stage})", n, call, plain, (1e-4, 1e-5),
+                device_kernel="lookup_bwd_kernel",
+                bound=bound_ms(distinct * row_bytes + small, ops_n),
+                extra={"payload": payload, "stage": stage, **route},
+                library=library, library_tol=(1e-4, 1e-5)))
 
 
 def serve_path(name: str):
@@ -624,7 +787,9 @@ def train_path():
     return launches, run
 
 
-def profile_train_step(run) -> None:
+def profile_train_step(run, label: str = "train step",
+                       ours=("lram_query_kernel", "gather_interp_kernel",
+                             "lookup_bwd_kernel")) -> None:
     """One more full-width train step under torch.profiler: device busy
     share of the step's wall time and the top kernels."""
     batch = train.batch_to(data.get_batch(run.dcfg, step=TRAIN_STEPS),
@@ -644,36 +809,187 @@ def profile_train_step(run) -> None:
     copies = {k: v for k, v in per_kernel.items()
               if k.startswith(("Memcpy", "Memset"))}
     total_ms = sum(kernels.values()) / 1e3
-    ours = {name: sum(v for k, v in kernels.items() if name in k) / 1e3
-            for name in ("lram_query_kernel", "gather_interp_kernel",
-                         "lookup_bwd_kernel")}
+    mine = {name: sum(v for k, v in kernels.items() if name in k) / 1e3
+            for name in ours}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({
-        "profile": "train step", "wall_ms": 1e3 * wall[0],
+        "profile": label, "wall_ms": 1e3 * wall[0],
         "kernel_ms": total_ms, "copy_ms": sum(copies.values()) / 1e3,
         "busy_share": total_ms / (1e3 * wall[0]),
         "kernel_launches": sum(c for k, c in calls.items() if k in kernels),
-        "memory_kernels_ms": ours,
+        "memory_kernels_ms": mine,
         "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top],
+        "copies_ms": [[k[:60], v / 1e3] for k, v in copies.items()],
     }), flush=True)
 
 
-def train_parity() -> None:
-    """The lram-bert-medium smoke config, 5 steps on the card and on the
-    CPU (plain versions) from the same seed's weights and batches:
-    per-step losses and gradient norms to rtol 1e-4 (atomics and another
-    summation order)."""
-    argv = ["--arch", "lram-bert-medium", "--smoke", "--placement", "pallas",
-            "--steps", "5", "--batch", "4", "--seq", "32", "--seed", "1"]
+# path -> (arch, its forward gather, its backward instance)
+TIERED_TRAIN = {
+    "a_train_tiered": ("lram-tiered", "gather_interp", "lookup_bwd_rows"),
+    "b_train_tiered_q8": ("lram-tiered-q8", "gather_interp_quant",
+                          "lookup_bwd_quant"),
+}
+TIERED_ARGS = ["--batch", "8", "--seq", "64", "--steps", str(TRAIN_STEPS),
+               "--json"]
+
+
+def tiered_train_path(name: str):
+    """Train a tiered arch at full width through the store's write-back;
+    returns (launch counts, run).  The launch counts are reset just
+    before and read just after.  Inside the timed steps the wrappers only
+    read clocks and keep references: the host tier is copied when the
+    trainer binds the store, the write-back is timed (the wait for the
+    backward, by the synchronize its own copy to the host would make, and
+    its host work), the host index arrays it applies are kept and reduced
+    to the touched rows after the run, and the flat route's host time and
+    stats are read per call."""
+    arch, gather, bwd = TIERED_TRAIN[name]
+    argv = ["--arch", arch, *TIERED_ARGS]
+    before, applied, wb, fwd = {}, [], [], []
+    bind = train.bind_stores
+    writeback = TieredValueStore.writeback
+    apply_writeback = TieredValueStore.apply_writeback
+    lookup_rows = TieredValueStore.lookup_rows
+
+    def bind_and_copy(model, lr):
+        stores = bind(model, lr)
+        for store in stores:
+            before[id(store)] = (store._host.copy(),
+                                 None if store._host_scale is None
+                                 else store._host_scale.copy())
+        return stores
+
+    def timed_writeback(self, idx, w, g):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()  # the backward queued ahead of the sink
+        t1 = time.perf_counter()
+        writeback(self, idx, w, g)
+        wb.append({"wait_ms": 1e3 * (t1 - t0),
+                   "host_ms": 1e3 * (time.perf_counter() - t1),
+                   "to_host_bytes": idx.nbytes + w.nbytes + g.nbytes})
+
+    def kept_apply_writeback(self, idx, wg):
+        applied.append(idx)  # the host copy the write-back made; unchanged
+        apply_writeback(self, idx, wg)
+
+    def timed_lookup_rows(self, idx):
+        prev = dict(self.stats)
+        t0 = time.perf_counter()
+        out = lookup_rows(self, idx)
+        d = {k: self.stats[k] - prev[k] for k in prev}
+        seen = d["hits"] + d["misses"] + d["uncached"]
+        fwd.append({"host_ms": 1e3 * (time.perf_counter() - t0),
+                    "overflow_share": d["uncached"] / seen,
+                    "hit_rate": d["hits"] / seen,
+                    "fill_bytes": d["fill_bytes"],
+                    "overflow_bytes": d["uncached"]
+                    * self.bytes_per_entry()})
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    train.bind_stores = bind_and_copy
+    TieredValueStore.writeback = timed_writeback
+    TieredValueStore.apply_writeback = kept_apply_writeback
+    TieredValueStore.lookup_rows = timed_lookup_rows
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        run = train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        train.bind_stores = bind
+        TieredValueStore.writeback = writeback
+        TieredValueStore.apply_writeback = apply_writeback
+        TieredValueStore.lookup_rows = lookup_rows
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(run.records) == TRAIN_STEPS, f"{name}: steps missing")
+    for kernel in ("lram_query", gather):
+        check(launches[kernel] >= TRAIN_STEPS,
+              f"{name}: {kernel} launched {launches[kernel]} times in "
+              f"{TRAIN_STEPS} steps")
+    check(launches[bwd] == TRAIN_STEPS,
+          f"{name}: the backward instance {bwd} launched {launches[bwd]} "
+          f"times in {TRAIN_STEPS} steps (one memory layer: once a step)")
+    (store,) = run.stores
+    check(store.stats["writebacks"] == TRAIN_STEPS == len(wb)
+          == len(applied),
+          f"{name}: {store.stats['writebacks']} write-backs in "
+          f"{TRAIN_STEPS} steps")
+    check(not store._dirty, f"{name}: dirty slots after the flush")
+    host0, scale0 = before[id(store)]
+    rows_n = store.num_rows
+    changed = (store._host.reshape(rows_n, -1)
+               != host0.reshape(rows_n, -1)).any(-1)
+    if scale0 is not None:
+        changed |= store._host_scale.reshape(-1) != scale0.reshape(-1)
+    hit = np.zeros(rows_n, bool)
+    hit[np.concatenate([i.reshape(-1) for i in applied])] = True
+    check(not (changed & ~hit).any(),
+          f"{name}: {int((changed & ~hit).sum())} rows the write-back never "
+          f"touched changed on the host tier")
+    check((changed & hit).any(), f"{name}: no touched row changed")
+    losses = [r["loss"] for r in run.records]
+    norms = [r["grad_norm"] for r in run.records]
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{name}: non-finite loss or grad norm: {losses} {norms}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"{name}: the loss did not fall (steps 1-5 mean "
+                        f"{first}, steps 16-20 mean {last})")
+    step_ms = [r["step_ms"] for r in run.records]
+    median_ms = float(np.median(step_ms[5:]))
+    tokens = run.dcfg.global_batch * run.dcfg.seq_len
+    steady = lambda recs, key: float(np.median(  # noqa: E731
+        [r[key] for r in recs[5:]]))
+    print(json.dumps({
+        "train": name, "argv": argv,
+        "tokens_per_step": tokens, "lookups_per_step": tokens * 32,
+        "losses": losses, "grad_norms": norms,
+        "loss_mean_steps_1_5": first, "loss_mean_steps_16_20": last,
+        "step_ms": step_ms, "step_ms_median_steps_6_20": median_ms,
+        "tokens_per_sec": tokens / (median_ms / 1e3),
+        "peak_memory_bytes": peak, "wall_s_incl_init_and_eval": wall_s,
+        "writeback_host_ms_median_6_20": steady(wb, "host_ms"),
+        "writeback_wait_ms_median_6_20": steady(wb, "wait_ms"),
+        "to_host_bytes_per_step": wb[0]["to_host_bytes"],
+        "flat_route_host_ms_median_6_20": steady(fwd, "host_ms"),
+        "fill_bytes_per_step_median_6_20": steady(fwd, "fill_bytes"),
+        "overflow_bytes_per_step_median_6_20": steady(fwd,
+                                                      "overflow_bytes"),
+        "hit_rate_train": float(np.mean([f["hit_rate"] for f in fwd])),
+        "overflow_share_train": float(np.mean([f["overflow_share"]
+                                               for f in fwd])),
+        "rows_touched": int(hit.sum()), "rows_changed": int(changed.sum()),
+        "store_stats": store.stats,
+        "final_eval_loss": run.final_eval_loss,
+        "final_fact_recall": run.final_fact_recall, "launches": launches,
+    }), flush=True)
+    return launches, run
+
+
+def train_parity(arch: str, extra=()) -> None:
+    """A smoke config, 5 steps on the card and on the CPU (plain versions)
+    from the same seed's weights and batches: per-step losses and gradient
+    norms to rtol 1e-4 (atomics and another summation order; for the
+    tiered archs w (x) g rounds differently, which may flip a stochastic
+    floor of the int8 write-back now and then)."""
+    argv = ["--arch", arch, "--smoke", *extra, "--steps", "5", "--batch",
+            "4", "--seq", "32", "--seed", "1"]
     card = train.main(argv + ["--device", "cuda"])
     cpu = train.main(argv + ["--device", "cpu"])
-    out = {"parity": "smoke train card vs CPU"}
+    out = {"parity": f"smoke train card vs CPU: {arch}"}
     for key in ("loss", "grad_norm"):
         pairs = [(a[key], b[key]) for a, b in zip(card.records, cpu.records)]
         err = max(abs(a - b) / abs(b) for a, b in pairs)
         check(len(pairs) == 5 and err <= 1e-4,
-              f"smoke train {key} differs card vs CPU: {pairs}")
+              f"{arch} smoke train {key} differs card vs CPU: {pairs}")
         out.update({key: pairs, f"{key}_max_rel_err": err})
+    if card.stores:
+        out["writebacks"] = [card.stores[0].stats["writebacks"],
+                             cpu.stores[0].stats["writebacks"]]
+        out["table_max_abs_diff"] = float(np.abs(
+            card.stores[0].to_dense() - cpu.stores[0].to_dense()).max())
     print(json.dumps(out), flush=True)
 
 
@@ -719,8 +1035,15 @@ def main() -> None:
     launches["train"], run = train_path()
     profile_train_step(run)
     del run
+    for name, (_, gather, bwd) in TIERED_TRAIN.items():
+        launches[name], run = tiered_train_path(name)
+        profile_train_step(run, f"train step {name}", (
+            "lram_query_kernel", f"{gather}_kernel", "lookup_bwd_kernel"))
+        del run
     parity_phase()
-    train_parity()
+    train_parity("lram-bert-medium", ["--placement", "pallas"])
+    train_parity("lram-tiered")
+    train_parity("lram-tiered-q8")
     check(not {"jax", "repro", "ml_dtypes"} & set(sys.modules),
           "the port pulled in JAX, the JAX package or ml_dtypes")
 
@@ -740,7 +1063,8 @@ def kernels_line(rows, launches) -> list[dict]:
     for name, per_shape in rows.items():
         _, source, replaces = KERNELS[name]
         # the decode tick (int8 for B4/B6), the serving path's most frequent
-        # call; the train step's shape (dq instance) for the backward kernel
+        # call; a train step's shape (the dq instance, int8 for the 1-byte
+        # rows) for the backward kernel's instances
         head = next(r for r in per_shape
                     if r["n"] == HEAD_N.get(name, SHAPES[0]))
         by_path = {p: c[name] for p, c in launches.items() if c[name]}

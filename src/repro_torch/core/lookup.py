@@ -13,8 +13,9 @@ read: how the table is built (`build_table` from the init-time fp32 draw,
   fp32 scales, `repro_torch.quant`).
 * **kernel** — the reference's names, so configs and CLI flags carry over:
   ``pallas`` is the port's hand-written CUDA kernels (their plain versions
-  on CPU tensors), differentiable on the dense fp32 table through the
-  backward kernel (the plan's `lookup` = `kernels.ops.lram_lookup`);
+  on CPU tensors), differentiable through the backward kernel (the plan's
+  `lookup` = `kernels.ops.lram_lookup`: in the table and q on a dense fp32
+  table, in q on the others);
   ``reference`` is the plain torch functions (plain autograd), for CPU
   tables only: on a CUDA table it raises, so no run on the card silently
   skips the kernels.  ``auto`` resolves to ``pallas`` for the tiered
@@ -23,7 +24,8 @@ read: how the table is built (`build_table` from the init-time fp32 draw,
 
 Unsupported cells raise :class:`LookupPlanError` at resolve time.  The
 serve engine reads the plan's ``supports_prefetch`` flag to find the
-tiered stores it warms and prefetches.
+tiered stores it warms and prefetches; the trainer reads ``table_update``
+to find the stores whose write-back it binds.
 """
 
 from __future__ import annotations
@@ -93,6 +95,13 @@ class LookupPlan:
     `Parameter`, a `QuantizedTable` or a `TieredValueStore`);
     ``table_from_payload(q, scale)`` builds it from a quantized payload
     carried bit for bit (quantized storages only).
+
+    ``table_update`` says how the table trains: ``autodiff`` (a dense fp32
+    `Parameter`: its gradient is the scatter-add of the backward, and the
+    optimizer steps it), ``writeback`` (the tiered store applies its own
+    sparse SGD step, `TieredValueStore.writeback_lr`) or ``frozen`` (a
+    dense 1-byte table: nothing trains it; only the query's gradient
+    flows).
     """
 
     placement: str
@@ -104,6 +113,7 @@ class LookupPlan:
     table_from_payload: Callable | None = None
     supports_prefetch: bool = False
     lookup: Callable | None = None
+    table_update: str = "autodiff"  # autodiff | writeback | frozen
 
     def __post_init__(self):
         if self.lookup is None:
@@ -269,21 +279,37 @@ def _dense_plan(storage: str, kernel: str) -> LookupPlan:
 
     gather = kernel_gather(kernel, "quant")
 
-    def interp_quant(table, idx, w):
+    def check_quant(table):
         if not isinstance(table, quant.QuantizedTable):
             raise LookupPlanError(
                 *cell, f"the table must be a QuantizedTable for "
                 f"storage={storage!r}; got {type(table).__name__}",
             )
+
+    def interp_quant(table, idx, w):
+        check_quant(table)
         return gather(table.q, table.scale, idx, w)
+
+    lookup_quant = None
+    if kernel == "pallas":
+        from repro_torch.kernels import ops
+
+        def lookup_quant(table, q, spec, top_k):
+            # frozen: the rows are the table's own, no sink takes w (x) g
+            check_quant(table)
+            source = ops.RowSource(lambda idx: (table.q, table.scale, idx))
+            out, (idx, w) = ops.lram_lookup(source, q, spec, top_k,
+                                            return_access=True)
+            return out, idx, w
 
     return LookupPlan(
         *cell, query=query_fn(kernel),
         build_table=lambda dense: quant.QuantizedTable.from_dense(
             dense.detach().cpu().numpy(), storage),
-        interp=interp_quant,
+        interp=interp_quant, lookup=lookup_quant,
         table_from_payload=lambda q, scale: quant.QuantizedTable.from_payload(
             q, scale, storage),
+        table_update="frozen",
     )
 
 

@@ -118,10 +118,13 @@ def lram_apply(layer: LRAM, x: torch.Tensor, *, train: bool = False,
 
     `interp_impl` overrides the config's placement for this call.  In
     train mode the batchnorm runs on batch statistics and its running
-    stats update in place.  Gradients reach the table and x through the
-    plan: the dense ``pallas`` cell's `ops.lram_lookup` (the backward
-    kernel, analytic d query), or plain autograd in the ``reference`` cell
-    (CPU only).  With `return_access` also returns (idx, w).
+    stats update in place.  Gradients reach x, and the table as its plan's
+    ``table_update`` says, through the plan's `lookup`: `ops.lram_lookup`
+    in the ``pallas`` cells (the backward kernel, analytic d query; a
+    dense fp32 table gets its scatter-add, a tiered store its host
+    write-back, a dense 1-byte table nothing), or plain autograd in the
+    dense ``reference`` cells (CPU only).  With `return_access` also
+    returns (idx, w).
     """
     cfg = layer.cfg
     if x.shape[-1] != cfg.in_dim:

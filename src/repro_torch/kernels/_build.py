@@ -129,10 +129,12 @@ def check(status: int, what: str) -> None:
 def refuse_grad(what: str, *tensors) -> None:
     """Raise if autograd would need a gradient through a forward kernel's
     output: the kernels return tensors with no `grad_fn`.  Callers that
-    need one go through `ops.lram_lookup` or
-    `gather_interp.gather_interp_vjp`."""
+    need one go through `ops.lram_lookup`, `gather_interp.gather_interp_vjp`,
+    `gather_interp.gather_interp_quant_vjp` or
+    `repro_torch.memstore.interp.tiered_interp`."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what}: the CUDA kernel's output carries no gradient; use "
-            f"repro_torch.kernels.ops.lram_lookup or "
-            f"gather_interp.gather_interp_vjp (or run under torch.no_grad)")
+            f"repro_torch.kernels.ops.lram_lookup, gather_interp."
+            f"gather_interp_vjp or gather_interp_quant_vjp, or memstore."
+            f"interp.tiered_interp (or run under torch.no_grad)")

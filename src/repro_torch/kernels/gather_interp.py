@@ -5,8 +5,9 @@
          float8_e4m3fn payload, one fp32 scale per row)
 
 Torch counterpart of `repro.kernels.gather_interp` (`gather_interp_pallas`,
-`gather_interp_quant_pallas` and the differentiable `gather_interp_vjp`,
-whose backward is `ops.lookup_bwd`).  On a CUDA tensor `gather_interp` and
+`gather_interp_quant_pallas` and the differentiable `gather_interp_vjp`
+and `gather_interp_quant_vjp`, whose backwards are `ops.lookup_bwd` and
+`ops.lookup_bwd_quant`).  On a CUDA tensor `gather_interp` and
 `gather_interp_quant` launch the hand-written kernels in
 `csrc/gather_interp.cu` and `csrc/gather_interp_quant.cu` (design and bound
 noted there) or raise; on a CPU tensor they take `gather_interp_plain` and
@@ -112,8 +113,8 @@ def gather_interp_quant(q: torch.Tensor, scale: torch.Tensor,
 
     q (N, m) int8 or float8_e4m3fn, contiguous; scale (N,) float32;
     idx (..., k) int32 in [0, N); w (..., k) float32.  On a CUDA tensor
-    not differentiable (raises when w requires grad under grad mode); the
-    reference's dw-only VJP is not ported yet (ROADMAP A6).
+    the output carries no gradient, so it raises when w requires grad
+    under grad mode: `gather_interp_quant_vjp` is the differentiable form.
     """
     if not q.is_cuda:
         return gather_interp_quant_plain(q, scale, idx, w)
@@ -165,6 +166,19 @@ def gather_interp_vjp(values: torch.Tensor, idx: torch.Tensor,
     scatter-add of w (x) g over the touched rows, d w the gathered-row
     dot g . values[idx], both from the backward kernel."""
     return _GatherInterpVJP.apply(values, idx, w)
+
+
+def gather_interp_quant_vjp(q: torch.Tensor, scale: torch.Tensor,
+                            idx: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """`gather_interp_quant`, differentiable in w (torch counterpart of the
+    reference's `gather_interp_quant`, whose custom VJP is dw only): d w is
+    scale_i * (g . q[i]) from the backward kernel (`ops.lookup_bwd_quant`
+    through `ops.source_gather`); the table is frozen and gets none."""
+    from repro_torch.kernels import ops
+
+    return ops.source_gather(ops.RowSource(lambda rows: (q, scale, rows)),
+                             idx, w)
 
 
 #: kernel launches since the last reset (a run shows the path used K1, B4)

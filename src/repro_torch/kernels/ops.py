@@ -1,26 +1,46 @@
-"""The differentiable lookup: query (K2) + gather (K1) behind one
-`torch.autograd.Function`, and the backward kernel both custom gradients
-of the port use (torch counterpart of `repro.kernels.ops`).
+"""The differentiable lookup: query (K2) + gather (K1 or B4) behind one
+`torch.autograd.Function`, and the backward kernel every custom gradient
+of the port uses (torch counterpart of `repro.kernels.ops`).
 
-    forward:   idx, w = K2(q);  out = sum_k w_k * values[idx_k]
-    backward:  dvalues = scatter-add of w (x) g over the touched rows
-               dq      = sum_k (g . values[idx_k]) * (-relu_k^3 * delta_k)
+    forward:   idx, w = K2(q);  out = sum_k w_k * values[r_k]
+    backward:  dq = sum_k (g . values[r_k]) * (-relu_k^3 * delta_k)
+               + the table's gradient w (x) g over the touched rows
 
-with delta_k = q - x_k on the nearest torus image of the lattice point
-x_k that idx_k names, relu_k = max(0, 1 - |delta_k|^2 / 8): the analytic
-derivative of w = relu^4.  `lookup_bwd` computes it on a CUDA tensor with
-the hand-written kernel in `csrc/lookup_bwd.cu` (design and bound noted
-there) or raises; on a CPU tensor it takes `lookup_bwd_plain`.  Without q
-the same kernel computes B1's VJP, (dvalues, dw = g . rows), which
-`gather_interp.gather_interp_vjp` uses.
+with r_k the row the forward read for idx_k, delta_k = q - x_k on the
+nearest torus image of the lattice point x_k that idx_k names and relu_k
+= max(0, 1 - |delta_k|^2 / 8): the analytic derivative of w = relu^4.
+Where the table's gradient goes depends on the table (`lram_lookup`):
+
+  * a dense fp32 tensor: scattered into a dense dvalues (B3's backward,
+    `lookup_bwd`);
+  * a `RowSource`, a table autograd does not own: its rows are read
+    through the source (a dense 1-byte table's own rows; a tiered store's
+    flat table of cache + overflow rows) and w (x) g goes to its sink (the
+    store's host write-back) or nowhere (a frozen 1-byte table).  Only dq
+    flows back: `lookup_bwd_rows` (fp32 rows) or `lookup_bwd_quant`
+    (1-byte rows with per-row scales).  The same autograd Function,
+    through `source_gather`, is a gather over the source's rows
+    differentiable in w instead: dw flows back, and w (x) g to the same
+    sink (`memstore.interp.tiered_interp`, and B4's VJP
+    `gather_interp.gather_interp_quant_vjp`).
+
+All three wrappers launch the hand-written kernel of `csrc/lookup_bwd.cu`
+(one body, instantiated per payload, scatter and output; design and bound
+noted there) on a CUDA tensor or raise; on a CPU tensor they take
+`lookup_bwd_plain`.  Without q the same kernel computes a gather's VJP,
+dw = g . rows: B1's (`gather_interp.gather_interp_vjp`, with the scatter)
+and B4's (1-byte rows, no scatter).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Callable
 
 import torch
 
+from repro_torch import quant
 from repro_torch.core import indexing, lattice
 from repro_torch.kernels import _build, e8_lookup, gather_interp
 
@@ -59,18 +79,29 @@ def points_from_indices(idx: torch.Tensor,
 def lookup_bwd_plain(values: torch.Tensor, idx: torch.Tensor,
                      w: torch.Tensor, g: torch.Tensor,
                      q: torch.Tensor | None = None,
-                     spec: indexing.TorusSpec | None = None):
-    """(dvalues, dq) with q (B3's backward), else (dvalues, dw) (B1's
-    VJP), in plain torch: `index_add_`, an einsum and the analytic dq."""
+                     spec: indexing.TorusSpec | None = None, *,
+                     scale: torch.Tensor | None = None,
+                     rows: torch.Tensor | None = None,
+                     scatter: bool = True):
+    """The backward in plain torch: (dvalues, dq) with q, else (dvalues,
+    dw).  The rows read are `rows` (default idx) of `values`, fp32 or a
+    1-byte payload whose per-row `scale` multiplies the row's dot
+    (dw_k = scale_r * (g . q_r)); dvalues, an `index_add_` of w (x) g, is
+    None without `scatter` (a 1-byte table is never scattered)."""
     g = g.float()
     m = values.shape[-1]
-    flat_idx = idx.reshape(-1).long()
-    flat_wg = (w.float()[..., None] * g[..., None, :]).reshape(-1, m)
-    dvalues = torch.zeros(values.shape, dtype=torch.float32,
-                          device=values.device).index_add_(0, flat_idx,
-                                                           flat_wg)
-    rows = values[idx.long()].float()
-    dL_dw = torch.einsum("...m,...km->...k", g, rows)
+    r = (idx if rows is None else rows).long()
+    dvalues = None
+    if scatter:
+        flat_wg = (w.float()[..., None] * g[..., None, :]).reshape(-1, m)
+        dvalues = torch.zeros(values.shape, dtype=torch.float32,
+                              device=values.device).index_add_(
+                                  0, r.reshape(-1), flat_wg)
+    if scale is None:
+        dL_dw = torch.einsum("...m,...km->...k", g, values[r].float())
+    else:
+        dL_dw = torch.einsum("...m,...km->...k", g,
+                             quant.take_rows(values, r)) * scale[r].float()
     if q is None:
         return dvalues, dL_dw
     pts = points_from_indices(idx, spec)  # (..., k, 8)
@@ -149,6 +180,137 @@ def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
 lookup_bwd.launches = 0
 
 
+# values, scale, rows, idx, w, g, q, dq, n, k, m, wrap, device, stream
+_ROWS_DQ_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+# values, scale, rows, w, g, dw, n, k, m, device, stream
+_ROWS_DW_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
+_ROWS_PAYLOAD = {torch.float32: "f32", torch.int8: "i8",
+                 torch.float8_e4m3fn: "e4m3"}
+
+
+def _rows_bwd(wrapper, table, scale, rows, w, g, idx, q, spec):
+    """The instances without scatter: dq (..., 8) when q is given (idx
+    names the lattice points), else dw (..., k), over `rows` of `table`.
+    Counts a launch on `wrapper`."""
+    if not table.is_cuda:
+        _, out = lookup_bwd_plain(table, rows if idx is None else idx, w, g,
+                                  q, spec, scale=scale, rows=rows,
+                                  scatter=False)
+        return out
+    what = wrapper.__name__
+    if g.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 g, got {g.dtype}")
+    rows2, w2, lead = gather_interp.flat_gather_args(table, rows, w, what)
+    n, top_k, m = rows2.shape[0], rows2.shape[1], table.shape[1]
+    if m % 2 or m > _MAX_M:
+        raise ValueError(f"{what} kernel takes an even m <= {_MAX_M}, "
+                         f"got {m}")
+    if g.shape != (*lead, m) or not g.is_contiguous() \
+            or g.device != table.device:
+        raise ValueError(f"g must be a contiguous {(*lead, m)} tensor on "
+                         f"the table's device, got {tuple(g.shape)}")
+    if scale is not None and (
+            scale.dtype != torch.float32 or scale.shape != table.shape[:1]
+            or not scale.is_contiguous() or scale.device != table.device):
+        raise ValueError("scale must be a contiguous float32 (N,) tensor "
+                         "on the table's device")
+    name = _ROWS_PAYLOAD[table.dtype]
+    stream = gather_interp.current_stream(table)
+    scale_ptr = scale.data_ptr() if scale is not None else None
+    if q is None:
+        out = torch.empty((n, top_k), dtype=torch.float32,
+                          device=table.device)
+        if n:
+            status = _build.function("lookup_bwd", f"lookup_bwd_rows_dw_"
+                                     f"{name}", _ROWS_DW_ARGS)(
+                table.data_ptr(), scale_ptr, rows2.data_ptr(),
+                w2.data_ptr(), g.data_ptr(), out.data_ptr(), n, top_k, m,
+                table.device.index, stream)
+            _build.check(status, f"{what} (dw)")
+            wrapper.launches += 1
+        return out.reshape(*lead, top_k)
+    if idx is None or idx.dtype != torch.int32 or idx.shape != rows.shape \
+            or not idx.is_contiguous() or idx.device != table.device:
+        raise ValueError(f"{what}: dq needs the lattice indices idx, a "
+                         f"contiguous int32 tensor shaped like rows")
+    if q.dtype != torch.float32 or q.shape != (*lead, lattice.DIM) \
+            or not q.is_contiguous() or q.device != table.device:
+        raise ValueError(f"q must be a contiguous float32 {(*lead, 8)} "
+                         f"tensor on the table's device, got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    out = torch.empty((n, lattice.DIM), dtype=torch.float32,
+                      device=table.device)
+    if n:
+        wrap = (ctypes.c_int * lattice.DIM)(*spec.K)
+        status = _build.function("lookup_bwd", f"lookup_bwd_rows_dq_{name}",
+                                 _ROWS_DQ_ARGS)(
+            table.data_ptr(), scale_ptr, rows2.data_ptr(), idx.data_ptr(),
+            w2.data_ptr(), g.data_ptr(), q.data_ptr(), out.data_ptr(), n,
+            top_k, m, wrap, table.device.index, stream)
+        _build.check(status, f"{what} (dq)")
+        wrapper.launches += 1
+    return out.reshape(*lead, lattice.DIM)
+
+
+def lookup_bwd_rows(values: torch.Tensor, rows: torch.Tensor,
+                    w: torch.Tensor, g: torch.Tensor, *,
+                    idx: torch.Tensor | None = None,
+                    q: torch.Tensor | None = None,
+                    spec: indexing.TorusSpec | None = None) -> torch.Tensor:
+    """The backward over fp32 rows without the scatter: dq (..., 8) when
+    q, idx and spec are given, else dw (..., k) = g . values[rows].
+
+    values (R, m) float32, m even and <= 256; rows (..., k) int32 in
+    [0, R), the rows the forward read; idx (..., k) int32, the lattice
+    indices they stand for; w (..., k) float32; g (..., m) float32;
+    q (..., 8) float32.  All contiguous, on one device.
+    """
+    if values.is_cuda and values.dtype != torch.float32:
+        raise TypeError(f"lookup_bwd_rows takes float32 rows, got "
+                        f"{values.dtype}")
+    return _rows_bwd(lookup_bwd_rows, values, None, rows, w, g, idx, q,
+                     spec)
+
+
+def lookup_bwd_quant(payload: torch.Tensor, scale: torch.Tensor,
+                     rows: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                     *, idx: torch.Tensor | None = None,
+                     q: torch.Tensor | None = None,
+                     spec: indexing.TorusSpec | None = None) -> torch.Tensor:
+    """`lookup_bwd_rows` over 1-byte rows: payload (R, m) int8 or
+    float8_e4m3fn with scale (R,) float32, dequantized in registers;
+    dw_k = scale_r * (g . q_r).  Without q it is B4's VJP (the reference's
+    `gather_interp_quant` backward: the table is frozen, only dw flows)."""
+    if payload.is_cuda and payload.dtype not in (torch.int8,
+                                                 torch.float8_e4m3fn):
+        raise TypeError(f"lookup_bwd_quant takes int8 or float8_e4m3fn "
+                        f"payloads, got {payload.dtype}")
+    return _rows_bwd(lookup_bwd_quant, payload, scale, rows, w, g, idx, q,
+                     spec)
+
+
+#: kernel launches since the last reset
+lookup_bwd_rows.launches = 0
+lookup_bwd_quant.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSource:
+    """A table autograd does not own, as `lram_lookup` reads it.
+
+    ``rows(idx) -> (table, scale or None, rows)``: the table the lookup
+    gathers from (fp32 rows, or a 1-byte payload with per-row scales) and
+    the int32 row of each index in it, shaped like idx.  ``sink(idx, w,
+    g)`` takes the table's gradient w (x) g over the touched rows (the
+    tiered store's write-back); None for a frozen table.
+    """
+
+    rows: Callable
+    sink: Callable | None = None
+
+
 class _LRAMLookup(torch.autograd.Function):
     """K2 then K1 forward (idx and w kept for the backward and returned,
     not differentiable); `lookup_bwd` with dq as the backward."""
@@ -173,13 +335,60 @@ class _LRAMLookup(torch.autograd.Function):
                 None, None)
 
 
-def lram_lookup(values: torch.Tensor, q: torch.Tensor,
-                spec: indexing.TorusSpec,
+class _SourceGather(torch.autograd.Function):
+    """K1 or B4 over the rows a `RowSource` names for idx, weighted by w,
+    differentiable in x: x is q when spec is given (idx and w came from
+    K2(q); the backward is dq), else x is w itself (the backward is dw).
+    Either comes from `lookup_bwd_rows` or `lookup_bwd_quant` on the table
+    and rows the forward read; then the table's gradient goes to the
+    source's sink, the one place the sink is called."""
+
+    @staticmethod
+    def forward(ctx, x, source, idx, w, spec):
+        w = (x if w is None else w).float().contiguous()
+        table, scale, rows = source.rows(idx)
+        if scale is None:
+            out = gather_interp.gather_interp(table, rows, w)
+        else:
+            out = gather_interp.gather_interp_quant(table, scale, rows, w)
+        ctx.save_for_backward(x, idx, w, table, scale, rows)
+        ctx.source, ctx.spec = source, spec
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx, w, table, scale, rows = ctx.saved_tensors
+        g = g.float().contiguous()
+        kw = {} if ctx.spec is None else dict(idx=idx, q=x, spec=ctx.spec)
+        if scale is None:
+            grad = lookup_bwd_rows(table, rows, w, g, **kw)
+        else:
+            grad = lookup_bwd_quant(table, scale, rows, w, g, **kw)
+        if ctx.source.sink is not None:
+            ctx.source.sink(idx, w, g)
+        return grad.to(x.dtype), None, None, None, None
+
+
+def source_gather(source: RowSource, idx: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """sum_k w[..., k] * (the source's row for idx[..., k]) -> (..., m),
+    differentiable in w (dw from the backward kernel); the table's
+    gradient w (x) g goes to the source's sink."""
+    return _SourceGather.apply(w, source, idx, None, None)
+
+
+def lram_lookup(values, q: torch.Tensor, spec: indexing.TorusSpec,
                 top_k: int = lattice.DEFAULT_TOP_K, *,
                 return_access: bool = False):
     """out[t] = sum_k f(d(q_t, k)) * values[k] over the top_k nearest slots,
-    differentiable in values and q.  q (..., 8) float32 torus coordinates,
-    contiguous; values (N, m) float32.  With `return_access` returns
-    (out, (idx, w))."""
-    out, idx, w = _LRAMLookup.apply(values, q, spec, top_k)
+    differentiable in q, and in values when it is a dense (N, m) float32
+    tensor; a `RowSource` takes the table's gradient itself (or is
+    frozen).  q (..., 8) float32 torus coordinates, contiguous.  With
+    `return_access` returns (out, (idx, w))."""
+    if isinstance(values, RowSource):
+        with torch.no_grad():
+            idx, w = e8_lookup.lram_query(q, spec, top_k)
+        out = _SourceGather.apply(q, values, idx, w, spec)
+    else:
+        out, idx, w = _LRAMLookup.apply(values, q, spec, top_k)
     return (out, (idx, w)) if return_access else out

@@ -5,6 +5,8 @@
         --arch lram-bert-medium --placement pallas --batch 8 --seq 256 \\
         --steps 20 --json                                  # on the card
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch lram-tiered --batch 8 --seq 64 --steps 20 --json
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch lram-bert-small --smoke --device cpu --json  # plain versions
 
 config -> init (weights drawn on the CPU from `--seed`, then moved to
@@ -17,13 +19,19 @@ The device is `cuda` unless `--device cpu` is given; with no card it
 raises rather than falling back.  `--placement` overrides the memory
 layer's lookup placement as the serve CLI's does: `pallas` is the dense
 table with the CUDA kernels (K2 + K1 forward, the backward kernel
-`lookup_bwd`), `reference` the plain path (CPU only).  `--json` prints one
-line per step (loss, xent, grad norm, lr, step ms) and a summary.
+`lookup_bwd`), `reference` the plain path (CPU only), `tiered` the tiered
+store.  A tiered table (`lram-tiered`, `lram-tiered-q8`) trains through
+the store's write-back, as the reference binds it: the store applies its
+own sparse SGD step at lr x `--memory-lr-mult` (int8 rows requantized with
+stochastic rounding), Adam and the clip never see it, and the stores are
+flushed at the end.  A dense quantized table is frozen and is refused: the
+reference trains a quantized table only through the tiered write-back.
+`--json` prints one line per step (loss, xent, grad norm, lr, step ms and
+the cache hit rate of a tiered table) and a summary.
 
 Not ported yet, and refused with the ROADMAP item that ports them:
 checkpoints and failure injection, gradient compression, telemetry,
-memory growth, meshes and observability.  Quantized and tiered tables
-train through the store's write-back, also not ported (A6/A8).
+memory growth, meshes and observability.
 """
 
 from __future__ import annotations
@@ -53,6 +61,20 @@ _NOT_PORTED = {
     "metrics_dir": ("", "A13 (observability)"),
     "profile_dir": ("", "A13 (observability)"),
 }
+
+
+def bind_stores(model: transformer.Transformer, lr: float) -> list:
+    """The tiered stores of a model whose table trains by write-back, with
+    their sparse SGD rate set to `lr` and their cache warmed (the
+    reference's `bind_stores`); [] for other tables."""
+    if not any(plan.table_update == "writeback"
+               for plan in lookup.model_plans(model.cfg)):
+        return []
+    stores = [store for _, store in lookup.find_stores(model)]
+    for store in stores:
+        store.writeback_lr = lr
+        store.warm()
+    return stores
 
 
 def batch_to(batch: dict, device) -> dict[str, torch.Tensor]:
@@ -104,8 +126,8 @@ def evaluate(model: transformer.Transformer, dcfg: data.DataConfig, *,
 @dataclasses.dataclass
 class TrainRun:
     """What `main` leaves behind: the trained model, the optimizer state,
-    the step function (for one more, profiled, step), the data config and
-    one record per step."""
+    the step function (for one more, profiled, step), the data config,
+    one record per step and the tiered stores it trained by write-back."""
 
     model: transformer.Transformer
     opt_state: dict
@@ -114,6 +136,7 @@ class TrainRun:
     records: list
     final_eval_loss: float
     final_fact_recall: float
+    stores: list
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -171,12 +194,16 @@ def main(argv=None) -> TrainRun:
                              f"has no LRAM layer")
         cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
             cfg.lram, interp_impl=args.placement))
-    for plan in lookup.model_plans(cfg):
-        if plan.placement != "dense" or plan.storage != "fp32":
+    try:
+        plans = lookup.model_plans(cfg)
+    except lookup.LookupPlanError as e:  # an unported placement
+        raise SystemExit(str(e)) from None
+    for plan in plans:
+        if plan.table_update == "frozen":
             raise SystemExit(
-                f"training a {plan.placement} {plan.storage} table needs the "
-                f"store's write-back, not ported to torch yet: ROADMAP "
-                f"A6/A8")
+                f"a dense {plan.storage} table is frozen: the reference "
+                f"trains a quantized table only through the tiered store's "
+                f"write-back (use the tiered placement)")
     dcfg = data.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch, objective=cfg.objective, seed=args.seed,
@@ -184,6 +211,8 @@ def main(argv=None) -> TrainRun:
     opt_cfg = optim.OptimConfig(lr=args.lr,
                                 memory_lr_mult=args.memory_lr_mult)
     model = transformer.init(cfg, seed=args.seed).to(device)
+    # a store's table is no Parameter: Adam and the clip never see it
+    stores = bind_stores(model, args.lr * args.memory_lr_mult)
     opt_state = optim.adam_init(dict(model.named_parameters()))
     step_fn = build_train_step(model, opt_cfg)
 
@@ -196,6 +225,8 @@ def main(argv=None) -> TrainRun:
                **{k: float(metrics[k])  # the host sync ends the step
                   for k in ("loss", "xent", "grad_norm", "lr")}}
         rec["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        if stores:
+            rec["cache_hit"] = float(np.mean([s.hit_rate() for s in stores]))
         records.append(rec)
         if args.json:
             print(json.dumps(rec), flush=True)
@@ -210,6 +241,8 @@ def main(argv=None) -> TrainRun:
                               "fact_recall": round(recall, 4)}))
 
     eval_loss, recall = evaluate(model, dcfg)
+    for store in stores:
+        store.flush()
     print(json.dumps({"final_eval_loss": round(eval_loss, 4),
                       "final_fact_recall": round(recall, 4)}))
     if args.json:
@@ -221,9 +254,11 @@ def main(argv=None) -> TrainRun:
             "step_ms_median_after_5": float(np.median(steady))
             if steady else None,
             "final_eval_loss": eval_loss, "final_fact_recall": recall,
+            "cache": [dict(s.stats, hit_rate=s.hit_rate()) for s in stores]
+            or None,
         }), flush=True)
     return TrainRun(model, opt_state, step_fn, dcfg, records, eval_loss,
-                    recall)
+                    recall, stores)
 
 
 if __name__ == "__main__":

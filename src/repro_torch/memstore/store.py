@@ -1,5 +1,5 @@
 """Tiered value table: host-RAM shards + a device-resident hot cache (torch
-counterpart of `repro.memstore.store`, its serving subset).
+counterpart of `repro.memstore.store`).
 
 The (N, m) table is split into shards of `shard_rows` consecutive rows:
 
@@ -10,11 +10,13 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     RAM: fp32, or a 1-byte payload (int8, or e4m3 bytes as uint8) plus
     `(num_shards, shard_rows)` fp32 scales for a quantized store.
   * **Device tier** — `cache_slots` shard-sized slots on the store's device
-    (`.to(device)` moves it; the host tier stays on the host) and the
-    indirection `shard -> slot` (-1 = not resident).
+    (`.to(device)` moves it; the host tier stays on the host), their host
+    mirror `cache_np` (the slots' current contents, which the write-back
+    updates), and the indirection `shard -> slot` (-1 = not resident).
   * **Fills** are batched per lookup: the shards a batch touches are made
-    resident first (LRU eviction, the batch's shards pinned), and every
-    slot filled since the last lookup is copied host -> device in one
+    resident first (LRU eviction, the batch's shards pinned; a dirty
+    victim is written back to its host shard first), and every slot filled
+    or written since the last lookup is copied host -> device in one
     stacked copy (`_sync_device`).  `prefetch` runs the same fill from a
     predicted index set; the serve engine feeds it the previous tick's
     accesses (`prefetch_last`).
@@ -24,12 +26,25 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
   * **Gather** — all touched shards resident: the indirected kernels B5
     (fp32) or B6 (1-byte rows) gather straight from the cache.  Otherwise
     the overflow rows are appended to the cache and the flat gather K1 or
-    B4 reads cache + overflow through precomputed rows, as the reference's
-    XLA path does.  On a CPU store the plain versions run.
+    B4 reads cache + overflow through precomputed rows (`lookup_rows`), as
+    the reference's XLA path does.  On a CPU store the plain versions run.
+  * **Training write-back** — the table's gradient arrives as sparse
+    (index, w ⊗ g) pairs (`writeback`, from the differentiable lookups of
+    `repro_torch.memstore.interp` and `kernels.ops`) and is applied on the
+    host as a sparse SGD step (`writeback_lr`, 0 = off): to the cache
+    mirror for resident rows, whose slots turn dirty (written back to the
+    host shard on eviction or `flush`) and stale on the device, and to the
+    host tier for the others.  A quantized store dequantizes the touched
+    rows, applies the summed update and requantizes with a fresh per-row
+    scale and stochastic rounding (int8; fp8 rounds to nearest), drawing
+    from its own `np.random.default_rng(0)` in the reference's order, so
+    the same (index, update) sequence gives the reference's payloads bit
+    for bit.
 
-Every mutation of residency, LRU order and `stats` takes the store's
-re-entrant lock.  Not ported yet (ROADMAP A8): the training write-back and
-dirty shards, `mmap` backing, checkpoint shard I/O and `grow_rows`.
+Every mutation of residency, LRU order, the cache mirror and `stats`
+takes the store's re-entrant lock.  Not ported yet (ROADMAP A8): `mmap`
+backing, checkpoint shard I/O (with A9), `grow_rows` (with A10) and fills
+on a side stream.
 """
 
 from __future__ import annotations
@@ -100,6 +115,12 @@ class TieredValueStore(nn.Module):
         self._host = np.zeros(shape, self.storage_dtype)
         self._host_scale = (np.zeros(shape[:-1], np.float32) if quantized
                             else None)
+        # the cache's host mirror: what each slot holds now (fills copy the
+        # host shard in, the write-back updates it, syncs upload from it)
+        cshape = (self.cache_slots, self.shard_rows, m)
+        self.cache_np = np.zeros(cshape, self.storage_dtype)
+        self.cache_scale_np = (np.zeros(cshape[:-1], np.float32)
+                               if quantized else None)
         # device tier: (cache_slots * shard_rows, m) in the payload's raw
         # dtype (fp8 as uint8) and its scales; None until the first sync
         self.device = torch.device("cpu")
@@ -110,8 +131,13 @@ class TieredValueStore(nn.Module):
         self._lru: collections.OrderedDict[int, int] = \
             collections.OrderedDict()
         self._free = list(range(self.cache_slots - 1, -1, -1))
-        self._dev_stale: set[int] = set()
+        self._dirty: set[int] = set()      # slots newer than their shard
+        self._dev_stale: set[int] = set()  # slots newer than the device
         self.last_access: np.ndarray | None = None
+        # training write-back: sparse SGD rate (set by the trainer; 0 =
+        # off) and the stochastic-rounding draws of an int8 requantization
+        self.writeback_lr = 0.0
+        self._wb_rng = np.random.default_rng(0)
         # guards residency, LRU order, the device tier and `stats`; reads of
         # a single stat stay lock-free
         self._lock = threading.RLock()
@@ -151,7 +177,9 @@ class TieredValueStore(nn.Module):
         return store
 
     def to_dense(self) -> np.ndarray:
-        """The full (dequantized) table as an (N, m) fp32 array."""
+        """Flush the dirty slots and return the full (dequantized) table as
+        an (N, m) fp32 array."""
+        self.flush()
         if self.quant == "none":
             return self._host.reshape(self.num_rows, self.m).copy()
         return quant.dequantize_rows_np(self._host, self._host_scale) \
@@ -177,8 +205,9 @@ class TieredValueStore(nn.Module):
 
     def _ensure_resident(self, shards: Iterable[int]) -> None:
         """Make `shards` resident where capacity allows (LRU eviction, the
-        request's own shards pinned); filled slots go stale on the device
-        until the next `_sync_device`."""
+        request's own shards pinned; a dirty victim is written back first).
+        A fill copies the host shard into the cache mirror; the slot goes
+        stale on the device until the next `_sync_device`."""
         pinned = set(int(s) for s in shards)
         with self._lock:
             for s in sorted(pinned):
@@ -194,8 +223,12 @@ class TieredValueStore(nn.Module):
                     if victim is None:  # whole cache pinned by this batch
                         continue
                     slot = self._lru.pop(victim)
+                    self._writeback_slot(slot)
                     self._shard_slot[victim] = -1
                     self.stats["evictions"] += 1
+                self.cache_np[slot] = self._host[s]
+                if self.quant != "none":
+                    self.cache_scale_np[slot] = self._host_scale[s]
                 self._shard_slot[s] = slot
                 self._slot_shard[slot] = s
                 self._lru[s] = slot
@@ -273,19 +306,14 @@ class TieredValueStore(nn.Module):
                 return
             slots = (np.arange(self.cache_slots) if full
                      else np.fromiter(sorted(self._dev_stale), np.int64))
-            shards = self._slot_shard[slots]
-            live = shards >= 0
             R, m = self.shard_rows, self.m
             block = self._staging((len(slots), R, m), self._raw_dtype())
-            dst = block.numpy()
-            dst[live] = self._host[shards[live]]
-            dst[~live] = 0
+            np.take(self.cache_np, slots, axis=0, out=block.numpy())
             sblock = None
             if self.quant != "none":
                 sblock = self._staging((len(slots), R), torch.float32)
-                sdst = sblock.numpy()
-                sdst[live] = self._host_scale[shards[live]]
-                sdst[~live] = 0
+                np.take(self.cache_scale_np, slots, axis=0,
+                        out=sblock.numpy())
             dev = block.to(self.device, non_blocking=True)
             sdev = (sblock.to(self.device, non_blocking=True)
                     if sblock is not None else None)
@@ -306,53 +334,167 @@ class TieredValueStore(nn.Module):
 
     def gather(self, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """sum_k w[..., k] * values[idx[..., k]] -> (..., m) float32 on the
-        store's device.  idx (..., k) int32 and w (..., k) float32 live on
+        store's device, not differentiable (`tiered_interp` and the plan's
+        `lookup` are).  idx (..., k) int32 and w (..., k) float32 live on
         the store's device; idx is read on the host to map shards."""
         lead, top_k = idx.shape[:-1], idx.shape[-1]
-        flat = idx.reshape(-1).cpu().numpy()
-        shard, row, slot, mask = self._map(flat)
+        mapped = self._map(idx.reshape(-1).cpu().numpy())
         self._sync_device()
-        cache = self._payload(self._cache_dev)
-        scales = self._scale_dev
-        quantized = self.quant != "none"
         w2 = w.reshape(-1, top_k).float().contiguous()
-        all_resident = bool(mask.all())
-        if self.spec.use_pallas and all_resident:
+        if self.spec.use_pallas and mapped[3].all():
+            cache = self._payload(self._cache_dev)
             slot_table = torch.from_numpy(self._shard_slot).to(self.device)
             idx2 = idx.reshape(-1, top_k).to(torch.int32).contiguous()
-            if quantized:
+            if self.quant != "none":
                 out = tiered_gather.tiered_gather_quant(
-                    cache, scales, idx2, slot_table, w2,
+                    cache, self._scale_dev, idx2, slot_table, w2,
                     shard_rows=self.shard_rows, resident=True)
             else:
                 out = tiered_gather.tiered_gather(
                     cache, idx2, slot_table, w2,
                     shard_rows=self.shard_rows, resident=True)
             return out.reshape(*lead, self.m)
-        # the reference's XLA route: flat rows into the cache with the
-        # overflow rows appended from the host tier
+        table, scale, rows = self._flat_table(*mapped)
+        kernel = "pallas" if self.spec.use_pallas else "reference"
+        rows = rows.reshape(-1, top_k)
+        if scale is not None:
+            out = lookup.kernel_gather(kernel, "quant")(table, scale, rows,
+                                                       w2)
+        else:
+            out = lookup.kernel_gather(kernel, "fp32")(table, rows, w2)
+        return out.reshape(*lead, self.m)
+
+    def lookup_rows(self, idx: torch.Tensor):
+        """(table, scales or None, rows): the rows a lookup of `idx` reads,
+        as one flat table on the store's device (the cache with the
+        overflow rows appended) and each index's int32 row in it, shaped
+        like idx.  Maps idx first (stats, fills) and syncs the device.
+        The differentiable lookups read through this even when every shard
+        is resident, and keep the table for their backward."""
+        mapped = self._map(idx.reshape(-1).cpu().numpy())
+        self._sync_device()
+        table, scale, rows = self._flat_table(*mapped)
+        return table, scale, rows.reshape(idx.shape)
+
+    def _flat_table(self, shard, row, slot, mask):
+        """The reference's XLA route: flat rows into the device cache with
+        the overflow rows appended from the host tier."""
+        cache = self._payload(self._cache_dev)
+        scales = self._scale_dev
         slot_rows = np.where(mask, slot * self.shard_rows + row, 0)
         table, table_scale = cache, scales
-        if not all_resident:
+        if not mask.all():
             inv = ~mask
             ovf = self._host[shard[inv], row[inv]]
             slot_rows[inv] = cache.shape[0] + np.arange(len(ovf))
             raw = torch.cat([self._cache_dev,
                              torch.from_numpy(ovf).to(self.device)])
             table = self._payload(raw)
-            if quantized:  # overflow rows stay 1-byte: scales ride along
+            if scales is not None:  # overflow rows stay 1-byte + scales
                 ovf_scale = self._host_scale[shard[inv], row[inv]]
                 table_scale = torch.cat(
                     [scales, torch.from_numpy(ovf_scale).to(self.device)])
-        sr = torch.from_numpy(
-            slot_rows.reshape(-1, top_k).astype(np.int32)).to(self.device)
-        kernel = "pallas" if self.spec.use_pallas else "reference"
-        if quantized:
-            out = lookup.kernel_gather(kernel, "quant")(table, table_scale,
-                                                       sr, w2)
-        else:
-            out = lookup.kernel_gather(kernel, "fp32")(table, sr, w2)
-        return out.reshape(*lead, self.m)
+        rows = torch.from_numpy(slot_rows.astype(np.int32)).to(self.device)
+        return table, table_scale, rows
+
+    # ------------------------------------------------------------ training
+
+    def writeback(self, idx: torch.Tensor, w: torch.Tensor,
+                  g: torch.Tensor) -> None:
+        """The table's gradient from a differentiable lookup, applied as
+        the sparse SGD step: idx (..., k), w (..., k) and g (..., m) come
+        to the host (8 bytes an index and weight, 4m a query) and w ⊗ g is
+        formed there in float32, the reference's product.  A no-op while
+        `writeback_lr` is 0."""
+        if self.writeback_lr <= 0.0:
+            return
+        idx_np = idx.detach().cpu().numpy()
+        w_np = w.detach().float().cpu().numpy()
+        g_np = g.detach().float().cpu().numpy()
+        self.apply_writeback(idx_np, w_np[..., None] * g_np[..., None, :])
+
+    def apply_writeback(self, idx, wg) -> None:
+        """Sparse SGD write-back: values[idx] -= writeback_lr * wg.
+
+        `wg` (idx.shape + (m,)) is w ⊗ dL/dout, dL/dvalues restricted to
+        the touched rows.  Resident rows are updated in the cache mirror
+        (their slots turn dirty and stale on the device); rows of other
+        shards update the host tier directly."""
+        if self.writeback_lr <= 0.0:
+            return
+        flat = np.asarray(idx).reshape(-1)
+        upd = -self.writeback_lr * np.asarray(wg, np.float32).reshape(
+            -1, self.m)
+        with self._lock:
+            if self.quant != "none":
+                self._apply_writeback_quant(flat, upd)
+            else:
+                shard, row = self._split(flat)
+                slot = self._shard_slot[shard].astype(np.int64)
+                mask = slot >= 0
+                if mask.any():
+                    np.add.at(self.cache_np, (slot[mask], row[mask]),
+                              upd[mask])
+                    touched = set(np.unique(slot[mask]).tolist())
+                    self._dirty |= touched
+                    self._dev_stale |= touched
+                if not mask.all():
+                    inv = ~mask
+                    np.add.at(self._host, (shard[inv], row[inv]), upd[inv])
+            self.stats["writebacks"] += 1
+
+    def _apply_writeback_quant(self, flat: np.ndarray,
+                               upd: np.ndarray) -> None:
+        """Quantization-aware sparse step: duplicate indices accumulate
+        first; each touched row is dequantized, updated and requantized
+        with a fresh per-row scale and stochastic rounding (int8), the
+        resident rows' draws first, then the host rows'."""
+        uniq, inv = np.unique(flat, return_inverse=True)
+        acc = np.zeros((len(uniq), self.m), np.float32)
+        np.add.at(acc, inv, upd)
+        shard, row = self._split(uniq)
+        slot = self._shard_slot[shard].astype(np.int64)
+        mask = slot >= 0
+        rng = self._wb_rng if self.quant == "int8" else None
+        if mask.any():
+            sl, rw = slot[mask], row[mask]
+            cur = quant.dequantize_rows_np(self.cache_np[sl, rw],
+                                           self.cache_scale_np[sl, rw])
+            q, s = quant.quantize_rows_np(cur + acc[mask], self.quant,
+                                          rng=rng)
+            self.cache_np[sl, rw] = q
+            self.cache_scale_np[sl, rw] = s
+            touched = set(np.unique(sl).tolist())
+            self._dirty |= touched
+            self._dev_stale |= touched
+        if not mask.all():
+            nm = ~mask
+            sh, rw = shard[nm], row[nm]
+            cur = quant.dequantize_rows_np(self._host[sh, rw],
+                                           self._host_scale[sh, rw])
+            q, s = quant.quantize_rows_np(cur + acc[nm], self.quant, rng=rng)
+            self._host[sh, rw] = q
+            self._host_scale[sh, rw] = s
+
+    def _flush_slot_to_host(self, slot: int) -> None:
+        shard = self._slot_shard[slot]
+        self._host[shard] = self.cache_np[slot]
+        if self.quant != "none":
+            self._host_scale[shard] = self.cache_scale_np[slot]
+
+    def _writeback_slot(self, slot: int) -> None:
+        if slot in self._dirty:
+            self._flush_slot_to_host(slot)
+            self._dirty.discard(slot)
+            self.stats["dirty_writebacks"] += 1
+
+    def flush(self) -> None:
+        """Write every dirty cached shard back to its host shard."""
+        with self._lock:
+            for slot in sorted(self._dirty):
+                self._flush_slot_to_host(slot)
+                self.stats["dirty_writebacks"] += 1
+            self._dirty.clear()
 
     # --------------------------------------------------------------- stats
 
@@ -360,7 +502,8 @@ class TieredValueStore(nn.Module):
         with self._lock:
             self.stats = {
                 "lookups": 0, "hits": 0, "misses": 0, "uncached": 0,
-                "fills": 0, "evictions": 0, "fill_bytes": 0,
+                "fills": 0, "evictions": 0, "writebacks": 0,
+                "dirty_writebacks": 0, "fill_bytes": 0,
             }
 
     def bytes_per_entry(self) -> int:

@@ -2,19 +2,21 @@
 counterpart of `repro.quant`).
 
   * **int8** — per-row fp32 scale ``s_r = max|v_r| / 127``; the stored row
-    is ``round(v_r / s_r)`` (half to even, clipped to ±127).
+    is ``round(v_r / s_r)`` (half to even, clipped to ±127), or with an
+    `rng` the unbiased stochastic rounding ``floor(v_r / s_r + u)``,
+    ``u ~ U[0, 1)`` drawn as ``rng.random(shape, dtype=float32)``: the
+    tiered store's training write-back requantizes with it, so updates
+    smaller than one step survive in expectation.
   * **fp8** — ``float8_e4m3fn`` payload with per-row scale
     ``max|v_r| / 448``.  On the host a payload is raw bytes (``uint8``);
     `as_torch_payload` views them as ``torch.float8_e4m3fn``.  No
     `ml_dtypes` is needed.
 
-The order of operations is the reference's (``x / scale``, round, clip),
-so payloads and scales are bit-equal to it.  Gathers dequantize in
+The order of operations and of the random draws is the reference's
+(``x / scale``, round, clip), so payloads and scales are bit-equal to it
+for the same generator state.  Gathers dequantize in
 registers: the weight is multiplied by the row's scale and the 1-byte row
 is read as fp32 (`repro_torch.kernels.gather_interp.gather_interp_quant`).
-
-Not ported yet (ROADMAP): stochastic rounding, which belongs to the tiered
-store's training write-back.
 """
 
 from __future__ import annotations
@@ -75,24 +77,33 @@ def as_torch_payload(q: np.ndarray) -> torch.Tensor:
 # numpy (host side: tiered shards, conversion)
 # ---------------------------------------------------------------------------
 
-def quantize_int8(x: np.ndarray, *, axis=None):
-    """Symmetric int8 quantization with nearest rounding: (q int8, scale).
+def quantize_int8(x: np.ndarray, *, axis=None, rng=None):
+    """Symmetric int8 quantization: (q int8, scale).
 
     axis=None -> one scale for the whole array; axis=-1 -> one per row.
+    rng -> stochastic rounding (unbiased); None rounds to nearest.
     """
     x = np.asarray(x, np.float32)
     amax = np.abs(x).max(axis=axis, keepdims=axis is not None)
     scale = np.maximum(amax, _EPS) / 127.0
-    q = np.clip(np.rint(x / scale), -127, 127).astype(np.int8)
+    y = x / scale
+    if rng is None:
+        q = np.rint(y)
+    else:
+        q = np.floor(y + rng.random(y.shape, dtype=np.float32))
+    q = np.clip(q, -127, 127).astype(np.int8)
     return q, np.squeeze(scale, axis) if axis is not None else float(scale)
 
 
-def quantize_rows_np(v: np.ndarray, kind: str):
-    """Per-row quantization of (..., m) values -> (q, scale (...,))."""
+def quantize_rows_np(v: np.ndarray, kind: str, *, rng=None):
+    """Per-row quantization of (..., m) values -> (q, scale (...,)).
+
+    int8 rounds stochastically with an `rng`; fp8 always rounds to
+    nearest (its grid is not uniform) and ignores it."""
     check_kind(kind)
     v = np.asarray(v, np.float32)
     if kind == "int8":
-        return quantize_int8(v, axis=-1)
+        return quantize_int8(v, axis=-1, rng=rng)
     amax = np.abs(v).max(axis=-1)
     scale = (np.maximum(amax, _EPS) / _QMAX["fp8"]).astype(np.float32)
     y = np.ascontiguousarray(v / scale[..., None])

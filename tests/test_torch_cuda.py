@@ -258,3 +258,151 @@ def test_smoke_train_steps_on_card_match_cpu(cuda_device):
     for a, b in zip(card.records, cpu.records):
         np.testing.assert_allclose([a["loss"], a["grad_norm"]],
                                    [b["loss"], b["grad_norm"]], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["dq", "dw"])
+@pytest.mark.parametrize("kind", ["none", "int8", "fp8"])
+@pytest.mark.parametrize("n", [1, 128, 2048])
+def test_backward_without_scatter_matches_plain_on_card(cuda_device, kind,
+                                                        stage, n):
+    """The instances without scatter (fp32 rows: `lookup_bwd_rows`; 1-byte
+    rows with per-row scales: `lookup_bwd_quant`, B4's VJP without dq)
+    over a shuffled flat table, as a tiered store's flat route hands it
+    over, against `lookup_bwd_plain` with the same rows: dq / dw to rtol
+    1e-4 / atol 1e-5 (sums in another order), one launch each."""
+    spec, q, idx, w, values, g = _bwd_inputs(cuda_device, n, log2=16)
+    perm = torch.randperm(values.shape[0], device=cuda_device)
+    rows = torch.argsort(perm)[idx.long()].int().contiguous()
+    table, scale = values[perm].contiguous(), None
+    if kind != "none":
+        pay, s = quant.quantize_rows_np(table.cpu().numpy(), kind)
+        table = quant.as_torch_payload(pay).to(cuda_device)
+        scale = torch.from_numpy(s).to(cuda_device)
+    extra = {"idx": idx, "q": q, "spec": spec} if stage == "dq" else {}
+    fn = ops.lookup_bwd_rows if kind == "none" else ops.lookup_bwd_quant
+    args = (table, rows) if kind == "none" else (table, scale, rows)
+    before = fn.launches
+    got = fn(*args, w, g, **extra)
+    assert fn.launches == before + 1
+    _, want = ops.lookup_bwd_plain(table, idx, w, g, extra.get("q"), spec,
+                                   scale=scale, rows=rows, scatter=False)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == ((n, 8) if stage == "dq" else (n, 32))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_gather_interp_quant_vjp_on_card(cuda_device, kind):
+    """B4 raises under grad mode when w needs a gradient; its VJP form
+    carries one: dw equal to the plain version's (rtol 1e-4 / atol
+    1e-5), with one launch of the backward kernel."""
+    spec, q, idx, w, values, g = _bwd_inputs(cuda_device, 64, log2=16)
+    pay, s = quant.quantize_rows_np(values.cpu().numpy(), kind)
+    tq = quant.as_torch_payload(pay).to(cuda_device)
+    ts = torch.from_numpy(s).to(cuda_device)
+    wg = w.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        gather_interp.gather_interp_quant(tq, ts, idx, wg)
+    before = ops.lookup_bwd_quant.launches
+    out = gather_interp.gather_interp_quant_vjp(tq, ts, idx, wg)
+    (out * g).sum().backward()
+    assert ops.lookup_bwd_quant.launches == before + 1
+    _, want = ops.lookup_bwd_plain(tq, idx, w, g, scale=ts, scatter=False)
+    torch.testing.assert_close(wg.grad, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["lram-tiered", "lram-tiered-q8"])
+def test_tiered_smoke_train_on_card_matches_cpu(cuda_device, arch):
+    """Three smoke steps of a tiered arch through the training CLI on the
+    card (K2, K1 or B4 over the flat route, the backward without scatter,
+    the host write-back) and on the CPU (plain versions): losses and grad
+    norms to rtol 1e-4, one backward launch and one write-back a step."""
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--smoke", "--steps", "3", "--batch", "4",
+            "--seq", "32"]
+    fn = ops.lookup_bwd_rows if arch == "lram-tiered" else \
+        ops.lookup_bwd_quant
+    before = fn.launches
+    card = train.main(argv + ["--device", "cuda"])
+    assert fn.launches == before + 3
+    cpu = train.main(argv + ["--device", "cpu"])
+    assert card.stores[0].stats["writebacks"] == 3
+    for a, b in zip(card.records, cpu.records):
+        np.testing.assert_allclose([a["loss"], a["grad_norm"]],
+                                   [b["loss"], b["grad_norm"]], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_dense_quantized_layer_gradient_on_card_matches_cpu(cuda_device,
+                                                            kind):
+    """A dense 1-byte table's memory layer in train mode is differentiable
+    in its input on the card (K2, B4, then `lookup_bwd_quant` with dq; the
+    table frozen): y and dL/dx equal the CPU's plain path to rtol 1e-4 /
+    atol 1e-5."""
+    from repro_torch.core import lram
+
+    cfg = LRAMConfig(log2_locations=16, heads=2, query_norm="batch",
+                     interp_impl="pallas", table_quant=kind)
+    layer = lram.LRAM(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(3, 5, 32, generator=torch.Generator().manual_seed(1))
+    g = torch.randn(3, 5, 128, generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tx = x.to(dev).detach().requires_grad_()
+        before = ops.lookup_bwd_quant.launches
+        y = lram.lram_apply(layer.to(dev), tx, train=True)
+        (y * g.to(dev)).sum().backward()
+        launched = ops.lookup_bwd_quant.launches - before
+        out[str(dev)] = (y.detach().cpu(), tx.grad.cpu(), launched)
+    (y0, g0, n0), (y1, g1, n1) = out["cpu"], out[str(cuda_device)]
+    assert (n0, n1) == (0, 1)
+    torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "int8"])
+def test_tiered_interp_on_card_matches_cpu(cuda_device, kind):
+    """`tiered_interp` differentiable in w, on a card store and a CPU store
+    with fewer slots than the lookup names shards (K1 or B4 over the flat
+    route, then the backward without scatter with dw, then the host
+    write-back): y and dw to rtol 1e-4 / atol 1e-5, one backward launch,
+    equal stats and dirty sets, tables to atol 1e-6 (fp32; w (x) g formed
+    from the same numbers) or equal payloads (int8: the same stochastic
+    draws on the host)."""
+    from repro_torch.memstore.interp import tiered_interp
+
+    rng = np.random.default_rng(0)
+    dense = rng.normal(size=(16 * 256, 64)).astype(np.float32)
+    spec = TieredSpec(shard_rows=256, cache_slots=4, use_pallas=True,
+                      quant=kind)
+    idx = rng.integers(0, dense.shape[0], (64, 32)).astype(np.int32)
+    w = rng.uniform(0, 1, (64, 32)).astype(np.float32)
+    g = rng.normal(size=(64, 64)).astype(np.float32)
+    fn = ops.lookup_bwd_rows if kind == "none" else ops.lookup_bwd_quant
+    out = {}
+    for dev in ("cpu", cuda_device):
+        store = TieredValueStore.from_dense(dense, spec).to(dev)
+        store.writeback_lr = 1e-2
+        tw = torch.from_numpy(w).to(dev).requires_grad_()
+        before = fn.launches
+        y = tiered_interp(store, torch.from_numpy(idx).to(dev), tw)
+        (y * torch.from_numpy(g).to(dev)).sum().backward()
+        out[str(dev)] = (y.detach().cpu(), tw.grad.cpu(),
+                         fn.launches - before, dict(store.stats),
+                         set(store._dirty), store.to_dense())
+    (y0, dw0, n0, st0, d0, t0), (y1, dw1, n1, st1, d1, t1) = \
+        out["cpu"], out[str(cuda_device)]
+    assert (n0, n1) == (0, 1)
+    torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dw1, dw0, rtol=1e-4, atol=1e-5)
+    assert st0 == st1 and st1["writebacks"] == 1 and d0 == d1
+    if kind == "none":
+        np.testing.assert_allclose(t1, t0, rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(t1, t0)

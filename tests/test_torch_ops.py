@@ -1,7 +1,10 @@
-"""Port parity: the differentiable lookup (`ops.lram_lookup`, B3), the
-gather's VJP (`gather_interp_vjp`, B1), the integer inverse of the torus
-index, the torus map's gradients, and the memory layer's gradients in
-both kernel cells.
+"""Port parity: the differentiable lookup (`ops.lram_lookup`, B3, and its
+row-source form for 1-byte and tiered tables), the gathers' VJPs
+(`gather_interp_vjp`, B1; `gather_interp_quant_vjp`, B4), the backward's
+instances without scatter, the integer inverse of the torus index, the
+torus map's gradients, and the memory layer's gradients in every cell
+that trains: dense fp32 (both kernel cells), dense int8 / fp8 (frozen
+table) and tiered fp32 / int8 (write-back).
 
 On the CPU the backward kernel's wrapper takes `lookup_bwd_plain`; the
 kernel itself is held against it on the card by `test_torch_cuda.py`.
@@ -14,14 +17,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro import memstore as j_memstore
+from repro import quant as j_quant
 from repro.core import indexing as j_indexing
 from repro.core import lram as j_lram
 from repro.core import torus as j_torus
 from repro.kernels import gather_interp as j_gather
 from repro.kernels import ops as j_ops
+from repro_torch import quant
 from repro_torch.core import indexing, lram, torus
 from repro_torch.kernels import gather_interp, ops
 from repro_torch.launch.convert import _flatten
+from repro_torch.memstore import TieredSpec, TieredValueStore
 
 SPEC, J_SPEC = indexing.choose_torus(16), j_indexing.choose_torus(16)
 
@@ -210,3 +217,246 @@ def test_lram_apply_train_gradients_match_jax(impl):
         np.testing.assert_allclose(
             getattr(layer.qnorm, k).grad.numpy(),
             np.asarray(j_gp["qnorm"][k]), rtol=1e-4, atol=1e-5)
+
+
+def _port_payload(q) -> np.ndarray:
+    """A reference payload in the port's host form (fp8 as uint8 bytes)."""
+    q = np.array(q)  # a writable copy
+    return q if q.dtype == np.int8 else q.view(np.uint8)
+
+
+def _quant_inputs(kind: str, seed: int):
+    """A table quantized by the reference, its dequantized rows, and a
+    flat table of shuffled rows with each index's row in it (the layout a
+    tiered store's flat route hands the backward)."""
+    values, q, g = _lookup_inputs(seed, n=30)
+    j_table = j_quant.QuantizedTable.from_dense(values, kind)
+    payload, scale = np.asarray(j_table.q), np.asarray(j_table.scale)
+    j_idx, j_w = j_lram.indices_and_weights(jnp.asarray(q), J_SPEC, 32)
+    idx, w = np.asarray(j_idx), np.asarray(j_w)
+    perm = np.random.default_rng(seed).permutation(SPEC.num_locations)
+    inv = np.argsort(perm)
+    return (values, q, g, j_table, payload, scale, idx, w,
+            perm, inv[idx].astype(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_lookup_bwd_quant_plain_matches_jax(kind):
+    """The 1-byte instances' plain versions (`lookup_bwd_plain` with
+    scale, no scatter) against the reference's backwards: dw against B4's
+    VJP (`gather_interp_quant`'s `_quant_bwd`, row 8 exactly) to rtol 1e-5
+    / atol 1e-6, the same over shuffled rows, and dq against B3's on the
+    dequantized table to rtol 1e-4 / atol 1e-5 (the scale multiplies the
+    dot here, the row there: float32 rounding)."""
+    (_, q, g, j_table, payload, scale, idx, w, perm,
+     rows) = _quant_inputs(kind, 3)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    tq = quant.as_torch_payload(_port_payload(payload))
+    _, _, _, j_dw = j_gather._quant_bwd(
+        True, (j_table.q, j_table.scale, jnp.asarray(idx), jnp.asarray(w)),
+        jnp.asarray(g))
+    dw = ops.lookup_bwd_quant(tq, t(scale), t(idx), t(w), t(g))
+    np.testing.assert_allclose(dw.numpy(), np.asarray(j_dw), rtol=1e-5,
+                               atol=1e-6)
+    dw_rows = ops.lookup_bwd_quant(tq[t(perm)], t(scale[perm]), t(rows),
+                                   t(w), t(g))
+    np.testing.assert_array_equal(dw_rows.numpy(), dw.numpy())
+    res = (j_table.dequantize(), jnp.asarray(q), jnp.asarray(idx),
+           jnp.asarray(w))
+    _, j_dq = j_ops._lookup_bwd(J_SPEC, 32, False, True, res, jnp.asarray(g))
+    dq = ops.lookup_bwd_quant(tq[t(perm)], t(scale[perm]), t(rows), t(w),
+                              t(g), idx=t(idx), q=t(q), spec=SPEC)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(j_dq), rtol=1e-4,
+                               atol=1e-5)
+    assert ops.lookup_bwd_quant.launches == 0  # CPU: the plain version
+
+
+def test_lookup_bwd_rows_plain_matches_jax():
+    """The fp32 instances without scatter (a tiered store's flat route)
+    over shuffled rows against the reference's backwards on the dense
+    table: dq against B3's to rtol 1e-4 / atol 1e-5, dw against B1's VJP
+    to 1e-5, and both equal to the scatter instances' plain dq / dw."""
+    (values, q, g, _, _, _, idx, w, perm, rows) = _quant_inputs("int8", 4)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    res = tuple(jnp.asarray(a) for a in (values, q, idx, w))
+    _, j_dq = j_ops._lookup_bwd(J_SPEC, 32, False, True, res, jnp.asarray(g))
+    _, _, j_dw = j_gather._vjp_bwd(True, res[:1] + res[2:], jnp.asarray(g))
+    flat = t(values[perm])
+    dq = ops.lookup_bwd_rows(flat, t(rows), t(w), t(g), idx=t(idx), q=t(q),
+                             spec=SPEC)
+    dw = ops.lookup_bwd_rows(flat, t(rows), t(w), t(g))
+    np.testing.assert_allclose(dq.numpy(), np.asarray(j_dq), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(j_dw), rtol=1e-5,
+                               atol=1e-5)
+    _, dq_dense = ops.lookup_bwd(t(values), t(idx), t(w), t(g), q=t(q),
+                                 spec=SPEC)
+    _, dw_dense = ops.lookup_bwd(t(values), t(idx), t(w), t(g))
+    torch.testing.assert_close(dq, dq_dense, rtol=0, atol=0)
+    torch.testing.assert_close(dw, dw_dense, rtol=0, atol=0)
+    assert ops.lookup_bwd_rows.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_gather_interp_quant_vjp_matches_pallas_vjp(kind):
+    """gather_interp_quant_vjp against the reference's gather_interp_quant
+    (the Pallas gather in interpret mode, its dw-only custom VJP): out and
+    dw to 1e-5; the table gets no gradient."""
+    rng = np.random.default_rng(8)
+    j_table = j_quant.QuantizedTable.from_dense(
+        rng.normal(size=(64, 8)).astype(np.float32), kind)
+    idx = rng.integers(0, 64, size=(2, 3, 4)).astype(np.int32)
+    w = rng.uniform(size=(2, 3, 4)).astype(np.float32)
+    g = rng.normal(size=(2, 3, 8)).astype(np.float32)
+    j_out, j_vjp = jax.vjp(
+        lambda ww: j_gather.gather_interp_quant(
+            j_table.q, j_table.scale, jnp.asarray(idx), ww, True),
+        jnp.asarray(w))
+    (j_dw,) = j_vjp(jnp.asarray(g))
+    tq = quant.as_torch_payload(_port_payload(j_table.q))
+    ts = torch.from_numpy(np.array(j_table.scale))
+    tw = torch.from_numpy(w).requires_grad_()
+    out = gather_interp.gather_interp_quant_vjp(tq, ts, torch.from_numpy(idx),
+                                                tw)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
+                               atol=1e-5)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(j_dw), atol=1e-5)
+    assert ts.grad is None
+
+
+def _qnorm_state(layer, params, state):
+    sd = _flatten(jax.tree.map(np.asarray, {
+        k: v for k, v in params.items() if k != "values"}))
+    sd.update(_flatten(jax.tree.map(np.asarray, state)))
+    missing, unexpected = layer.load_state_dict(
+        {k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+        strict=False)
+    assert not unexpected
+
+
+def _layer_inputs(seed):
+    rng = np.random.default_rng(seed)
+    table = (rng.normal(size=(SPEC.num_locations, 64)) * 0.5).astype(
+        np.float32)
+    x = rng.normal(size=(3, 5, 32)).astype(np.float32)
+    g = rng.normal(size=(3, 5, 128)).astype(np.float32)
+    return table, x, g
+
+
+def _port_grad(layer, x, g):
+    tx = torch.from_numpy(x).requires_grad_()
+    y = lram.lram_apply(layer, tx, train=True)
+    (y * torch.from_numpy(g)).sum().backward()
+    return y.detach().numpy(), tx.grad.numpy()
+
+
+def _jax_grad(params, state, x, g, j_cfg):
+    def j_loss(xx):
+        y, _ = j_lram.lram_apply(params, state, xx, j_cfg, train=True)
+        return jnp.sum(y * g), y
+
+    (_, j_y), j_gx = jax.value_and_grad(j_loss, has_aux=True)(
+        jnp.asarray(x))
+    return np.asarray(j_y), np.asarray(j_gx)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_dense_quantized_lram_apply_gradients_match_jax(kind):
+    """The dense 1-byte cell (frozen table) in train mode: y and dL/dx of
+    the port's pallas cell (the joined lookup over the table's own rows,
+    dq from the 1-byte backward's plain version) against jax.grad of the
+    reference's pallas cell (`gather_interp_quant` in interpret mode, its
+    dw-only VJP, autodiff through the weights): y to 1e-5, dx to rtol 1e-4
+    / atol 1e-5.  The table gets no gradient."""
+    table, x, g = _layer_inputs(9)
+    kw = dict(log2_locations=16, heads=2, query_norm="batch",
+              interp_impl="pallas", table_quant=kind)
+    j_cfg, cfg = j_lram.LRAMConfig(**kw), lram.LRAMConfig(**kw)
+    params, state = j_lram.lram_init(jax.random.PRNGKey(9), j_cfg)
+    params["values"] = j_quant.QuantizedTable.from_dense(table, kind)
+    layer = lram.LRAM(cfg)
+    _qnorm_state(layer, params, state)
+    layer.values = quant.QuantizedTable.from_payload(
+        _port_payload(params["values"].q), np.asarray(params["values"].scale),
+        kind)
+    j_y, j_gx = _jax_grad(params, state, x, g, j_cfg)
+    y, gx = _port_grad(layer, x, g)
+    np.testing.assert_allclose(y, j_y, atol=1e-5)
+    np.testing.assert_allclose(gx, j_gx, rtol=1e-4, atol=1e-5)
+    assert np.abs(j_gx).max() > 1e-2
+    assert all(b.grad is None for b in layer.values.buffers())
+
+
+@pytest.mark.parametrize("slots", [2, 16], ids=["overflow", "resident"])
+@pytest.mark.parametrize("kind", ["none", "int8"])
+def test_tiered_lram_apply_gradients_and_writeback_match_jax(kind, slots):
+    """The tiered cells in train mode, with a cache that overflows (2 of 16
+    shards) and one that holds every shard: y and dL/dx of the port's
+    joined lookup (K2, the flat route, dq from the backward's plain
+    version, then the write-back) against jax.grad of the reference's
+    traced tiered lookup (io_callback forward and write-back): y to 1e-5,
+    dx to rtol 1e-4 / atol 1e-5.  After the one write-back each: the
+    stats (the reference's traced forward never uploads, so fill bytes
+    are left out) and dirty sets equal, and the tables to atol 1e-6 (fp32)
+    or rtol 1e-6 (int8: w ⊗ g differs in float32 rounding, which may move
+    a fresh scale by its last bit)."""
+    table, x, g = _layer_inputs(10)
+    spec_kw = dict(shard_rows=4096, cache_slots=slots, quant=kind)
+    kw = dict(log2_locations=16, heads=2, query_norm="batch",
+              interp_impl="tiered")
+    j_cfg = j_lram.LRAMConfig(**kw, tiered=j_memstore.TieredSpec(**spec_kw))
+    cfg = lram.LRAMConfig(**kw, tiered=TieredSpec(**spec_kw))
+    params, state = j_lram.lram_init(jax.random.PRNGKey(10), j_cfg)
+    j_store = j_memstore.TieredValueStore.from_dense(
+        table, j_memstore.TieredSpec(**spec_kw))
+    params["values"] = j_store
+    layer = lram.LRAM(cfg)
+    _qnorm_state(layer, params, state)
+    spec = layer.values.spec
+    if kind == "none":
+        layer.values = TieredValueStore.from_dense(table, spec)
+    else:
+        layer.values = TieredValueStore.from_payload(
+            np.asarray(j_store._host).reshape(table.shape),
+            np.asarray(j_store._host_scale).reshape(-1), spec)
+    store = layer.values
+    j_store.writeback_lr = store.writeback_lr = 0.5
+    before = store.to_dense()
+    j_y, j_gx = _jax_grad(params, state, x, g, j_cfg)
+    y, gx = _port_grad(layer, x, g)
+    np.testing.assert_allclose(y, j_y, atol=1e-5)
+    np.testing.assert_allclose(gx, j_gx, rtol=1e-4, atol=1e-5)
+    keys = set(j_store.stats) - {"fill_bytes"}
+    assert {k: store.stats[k] for k in keys} == \
+        {k: j_store.stats[k] for k in keys}
+    assert store.stats["writebacks"] == 1
+    assert (store.stats["uncached"] > 0) == (slots == 2)
+    assert store._dirty == j_store._dirty
+    after = store.to_dense()
+    assert not np.array_equal(after, before)
+    if kind == "none":
+        np.testing.assert_allclose(after, j_store.to_dense(), atol=1e-6)
+    else:
+        np.testing.assert_allclose(after, j_store.to_dense(), rtol=1e-6,
+                                   atol=0)
+
+
+def test_tiered_lookup_without_grad_writes_nothing():
+    """Under no_grad (serving, evaluate) the tiered lookup is the store's
+    eager gather: the same output as the training route, no write-back."""
+    table, x, _ = _layer_inputs(11)
+    cfg = lram.LRAMConfig(log2_locations=16, heads=2, query_norm="rms",
+                          interp_impl="tiered",
+                          tiered=TieredSpec(shard_rows=4096, cache_slots=16))
+    layer = lram.LRAM(cfg)
+    layer.values = TieredValueStore.from_dense(table, layer.values.spec)
+    layer.values.writeback_lr = 1.0
+    with torch.no_grad():
+        y0 = lram.lram_apply(layer, torch.from_numpy(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    y1 = lram.lram_apply(layer, tx)
+    assert layer.values.stats["writebacks"] == 0
+    torch.testing.assert_close(y1.detach(), y0, rtol=1e-6, atol=1e-6)
+    y1.sum().backward()
+    assert layer.values.stats["writebacks"] == 1

@@ -1,6 +1,9 @@
-"""Port parity for the training slice as a whole: `lram-bert-medium` (smoke)
-on weights converted from the JAX package, against the JAX model, its
-`loss_fn` under `jax.grad` and its train step, and the training CLI.
+"""Port parity for the training slices as a whole: `lram-bert-medium`
+(smoke) on weights converted from the JAX package, against the JAX model,
+its `loss_fn` under `jax.grad` and its train step; `lram-tiered` and
+`lram-tiered-q8` (smoke) through the tiered store's write-back against the
+JAX train step with its traced io_callback write-back, bound as
+`repro.launch.train` binds it; and the training CLI.
 
 The reference runs its `reference` cell (its default for lram-bert); the
 port runs both its `pallas` cell (the CUDA kernels' plain versions on the
@@ -19,6 +22,7 @@ import torch
 
 from repro import configs as j_configs
 from repro import data as j_data
+from repro import memstore as j_memstore
 from repro import optim as j_optim
 from repro.launch import train as j_train
 from repro.models import transformer as j_tf
@@ -250,9 +254,104 @@ def test_cli_trains_on_the_cpu(capsys):
     ["--simulate-failure-at", "1"],
     ["--compression", "int8"], ["--telemetry"], ["--grow-at", "2:17"],
     ["--use-mesh"], ["--metrics-dir", "x"], ["--profile-dir", "x"],
-    ["--placement", "tiered"],
+    ["--placement", "sharded"],
 ])
 def test_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="ROADMAP"):
         train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                     "--steps", "1", *flag])
+
+
+def test_cli_refuses_a_frozen_dense_table():
+    """A dense int8 table is frozen: the reference trains a quantized
+    table only through the tiered store's write-back."""
+    with pytest.raises(SystemExit, match="frozen.*tiered store"):
+        train.main(["--arch", "lram-tiered-q8", "--smoke", "--device",
+                    "cpu", "--steps", "1", "--placement", "pallas"])
+
+
+@pytest.mark.parametrize("arch", ["lram-tiered", "lram-tiered-q8"])
+def test_cli_trains_tiered_tables_on_the_cpu(arch, capsys):
+    """The tiered archs train through the CLI: one write-back a step, the
+    table changed, the cache hit rate in every step's line, nothing dirty
+    after the final flush, and Adam never sees the store's table."""
+    run = train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--json", "--steps", "2", "--batch", "2", "--seq",
+                      "16"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert all(0 <= x["cache_hit"] <= 1 for x in lines if "step" in x)
+    (store,) = run.stores
+    assert store.stats["writebacks"] == 2 and not store._dirty
+    assert store.writeback_lr == pytest.approx(1e-3)
+    assert lines[-1]["cache"][0]["writebacks"] == 2
+    assert not any("values" in k for k in run.opt_state["mu"])
+
+
+@pytest.mark.parametrize("arch", ["lram-tiered", "lram-tiered-q8"])
+def test_tiered_train_steps_track_jax(arch):
+    """10 steps of the smoke tiered config from converted weights on the
+    reference's batches (batch 4, seq 32, lr 1e-4, write-back rate 1e-3),
+    against the JAX train step with its traced write-back.  Every step's
+    loss to rtol 1e-4; after the last step the store's stats (fill bytes
+    aside: the reference's traced forward reads the host mirror and never
+    uploads) and dirty set equal.  The table: fp32 to atol 1e-5 of the
+    reference's; int8 payloads may differ where w ⊗ g's float32 rounding
+    (another framework's g) flips a stochastic floor: at most 1e-4 of the
+    elements, by one step, and the scales to rtol 1e-6 (on this run no
+    element differs)."""
+    j_cfg = j_configs.get_smoke_config(arch)
+    params, state = j_tf.init(jax.random.PRNGKey(0), j_cfg)
+    model = convert.model_from_jax(
+        _numpy_tree(params), jax.tree.map(np.asarray, state),
+        configs.get_smoke_config(arch), device="cpu")
+    dcfg = j_data.DataConfig(vocab_size=j_cfg.vocab_size, seq_len=SEQ,
+                             global_batch=BATCH, objective=j_cfg.objective,
+                             seed=0)
+    (_, j_store), = j_memstore.find_stores(params)
+    j_store.writeback_lr = 1e-3
+    j_store.warm()
+    (store,) = train.bind_stores(model, 1e-3)
+    j_step = j_train.build_train_step(j_cfg, j_optim.OptimConfig(lr=1e-4))
+    j_opt, residual = j_optim.adam_init(params), jnp.zeros(())
+    opt_state = optim.adam_init(dict(model.named_parameters()))
+    step = train.build_train_step(model, optim.OptimConfig(lr=1e-4))
+    losses, j_losses = [], []
+    for s in range(10):
+        b = j_data.get_batch(dcfg, step=s)
+        params, j_opt, state, residual, jm = j_step(
+            params, j_opt, state, residual, jax.tree.map(jnp.asarray, b))
+        j_losses.append(float(jm["loss"]))
+        losses.append(step(opt_state, _tbatch(b))["loss"].item())
+    np.testing.assert_allclose(losses, j_losses, rtol=1e-4)
+    keys = set(j_store.stats) - {"fill_bytes"}
+    assert {k: store.stats[k] for k in keys} == \
+        {k: j_store.stats[k] for k in keys}
+    assert store.stats["writebacks"] == 10
+    assert store._dirty == j_store._dirty
+    if store.quant == "none":
+        np.testing.assert_allclose(store.to_dense(), j_store.to_dense(),
+                                   atol=1e-5)
+        return
+    store.flush()
+    j_store.flush()
+    got = store._host.astype(np.int32)
+    want = np.asarray(j_store._host).astype(np.int32)
+    assert np.abs(got - want).max() <= 1
+    assert np.count_nonzero(got != want) <= 1e-4 * got.size
+    np.testing.assert_allclose(store._host_scale, j_store._host_scale,
+                               rtol=1e-6)
+
+
+def _numpy_tree(tree):
+    """The reference's params with every array as numpy and every tiered
+    store as the table the converter takes (read shard by shard)."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, j_memstore.TieredValueStore):
+        shards = range(tree.num_shards)
+        payload = np.concatenate([tree.shard_host(i) for i in shards])
+        if tree.quant == "none":
+            return payload
+        return {"q": payload, "scale": np.concatenate(
+            [tree.shard_scale_host(i) for i in shards])}
+    return np.asarray(tree)
