@@ -28,6 +28,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
        `F.embedding_bag` to its per-sample weights) and
        `lookup_bwd_quant` (int8 and e4m3 rows, with dq: path (b)'s
        backward; with dw: B4's VJP);
+       row 9's kernels at n = 128, 2048 and 32768 (one data rank's n on
+       the mesh step), on both halves of the table (2^19-row shards at
+       base 0 and 2^19): the range gather over fp32 (library yardstick
+       `F.embedding_bag` with the clamped rows and masked weights), int8
+       and e4m3 shards, and the range backward (fp32 with scatter,
+       1-byte without; each with dq and with dw);
   4. serve at full width through `repro_torch.launch.serve.main --warmup`
      (every prefill bucket and one decode tick first; then 8 requests, 4
      slots, prompts <= 64, generation <= 32, all queued at t=0).  Each
@@ -54,6 +60,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
      steps 16-20 is below that of steps 1-5.  Step-time median over steps
      6-20, tokens/s, peak device memory; then one more step under
      torch.profiler (busy share, top kernels);
+ 6b. the mesh: 4 ranks spawned on the one card (gloo, which sums CUDA
+     tensors through host memory: data 2 x model 2, the 2^20-row table
+     row-sharded over model, 128 MiB a rank).  Each rank checks two
+     full-width forwards first: the first eval batch's logits on its
+     shard against the dense pallas table's (1e-5), and the sharded int8
+     and e4m3 cells' `lram_apply` against the dense 1-byte cell's (B4) on
+     the same payloads (1e-5).  Then `train.main` (`--placement sharded
+     --use-mesh --batch 8 --seq 256 --steps 20`: n = 32,768 lookups a
+     rank a step), launch counts reset just before and read just after;
+     fails unless K2, the range gather and the range backward launched
+     on every rank (the backward once a step), the losses are finite and
+     fall, and they match phase 6's (rtol 1e-4 over steps 1-5, 1e-3 over
+     all 20: atomics sum in another order).  Step-time median, tokens/s,
+     peak memory per rank, and two more steps with every sum across
+     ranks timed (their share of the step);
   7. train `lram-tiered` (path (a)) and `lram-tiered-q8` (path (b)) at
      full width on their own tiered spec through `train.main` (`--batch 8
      --seq 64 --steps 20`: n = 16,384 lookups a step, the table in host
@@ -84,6 +105,7 @@ import dataclasses
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -93,13 +115,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 # fails here, printing nothing, when the checkout around the script is missing
 from repro_torch import configs, data, quant  # noqa: E402
 from repro_torch.core import indexing  # noqa: E402
+from repro_torch.distributed import collectives, sharding  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, e8_lookup, gather_interp, ops, tiered_gather)
+    _build, e8_lookup, gather_interp, ops, sharded_gather, tiered_gather)
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.memstore import TieredValueStore  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -112,6 +137,8 @@ FP32_OPS_PER_S = 67e12
 SHAPES = (128, 2048, 65536)  # decode tick (4 slots x 32 heads), 64-token
 #                              prefill (64 x 32 heads), a large batch
 ROWS_SHAPES = (128, 2048, 16384, 65536)  # + the tiered train step's n
+RANGE_SHAPES = (128, 2048, 32768)  # + one data rank's n on the mesh step
+RANGE_ROWS = 2**19  # one rank's shard of the 2^20-row table, model 2
 TOP_K = 32
 LOG2_LOCATIONS = 20
 M = 64
@@ -145,11 +172,27 @@ KERNELS = {
     "lookup_bwd_quant": (ops.lookup_bwd_quant, f"{CSRC}/lookup_bwd.cu",
                          "src/repro/kernels/gather_interp.py:148 (B4's "
                          "VJP, backward :165)"),
+    "sharded_gather": (sharded_gather.sharded_gather,
+                       f"{CSRC}/sharded_gather.cu",
+                       "src/repro/distributed/sharded_lram.py:62 "
+                       "(sharded_gather_interp, fp32 shard :92-102: "
+                       "src/repro/kernels/gather_interp.py:73)"),
+    "sharded_gather_quant": (sharded_gather.sharded_gather_quant,
+                             f"{CSRC}/sharded_gather.cu",
+                             "src/repro/distributed/sharded_lram.py:62 "
+                             "(sharded_gather_interp, 1-byte shard "
+                             ":104-118: src/repro/kernels/"
+                             "gather_interp.py:138)"),
+    "lookup_bwd_range": (ops.lookup_bwd_range, f"{CSRC}/lookup_bwd.cu",
+                         "src/repro/distributed/sharded_lram.py:62 (the "
+                         "autodiff of its shard-local gathers: "
+                         "src/repro/kernels/gather_interp.py:206, :165)"),
 }
 # the shape of the kernels line's headline numbers: the serving decode tick
 # (n = 128), or a train step's n for the backward kernel's instances
 HEAD_N = {"lookup_bwd": 65536, "lookup_bwd_rows": 16384,
-          "lookup_bwd_quant": 16384}
+          "lookup_bwd_quant": 16384, "sharded_gather": 32768,
+          "sharded_gather_quant": 32768, "lookup_bwd_range": 32768}
 
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "64", "--gen", "32",
               "--requests", "8", "--seed", "0", "--warmup"]
@@ -491,7 +534,127 @@ def kernel_phase(device):
                 extra={"payload": kind, "distinct_rows": distinct}))
     for n in ROWS_SHAPES:
         no_scatter_rows(rows, n, spec, values, tables, wrap, gen)
+    for n in RANGE_SHAPES:
+        range_rows(rows, n, spec, values, tables, wrap, gen)
     return rows
+
+
+def range_rows(rows, n, spec, values, tables, wrap, gen):
+    """Row 9's kernels at one n, on both halves of the table split over a
+    2-way model axis (shards of 2^19 rows at base 0 and 2^19) with K2's
+    indices (K2 itself where the serving shapes do not hold n): the range
+    gather over fp32 (to K1's tolerance, 1e-5; library yardstick
+    `F.embedding_bag` over the shard with the clamped indices and the
+    masked weights) and int8 / e4m3 shards (B4's, rtol 2e-5 / atol 1e-6),
+    and the range backward, fp32 (scatter into the shard's dvalues) and
+    1-byte (no scatter), each with dq and with dw, against
+    `lookup_bwd_plain` with the range mask (dvalues atol 1e-5, atomics;
+    dq / dw rtol 1e-4 / atol 1e-5)."""
+    q = torch.rand(n, 8, generator=gen, device=values.device) * wrap
+    if n in SHAPES:
+        idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+    else:
+        idx, w = k2_row(rows, n, q, spec, values)
+    g = torch.randn(n, M, generator=gen, device=values.device)
+    for base in (0, RANGE_ROWS):
+        shard = values[base:base + RANGE_ROWS]
+        rel, ok = sharded_gather.local_rows(idx, base, RANGE_ROWS)
+        wm = (w * ok).contiguous()
+        distinct = torch.unique(idx[ok]).numel()
+        where = {"base": base, "shard_rows": RANGE_ROWS,
+                 "in_range_share": float(ok.float().mean()),
+                 "distinct_rows": distinct}
+        rows["sharded_gather"].append(measure(
+            "range gather (fp32)", n,
+            lambda: sharded_gather.sharded_gather(shard, idx, w, base),
+            lambda: sharded_gather.sharded_gather_plain(shard, idx, w, base),
+            (1e-5, 1e-5), device_kernel="sharded_gather_kernel",
+            bound=gather_bound(distinct, 4 * M, n), extra=where,
+            library=lambda: F.embedding_bag(rel, shard,
+                                            per_sample_weights=wm,
+                                            mode="sum")))
+        cells = [("fp32", shard, None)]
+        for kind in PAYLOADS:
+            tq, ts = tables[kind]
+            sq, ss = tq[base:base + RANGE_ROWS], ts[base:base + RANGE_ROWS]
+            cells.append((kind, sq, ss))
+            rows["sharded_gather_quant"].append(measure(
+                f"range gather ({kind})", n,
+                lambda: sharded_gather.sharded_gather_quant(sq, ss, idx, w,
+                                                            base),
+                lambda: sharded_gather.sharded_gather_quant_plain(
+                    sq, ss, idx, w, base),
+                (2e-5, 1e-6), device_kernel="sharded_gather_kernel",
+                bound=gather_bound(distinct, M + 4, n),
+                extra={"payload": kind, **where}))
+        for payload, table, scale in cells:
+            for stage in ("dq", "dw"):
+                rows["lookup_bwd_range"].append(range_backward_row(
+                    n, stage, payload, table, scale, base, spec, q, idx, w,
+                    g, rel, ok, where))
+
+
+def range_backward_row(n, stage, payload, table, scale, base, spec, q, idx,
+                       w, g, rel, ok, where):
+    """One instance of the range backward against `lookup_bwd_plain` with
+    the range mask; its bound is the function's: each distinct in-range
+    row read once, the shard's dvalues written once (fp32), g, idx, w, q
+    and the output."""
+    extra = {"q": q, "spec": spec} if stage == "dq" else {}
+    fn = lambda: ops.lookup_bwd_range(  # noqa: E731
+        table, idx, w, g, base, scale=scale, **extra)
+    plain = lambda: ops.lookup_bwd_plain(  # noqa: E731
+        table, idx, w, g, extra.get("q"), spec, scale=scale,
+        scatter=scale is None, base=base)
+    (dv, small), (dv_p, small_p) = fn(), plain()
+    torch.cuda.synchronize()
+    err_dv = 0.0 if dv is None else (dv - dv_p).abs().max().item()
+    err_small = (small - small_p).abs().max().item()
+    check((dv is None or torch.allclose(dv, dv_p, rtol=0, atol=1e-5))
+          and torch.allclose(small, small_p, rtol=1e-4, atol=1e-5),
+          f"lookup_bwd_range ({payload}, {stage}) differs from its plain "
+          f"version at n={n}, base={base}: dvalues {err_dv}, {stage} "
+          f"{err_small}")
+    lib_ms = None
+    if scale is None and stage == "dw":
+        # one PyTorch call: the backward of embedding_bag over the shard
+        # with the clamped rows and masked weights (its dw, times the mask,
+        # is the partial dw)
+        vals = table.detach().requires_grad_()
+        wm = (w * ok).detach().requires_grad_()
+        bag = F.embedding_bag(rel, vals, per_sample_weights=wm, mode="sum")
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            bag, (vals, wm), g, retain_graph=True)
+        l_dv, l_dw = lib()
+        check(torch.allclose(l_dv, dv_p, rtol=0, atol=1e-5)
+              and torch.allclose(l_dw * ok, small_p, rtol=1e-4, atol=1e-5),
+              f"lookup_bwd_range: the embedding_bag yardstick disagrees at "
+              f"n={n}")
+        lib_ms = time_ms(lib)
+        del vals, wm, bag, l_dv, l_dw
+    distinct = where["distinct_rows"]
+    row_bytes = 4 * M if scale is None else M + 4
+    fill = table.shape[0] * 4 * M if scale is None else 0
+    small_bytes = (4 * n * M + 8 * n * TOP_K
+                   + (64 * n if stage == "dq" else 4 * n * TOP_K))
+    terms = int(ok.sum())  # the in-range (t, k): a dot, and a scatter
+    ops_n = (4 if scale is None else 2) * terms * M \
+        + (terms * 40 if stage == "dq" else 0)
+    b, by = bound_ms(distinct * row_bytes + fill + small_bytes, ops_n)
+    # the kernel alone, on the zeroed dvalues: a gradient row written too
+    kb, kby = bound_ms(distinct * (row_bytes + (4 * M if fill else 0))
+                       + small_bytes, ops_n)
+    dev, rest, seen = device_split(fn, "lookup_bwd_kernel")
+    out = {"n": n, "stage": stage, "payload": payload,
+           "max_abs_err": max(err_dv, err_small),
+           "dvalues_max_abs_err": err_dv if dv is not None else None,
+           f"{stage}_max_abs_err": err_small, "ms": time_ms(fn),
+           "device_ms": dev, **seen, "zero_fill_device_ms": rest,
+           "plain_ms": time_ms(plain), "bound_ms": b, "bound_by": by,
+           "kernel_bound_ms": kb, "kernel_bound_by": kby,
+           "library_ms": lib_ms, **where}
+    del dv, small, dv_p, small_p
+    return out
 
 
 def flat_route(values, idx, resident):
@@ -968,6 +1131,259 @@ def tiered_train_path(name: str):
     return launches, run
 
 
+MESH_RANKS = 4
+MESH_ARGS = ["--arch", "lram-bert-medium", "--placement", "sharded",
+             "--use-mesh", "--batch", "8", "--seq", "256", "--steps",
+             str(TRAIN_STEPS), "--json"]
+MESH_TIMEOUT_S = 600
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _mesh_config(args, placement: str, **lram_kw):
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    return dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, interp_impl=placement, **lram_kw))
+
+
+def _logits_agree(args, device, mesh) -> float:
+    """The eval forward of the run's first eval batch on the dense pallas
+    table and on this rank's shard, from the same seed's weights: the
+    largest logit difference."""
+    cfg = _mesh_config(args, "pallas")
+    dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                           global_batch=args.batch, objective=cfg.objective,
+                           seed=args.seed)
+    batch = train.batch_to(data.get_batch(dcfg, step=10_000_000), device)
+    out = []
+    for placement in ("pallas", "sharded"):
+        model = transformer.init(_mesh_config(args, placement),
+                                 seed=args.seed)
+        if placement == "sharded":
+            sharding.shard_params(model, mesh)
+        with torch.no_grad():
+            out.append(transformer.forward(model.to(device), batch))
+        del model
+    return (out[0] - out[1]).abs().max().item()
+
+
+def _quant_cells_agree(args, device, mesh) -> dict:
+    """The sharded int8 and e4m3 cells' memory layer (`lram_apply`, eval)
+    against the dense 1-byte pallas cell (B4) on the same payloads, at the
+    run's width (full: a 2^20 x 64 table, 32 heads) on one data rank's
+    tokens (full: 1,024, n = 32,768 queries): the largest difference per
+    payload."""
+    from repro_torch.core import lram as lram_mod
+
+    tokens = args.batch * args.seq // 2
+    errs = {}
+    for kind in PAYLOADS:
+        # one draw on every rank: the model ranks' shards are one table
+        dense = lram_mod.LRAM(
+            _mesh_config(args, "pallas", table_quant=kind).lram,
+            generator=torch.Generator().manual_seed(args.seed))
+        shard = lram_mod.LRAM(_mesh_config(args, "sharded",
+                                           table_quant=kind).lram)
+        shard.load_state_dict(dense.state_dict())
+        sharding.shard_params(shard, mesh)
+        x = torch.randn(tokens, dense.cfg.in_dim,
+                        generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            want = lram_mod.lram_apply(dense.to(device), x.to(device))
+            got = lram_mod.lram_apply(shard.to(device), x.to(device))
+        errs[kind] = (got - want).abs().max().item()
+        del dense, shard
+    return errs
+
+
+def mesh_rank(rank: int, port: int, results, argv, device_name) -> None:
+    """One rank of the mesh phase (a spawned process; all ranks on the one
+    card): the two forward checks, the mesh training through `train.main`
+    with its launch counts reset just before and read just after, then two
+    more steps with every sum across ranks timed."""
+    os.environ.update({"RANK": str(rank), "LOCAL_RANK": str(rank),
+                       "WORLD_SIZE": str(MESH_RANKS),
+                       "LOCAL_WORLD_SIZE": str(MESH_RANKS),
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = train.build_argparser().parse_args(argv)
+    mesh, device = mesh_lib.init_mesh(device_name)
+    out = {"rank": rank, "coords": mesh.coords, "mesh": mesh.shape,
+           "backend": dist.get_backend()}
+    out["logits_max_abs_err"] = _logits_agree(args, device, mesh)
+    reset_counts()
+    out["quant_max_abs_err"] = _quant_cells_agree(args, device, mesh)
+    out["quant_launches"] = read_counts()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train.main(argv)
+    _sync(device)
+    out["launches"] = read_counts()
+    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated()
+                                if device.type == "cuda" else None)
+    out["records"] = run.records
+    out["final_eval_loss"] = run.final_eval_loss
+    # two more steps, every sum across ranks timed (the device synchronized
+    # before and after each, so its time is the collective's alone)
+    all_reduce = collectives.all_reduce_
+    comm = []
+
+    def timed(t, group):
+        _sync(device)
+        t0 = time.perf_counter()
+        all_reduce(t, group)
+        _sync(device)
+        comm.append((time.perf_counter() - t0, t.numel() * t.element_size()))
+        return t
+
+    collectives.all_reduce_ = timed
+    walls = []
+    try:
+        for step in (args.steps, args.steps + 1):
+            batch = train.batch_to(data.get_batch(run.dcfg, step=step),
+                                   device)
+            comm.clear()
+            t0 = time.perf_counter()
+            run.step_fn(run.opt_state, batch)
+            _sync(device)
+            walls.append((time.perf_counter() - t0,
+                          sum(c for c, _ in comm), len(comm),
+                          sum(b for _, b in comm)))
+    finally:
+        collectives.all_reduce_ = all_reduce
+    out["timed_steps"] = [{"wall_ms": 1e3 * w, "collective_ms": 1e3 * c,
+                           "collectives": k, "collective_bytes": b,
+                           "collective_share": c / w}
+                          for w, c, k, b in walls]
+    results.put(out)
+    dist.destroy_process_group()
+
+
+def mesh_phase(dense_records, argv=MESH_ARGS, device_name="cuda"):
+    """Spawn 4 ranks on the one card (gloo: a data 2 x model 2 mesh, the
+    2^20-row table row-sharded over model, 128 MiB a rank) to train
+    lram-bert-medium at full width 20 steps; fails unless every rank
+    launched K2, the range gather and the range backward (once a step),
+    the losses are finite and fall, they match the dense run of phase 6
+    (rtol 1e-4 over steps 1-5, 1e-3 over all 20), and the two forward
+    checks hold to 1e-5.  Returns the launch counts summed over ranks
+    (training, and the 1-byte forward check)."""
+    import torch.multiprocessing as mp
+
+    if device_name == "cuda":
+        torch.cuda.empty_cache()
+    steps = train.build_argparser().parse_args(argv).steps
+    ctx = mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = mp.start_processes(mesh_rank,
+                               args=(port, results, argv, device_name),
+                               nprocs=MESH_RANKS, join=False,
+                               start_method="spawn")
+    got = []
+    try:
+        while True:
+            while not results.empty():  # a rank blocks on a full pipe
+                got.append(results.get())
+            if procs.join(timeout=5):
+                break
+            check(time.perf_counter() - t0 < MESH_TIMEOUT_S,
+                  f"mesh phase: the ranks outlasted {MESH_TIMEOUT_S} s "
+                  f"(a missing collective?)")
+    except mp.ProcessRaisedException as e:
+        fail(f"mesh phase: a rank failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"mesh phase: a rank died: {e}")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall_s = time.perf_counter() - t0
+    while not results.empty():
+        got.append(results.get())
+    check(len(got) == MESH_RANKS, f"mesh phase: {len(got)} of "
+                                  f"{MESH_RANKS} ranks reported")
+    ranks = sorted(got, key=lambda r: r["rank"])
+    dense = [r["loss"] for r in dense_records]
+    for r in ranks:
+        who = f"mesh rank {r['rank']}"
+        c = r["launches"]
+        check(c["lram_query"] >= steps and c["sharded_gather"] >= steps,
+              f"{who}: K2 / the range gather launched {c['lram_query']} / "
+              f"{c['sharded_gather']} times in {steps} steps")
+        check(c["lookup_bwd_range"] == steps,
+              f"{who}: the range backward launched "
+              f"{c['lookup_bwd_range']} times in {steps} steps")
+        check(r["quant_launches"]["sharded_gather_quant"] == len(PAYLOADS),
+              f"{who}: the 1-byte range gather did not launch")
+        losses = [x["loss"] for x in r["records"]]
+        norms = [x["grad_norm"] for x in r["records"]]
+        check(len(losses) == steps
+              and all(math.isfinite(x) for x in losses + norms),
+              f"{who}: steps missing or non-finite: {losses} {norms}")
+        check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"{who}: the loss did not fall: {losses}")
+        check(np.allclose(losses[:5], dense[:5], rtol=1e-4, atol=0)
+              and np.allclose(losses, dense, rtol=1e-3, atol=0),
+              f"{who}: losses differ from the dense run: {losses} vs "
+              f"{dense}")
+        check(r["logits_max_abs_err"] <= 1e-5,
+              f"{who}: eval logits differ from the dense path by "
+              f"{r['logits_max_abs_err']}")
+        check(all(e <= 1e-5 for e in r["quant_max_abs_err"].values()),
+              f"{who}: the 1-byte sharded cells differ from the dense "
+              f"B4 cell: {r['quant_max_abs_err']}")
+    r0 = ranks[0]
+    args = train.build_argparser().parse_args(argv)
+    step_ms = [x["step_ms"] for x in r0["records"]]
+    median_ms = float(np.median(step_ms[5:]))
+    tokens = args.batch * args.seq
+    losses = np.array([x["loss"] for x in r0["records"]])
+    print(json.dumps({
+        "train": "mesh", "argv": argv, "ranks": MESH_RANKS,
+        "mesh": r0["mesh"], "backend": r0["backend"], "device": device_name,
+        "tokens_per_step": tokens,
+        "lookups_per_rank_step": tokens // 2
+        * _mesh_config(args, "sharded").lram.heads,
+        "losses": losses.tolist(),
+        "grad_norms": [x["grad_norm"] for x in r0["records"]],
+        "dense_losses": dense,
+        "loss_max_rel_err_steps_1_5": float(np.max(np.abs(
+            losses[:5] / np.array(dense[:5]) - 1))),
+        "loss_max_rel_err": float(np.max(np.abs(
+            losses / np.array(dense) - 1))),
+        "loss_mean_steps_1_5": float(np.mean(losses[:5])),
+        "loss_mean_steps_16_20": float(np.mean(losses[-5:])),
+        "step_ms": step_ms, "step_ms_median_steps_6_20": median_ms,
+        "tokens_per_sec": tokens / (median_ms / 1e3),
+        "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
+                                      for r in ranks],
+        "timed_steps_by_rank": [r["timed_steps"] for r in ranks],
+        "logits_max_abs_err_by_rank": [r["logits_max_abs_err"]
+                                       for r in ranks],
+        "quant_max_abs_err_by_rank": [r["quant_max_abs_err"]
+                                      for r in ranks],
+        "launches_by_rank": [r["launches"] for r in ranks],
+        "final_eval_loss": r0["final_eval_loss"],
+        "wall_s_incl_spawn_init_checks_eval": wall_s,
+    }), flush=True)
+    total = {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+    quant_total = {k: sum(r["quant_launches"][k] for r in ranks)
+                   for k in KERNELS}
+    return total, quant_total
+
+
 def train_parity(arch: str, extra=()) -> None:
     """A smoke config, 5 steps on the card and on the CPU (plain versions)
     from the same seed's weights and batches: per-step losses and gradient
@@ -1034,7 +1450,10 @@ def main() -> None:
         profile_path(name)
     launches["train"], run = train_path()
     profile_train_step(run)
+    dense_records = run.records
     del run
+    launches["mesh_train"], launches["mesh_quant_forward"] = mesh_phase(
+        dense_records)
     for name, (_, gather, bwd) in TIERED_TRAIN.items():
         launches[name], run = tiered_train_path(name)
         profile_train_step(run, f"train step {name}", (

@@ -7,8 +7,10 @@ read: how the table is built (`build_table` from the init-time fp32 draw,
 `query`, and the weighted `interp` gather.  Axes:
 
 * **placement** — ``dense`` (one tensor on the device) | ``tiered`` (host
-  shards + a device hot cache, `repro_torch.memstore`).  ``sharded`` and
-  ``sharded-tiered`` are not ported yet and raise.
+  shards + a device hot cache, `repro_torch.memstore`) | ``sharded`` (the
+  table's rows split over the ``model`` axis of the ambient mesh,
+  `repro_torch.distributed.sharded_lram`).  ``sharded-tiered`` is not
+  ported yet and raises.
 * **storage** — ``fp32`` | ``int8`` | ``fp8`` (1-byte payload + per-row
   fp32 scales, `repro_torch.quant`).
 * **kernel** — the reference's names, so configs and CLI flags carry over:
@@ -18,9 +20,9 @@ read: how the table is built (`build_table` from the init-time fp32 draw,
   table, in q on the others);
   ``reference`` is the plain torch functions (plain autograd), for CPU
   tables only: on a CUDA table it raises, so no run on the card silently
-  skips the kernels.  ``auto`` resolves to ``pallas`` for the tiered
-  placement (the reference picks ``reference`` there only because its
-  Pallas kernels run interpreted off a TPU).
+  skips the kernels.  ``auto`` resolves to ``pallas`` for the tiered and
+  sharded placements (the reference picks ``reference`` there only
+  because its Pallas kernels run interpreted off a TPU).
 
 Unsupported cells raise :class:`LookupPlanError` at resolve time.  The
 serve engine reads the plan's ``supports_prefetch`` flag to find the
@@ -53,8 +55,8 @@ IMPL_PLACEMENT = {
 
 # placements not ported yet -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "sharded": "ROADMAP A12 (distribution)",
-    "sharded-tiered": "ROADMAP A12 (distribution)",
+    "sharded-tiered": "ROADMAP A12 part 2 (distribution: the row-range "
+                      "tiered stores)",
 }
 
 # (kernel, storage class) -> (module, function).  The storage class names a
@@ -102,6 +104,12 @@ class LookupPlan:
     sparse SGD step, `TieredValueStore.writeback_lr`) or ``frozen`` (a
     dense 1-byte table: nothing trains it; only the query's gradient
     flows).
+
+    ``requires_mesh``: the plan reads the ambient mesh
+    (`repro_torch.distributed.context`); ``table_rows_axis`` names the
+    mesh axis the table's rows are split over (None: every rank holds the
+    whole table), which `repro_torch.distributed.sharding.shard_params`
+    and the trainer read.
     """
 
     placement: str
@@ -114,6 +122,8 @@ class LookupPlan:
     supports_prefetch: bool = False
     lookup: Callable | None = None
     table_update: str = "autodiff"  # autodiff | writeback | frozen
+    requires_mesh: bool = False
+    table_rows_axis: str | None = None
 
     def __post_init__(self):
         if self.lookup is None:
@@ -172,12 +182,16 @@ def resolve(cfg, override: str | None = None) -> LookupPlan:
     """Resolve an `LRAMConfig` (plus an optional per-call placement
     override, `lram_apply`'s `interp_impl`) into a plan, once per
     (config, impl)."""
+    from repro_torch.distributed import context
+
     impl = override if override is not None else cfg.interp_impl
-    return _resolve_cached(cfg, impl)
+    return _resolve_cached(cfg, impl, context.get_mesh())
 
 
 @functools.lru_cache(maxsize=None)
-def _resolve_cached(cfg, impl: str) -> LookupPlan:
+def _resolve_cached(cfg, impl: str, mesh) -> LookupPlan:
+    """One plan per (config, impl, ambient mesh): the sharded plan is
+    bound to the mesh it was resolved under."""
     placement = IMPL_PLACEMENT.get(impl)
     if placement is None:
         raise LookupPlanError(
@@ -196,6 +210,10 @@ def _resolve_cached(cfg, impl: str) -> LookupPlan:
         from repro_torch.memstore import interp
 
         return interp.tiered_plan(cfg, storage, kernel)
+    if placement == "sharded":
+        from repro_torch.distributed import sharded_lram
+
+        return sharded_lram.sharded_plan(cfg, storage, kernel, mesh)
     return _dense_plan(storage, kernel)
 
 
@@ -223,7 +241,7 @@ def _resolve_kernel(cfg, placement: str, impl: str) -> str:
     if kernel == "auto":
         if placement == "dense":
             kernel = "pallas" if impl == "pallas" else "reference"
-        elif placement == "tiered":
+        elif placement in ("tiered", "sharded"):
             kernel = "pallas"
         else:
             kernel = "reference"

@@ -10,10 +10,10 @@ plus the memory-augmented FFN block dense(w -> w) . LRAM(w -> 4w) .
 dense(4w -> w) that replaces a transformer FFN (paper §3.1).
 
 The table and the two memory-read steps come from the resolved lookup
-plan (`repro_torch.core.lookup`): an fp32 `Parameter`, a `QuantizedTable`
-or a `TieredValueStore`.  Not ported yet, and listed in ROADMAP: the mesh
-sharding constraint on the per-head queries and the per-tenant overlay
-hook of the reference's `lram_apply`.
+plan (`repro_torch.core.lookup`): an fp32 `Parameter`, a `QuantizedTable`,
+a `TieredValueStore` or this rank's row shard of the table.  Not ported
+yet, and listed in ROADMAP: the per-tenant overlay hook of the
+reference's `lram_apply`.
 """
 
 from __future__ import annotations
@@ -133,6 +133,8 @@ def lram_apply(layer: LRAM, x: torch.Tensor, *, train: bool = False,
     plan = lookup.resolve(cfg, interp_impl)
     lead = x.shape[:-1]
     xh = x.reshape(*lead, cfg.heads, 2 * lattice.DIM)
+    # the reference pins heads to the model axis here: in torch that is
+    # `distributed.context.constrain`, the identity, so nothing is called
     if cfg.query_norm == "batch":
         xh = layer.qnorm(xh, train=train)
     elif cfg.query_norm == "rms":

@@ -6,8 +6,9 @@
 // fp32 accumulate.  `values` rows are fp32 (K1, B5) or 1-byte int8 / e4m3
 // payloads with one fp32 scale per row (B4, B6).  The scale is folded into
 // the weight (w * scale, one fp32 product) before the multiply-add, as the
-// TPU kernels' bodies do.  `row_map` is the identity (dense table) or the
-// tiered store's shard->slot indirection.
+// TPU kernels' bodies do.  `row_map` is the identity (dense table), the
+// tiered store's shard->slot indirection, or a row-range shard of the
+// table (the sharded gathers).
 //
 // Design (bound: bytes; see each .cu for its TPU kernel):
 //   * one warp per query row, grid-stride over rows;
@@ -20,7 +21,10 @@
 //   * the sum stays in fp32 registers and the output row is written once.
 // Rows wider than 64 columns loop over 64-column chunks.  A row that maps
 // below 0 (a tiered shard that is not resident, an index below 0) gives
-// NaN for its output row instead of reading out of bounds.
+// NaN for its output row instead of reading out of bounds.  A row map that
+// masks (RangeRows) tells "not this shard's row" apart: such an index adds
+// nothing (a 0 term) and its row is not read, a skip that is warp-uniform
+// because every lane holds the same broadcast row.
 
 #pragma once
 
@@ -32,6 +36,8 @@ namespace gather_rows {
 
 constexpr int kWarps = 8;  // warps per block
 constexpr unsigned kFull = 0xffffffffu;
+// a masking row map's answer for an index outside its shard
+constexpr int64_t kNotMine = -(static_cast<int64_t>(1) << 62);
 
 // Two adjacent columns (c, c + 1) or one column of a row, as fp32.
 template <typename T>
@@ -73,6 +79,7 @@ struct Payload<__nv_fp8_e4m3> {
 
 // Dense table: the index is the row.
 struct DirectRows {
+  static constexpr bool kMasked = false;
   __device__ __forceinline__ int64_t operator()(int32_t gid) const {
     return gid;
   }
@@ -81,12 +88,27 @@ struct DirectRows {
 // Tiered device cache: slot_table[gid >> log2r] * R + (gid & (R - 1)),
 // below 0 when the shard is not resident.
 struct SlotRows {
+  static constexpr bool kMasked = false;
   const int32_t* slot_table;
   int log2r;
   __device__ __forceinline__ int64_t operator()(int32_t gid) const {
     const int64_t slot = __ldg(slot_table + (gid >> log2r));
     if (slot < 0) return -1;
     return (slot << log2r) | static_cast<int64_t>(gid & ((1 << log2r) - 1));
+  }
+};
+
+// A row-range shard of the table: rows [base, base + rows) of the whole
+// table are this shard's rows 0 .. rows - 1; any other index is kNotMine
+// (a 0 term, no read), never the NaN of a missing tiered shard.
+struct RangeRows {
+  static constexpr bool kMasked = true;
+  int32_t base;
+  int32_t rows;
+  __device__ __forceinline__ int64_t operator()(int32_t gid) const {
+    const uint32_t rel = static_cast<uint32_t>(gid - base);
+    return rel < static_cast<uint32_t>(rows) ? static_cast<int64_t>(rel)
+                                             : kNotMine;
   }
 };
 
@@ -112,7 +134,9 @@ __device__ __forceinline__ void gather_rows(
         if (kk < top_k) {
           my_row = row_map(it[kk]);
           my_w = wt[kk];
-          if (my_row < 0) {
+          if (RowMap::kMasked && my_row == kNotMine) {
+            my_w = 0.f;  // not this shard's row: skipped below
+          } else if (my_row < 0) {
             my_row = 0;
             my_w = __int_as_float(0x7fc00000);  // NaN marks the row
           } else if (kScaled) {
@@ -124,6 +148,7 @@ __device__ __forceinline__ void gather_rows(
         for (int j = 0; j < cnt; ++j) {
           const int64_t row = __shfl_sync(kFull, my_row, j);
           const float wj = __shfl_sync(kFull, my_w, j);
+          if (RowMap::kMasked && row == kNotMine) continue;  // warp-uniform
           const T* vr = values + row * m;
           if (vec2 && c + 1 < m) {
             const float2 v = Payload<T>::pair(vr, c);

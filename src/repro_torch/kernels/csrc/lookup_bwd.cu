@@ -35,6 +35,19 @@
 //   int8 / e4m3, no scatter, dq   lookup_bwd_rows_dq_{i8,e4m3}: the same
 //     finished with dq, the backward of the dense 1-byte table's joined
 //     lookup and of the tiered lram-tiered-q8 training path.
+//   over a row range   lookup_bwd_range_{dq,dw}_{f32,i8,e4m3}: row 9's
+//     backward, on one rank's row-range shard [base, base + rows) of the
+//     table (replaces the autodiff of the shard-local gathers of
+//     src/repro/distributed/sharded_lram.py, sharded_gather_interp,
+//     :62-136: gather_interp_vjp's backward :206 and gather_interp_quant's
+//     :165-179, through shard_map).  Only the in-range k count: the row
+//     read is r = idx - base, the fp32 instances scatter w_k * g into the
+//     shard's own (rows, m) dvalues, and dw / dq are the PARTIAL sums over
+//     the in-range k (dw_k = 0 for the others; dq is linear in the per-k
+//     terms, so the sum of the partials over the `model` ranks is the full
+//     dq, one all-reduce outside the kernel).  An out-of-range row is not
+//     read: the warp skips it, as the range gather does.  Their bound
+//     counts the in-range distinct rows and the shard's dvalues.
 //
 // Bound on an H100: bytes, at 3.35 TB/s.  Every distinct row the forward
 // read is read once (4m bytes for fp32, m + 4 for a 1-byte row and its
@@ -114,7 +127,7 @@ __device__ __forceinline__ void point_of(int32_t idx, const Torus& torus,
   for (int i = 0; i < kDim; ++i) x[i] = static_cast<float>(2 * u[i] + p);
 }
 
-template <typename T, bool kScatter, bool kDq>
+template <typename T, bool kScatter, bool kDq, bool kRange>
 __global__ void __launch_bounds__(kWarps * 32)
 lookup_bwd_kernel(const T* __restrict__ values,
                   const float* __restrict__ scale,
@@ -123,7 +136,7 @@ lookup_bwd_kernel(const T* __restrict__ values,
                   const float* __restrict__ w, const float* __restrict__ g,
                   const float* __restrict__ q, float* __restrict__ dvalues,
                   float* __restrict__ dsmall, int n, int top_k, int m,
-                  Torus torus) {
+                  Torus torus, int base, int range_rows) {
   constexpr bool kScaled = !std::is_same<T, float>::value;
   static_assert(!(kScaled && kScatter), "a 1-byte table is not scattered");
   const int lane = threadIdx.x & 31;
@@ -157,14 +170,21 @@ lookup_bwd_kernel(const T* __restrict__ values,
       float my_scale = 1.f;
       if (kk < top_k) {
         my_row = rt[kk];
+        if (kRange) {  // -1: not this shard's row (a 0 term, not read)
+          my_row -= base;
+          if (static_cast<uint32_t>(my_row) >=
+              static_cast<uint32_t>(range_rows))
+            my_row = -1;
+        }
         my_w = wt[kk];
         if (kDq) my_idx = it[kk];
-        if (kScaled) my_scale = scale[my_row];
+        if (kScaled && my_row >= 0) my_scale = scale[my_row];
       }
       const int cnt = min(32, top_k - kb);
       float my_dw = 0.f;
       for (int j = 0; j < cnt; ++j) {
         const int64_t row = __shfl_sync(kFull, my_row, j);
+        if (kRange && row < 0) continue;  // warp-uniform; dw_j stays 0
         const float wj = kScatter ? __shfl_sync(kFull, my_w, j) : 0.f;
         const T* vr = values + row * m;
         float* dr = kScatter ? dvalues + row * m : nullptr;
@@ -229,20 +249,22 @@ Torus torus_of(const int* wrap) {
   return torus;
 }
 
-template <typename T, bool kScatter, bool kDq>
+template <typename T, bool kScatter, bool kDq, bool kRange = false>
 int launch(const void* values, const void* scale, const void* rows,
            const void* idx, const void* w, const void* g, const void* q,
            void* dvalues, void* out, int n, int top_k, int m,
-           const int* wrap, int device, void* stream) {
+           const int* wrap, int device, void* stream, int base = 0,
+           int range_rows = 0) {
   cudaSetDevice(device);
   if (n > 0) {
-    lookup_bwd_kernel<T, kScatter, kDq><<<blocks_for(n), kWarps * 32, 0,
-                                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(values), static_cast<const float*>(scale),
-        static_cast<const int32_t*>(rows), static_cast<const int32_t*>(idx),
-        static_cast<const float*>(w), static_cast<const float*>(g),
-        static_cast<const float*>(q), static_cast<float*>(dvalues),
-        static_cast<float*>(out), n, top_k, m, torus_of(wrap));
+    lookup_bwd_kernel<T, kScatter, kDq, kRange>
+        <<<blocks_for(n), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(values), static_cast<const float*>(scale),
+            static_cast<const int32_t*>(rows),
+            static_cast<const int32_t*>(idx), static_cast<const float*>(w),
+            static_cast<const float*>(g), static_cast<const float*>(q),
+            static_cast<float*>(dvalues), static_cast<float*>(out), n, top_k,
+            m, torus_of(wrap), base, range_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -293,3 +315,52 @@ extern "C" int lookup_bwd_dw_f32(const void* values, const void* idx,
 LOOKUP_BWD_ROWS(f32, float)
 LOOKUP_BWD_ROWS(i8, int8_t)
 LOOKUP_BWD_ROWS(e4m3, __nv_fp8_e4m3)
+
+// Row 9's backward over the shard [base, base + rows) of the table: the
+// in-range k only, rows read at idx - base.  fp32: w (x) g scattered into
+// the shard's (rows, m) dvalues (zeroed), and the partial dq (n, 8) or dw
+// (n, k).
+extern "C" int lookup_bwd_range_dq_f32(const void* values, const void* idx,
+                                       const void* w, const void* g,
+                                       const void* q, void* dvalues, void* dq,
+                                       int n, int top_k, int m, int base,
+                                       int rows, const int* wrap, int device,
+                                       void* stream) {
+  return launch<float, true, true, true>(values, nullptr, idx, idx, w, g, q,
+                                         dvalues, dq, n, top_k, m, wrap,
+                                         device, stream, base, rows);
+}
+
+extern "C" int lookup_bwd_range_dw_f32(const void* values, const void* idx,
+                                       const void* w, const void* g,
+                                       void* dvalues, void* dw, int n,
+                                       int top_k, int m, int base, int rows,
+                                       int device, void* stream) {
+  return launch<float, true, false, true>(values, nullptr, idx, idx, w, g,
+                                          nullptr, dvalues, dw, n, top_k, m,
+                                          nullptr, device, stream, base,
+                                          rows);
+}
+
+// 1-byte shards (frozen, no scatter): the partial dq or dw.
+#define LOOKUP_BWD_RANGE_QUANT(NAME, T)                                       \
+  extern "C" int lookup_bwd_range_dq_##NAME(                                  \
+      const void* values, const void* scale, const void* idx, const void* w,  \
+      const void* g, const void* q, void* dq, int n, int top_k, int m,        \
+      int base, int rows, const int* wrap, int device, void* stream) {        \
+    return launch<T, false, true, true>(values, scale, idx, idx, w, g, q,     \
+                                        nullptr, dq, n, top_k, m, wrap,       \
+                                        device, stream, base, rows);          \
+  }                                                                           \
+  extern "C" int lookup_bwd_range_dw_##NAME(                                  \
+      const void* values, const void* scale, const void* idx, const void* w,  \
+      const void* g, void* dw, int n, int top_k, int m, int base, int rows,   \
+      int device, void* stream) {                                             \
+    return launch<T, false, false, true>(values, scale, idx, idx, w, g,       \
+                                         nullptr, nullptr, dw, n, top_k, m,   \
+                                         nullptr, device, stream, base,       \
+                                         rows);                               \
+  }
+
+LOOKUP_BWD_RANGE_QUANT(i8, int8_t)
+LOOKUP_BWD_RANGE_QUANT(e4m3, __nv_fp8_e4m3)

@@ -42,7 +42,8 @@ import torch
 
 from repro_torch import quant
 from repro_torch.core import indexing, lattice
-from repro_torch.kernels import _build, e8_lookup, gather_interp
+from repro_torch.kernels import _build, e8_lookup, gather_interp, \
+    sharded_gather
 
 
 def nearest_image_delta(q: torch.Tensor, k_wrapped: torch.Tensor,
@@ -82,15 +83,22 @@ def lookup_bwd_plain(values: torch.Tensor, idx: torch.Tensor,
                      spec: indexing.TorusSpec | None = None, *,
                      scale: torch.Tensor | None = None,
                      rows: torch.Tensor | None = None,
-                     scatter: bool = True):
+                     scatter: bool = True, base: int | None = None):
     """The backward in plain torch: (dvalues, dq) with q, else (dvalues,
     dw).  The rows read are `rows` (default idx) of `values`, fp32 or a
     1-byte payload whose per-row `scale` multiplies the row's dot
     (dw_k = scale_r * (g . q_r)); dvalues, an `index_add_` of w (x) g, is
-    None without `scatter` (a 1-byte table is never scattered)."""
+    None without `scatter` (a 1-byte table is never scattered).  With
+    `base`, `values` is the shard [base, base + len(values)) of the table
+    and the range mask applies: an index outside it scatters nothing and
+    its dw is 0, so dw and dq are the shard's partial sums."""
     g = g.float()
     m = values.shape[-1]
     r = (idx if rows is None else rows).long()
+    ok = None
+    if base is not None:
+        r, ok = sharded_gather.local_rows(r, base, values.shape[0])
+        w = w.float() * ok
     dvalues = None
     if scatter:
         flat_wg = (w.float()[..., None] * g[..., None, :]).reshape(-1, m)
@@ -102,6 +110,8 @@ def lookup_bwd_plain(values: torch.Tensor, idx: torch.Tensor,
     else:
         dL_dw = torch.einsum("...m,...km->...k", g,
                              quant.take_rows(values, r)) * scale[r].float()
+    if ok is not None:
+        dL_dw = dL_dw * ok
     if q is None:
         return dvalues, dL_dw
     pts = points_from_indices(idx, spec)  # (..., k, 8)
@@ -294,6 +304,111 @@ def lookup_bwd_quant(payload: torch.Tensor, scale: torch.Tensor,
 #: kernel launches since the last reset
 lookup_bwd_rows.launches = 0
 lookup_bwd_quant.launches = 0
+
+
+# values, [scale,] idx, w, g, q, dq, n, k, m, base, rows, wrap, device,
+# stream (the fp32 instance has dvalues where a 1-byte one has scale)
+_RANGE_DQ_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+# values, [scale,] idx, w, g, dw, n, k, m, base, rows, device, stream
+_RANGE_DW_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+
+
+def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
+                     w: torch.Tensor, g: torch.Tensor, base: int, *,
+                     scale: torch.Tensor | None = None,
+                     q: torch.Tensor | None = None,
+                     spec: indexing.TorusSpec | None = None):
+    """Row 9's backward on one rank's row-range shard: (dvalues, dq) when
+    q and spec are given, else (dvalues, dw), over the in-range k only.
+
+    values (rows, m) is the shard [base, base + rows) of the table: fp32
+    (dvalues (rows, m) is the scatter-add of w (x) g at idx - base), or a
+    1-byte payload with `scale` (rows,) float32 (frozen: dvalues is None).
+    dq (..., 8) and dw (..., k) are the shard's PARTIAL sums (dw_k = 0 for
+    an index the shard does not hold): the partials of the `model` ranks
+    sum to the whole.  idx (..., k) int32, indices of the whole table;
+    w (..., k), g (..., m), q (..., 8) float32.  All contiguous, on one
+    device.  The sharded cells train through the dq instances; the dw
+    instances are reached by no training path and are held against their
+    plain versions by the card tests and `chip_smoke.py`.
+    """
+    if not values.is_cuda:
+        return lookup_bwd_plain(values, idx, w, g, q, spec, scale=scale,
+                                scatter=scale is None, base=base)
+    if (scale is None) != (values.dtype == torch.float32) \
+            or values.dtype not in _ROWS_PAYLOAD:
+        raise TypeError(f"lookup_bwd_range takes a float32 shard, or an "
+                        f"int8 / float8_e4m3fn shard with its scales; got "
+                        f"{values.dtype} with scale={scale is not None}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"lookup_bwd_range takes float32 g, got {g.dtype}")
+    idx2, w2, lead = gather_interp.flat_gather_args(values, idx, w,
+                                                    "lookup_bwd_range")
+    n, top_k, m = idx2.shape[0], idx2.shape[1], values.shape[1]
+    if m % 2 or m > _MAX_M:
+        raise ValueError(f"lookup_bwd_range kernel takes an even m <= "
+                         f"{_MAX_M}, got {m}")
+    if g.shape != (*lead, m) or not g.is_contiguous() \
+            or g.device != values.device:
+        raise ValueError(f"g must be a contiguous {(*lead, m)} tensor on "
+                         f"the shard's device, got {tuple(g.shape)}")
+    if scale is not None and (
+            scale.dtype != torch.float32 or scale.shape != values.shape[:1]
+            or not scale.is_contiguous() or scale.device != values.device):
+        raise ValueError("scale must be a contiguous float32 (rows,) tensor "
+                         "on the shard's device")
+    base = sharded_gather.check_shard_base(values, base, "lookup_bwd_range")
+    rows = values.shape[0]
+    name = _ROWS_PAYLOAD[values.dtype]
+    stream = gather_interp.current_stream(values)
+    dvalues = torch.zeros_like(values) if scale is None else None
+    # the fp32 instances take dvalues where the 1-byte ones take scale
+    second = (dvalues if scale is None else scale).data_ptr()
+    if q is None:
+        out = torch.empty((n, top_k), dtype=torch.float32,
+                          device=values.device)
+        if n:
+            status = _build.function("lookup_bwd", f"lookup_bwd_range_dw_"
+                                     f"{name}", _RANGE_DW_ARGS)(
+                *_range_ptrs(name, values, second, idx2, w2, g, None, out),
+                n, top_k, m, base, rows, values.device.index, stream)
+            _build.check(status, "lookup_bwd_range (dw)")
+            lookup_bwd_range.launches += 1
+        return dvalues, out.reshape(*lead, top_k)
+    if q.dtype != torch.float32 or q.shape != (*lead, lattice.DIM) \
+            or not q.is_contiguous() or q.device != values.device:
+        raise ValueError(f"q must be a contiguous float32 {(*lead, 8)} "
+                         f"tensor on the shard's device, got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    out = torch.empty((n, lattice.DIM), dtype=torch.float32,
+                      device=values.device)
+    if n:
+        wrap = (ctypes.c_int * lattice.DIM)(*spec.K)
+        status = _build.function("lookup_bwd", f"lookup_bwd_range_dq_{name}",
+                                 _RANGE_DQ_ARGS)(
+            *_range_ptrs(name, values, second, idx2, w2, g, q, out),
+            n, top_k, m, base, rows, wrap, values.device.index, stream)
+        _build.check(status, "lookup_bwd_range (dq)")
+        lookup_bwd_range.launches += 1
+    return dvalues, out.reshape(*lead, lattice.DIM)
+
+
+def _range_ptrs(name, values, second, idx2, w2, g, q, out):
+    """The pointer arguments of a range instance, in its C order: fp32
+    (values, idx, w, g, [q,] dvalues, out), 1-byte (values, scale, idx, w,
+    g, [q,] out)."""
+    small = [g.data_ptr()] + ([] if q is None else [q.data_ptr()])
+    if name == "f32":
+        return [values.data_ptr(), idx2.data_ptr(), w2.data_ptr(), *small,
+                second, out.data_ptr()]
+    return [values.data_ptr(), second, idx2.data_ptr(), w2.data_ptr(),
+            *small, out.data_ptr()]
+
+
+#: kernel launches since the last reset
+lookup_bwd_range.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,6 +8,9 @@
         --arch lram-tiered --batch 8 --seq 64 --steps 20 --json
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch lram-bert-small --smoke --device cpu --json  # plain versions
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch lram-bert-medium --placement sharded --use-mesh \\
+        --batch 8 --seq 256 --steps 20 --json   # data 2 x model 2
 
 config -> init (weights drawn on the CPU from `--seed`, then moved to
 `--device`) -> train step (MLM/CLM loss, backward, Adam with the paper's
@@ -29,9 +32,22 @@ reference trains a quantized table only through the tiered write-back.
 `--json` prints one line per step (loss, xent, grad norm, lr, step ms and
 the cache hit rate of a tiered table) and a summary.
 
+`--use-mesh` under a launch of several ranks (torchrun: WORLD_SIZE > 1)
+joins the process group and builds the host mesh (`launch.mesh`: data x
+model, 4 ranks are 2 x 2); with one rank it trains without a mesh, as the
+reference does on one device.  Every rank draws the whole model on the
+CPU from `--seed`, keeps its rows of a `--placement sharded` table
+(`distributed.sharding.shard_params`) and moves to its device; the dense
+weights stay replicated.  A step takes the rank's slice of the global
+batch, sums the gradients over ``data`` (one all-reduce for the dense
+weights, one for the table shard), and clips by the global norm that
+counts every table row once.  The losses it reports are the global
+batch's.  Rank 0 prints; every rank evaluates the whole eval batch, so
+that all of them issue the same collectives.
+
 Not ported yet, and refused with the ROADMAP item that ports them:
 checkpoints and failure injection, gradient compression, telemetry,
-memory growth, meshes and observability.
+memory growth and observability.
 """
 
 from __future__ import annotations
@@ -43,9 +59,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, data, optim
 from repro_torch.core import lookup
+from repro_torch.distributed import collectives, context, sharding
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import resolve_device
 from repro_torch.models import transformer
 
@@ -57,7 +76,6 @@ _NOT_PORTED = {
     "compression": ("none", "A3 (optim/compression.py)"),
     "telemetry": (False, "A10 (memctl telemetry)"),
     "grow_at": ("", "A10 (memctl growth)"),
-    "use_mesh": (False, "A12 (distribution)"),
     "metrics_dir": ("", "A13 (observability)"),
     "profile_dir": ("", "A13 (observability)"),
 }
@@ -84,18 +102,42 @@ def batch_to(batch: dict, device) -> dict[str, torch.Tensor]:
 
 
 def build_train_step(model: transformer.Transformer,
-                     opt_cfg: optim.OptimConfig):
+                     opt_cfg: optim.OptimConfig, mesh=None):
     """`train_step(opt_state, batch) -> metrics`: loss and backward through
     the model, then Adam over every parameter, IN PLACE (parameters,
     moments, step counter and the batchnorm running stats).  The metrics
-    are device tensors: loss, xent, aux, ntokens, grad_norm, lr."""
+    are device tensors: loss, xent, aux, ntokens, grad_norm, lr.
+
+    With a mesh (the ambient one, `context.set_mesh`) `batch` is the
+    global batch: the step takes this data rank's slice, sums the
+    gradients over ``data`` (one flattened all-reduce for the replicated
+    weights, one for the row shards of the tables), clips by the global
+    norm (the shards' squares summed over their axis) and steps Adam on
+    its own rows.  loss and xent are the global batch's (the parts summed
+    over ``data``)."""
     params = dict(model.named_parameters())
+    shards = sharding.sharded_tables(model, mesh)
+    data_group = context.axis_group("data") if mesh is not None else None
+    shard_group = (mesh.group(next(iter(shards.values()))) if shards
+                   else None)
 
     def train_step(opt_state, batch):
+        batch = sharding.batch_slice(mesh, batch)
         loss, metrics = transformer.loss_fn(model, batch, train=True)
         loss.backward()
-        grads = {k: p.grad for k, p in params.items()}
-        stats = optim.adam_update(params, grads, opt_state, opt_cfg)
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        if data_group is not None:
+            collectives.all_reduce_flat_(
+                [g for k, g in grads.items() if k not in shards], data_group)
+            collectives.all_reduce_flat_([grads[k] for k in shards],
+                                         data_group)
+            for key in ("xent", "aux"):
+                metrics[key] = collectives.all_reduce_(
+                    metrics[key].detach().clone(), data_group)
+            loss = collectives.all_reduce_(loss.detach().clone(), data_group)
+        stats = optim.adam_update(params, grads, opt_state, opt_cfg,
+                                  sharded=tuple(shards), group=shard_group)
         for p in params.values():
             p.grad = None
         return {**{k: v.detach() for k, v in metrics.items()}, **stats,
@@ -185,7 +227,12 @@ def _refuse_unported(args) -> None:
 def main(argv=None) -> TrainRun:
     args = build_argparser().parse_args(argv)
     _refuse_unported(args)
-    device = resolve_device(args.device)
+    mesh = None
+    if args.use_mesh and mesh_lib.world_size() > 1:
+        mesh, device = mesh_lib.init_mesh(args.device)
+    else:
+        device = resolve_device(args.device)
+    main_rank = mesh is None or dist.get_rank() == 0
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     if args.placement:
@@ -196,25 +243,28 @@ def main(argv=None) -> TrainRun:
             cfg.lram, interp_impl=args.placement))
     try:
         plans = lookup.model_plans(cfg)
-    except lookup.LookupPlanError as e:  # an unported placement
+    except lookup.LookupPlanError as e:  # unported, or sharded without a mesh
         raise SystemExit(str(e)) from None
     for plan in plans:
         if plan.table_update == "frozen":
             raise SystemExit(
-                f"a dense {plan.storage} table is frozen: the reference "
-                f"trains a quantized table only through the tiered store's "
-                f"write-back (use the tiered placement)")
+                f"a {plan.placement} {plan.storage} table is frozen: the "
+                f"reference trains a quantized table only through the "
+                f"tiered store's write-back (use the tiered placement)")
     dcfg = data.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch, objective=cfg.objective, seed=args.seed,
     )
     opt_cfg = optim.OptimConfig(lr=args.lr,
                                 memory_lr_mult=args.memory_lr_mult)
-    model = transformer.init(cfg, seed=args.seed).to(device)
+    model = transformer.init(cfg, seed=args.seed)
+    if mesh is not None:  # every rank drew the whole model; keep its rows
+        sharding.shard_params(model, mesh)
+    model = model.to(device)
     # a store's table is no Parameter: Adam and the clip never see it
     stores = bind_stores(model, args.lr * args.memory_lr_mult)
     opt_state = optim.adam_init(dict(model.named_parameters()))
-    step_fn = build_train_step(model, opt_cfg)
+    step_fn = build_train_step(model, opt_cfg, mesh)
 
     records = []
     for step in range(args.steps):
@@ -228,29 +278,33 @@ def main(argv=None) -> TrainRun:
         if stores:
             rec["cache_hit"] = float(np.mean([s.hit_rate() for s in stores]))
         records.append(rec)
-        if args.json:
+        if main_rank and args.json:
             print(json.dumps(rec), flush=True)
-        elif step % args.log_every == 0 or step == args.steps - 1:
+        elif main_rank and (step % args.log_every == 0
+                            or step == args.steps - 1):
             print(json.dumps({"step": step, "loss": round(rec["loss"], 4),
                               "xent": round(rec["xent"], 4),
                               "grad_norm": round(rec["grad_norm"], 3),
                               "sec": round(rec["step_ms"] / 1e3, 3)}))
         if args.eval_every and (step + 1) % args.eval_every == 0:
             eval_loss, recall = evaluate(model, dcfg)
-            print(json.dumps({"eval_loss": round(eval_loss, 4),
-                              "fact_recall": round(recall, 4)}))
+            if main_rank:
+                print(json.dumps({"eval_loss": round(eval_loss, 4),
+                                  "fact_recall": round(recall, 4)}))
 
     eval_loss, recall = evaluate(model, dcfg)
     for store in stores:
         store.flush()
-    print(json.dumps({"final_eval_loss": round(eval_loss, 4),
-                      "final_fact_recall": round(recall, 4)}))
-    if args.json:
+    if main_rank:
+        print(json.dumps({"final_eval_loss": round(eval_loss, 4),
+                          "final_fact_recall": round(recall, 4)}))
+    if args.json and main_rank:
         steady = [r["step_ms"] for r in records[5:]] or \
             [r["step_ms"] for r in records]
         print(json.dumps({
             "arch": cfg.name, "device": str(device), "steps": args.steps,
             "tokens_per_step": args.batch * args.seq,
+            "mesh": mesh.shape if mesh is not None else None,
             "step_ms_median_after_5": float(np.median(steady))
             if steady else None,
             "final_eval_loss": eval_loss, "final_fact_recall": recall,
@@ -263,3 +317,5 @@ def main(argv=None) -> TrainRun:
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -25,6 +25,7 @@ from torch import nn
 from repro_torch import nn as tnn
 from repro_torch.core import lram as lram_mod
 from repro_torch.data import IGNORE
+from repro_torch.distributed import collectives, context
 from repro_torch.models import attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP
@@ -210,14 +211,23 @@ def loss_fn(model: Transformer, batch: dict, *, train: bool = True):
     """(loss, metrics): the mean cross-entropy over the positions whose
     label is not `IGNORE` (denominator at least 1), plus the router aux
     term (zero for the dense family).  In train mode the forward runs the
-    batchnorm on batch statistics and updates its running stats."""
+    batchnorm on batch statistics and updates its running stats.
+
+    Under an ambient mesh with a ``data`` axis, a train-mode batch is this
+    data rank's slice of the global batch: the denominator is the global
+    count of valid labels (summed over the data ranks), so the loss is
+    this rank's part of the global loss and the parts' gradients sum to
+    the global loss's."""
     logits = forward(model, batch, train=train)
     labels = batch["labels"]
     valid = labels != IGNORE
     safe_labels = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     tok_ll = torch.gather(logp, -1, safe_labels[..., None])[..., 0]
-    denom = torch.clamp(valid.sum(), min=1)
+    count = valid.sum()
+    if train:
+        collectives.all_reduce_(count, context.axis_group("data"))
+    denom = torch.clamp(count, min=1)
     xent = -(tok_ll * valid).sum() / denom
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     loss = xent + model.cfg.router_aux_weight * aux

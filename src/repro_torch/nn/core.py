@@ -13,7 +13,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch.distributed import collectives, context
 
 # truncation at +-2 standard deviations, as jax.random.truncated_normal(-2, 2)
 _LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
@@ -109,7 +112,12 @@ class BatchNorm(nn.Module):
     `torch.nn.BatchNorm*`, whose momentum and variance differ.
 
     In train mode the running `mean`/`var` buffers are updated in place
-    (the reference returns them as a new state instead).
+    (the reference returns them as a new state instead).  Under an ambient
+    mesh with a ``data`` axis, a train-mode batch is this data rank's
+    slice of the global batch, and the mean and biased variance are those
+    of the global batch, as GSPMD computes the reference's: sums over the
+    data ranks, differentiable both ways (`collectives.sum_both`), so the
+    running stats stay equal on every rank.
     """
 
     def __init__(self, dim: int, *, momentum: float = 0.99,
@@ -125,8 +133,16 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = x32.mean(dims)
-            var = ((x32 - mean) ** 2).mean(dims)
+            group = context.axis_group("data")
+            if group is None:
+                mean = x32.mean(dims)
+                var = ((x32 - mean) ** 2).mean(dims)
+            else:  # equal slices of the global batch on the data ranks
+                count = x32.numel() // x32.shape[-1] \
+                    * dist.get_world_size(group)
+                mean = collectives.sum_both(x32.sum(dims), group) / count
+                var = collectives.sum_both(((x32 - mean) ** 2).sum(dims),
+                                           group) / count
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean
                                 + (1 - self.momentum) * mean)

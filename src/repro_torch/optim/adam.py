@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
@@ -50,9 +52,16 @@ def schedule_lr(cfg: OptimConfig, step: torch.Tensor) -> torch.Tensor:
     return lr
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+def global_norm(tensors, sharded=(), group=None) -> torch.Tensor:
+    """The l2 norm of every tensor of `tensors` and `sharded` together.
+    `sharded` are this rank's row shards of tables split over `group`:
+    their squared sum is summed over the group first, so every table row
+    counts once, and each of `tensors` (alike on every rank) once."""
+    sq = sum(torch.sum(torch.square(t.float())) for t in tensors)
+    if sharded:
+        part = sum(torch.sum(torch.square(t.float())) for t in sharded)
+        sq = sq + collectives.all_reduce_(part, group)
+    return torch.sqrt(sq)
 
 
 def lr_mult(name: str, cfg: OptimConfig) -> float:
@@ -74,15 +83,20 @@ def adam_init(params: dict[str, torch.Tensor]) -> dict:
 @torch.no_grad()
 def adam_update(params: dict[str, torch.Tensor],
                 grads: dict[str, torch.Tensor | None], opt_state: dict,
-                cfg: OptimConfig) -> dict[str, torch.Tensor]:
+                cfg: OptimConfig, *, sharded=(),
+                group=None) -> dict[str, torch.Tensor]:
     """One step over `params` (name -> tensor, updated in place) with
     `grads` (name -> tensor; None counts as zero, as a leaf the loss does
-    not reach has a zero gradient in the reference).  Advances
-    `opt_state` in place; returns the stats {"grad_norm", "lr"}."""
+    not reach has a zero gradient in the reference).  The names in
+    `sharded` are row shards of tables split over `group` (the mesh's
+    ``model`` axis): the clip's global norm counts their rows once across
+    the group (`global_norm`).  Advances `opt_state` in place; returns the
+    stats {"grad_norm", "lr"}."""
     step = opt_state["step"] + 1
     grads = {k: (g if g is not None else torch.zeros_like(params[k]))
              for k, g in grads.items()}
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm([g for k, g in grads.items() if k not in sharded],
+                        [grads[k] for k in sharded], group)
     scale = None
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),

@@ -14,7 +14,8 @@ import torch
 from repro_torch import quant
 from repro_torch.core import indexing, lookup
 from repro_torch.core.lram import LRAMConfig
-from repro_torch.kernels import e8_lookup, gather_interp, ops, tiered_gather
+from repro_torch.kernels import (e8_lookup, gather_interp, ops,
+                                 sharded_gather, tiered_gather)
 from repro_torch.memstore import TieredSpec, TieredValueStore
 
 
@@ -406,3 +407,137 @@ def test_tiered_interp_on_card_matches_cpu(cuda_device, kind):
         np.testing.assert_allclose(t1, t0, rtol=0, atol=1e-6)
     else:
         np.testing.assert_array_equal(t1, t0)
+
+
+def _range_inputs(device, n, kind, base, rows, seed=0):
+    """K2's indices into a 2^20-row table and a shard [base, base + rows)
+    of it (fp32, or 1-byte with scales), with q, w and g."""
+    spec, q, idx, w, values, g = _bwd_inputs(device, n, seed=seed)
+    shard, scale = values[base:base + rows].contiguous(), None
+    if kind != "none":
+        pay, s = quant.quantize_rows_np(shard.cpu().numpy(), kind)
+        shard = quant.as_torch_payload(pay).to(device)
+        scale = torch.from_numpy(s).to(device)
+    return spec, q, idx, w, shard, scale, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "int8", "fp8"])
+@pytest.mark.parametrize("n", [1, 128, 2048])
+def test_sharded_gather_matches_plain_on_card(cuda_device, kind, n):
+    """The range gather on both halves of a 2-way split against its plain
+    version (fp32 rtol / atol 1e-5; 1-byte rtol 2e-5 / atol 1e-6, B4's),
+    one launch each; the two partials sum to the whole gather."""
+    rows = 2**19
+    parts = []
+    for base in (0, rows):
+        spec, q, idx, w, shard, scale, g = _range_inputs(cuda_device, n,
+                                                         kind, base, rows)
+        if kind == "none":
+            fn, args = sharded_gather.sharded_gather, (shard,)
+            plain = sharded_gather.sharded_gather_plain
+            tol = (1e-5, 1e-5)
+        else:
+            fn, args = sharded_gather.sharded_gather_quant, (shard, scale)
+            plain = sharded_gather.sharded_gather_quant_plain
+            tol = (2e-5, 1e-6)
+        before = fn.launches
+        got = fn(*args, idx, w, base)
+        assert fn.launches == before + 1
+        torch.testing.assert_close(got, plain(*args, idx, w, base),
+                                   rtol=tol[0], atol=tol[1])
+        parts.append(got)
+    if kind == "none":
+        _, _, idx, w, values, _ = _bwd_inputs(cuda_device, n)
+        torch.testing.assert_close(parts[0] + parts[1],
+                                   gather_interp.gather_interp(values, idx,
+                                                               w),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["dq", "dw"])
+@pytest.mark.parametrize("kind", ["none", "int8", "fp8"])
+@pytest.mark.parametrize("n", [1, 128, 2048])
+def test_lookup_bwd_range_matches_plain_on_card(cuda_device, kind, stage,
+                                                n):
+    """The range backward against `lookup_bwd_plain` with the range mask:
+    the shard's dvalues to atol 1e-5 (atomics), dq / dw to rtol 1e-4 /
+    atol 1e-5; for fp32 the two halves' partials sum to the whole
+    backward's dq / dw and their dvalues are its halves."""
+    rows = 2**19
+    got = []
+    for base in (0, rows):
+        spec, q, idx, w, shard, scale, g = _range_inputs(cuda_device, n,
+                                                         kind, base, rows)
+        extra = {"q": q, "spec": spec} if stage == "dq" else {}
+        before = ops.lookup_bwd_range.launches
+        dv, small = ops.lookup_bwd_range(shard, idx, w, g, base,
+                                         scale=scale, **extra)
+        assert ops.lookup_bwd_range.launches == before + 1
+        dv_p, small_p = ops.lookup_bwd_plain(
+            shard, idx, w, g, extra.get("q"), spec, scale=scale,
+            scatter=kind == "none", base=base)
+        torch.cuda.synchronize()
+        assert (dv is None) == (kind != "none")
+        if dv is not None:
+            torch.testing.assert_close(dv, dv_p, rtol=0, atol=1e-5)
+        torch.testing.assert_close(small, small_p, rtol=1e-4, atol=1e-5)
+        got.append((dv, small))
+    if kind == "none":
+        spec, q, idx, w, values, g = _bwd_inputs(cuda_device, n)
+        dv, small = ops.lookup_bwd(values, idx, w, g, **(
+            {"q": q, "spec": spec} if stage == "dq" else {}))
+        torch.testing.assert_close(torch.cat([got[0][0], got[1][0]]), dv,
+                                   rtol=0, atol=1e-5)
+        torch.testing.assert_close(got[0][1] + got[1][1], small, rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_range_gathers_refuse_inputs_that_need_grad(cuda_device):
+    spec, q, idx, w, shard, _, g = _range_inputs(cuda_device, 16, "none", 0,
+                                                 2**19)
+    shard.requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        sharded_gather.sharded_gather(shard, idx, w, 0)
+    with torch.no_grad():
+        sharded_gather.sharded_gather(shard, idx, w, 0)
+
+
+@pytest.mark.cuda
+def test_mesh_train_on_one_card_matches_dense(cuda_device, tmp_path):
+    """Four ranks on the one card (gloo, data 2 x model 2) train the
+    lram-bert-medium smoke config 3 steps with the sharded table: K2, the
+    range gather and the range backward launch on every rank (the
+    backward once a step), and the losses and grad norms equal the
+    single-process dense run on the card to rtol 1e-4."""
+    import json
+
+    from _ranks import run_ranks
+    from repro_torch.launch import train
+
+    argv = ["--arch", "lram-bert-medium", "--smoke", "--steps", "3",
+            "--batch", "4", "--seq", "32"]
+    code = f"""
+import json, sys
+from repro_torch.kernels import e8_lookup, ops, sharded_gather
+from repro_torch.launch import train
+run = train.main({argv!r} + ["--placement", "sharded", "--use-mesh"])
+print(json.dumps({{"records": run.records, "launches": [
+    e8_lookup.lram_query.launches, sharded_gather.sharded_gather.launches,
+    ops.lookup_bwd_range.launches]}}))
+"""
+    from repro_torch.kernels import _build
+
+    _build.build_all()  # once, before the ranks load the libraries
+    outs = run_ranks(code, 4, tmp_path, timeout=300)
+    dense = train.main(argv + ["--placement", "pallas"])
+    for out in outs:
+        rank = json.loads(out.strip().splitlines()[-1])
+        k2, gather, bwd = rank["launches"]
+        assert k2 >= 3 and gather >= 3 and bwd == 3
+        for a, b in zip(rank["records"], dense.records):
+            np.testing.assert_allclose([a["loss"], a["grad_norm"]],
+                                       [b["loss"], b["grad_norm"]],
+                                       rtol=1e-4)

@@ -253,13 +253,38 @@ def test_cli_trains_on_the_cpu(capsys):
     ["--ckpt-dir", "x"], ["--ckpt-every", "10"],
     ["--simulate-failure-at", "1"],
     ["--compression", "int8"], ["--telemetry"], ["--grow-at", "2:17"],
-    ["--use-mesh"], ["--metrics-dir", "x"], ["--profile-dir", "x"],
-    ["--placement", "sharded"],
+    ["--use-mesh"], ["--metrics-dir", "x"],
+    ["--profile-dir", "x"], ["--placement", "sharded-tiered"],
 ])
-def test_cli_refuses_what_is_not_ported(flag):
+def test_cli_refuses_what_is_not_ported(flag, capsys):
+    """Each option that is not ported exits naming its ROADMAP item.
+    `--use-mesh` is ported: outside a launch of several ranks it trains on
+    one process without a mesh, as the reference does on one device, and
+    gives the run without the flag (the 4-rank run is
+    tests/test_torch_mesh_train.py)."""
+    if flag == ["--use-mesh"]:
+        argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
+                "2", "--batch", "2", "--seq", "16", "--placement", "pallas",
+                "--json"]
+        run = train.main(argv + flag)
+        summary = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert summary["mesh"] is None
+        plain = train.main(argv)
+        assert [r["loss"] for r in run.records] == \
+            [r["loss"] for r in plain.records]
+        return
     with pytest.raises(SystemExit, match="ROADMAP"):
         train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                     "--steps", "1", *flag])
+
+
+def test_cli_refuses_sharded_without_a_mesh():
+    """One process builds no mesh: the sharded placement fails at resolve
+    time, naming the mesh it needs (the 4-rank run is
+    tests/test_torch_mesh_train.py)."""
+    with pytest.raises(SystemExit, match="needs an ambient mesh"):
+        train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                    "--steps", "1", "--placement", "sharded"])
 
 
 def test_cli_refuses_a_frozen_dense_table():
