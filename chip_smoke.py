@@ -5,16 +5,20 @@
 Phases, each fatal on failure (exit code != 0, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from `src/repro_torch/kernels/csrc` (nvcc,
-     one process per source, started together);
+     one process per source, started together) and print each kernel's
+     registers, spills and shared memory (-Xptxas -v) on one line;
   3. hold each kernel against its plain PyTorch version on the card at the
      serving path's shapes (n = 128, 2048, 65536 queries, top-k 32, m 64)
      and time kernel, plain version and, where one PyTorch call computes
      the same function, that call (`F.embedding_bag`):
-       K2 `lram_query` and K1 `gather_interp` on the full 2^20-row table;
+       K2 `lram_query`, its weights and indices bit-equal to the plain
+       version's on uniform queries and on `lattice.tie_queries` (exact
+       ties of weight, and ties in the canonical sort), and K1
+       `gather_interp`, on the full 2^20-row table;
        B4 `gather_interp_quant` on the table quantized to int8 and e4m3;
        B5 `tiered_gather` and B6 `tiered_gather_quant` (int8, e4m3) on a
        full-width device cache (32 slots x 8192 rows) with resident
-       indices;
+       indices, B5's call and its yardstick's timed again in turns;
        the backward kernel `lookup_bwd` in both instantiations (B3's
        backward with dq, B1's VJP with dw) on the full table with K2's
        indices, library yardstick for the dw instance: the backward of
@@ -105,6 +109,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -120,7 +125,7 @@ import torch.nn.functional as F  # noqa: E402
 
 # fails here, printing nothing, when the checkout around the script is missing
 from repro_torch import configs, data, quant  # noqa: E402
-from repro_torch.core import indexing  # noqa: E402
+from repro_torch.core import indexing, lattice  # noqa: E402
 from repro_torch.distributed import collectives, sharding  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, e8_lookup, gather_interp, ops, sharded_gather, tiered_gather)
@@ -263,6 +268,54 @@ def gather_bound(distinct_rows: int, row_bytes: int, n: int):
                     2 * n * TOP_K * M)
 
 
+def _kernel_of(symbol: str) -> tuple[str, str]:
+    """(kernel name, instance) of a mangled kernel symbol: the name whose
+    length prefix ends in `_kernel`, and its template arguments (payload
+    type, then each bool as 0 / 1), e.g. ("lookup_bwd_kernel",
+    "f32,1,0")."""
+    for m in re.finditer(r"\d+", symbol):  # a hash may run into the prefix
+        sizes = {int(m.group()[i:]) for i in range(len(m.group()))}
+        name = next((symbol[m.end():m.end() + n] for n in sizes
+                     if symbol[m.end():m.end() + n].endswith("_kernel")
+                     and m.end() + n <= len(symbol)), None)
+        if name:
+            rest = symbol[m.end() + len(name):]
+            if not rest.startswith("I"):
+                return name, ""
+            args = rest.split("EEv")[0]
+            payload = ("f32" if args.startswith("If") else "i8"
+                       if args.startswith("Ia") else "e4m3"
+                       if args.startswith("I13__nv_fp8_e4m3") else "")
+            return name, ",".join([payload]
+                                  + re.findall(r"Lb([01])E", args))
+    return symbol, ""
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers, spill bytes and static shared memory of each kernel in
+    nvcc's -Xptxas -v output."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, instance = _kernel_of(m.group(1))
+            out.append({"kernel": name, "instance": instance})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
 def _self_device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, attr, None)
@@ -295,25 +348,25 @@ def profile(fn):
 
 
 def device_split(fn, kernel: str, calls: int = 20):
-    """Device ms of one launch of `kernel` and of one launch of everything
-    else the call ran (profiler), each the mean over the launches the
-    profiler recorded (it may drop some), and the instantiated kernel names
-    it matched (one: a call launches one instance); None where the
-    profiler saw no device time."""
+    """Device ms of one call's kernels whose names hold `kernel` (a call
+    may launch several: the backward's scatter instances launch a
+    pipeline, each kernel once), the sum of each one's mean over the
+    launches the profiler recorded (it may drop some); and of everything
+    else the call ran (fills, copies) per call; and the kernel names it
+    matched.  None where the profiler saw no device time."""
     fn()
     _, per_kernel, counts = profile(lambda: [fn() for _ in range(calls)])
     ours = [k for k in per_kernel if kernel in k]
     rest = [k for k in per_kernel if kernel not in k]
-
-    def mean_ms(keys):
-        seen = sum(counts[k] for k in keys)
-        return sum(per_kernel[k] for k in keys) / seen / 1e3 if seen else None
-
-    check(len(ours) <= 1, f"{kernel}: one call launched several "
-                          f"instances: {ours}")
-    return mean_ms(ours), mean_ms(rest), {
+    check(all(counts[k] <= calls for k in ours),
+          f"{kernel}: a call launched one of {ours} more than once")
+    ours_ms = (sum(per_kernel[k] / counts[k] for k in ours) / 1e3
+               if ours else None)
+    rest_ms = (sum(per_kernel[k] for k in rest) / calls / 1e3
+               if rest else None)
+    return ours_ms, rest_ms, {
         "device_events": sum(counts[k] for k in ours), "device_calls": calls,
-        "device_kernel": ours[0][:120] if ours else None}
+        "device_kernels": [k[:120] for k in ours]}
 
 
 def device_ms(fn, kernel: str, calls: int = 20):
@@ -347,9 +400,10 @@ def measure(name, n, fn, plain, tol, *, device_kernel, bound, extra=None,
 
 
 def backward_rows(n, spec, values, q, idx, w, gen):
-    """The backward kernel at one n, both instantiations, against
-    `lookup_bwd_plain`: dvalues to atol 1e-5 (atomics add in a varying
-    order), dq / dw to rtol 1e-4 / atol 1e-5."""
+    """The backward kernel at one n, both scatter instances (dq, dw: the
+    body and the scatter's pipeline), against `lookup_bwd_plain`: dvalues
+    to atol 1e-5 (a row's sum runs in placement order, which atomics set),
+    dq / dw to rtol 1e-4 / atol 1e-5."""
     g = torch.randn(n, M, generator=gen, device=values.device)
     distinct = torch.unique(idx).numel()
     rows = []
@@ -387,40 +441,49 @@ def backward_rows(n, spec, values, q, idx, w, gen):
         fill = values.numel() * 4  # the dense dvalues, written once
         ops_n = 4 * n * TOP_K * M + (n * TOP_K * 40 if stage == "dq" else 0)
         # the function (the call): each distinct row read once, dvalues
-        # written once; the kernel alone, on the zeroed dvalues: each
-        # distinct row read once and its gradient row written once
+        # written once (the kernels write it whole)
         b, by = bound_ms(distinct * 4 * M + fill + small, ops_n)
-        kb, kby = bound_ms(distinct * 8 * M + small, ops_n)
-        dev, rest, seen = device_split(fn, "lookup_bwd_kernel")
+        dev, rest, seen = device_split(fn, "lookup_bwd")
         rows.append({
             "n": n, "stage": stage, "max_abs_err": max(err_dv, err_small),
             "dvalues_max_abs_err": err_dv, f"{stage}_max_abs_err": err_small,
             "ms": time_ms(fn), "device_ms": dev, **seen,
-            "zero_fill_device_ms": rest, "plain_ms": time_ms(plain),
+            "fill_device_ms": rest, "plain_ms": time_ms(plain),
             "bound_ms": b, "bound_by": by,
-            "kernel_bound_ms": kb, "kernel_bound_by": kby,
-            "zero_fill_bound_ms": fill / HBM_BYTES_PER_S * 1e3,
             "library_ms": lib_ms, "distinct_rows": distinct})
         del dv, small, dv_p, small_p
     return rows
 
 
 def k2_row(rows, n, q, spec, values):
-    """K2 at one n against its plain version: the sorted weights to 1e-5
-    (they are bit-equal where the candidates agree) and the output they
-    gather to rtol 2e-5 / atol 1e-5; appends its row and returns the
-    kernel's (idx, w)."""
-    idx, w = e8_lookup.lram_query(q, spec, TOP_K)
-    idx_p, w_p = e8_lookup.lram_query_plain(q, spec, TOP_K)
-    torch.cuda.synchronize()
-    w_err = (torch.sort(w, -1).values
-             - torch.sort(w_p, -1).values).abs().max().item()
-    out = gather_interp.gather_interp_plain(values, idx, w)
-    out_p = gather_interp.gather_interp_plain(values, idx_p, w_p)
-    check(w_err <= 1e-5, f"K2 weights differ by {w_err} at n={n}")
-    check(torch.allclose(out, out_p, rtol=2e-5, atol=1e-5),
-          f"K2 gathered output differs at n={n}: max "
-          f"{(out - out_p).abs().max().item()}")
+    """K2 at one n against its plain version, bit for bit: weights and
+    indices on the uniform queries q and on `lattice.tie_queries` (exact
+    ties of weight, most at the top-32's cut; and ties in the canonical
+    sort), and the output the uniform set gathers; the timings on q, with
+    the device time on the weight-tie set beside them.  Appends its row
+    and returns the kernel's (idx, w) on q."""
+    sets = {"uniform": q}
+    for name, distinct in (("weight_ties", True), ("sort_ties", False)):
+        sets[name] = torch.from_numpy(lattice.tie_queries(
+            n, spec.K, seed=n, distinct=distinct)).to(q.device)
+    same = {}
+    for name, qs in sets.items():
+        idx, w = e8_lookup.lram_query(qs, spec, TOP_K)
+        idx_p, w_p = e8_lookup.lram_query_plain(qs, spec, TOP_K)
+        torch.cuda.synchronize()
+        same[name] = (idx == idx_p).float().mean().item()
+        w_err = (w - w_p).abs().max().item()
+        check(same[name] == 1.0 and torch.equal(w, w_p),
+              f"K2 differs from its plain version on the {name} queries at "
+              f"n={n}: {same[name]} of the indices equal, weights by "
+              f"{w_err}")
+        if name == "uniform":
+            idx_u, w_u = idx, w
+            out = gather_interp.gather_interp_plain(values, idx, w)
+            out_p = gather_interp.gather_interp_plain(values, idx_p, w_p)
+            check(torch.allclose(out, out_p, rtol=2e-5, atol=1e-5),
+                  f"K2 gathered output differs at n={n}: max "
+                  f"{(out - out_p).abs().max().item()}")
     k2 = lambda: e8_lookup.lram_query(q, spec, TOP_K)  # noqa: E731
     # per query: 232 distances of 23 fp32 ops, and the compares a top-k of
     # 232 needs (232 * log2 k), not the kernel's k full passes
@@ -428,14 +491,25 @@ def k2_row(rows, n, q, spec, values):
                   n * 232 * (23 + math.log2(TOP_K)))
     dev, _, seen = device_split(k2, "lram_query_kernel")
     rows["lram_query"].append({
-        "n": n, "max_abs_err": w_err,
-        "same_idx_frac": (idx == idx_p).float().mean().item(),
+        "n": n, "max_abs_err": 0.0, "same_idx_frac": same["uniform"],
+        "same_idx_frac_by_set": same, "w_bit_equal": True,
         "out_max_abs_err": (out - out_p).abs().max().item(),
         "ms": time_ms(k2), "device_ms": dev, **seen,
+        "weight_ties_device_ms": device_ms(
+            lambda: e8_lookup.lram_query(sets["weight_ties"], spec, TOP_K),
+            "lram_query_kernel"),
         "plain_ms": time_ms(lambda: e8_lookup.lram_query_plain(
             q, spec, TOP_K)),
         "bound_ms": b2[0], "bound_by": b2[1], "library_ms": None})
-    return idx, w
+    return idx_u, w_u
+
+
+def in_turns(fn_a, fn_b) -> tuple[list, list]:
+    """Call ms of fn_a and fn_b, timed a, b, b, a."""
+    a, b = [], []
+    for which in (a, b, b, a):
+        which.append(time_ms(fn_a if which is a else fn_b))
+    return a, b
 
 
 def kernel_phase(device):
@@ -504,7 +578,7 @@ def kernel_phase(device):
                | (idx & (SHARD_ROWS - 1))).int()
         distinct = torch.unique(gid).numel()
         rows64 = tiered_gather.cache_rows(gid, slot_table, SHARD_ROWS)
-        rows["tiered_gather"].append(measure(
+        rows["tiered_gather"].append(b5 := measure(
             "B5", n,
             lambda: tiered_gather.tiered_gather(
                 cache, gid, slot_table, w, shard_rows=SHARD_ROWS,
@@ -520,6 +594,13 @@ def kernel_phase(device):
             library=lambda: F.embedding_bag(rows64, cache,
                                             per_sample_weights=w,
                                             mode="sum")))
+        # call ms of B5 and of its yardstick again, in turns
+        b5["ms_turns"], b5["library_ms_turns"] = in_turns(
+            lambda: tiered_gather.tiered_gather(
+                cache, gid, slot_table, w, shard_rows=SHARD_ROWS,
+                resident=True),
+            lambda: F.embedding_bag(rows64, cache, per_sample_weights=w,
+                                    mode="sum"))
         for kind in PAYLOADS:
             cq, cs = caches[kind]
             rows["tiered_gather_quant"].append(measure(
@@ -641,17 +722,13 @@ def range_backward_row(n, stage, payload, table, scale, base, spec, q, idx,
     ops_n = (4 if scale is None else 2) * terms * M \
         + (terms * 40 if stage == "dq" else 0)
     b, by = bound_ms(distinct * row_bytes + fill + small_bytes, ops_n)
-    # the kernel alone, on the zeroed dvalues: a gradient row written too
-    kb, kby = bound_ms(distinct * (row_bytes + (4 * M if fill else 0))
-                       + small_bytes, ops_n)
-    dev, rest, seen = device_split(fn, "lookup_bwd_kernel")
+    dev, rest, seen = device_split(fn, "lookup_bwd")
     out = {"n": n, "stage": stage, "payload": payload,
            "max_abs_err": max(err_dv, err_small),
            "dvalues_max_abs_err": err_dv if dv is not None else None,
            f"{stage}_max_abs_err": err_small, "ms": time_ms(fn),
-           "device_ms": dev, **seen, "zero_fill_device_ms": rest,
+           "device_ms": dev, **seen, "fill_device_ms": rest,
            "plain_ms": time_ms(plain), "bound_ms": b, "bound_by": by,
-           "kernel_bound_ms": kb, "kernel_bound_by": kby,
            "library_ms": lib_ms, **where}
     del dv, small, dv_p, small_p
     return out
@@ -757,7 +834,7 @@ def no_scatter_rows(rows, n, spec, values, tables, wrap, gen):
                                          else 0)
             rows[name].append(measure(
                 f"{name} ({payload}, {stage})", n, call, plain, (1e-4, 1e-5),
-                device_kernel="lookup_bwd_kernel",
+                device_kernel="lookup_bwd",
                 bound=bound_ms(distinct * row_bytes + small, ops_n),
                 extra={"payload": payload, "stage": stage, **route},
                 library=library, library_tol=(1e-4, 1e-5)))
@@ -952,7 +1029,7 @@ def train_path():
 
 def profile_train_step(run, label: str = "train step",
                        ours=("lram_query_kernel", "gather_interp_kernel",
-                             "lookup_bwd_kernel")) -> None:
+                             "lookup_bwd")) -> None:
     """One more full-width train step under torch.profiler: device busy
     share of the step's wall time and the top kernels."""
     batch = train.batch_to(data.get_batch(run.dcfg, step=TRAIN_STEPS),
@@ -1431,6 +1508,9 @@ def main() -> None:
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
     for name, log in logs.items():
         print(f"--- nvcc {name}.cu ---\n{log.strip()}", flush=True)
+    print(json.dumps({"ptxas": [dict(r, source=name)
+                                for name, log in logs.items()
+                                for r in ptxas_report(log)]}), flush=True)
 
     rows = kernel_phase(device)
     launches, reports = {}, {}
@@ -1457,7 +1537,7 @@ def main() -> None:
     for name, (_, gather, bwd) in TIERED_TRAIN.items():
         launches[name], run = tiered_train_path(name)
         profile_train_step(run, f"train step {name}", (
-            "lram_query_kernel", f"{gather}_kernel", "lookup_bwd_kernel"))
+            "lram_query_kernel", f"{gather}_kernel", "lookup_bwd"))
         del run
     parity_phase()
     train_parity("lram-bert-medium", ["--placement", "pallas"])

@@ -259,3 +259,22 @@ def neighbors_and_weights(q: torch.Tensor):
     sp = sgn[..., None, :] * cand  # (..., 232, 8)
     glob = torch.gather(sp, -1, inv[..., None, :].expand(sp.shape))
     return c[..., None, :] + glob, w
+
+
+def tie_queries(n: int, K, seed: int = 0, *,
+                distinct: bool = True) -> np.ndarray:
+    """(n, 8) float32 queries q = 2u + t on the torus of periods K: u a
+    random integer point, t a random signed permutation of (15, 13, 11,
+    9, 7, 5, 3, 1) / 32.  Every coordinate and every squared distance to a
+    candidate is a dyadic rational that float32 holds exactly, so equal
+    weights are exact ties (most queries have one at the top-32's cut),
+    while |t| has no ties: the set that holds a top-k to its tie rule.
+    With `distinct` False the magnitudes of t are drawn with repeats, so
+    |q - decode(q)| has ties too (the canonical sort's tie rule)."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, np.asarray(K) // 2, size=(n, DIM))
+    t = np.arange(15, 0, -2, dtype=np.float64) / 32
+    t = np.stack([rng.permutation(t) if distinct
+                  else rng.choice(t[4:], size=DIM) for _ in range(n)])
+    t *= rng.choice([-1.0, 1.0], size=(n, DIM))
+    return (2 * u + t).astype(np.float32)

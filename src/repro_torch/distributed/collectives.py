@@ -1,6 +1,8 @@
-"""Sums across the ranks of a process group, plain and differentiable.
+"""Sums across the ranks of a process group, plain and differentiable,
+and the gather of a batch's rows.
 
-`all_reduce_` is the one place the port reduces tensors across ranks.  On
+`all_reduce_` is the one place the port reduces tensors across ranks, and
+`all_gather_rows` the one place it gathers them.  On
 a gloo group it reduces CUDA tensors too: gloo stages them through host
 memory, which is how the one-card mesh (several ranks on one H100) runs;
 NCCL reduces them on the cards.
@@ -36,6 +38,19 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     if not _trivial(group):
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
+
+
+def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's `t` (alike in shape) concatenated along dim 0 in the
+    group's rank order: the global batch, for tensors of each data rank's
+    slice (`sharding.batch_slice` takes contiguous rows).  `t` itself for a
+    group of None or of one rank."""
+    if _trivial(group):
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts)
 
 
 def all_reduce_flat_(tensors: list[torch.Tensor], group) -> None:

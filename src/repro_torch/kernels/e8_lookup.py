@@ -40,13 +40,16 @@ def lram_query_plain(q: torch.Tensor, spec: indexing.TorusSpec,
 
 @functools.lru_cache(maxsize=None)
 def _padded_candidates(device: torch.device):
-    """(8, 256) transposed candidate table and (256,) squared norms."""
+    """The kernel's candidate table, (2, 256, 4): coordinates 0-3, then
+    4-7, of each padded candidate (one float4 each), and the (256,)
+    squared norms."""
     cand, nsq = lattice.candidate_arrays()
     pad = NUM_PADDED - cand.shape[0]
-    cand_t = np.concatenate([cand, np.zeros((pad, 8), np.float32)]).T
+    cand_p = np.concatenate([cand, np.zeros((pad, 8), np.float32)])
+    halves = cand_p.reshape(NUM_PADDED, 2, 4).transpose(1, 0, 2)
     nsq_p = np.concatenate([nsq, np.zeros((pad,), np.float32)])
     with torch.inference_mode(False):  # cached: usable under autograd too
-        return (torch.from_numpy(np.ascontiguousarray(cand_t)).to(device),
+        return (torch.from_numpy(np.ascontiguousarray(halves)).to(device),
                 torch.from_numpy(nsq_p).to(device))
 
 
@@ -81,10 +84,10 @@ def lram_query(q: torch.Tensor, spec: indexing.TorusSpec,
     idx = torch.empty((n, top_k), dtype=torch.int32, device=q.device)
     w = torch.empty((n, top_k), dtype=torch.float32, device=q.device)
     if n:
-        cand_t, nsq = _padded_candidates(q.device)
+        cand, nsq = _padded_candidates(q.device)
         wrap = (ctypes.c_int * lattice.DIM)(*spec.K)
         status = _build.function("e8_lookup", "lram_query_f32", _ARGS)(
-            qf.data_ptr(), cand_t.data_ptr(), nsq.data_ptr(),
+            qf.data_ptr(), cand.data_ptr(), nsq.data_ptr(),
             idx.data_ptr(), w.data_ptr(), n, top_k, wrap, q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream,
         )

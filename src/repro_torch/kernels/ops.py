@@ -24,12 +24,14 @@ Where the table's gradient goes depends on the table (`lram_lookup`):
     sink (`memstore.interp.tiered_interp`, and B4's VJP
     `gather_interp.gather_interp_quant_vjp`).
 
-All three wrappers launch the hand-written kernel of `csrc/lookup_bwd.cu`
-(one body, instantiated per payload, scatter and output; design and bound
-noted there) on a CUDA tensor or raise; on a CPU tensor they take
-`lookup_bwd_plain`.  Without q the same kernel computes a gather's VJP,
-dw = g . rows: B1's (`gather_interp.gather_interp_vjp`, with the scatter)
-and B4's (1-byte rows, no scatter).
+All three wrappers launch the hand-written kernels of `csrc/lookup_bwd.cu`
+(one body, instantiated per payload, row range and output; for the fp32
+instances that scatter, a counting sort of the pairs by row and a pass
+over the sorted pairs instead; design and bound noted there) on a CUDA
+tensor or raise; on a CPU tensor they take `lookup_bwd_plain`.  Without
+q the same kernels compute a gather's VJP, dw = g . rows: B1's
+(`gather_interp.gather_interp_vjp`, with the scatter) and B4's (1-byte
+rows, no scatter).
 """
 
 from __future__ import annotations
@@ -122,10 +124,24 @@ def lookup_bwd_plain(values: torch.Tensor, idx: torch.Tensor,
     return dvalues, dq
 
 
-_DQ_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
+# values, idx, w, g, q, dvalues, dq, scratch, n, k, m, rows, wrap, device,
+# stream (dw: no q and no wrap)
+_DQ_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
     + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-_DW_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_DW_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _MAX_M = 256  # the kernel keeps g in registers, 64 columns per chunk
+
+
+def _scatter_scratch(n: int, top_k: int, rows: int,
+                     device: torch.device) -> torch.Tensor:
+    """The int32 scratch of a scatter instance (its counting sort of the
+    n·k pairs by row; layout in `csrc/lookup_bwd.cu`)."""
+    if n >= 2**23 or top_k > 255:
+        raise ValueError(f"the scatter takes n < 2^23 queries of top_k < "
+                         f"256 (it packs t << 8 | k), got {n} x {top_k}")
+    fn = _build.load("lookup_bwd").lookup_bwd_scatter_scratch
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return torch.empty(fn(n, top_k, rows), dtype=torch.int32, device=device)
 
 
 def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -153,19 +169,21 @@ def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
             or g.device != values.device:
         raise ValueError(f"g must be a contiguous {(*lead, m)} tensor on "
                          f"the table's device, got {tuple(g.shape)}")
-    dvalues = torch.zeros_like(values)
+    # the kernel writes every row of dvalues, untouched ones as zeros
+    dvalues = torch.empty_like(values)
+    num_rows = values.shape[0]
+    scratch = _scatter_scratch(n, top_k, num_rows, values.device)
     stream = gather_interp.current_stream(values)
     if q is None:
         out = torch.empty((n, top_k), dtype=torch.float32,
                           device=values.device)
-        if n:
-            status = _build.function("lookup_bwd", "lookup_bwd_dw_f32",
-                                     _DW_ARGS)(
-                values.data_ptr(), idx2.data_ptr(), w2.data_ptr(),
-                g.data_ptr(), dvalues.data_ptr(), out.data_ptr(), n, top_k,
-                m, values.device.index, stream)
-            _build.check(status, "lookup_bwd (dw)")
-            lookup_bwd.launches += 1
+        status = _build.function("lookup_bwd", "lookup_bwd_dw_f32",
+                                 _DW_ARGS)(
+            values.data_ptr(), idx2.data_ptr(), w2.data_ptr(), g.data_ptr(),
+            dvalues.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
+            top_k, m, num_rows, values.device.index, stream)
+        _build.check(status, "lookup_bwd (dw)")
+        lookup_bwd.launches += 1
         return dvalues, out.reshape(*lead, top_k)
     if q.dtype != torch.float32 or q.shape != (*lead, lattice.DIM) \
             or not q.is_contiguous() or q.device != values.device:
@@ -174,15 +192,13 @@ def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                          f"{tuple(q.shape)} {q.dtype}")
     out = torch.empty((n, lattice.DIM), dtype=torch.float32,
                       device=values.device)
-    if n:
-        wrap = (ctypes.c_int * lattice.DIM)(*spec.K)
-        status = _build.function("lookup_bwd", "lookup_bwd_dq_f32",
-                                 _DQ_ARGS)(
-            values.data_ptr(), idx2.data_ptr(), w2.data_ptr(), g.data_ptr(),
-            q.data_ptr(), dvalues.data_ptr(), out.data_ptr(), n, top_k, m,
-            wrap, values.device.index, stream)
-        _build.check(status, "lookup_bwd (dq)")
-        lookup_bwd.launches += 1
+    wrap = (ctypes.c_int * lattice.DIM)(*spec.K)
+    status = _build.function("lookup_bwd", "lookup_bwd_dq_f32", _DQ_ARGS)(
+        values.data_ptr(), idx2.data_ptr(), w2.data_ptr(), g.data_ptr(),
+        q.data_ptr(), dvalues.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        n, top_k, m, num_rows, wrap, values.device.index, stream)
+    _build.check(status, "lookup_bwd (dq)")
+    lookup_bwd.launches += 1
     return dvalues, out.reshape(*lead, lattice.DIM)
 
 
@@ -306,13 +322,16 @@ lookup_bwd_rows.launches = 0
 lookup_bwd_quant.launches = 0
 
 
-# values, [scale,] idx, w, g, q, dq, n, k, m, base, rows, wrap, device,
-# stream (the fp32 instance has dvalues where a 1-byte one has scale)
-_RANGE_DQ_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+# fp32: values, idx, w, g, q, dvalues, dq, scratch; 1-byte: values, scale,
+# idx, w, g, q, dq; then n, k, m, base, rows, wrap, device, stream (dw: no
+# q and no wrap)
+_RANGE_DQ_ARGS = {
+    f32: [ctypes.c_void_p] * ptrs + [ctypes.c_int] * 5
     + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-# values, [scale,] idx, w, g, dw, n, k, m, base, rows, device, stream
-_RANGE_DW_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-    + [ctypes.c_void_p]
+    for f32, ptrs in ((True, 8), (False, 7))}
+_RANGE_DW_ARGS = {
+    f32: [ctypes.c_void_p] * ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for f32, ptrs in ((True, 7), (False, 6))}
 
 
 def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
@@ -362,49 +381,38 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
     base = sharded_gather.check_shard_base(values, base, "lookup_bwd_range")
     rows = values.shape[0]
     name = _ROWS_PAYLOAD[values.dtype]
+    f32 = scale is None
     stream = gather_interp.current_stream(values)
-    dvalues = torch.zeros_like(values) if scale is None else None
-    # the fp32 instances take dvalues where the 1-byte ones take scale
-    second = (dvalues if scale is None else scale).data_ptr()
-    if q is None:
-        out = torch.empty((n, top_k), dtype=torch.float32,
-                          device=values.device)
-        if n:
-            status = _build.function("lookup_bwd", f"lookup_bwd_range_dw_"
-                                     f"{name}", _RANGE_DW_ARGS)(
-                *_range_ptrs(name, values, second, idx2, w2, g, None, out),
-                n, top_k, m, base, rows, values.device.index, stream)
-            _build.check(status, "lookup_bwd_range (dw)")
-            lookup_bwd_range.launches += 1
-        return dvalues, out.reshape(*lead, top_k)
-    if q.dtype != torch.float32 or q.shape != (*lead, lattice.DIM) \
-            or not q.is_contiguous() or q.device != values.device:
+    if q is not None and (
+            q.dtype != torch.float32 or q.shape != (*lead, lattice.DIM)
+            or not q.is_contiguous() or q.device != values.device):
         raise ValueError(f"q must be a contiguous float32 {(*lead, 8)} "
                          f"tensor on the shard's device, got "
                          f"{tuple(q.shape)} {q.dtype}")
-    out = torch.empty((n, lattice.DIM), dtype=torch.float32,
-                      device=values.device)
-    if n:
-        wrap = (ctypes.c_int * lattice.DIM)(*spec.K)
-        status = _build.function("lookup_bwd", f"lookup_bwd_range_dq_{name}",
-                                 _RANGE_DQ_ARGS)(
-            *_range_ptrs(name, values, second, idx2, w2, g, q, out),
-            n, top_k, m, base, rows, wrap, values.device.index, stream)
-        _build.check(status, "lookup_bwd_range (dq)")
-        lookup_bwd_range.launches += 1
-    return dvalues, out.reshape(*lead, lattice.DIM)
-
-
-def _range_ptrs(name, values, second, idx2, w2, g, q, out):
-    """The pointer arguments of a range instance, in its C order: fp32
-    (values, idx, w, g, [q,] dvalues, out), 1-byte (values, scale, idx, w,
-    g, [q,] out)."""
-    small = [g.data_ptr()] + ([] if q is None else [q.data_ptr()])
-    if name == "f32":
-        return [values.data_ptr(), idx2.data_ptr(), w2.data_ptr(), *small,
-                second, out.data_ptr()]
-    return [values.data_ptr(), second, idx2.data_ptr(), w2.data_ptr(),
-            *small, out.data_ptr()]
+    # the fp32 kernel writes every row of the shard's dvalues
+    dvalues = torch.empty_like(values) if f32 else None
+    out = torch.empty((n, top_k if q is None else lattice.DIM),
+                      dtype=torch.float32, device=values.device)
+    if not (n or f32):
+        return dvalues, out.reshape(*lead, out.shape[1])
+    # C order: values, [scale,] idx, w, g, [q,] [dvalues,] out, [scratch]
+    ptrs = [values.data_ptr()] + ([] if f32 else [scale.data_ptr()]) \
+        + [idx2.data_ptr(), w2.data_ptr(), g.data_ptr()] \
+        + ([] if q is None else [q.data_ptr()]) \
+        + ([dvalues.data_ptr()] if f32 else []) + [out.data_ptr()]
+    if f32:
+        ptrs.append(_scatter_scratch(n, top_k, rows,
+                                     values.device).data_ptr())
+    stage = "dw" if q is None else "dq"
+    args = [n, top_k, m, base, rows] \
+        + ([] if q is None else [(ctypes.c_int * lattice.DIM)(*spec.K)])
+    status = _build.function(
+        "lookup_bwd", f"lookup_bwd_range_{stage}_{name}",
+        (_RANGE_DW_ARGS if q is None else _RANGE_DQ_ARGS)[f32])(
+        *ptrs, *args, values.device.index, stream)
+    _build.check(status, f"lookup_bwd_range ({stage})")
+    lookup_bwd_range.launches += 1
+    return dvalues, out.reshape(*lead, out.shape[1])
 
 
 #: kernel launches since the last reset

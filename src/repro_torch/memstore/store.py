@@ -56,10 +56,12 @@ from typing import Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch import quant
 from repro_torch.core import lookup
+from repro_torch.distributed import collectives, context
 from repro_torch.kernels import tiered_gather
 
 
@@ -370,8 +372,21 @@ class TieredValueStore(nn.Module):
         overflow rows appended) and each index's int32 row in it, shaped
         like idx.  Maps idx first (stats, fills) and syncs the device.
         The differentiable lookups read through this even when every shard
-        is resident, and keep the table for their backward."""
-        mapped = self._map(idx.reshape(-1).cpu().numpy())
+        is resident, and keep the table for their backward.
+
+        On a mesh with more than one ``data`` rank idx is this rank's slice
+        of the global batch: the global idx is gathered in rank order and
+        mapped whole, so that fills, LRU order and stats are the one-rank
+        run's on every rank (the int8 write-back draws in an order that
+        depends on them), and this rank's rows are returned."""
+        flat = idx.reshape(-1)
+        group = context.axis_group("data")
+        mapped = self._map(collectives.all_gather_rows(flat, group)
+                           .cpu().numpy())
+        if group is not None:
+            own = slice(dist.get_rank(group) * flat.numel(),
+                        (dist.get_rank(group) + 1) * flat.numel())
+            mapped = tuple(a[own] for a in mapped)
         self._sync_device()
         table, scale, rows = self._flat_table(*mapped)
         return table, scale, rows.reshape(idx.shape)
@@ -404,13 +419,18 @@ class TieredValueStore(nn.Module):
         """The table's gradient from a differentiable lookup, applied as
         the sparse SGD step: idx (..., k), w (..., k) and g (..., m) come
         to the host (8 bytes an index and weight, 4m a query) and w ⊗ g is
-        formed there in float32, the reference's product.  A no-op while
-        `writeback_lr` is 0."""
+        formed there in float32, the reference's product.  On a mesh with
+        more than one ``data`` rank they are this rank's slice of the
+        global batch: every rank gathers all three over ``data`` in rank
+        order (not w ⊗ g, k times larger) and applies the global batch's
+        update, as the one-rank run does.  A no-op while `writeback_lr` is
+        0."""
         if self.writeback_lr <= 0.0:
             return
-        idx_np = idx.detach().cpu().numpy()
-        w_np = w.detach().float().cpu().numpy()
-        g_np = g.detach().float().cpu().numpy()
+        group = context.axis_group("data")
+        idx_np, w_np, g_np = (
+            collectives.all_gather_rows(t.detach(), group).cpu().numpy()
+            for t in (idx, w.float(), g.float()))
         self.apply_writeback(idx_np, w_np[..., None] * g_np[..., None, :])
 
     def apply_writeback(self, idx, wg) -> None:

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro_torch import quant
-from repro_torch.core import indexing, lookup
+from repro_torch.core import indexing, lattice, lookup
 from repro_torch.core.lram import LRAMConfig
 from repro_torch.kernels import (e8_lookup, gather_interp, ops,
                                  sharded_gather, tiered_gather)
@@ -47,6 +47,29 @@ def test_kernels_match_plain_on_card(cuda_device, n):
     torch.testing.assert_close(
         out, gather_interp.gather_interp_plain(values, idx, w),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [1, 8, 32, 33, 232])
+@pytest.mark.parametrize("n", [1, 128, 2048, 65536])
+def test_lram_query_bit_equal_to_plain_on_card(cuda_device, n, top_k):
+    """K2 on uniform torus queries, on `lattice.tie_queries` (exact
+    ties of weight, most at the top-32's cut) and on its variant with
+    ties in |q - decode(q)|: weights and indices bit-equal to the plain
+    version, whose stable sorts keep the lower candidate first among
+    equal weights and the lower coordinate first in the canonical sort;
+    one chunk (top_k <= 32) or several."""
+    spec = indexing.choose_torus(20)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + top_k)
+    K = torch.tensor(spec.K, dtype=torch.float32, device=cuda_device)
+    for q in (torch.rand(n, 8, generator=gen, device=cuda_device) * K,
+              *(torch.from_numpy(lattice.tie_queries(
+                  n, spec.K, seed=n, distinct=d)).to(cuda_device)
+                for d in (True, False))):
+        idx, w = e8_lookup.lram_query(q, spec, top_k)
+        idx_p, w_p = e8_lookup.lram_query_plain(q, spec, top_k)
+        torch.testing.assert_close(w, w_p, rtol=0, atol=0)
+        torch.testing.assert_close(idx, idx_p, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -215,6 +238,42 @@ def test_lookup_bwd_matches_plain_on_card(cuda_device, with_dq, n):
     dv_p, small_p = ops.lookup_bwd_plain(values, idx, w, g, **extra)
     torch.cuda.synchronize()
     assert small.shape == small_p.shape == ((n, 8) if with_dq else (n, 32))
+    torch.testing.assert_close(dv, dv_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(small, small_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("queries", ["uniform", "clustered"])
+@pytest.mark.parametrize("stage", ["dq", "dw"])
+@pytest.mark.parametrize("m", [62, 64, 256])
+def test_scatter_instances_match_plain_on_card(cuda_device, m, stage,
+                                               queries):
+    """The scatter instances at widths of one and of four 64-column chunks
+    and one not a multiple of 4 (62), on uniform queries and on clustered
+    ones (32 queries near each of 64 points: rows hit by 32 and more pairs,
+    which the sum's chunks cut and add atomically), on the whole table and
+    on the upper half as a range shard at base 2^19: dvalues to atol 1e-5,
+    dq / dw to rtol 1e-4 / atol 1e-5 against `lookup_bwd_plain`."""
+    spec, q, idx, w, values, g = _bwd_inputs(cuda_device, 2048, m=m)
+    if queries == "clustered":
+        gen = torch.Generator(device=cuda_device).manual_seed(m)
+        q = (q[:64].repeat(32, 1) + 1e-3 * torch.rand(
+            2048, 8, generator=gen, device=cuda_device)).contiguous()
+        with torch.no_grad():
+            idx, w = e8_lookup.lram_query(q, spec)
+        assert torch.unique(idx, return_counts=True)[1].max() > 32
+    extra = {"q": q, "spec": spec} if stage == "dq" else {}
+    dv, small = ops.lookup_bwd(values, idx, w, g, **extra)
+    dv_p, small_p = ops.lookup_bwd_plain(values, idx, w, g, **extra)
+    torch.testing.assert_close(dv, dv_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(small, small_p, rtol=1e-4, atol=1e-5)
+    base = 2**19
+    shard = values[base:].contiguous()
+    before = ops.lookup_bwd_range.launches
+    dv, small = ops.lookup_bwd_range(shard, idx, w, g, base, **extra)
+    assert ops.lookup_bwd_range.launches == before + 1
+    dv_p, small_p = ops.lookup_bwd_plain(shard, idx, w, g, extra.get("q"),
+                                         spec, base=base)
     torch.testing.assert_close(dv, dv_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(small, small_p, rtol=1e-4, atol=1e-5)
 

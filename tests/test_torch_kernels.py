@@ -13,7 +13,7 @@ import torch
 from repro.core import indexing as j_indexing
 from repro.kernels import e8_lookup as j_e8
 from repro.kernels import gather_interp as j_gather
-from repro_torch.core import indexing, lookup
+from repro_torch.core import indexing, lattice, lookup
 from repro_torch.core.lram import LRAMConfig
 from repro_torch.kernels import e8_lookup, gather_interp, tiered_gather
 from repro_torch.memstore import TieredSpec
@@ -103,3 +103,21 @@ def test_plans_name_their_kernels():
     assert lookup.resolve(LRAMConfig(interp_impl="pallas",
                                      table_quant="fp8")).cell \
         == ("dense", "fp8", "pallas")
+
+
+@pytest.mark.parametrize("top_k", [32, 8])
+def test_lram_query_plain_matches_pallas_on_ties(top_k):
+    """The tie rule: on `lattice.tie_queries` (exact dyadic distances, so
+    equal weights are exact ties, most of them at the top-32's cut) K2's
+    plain version equals lram_query_pallas (interpret) exactly, weights
+    and raw indices: equal weights keep the lower candidate first.  The
+    CUDA kernel is held to the plain version bit for bit on the card."""
+    q = lattice.tie_queries(256, SPEC.K, seed=top_k)
+    idx, w = e8_lookup.lram_query(torch.from_numpy(q), SPEC, top_k)
+    jidx, jw = j_e8.lram_query_pallas(jnp.asarray(q), J_SPEC, top_k,
+                                      interpret=True)
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    # the rule is exercised: a share of the queries (all at top-32, a
+    # quarter at top-8) have exact ties inside their top-k
+    assert (w[:, 1:] == w[:, :-1]).any(-1).float().mean() >= 0.2
