@@ -10,11 +10,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
   3. hold each kernel against its plain PyTorch version on the card at the
      serving path's shapes (n = 128, 2048, 65536 queries, top-k 32, m 64)
      and time kernel, plain version and, where one PyTorch call computes
-     the same function, that call (`F.embedding_bag`):
+     the same function, that call (`F.embedding_bag`); a device time is
+     the mean of a kernel's launches under torch.profiler, and a session
+     that lost launch records is run again (up to 4):
        K2 `lram_query`, its weights and indices bit-equal to the plain
        version's on uniform queries and on `lattice.tie_queries` (exact
        ties of weight, and ties in the canonical sort), and K1
-       `gather_interp`, on the full 2^20-row table;
+       `gather_interp`, on the full 2^20-row table, and K1 again at
+       n = 65536 on clustered queries (64 near each of n / 64 points, as
+       training's queries crowd rows);
        B4 `gather_interp_quant` on the table quantized to int8 and e4m3;
        B5 `tiered_gather` and B6 `tiered_gather_quant` (int8, e4m3) on a
        full-width device cache (32 slots x 8192 rows) with resident
@@ -63,7 +67,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      once a step), every loss and grad norm is finite and the mean loss of
      steps 16-20 is below that of steps 1-5.  Step-time median over steps
      6-20, tokens/s, peak device memory; then one more step under
-     torch.profiler (busy share, top kernels);
+     torch.profiler (busy share, top kernels, and K1's device time in it
+     beside its bound on that step's own indices: each distinct row they
+     name read once);
  6b. the mesh: 4 ranks spawned on the one card (gloo, which sums CUDA
      tensors through host memory: data 2 x model 2, the 2^20-row table
      row-sharded over model, 128 MiB a rank).  Each rank checks two
@@ -138,6 +144,7 @@ from repro_torch.serving import (  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 (non-tensor) rate
 HBM_BYTES_PER_S = 3.35e12
+PROFILE_SESSIONS = 4  # profiler sessions a device time may take
 FP32_OPS_PER_S = 67e12
 SHAPES = (128, 2048, 65536)  # decode tick (4 slots x 32 heads), 64-token
 #                              prefill (64 x 32 heads), a large batch
@@ -282,7 +289,7 @@ def _kernel_of(symbol: str) -> tuple[str, str]:
             rest = symbol[m.end() + len(name):]
             if not rest.startswith("I"):
                 return name, ""
-            args = rest.split("EEv")[0]
+            args = rest.split("EEv")[0] + "E"
             payload = ("f32" if args.startswith("If") else "i8"
                        if args.startswith("Ia") else "e4m3"
                        if args.startswith("I13__nv_fp8_e4m3") else "")
@@ -351,21 +358,37 @@ def device_split(fn, kernel: str, calls: int = 20):
     """Device ms of one call's kernels whose names hold `kernel` (a call
     may launch several: the backward's scatter instances launch a
     pipeline, each kernel once), the sum of each one's mean over the
-    launches the profiler recorded (it may drop some); and of everything
-    else the call ran (fills, copies) per call; and the kernel names it
-    matched.  None where the profiler saw no device time."""
+    launches the profiler recorded; and of everything else the call ran
+    (fills, copies) per call; and the kernel names it matched.  A profiler session now and then delivers none or
+    only some of its kernel records (the cells of the table that read
+    "not measured"): a session that recorded fewer than `calls` launches
+    of a matched kernel is run again, up to PROFILE_SESSIONS sessions, and
+    the one that recorded the most launches is kept (`profile_sessions`:
+    each session's launches of ours and all its device events).  None
+    where no session saw device time."""
     fn()
-    _, per_kernel, counts = profile(lambda: [fn() for _ in range(calls)])
-    ours = [k for k in per_kernel if kernel in k]
-    rest = [k for k in per_kernel if kernel not in k]
-    check(all(counts[k] <= calls for k in ours),
-          f"{kernel}: a call launched one of {ours} more than once")
+    best, by_session = None, []
+    for session in range(1, PROFILE_SESSIONS + 1):
+        _, per_kernel, counts = profile(lambda: [fn() for _ in range(calls)])
+        ours = [k for k in per_kernel if kernel in k]
+        check(all(counts[k] <= calls for k in ours),
+              f"{kernel}: a call launched one of {ours} more than once")
+        recorded = sum(counts[k] for k in ours)
+        # launches of ours, and all device events, each session recorded
+        by_session.append([recorded, sum(counts.values())])
+        if best is None or recorded > best[0]:
+            best = (recorded, per_kernel, counts, ours)
+        if ours and all(counts[k] == calls for k in ours):
+            break
+    recorded, per_kernel, counts, ours = best
+    rest = [k for k in per_kernel if k not in ours]
     ours_ms = (sum(per_kernel[k] / counts[k] for k in ours) / 1e3
                if ours else None)
     rest_ms = (sum(per_kernel[k] for k in rest) / calls / 1e3
                if rest else None)
     return ours_ms, rest_ms, {
-        "device_events": sum(counts[k] for k in ours), "device_calls": calls,
+        "device_events": recorded, "device_calls": calls,
+        "profile_sessions": by_session,
         "device_kernels": [k[:120] for k in ours]}
 
 
@@ -550,16 +573,7 @@ def kernel_phase(device):
         idx, w = k2_row(rows, n, q, spec, values)
 
         distinct = torch.unique(idx).numel()
-        idx64 = idx.long()
-        rows["gather_interp"].append(measure(
-            "K1", n, lambda: gather_interp.gather_interp(values, idx, w),
-            lambda: gather_interp.gather_interp_plain(values, idx, w),
-            (1e-5, 1e-5), device_kernel="gather_interp_kernel",
-            bound=gather_bound(distinct, 4 * M, n),
-            extra={"route": "dense", "distinct_rows": distinct},
-            library=lambda: F.embedding_bag(idx64, values,
-                                            per_sample_weights=w,
-                                            mode="sum")))
+        k1_dense_row(rows, n, values, idx, w, "uniform")
         rows["lookup_bwd"] += backward_rows(n, spec, values, q, idx, w, gen)
         for kind in PAYLOADS:
             tq, ts = tables[kind]
@@ -613,11 +627,36 @@ def kernel_phase(device):
                 (2e-5, 1e-6), device_kernel="tiered_gather_quant_kernel",
                 bound=gather_bound(distinct, M + 4, n),
                 extra={"payload": kind, "distinct_rows": distinct}))
+    # K1 on clustered queries (64 near each of n / 64 points), as
+    # training's queries crowd rows
+    n = SHAPES[-1]
+    q = torch.rand(n // 64, 8, generator=gen, device=device) * wrap
+    q = (q.repeat(64, 1) + 1e-3 * torch.rand(n, 8, generator=gen,
+                                             device=device)).contiguous()
+    idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+    k1_dense_row(rows, n, values, idx, w, "clustered")
     for n in ROWS_SHAPES:
         no_scatter_rows(rows, n, spec, values, tables, wrap, gen)
     for n in RANGE_SHAPES:
         range_rows(rows, n, spec, values, tables, wrap, gen)
     return rows
+
+
+def k1_dense_row(rows, n, values, idx, w, queries):
+    """K1 on the dense table against its plain version to 1e-5; library
+    yardstick `F.embedding_bag`."""
+    distinct = torch.unique(idx).numel()
+    idx64 = idx.long()
+    rows["gather_interp"].append(measure(
+        "K1", n, lambda: gather_interp.gather_interp(values, idx, w),
+        lambda: gather_interp.gather_interp_plain(values, idx, w),
+        (1e-5, 1e-5), device_kernel="gather_interp_kernel",
+        bound=gather_bound(distinct, 4 * M, n),
+        extra={"route": "dense", "queries": queries,
+               "distinct_rows": distinct},
+        library=lambda: F.embedding_bag(idx64, values,
+                                        per_sample_weights=w,
+                                        mode="sum")))
 
 
 def range_rows(rows, n, spec, values, tables, wrap, gen):
@@ -1031,10 +1070,17 @@ def profile_train_step(run, label: str = "train step",
                        ours=("lram_query_kernel", "gather_interp_kernel",
                              "lookup_bwd")) -> None:
     """One more full-width train step under torch.profiler: device busy
-    share of the step's wall time and the top kernels."""
+    share of the step's wall time and the top kernels; and K1 in that
+    step beside its bound on the step's own indices (each distinct row
+    they name read once)."""
     batch = train.batch_to(data.get_batch(run.dcfg, step=TRAIN_STEPS),
                            next(run.model.parameters()).device)
-    wall = []
+    wall, k1_calls = [], []
+    k1 = gather_interp.gather_interp
+
+    def recorded_k1(values, idx, w):
+        k1_calls.append(idx)
+        return k1(values, idx, w)
 
     def step():
         t0 = time.perf_counter()
@@ -1043,7 +1089,27 @@ def profile_train_step(run, label: str = "train step",
         wall.append(time.perf_counter() - t0)
         return out
 
-    _, per_kernel, calls = profile(step)
+    # the wrapper counts its launches through its module's name
+    recorded_k1.launches = k1.launches
+    gather_interp.gather_interp = recorded_k1
+    try:
+        _, per_kernel, calls = profile(step)
+    finally:
+        gather_interp.gather_interp = k1
+        k1.launches = recorded_k1.launches
+    k1_step = None
+    if k1_calls:
+        n = sum(idx.numel() // TOP_K for idx in k1_calls)
+        distinct = sum(torch.unique(idx).numel() for idx in k1_calls)
+        b, by = gather_bound(distinct, 4 * M, n)
+        k1_step = {
+            "calls": len(k1_calls), "n": n, "distinct_rows": distinct,
+            "device_ms": sum(v for k, v in per_kernel.items()
+                             if "gather_interp_kernel" in k) / 1e3,
+            "device_events": sum(c for k, c in calls.items()
+                                 if "gather_interp_kernel" in k),
+            "bound_ms": b, "bound_by": by}
+        del k1_calls
     kernels = {k: v for k, v in per_kernel.items()
                if not k.startswith(("Memcpy", "Memset"))}
     copies = {k: v for k, v in per_kernel.items()
@@ -1057,7 +1123,7 @@ def profile_train_step(run, label: str = "train step",
         "kernel_ms": total_ms, "copy_ms": sum(copies.values()) / 1e3,
         "busy_share": total_ms / (1e3 * wall[0]),
         "kernel_launches": sum(c for k, c in calls.items() if k in kernels),
-        "memory_kernels_ms": mine,
+        "memory_kernels_ms": mine, "k1": k1_step,
         "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top],
         "copies_ms": [[k[:60], v / 1e3] for k, v in copies.items()],
     }), flush=True)

@@ -1,0 +1,273 @@
+// The weighted row gather of K1 (csrc/gather_interp.cu) and row 9 (the
+// range gather, csrc/sharded_gather.cu), redesigned for the H100:
+//
+//   out[t] = sum_k  w[t,k] * (scale[r] if scaled) * values[r],
+//            r = row_map(idx[t,k])
+//
+// with the row payloads, row maps and numerics of gather_rows.cuh (fp32
+// accumulate; a 1-byte row's scale folded into its weight; a row mapped
+// below 0 gives NaN; a masking row map's "not mine" adds nothing and its
+// row is not read).  B4, B5, B6 and lookup_bwd.cu still run
+// gather_rows.cuh's warp-per-query body.
+//
+// Bound: bytes (each distinct row read once, the indices, weights and
+// output; the 2*n*k*m flops are far below the fp32 rate).  The old body
+// was latency-bound at decode sizes: a warp walked its query's 32 rows in
+// unroll-8 batches, about five dependent memory round trips a query, and
+// at n = 128 its 16 blocks left most of the 132 SMs idle.  This one:
+//   * a warp loads its candidates' indices and weights once (lane l holds
+//     candidate l) and maps them to table rows;
+//   * with a masking row map (row 9) the warp compacts the candidates to
+//     this shard's, in candidate order (__ballot_sync, then lane p takes
+//     the p-th set bit's candidate): no shuffle, branch or read is spent
+//     on another rank's row, and the sum keeps its order;
+//   * it issues kBatch = 8 row loads (two adjacent columns a lane, 256
+//     bytes a row at m = 64 fp32) before the first multiply-add, with no
+//     branch around a load (a load past the count reads candidate 0's row
+//     and is not added; a lane past the row's end reads the last pair), and
+//     turns 1-byte payloads into fp32 only after the batch's loads are out
+//     (a conversion beside its load waits for it);
+//   * where n is too small for one warp a query to fill the card, `split`
+//     warps of a block share a query, each summing a contiguous part of
+//     its candidates in order; the parts are added in a fixed warp order
+//     through shared memory and the output row is written once, so the
+//     result is deterministic for a given n.  With split = 1 a warp sums
+//     its query in candidate order, as the old body did: the same fp32
+//     operations in the same order, so K1's output is bit-equal to the
+//     old kernel's;
+//   * one kernel instance per (split == 1, m even) pair, so each holds
+//     only its own path's registers: at most 64 (4 blocks of 8 warps an
+//     SM), none spilled; the range gather's one-warp instances 32 (see
+//     sharded_gather.cu; its odd-m ones spill a little).  Clustered
+//     queries (training's) are L2-bound, where the old body's 32
+//     registers ran 64 warps an SM.
+// Tried and dropped (PERF.md): 16 or 32 row loads in flight, or
+// 4-12 under a 32-48 register cap (tools/gather_sweep.py: spills, fewer
+// blocks an SM, or slower on uniform queries); running the queries in the
+// order of their top row (tools/csrc/query_order.cu, tools/kernel_ab.py
+// --phases order: faster on uniform queries, slower on clustered ones).
+
+#pragma once
+
+#include <type_traits>
+
+#include "gather_rows.cuh"
+
+namespace gather_batched {
+
+using gather_rows::kFull;
+using gather_rows::kNotMine;
+using gather_rows::Payload;
+
+constexpr int kWarps = 8;     // warps a block
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxSplit = 8;  // warps a query at most (kWarps divides)
+constexpr int kBatch = 8;     // row loads a warp issues before its FMAs
+constexpr int kMinBlocks = 4;  // blocks an SM holds: at most 64 registers
+
+// Two adjacent columns of a row as stored (an fp32 pair, two int8, two
+// e4m3), loaded first and turned into fp32 only once the batch's loads
+// are out: a conversion next to its load would wait for it.
+template <typename T>
+struct Raw;
+
+template <>
+struct Raw<float> {
+  using Pair = float2;
+  static __device__ __forceinline__ Pair pair(const float* r, int c) {
+    return *reinterpret_cast<const float2*>(r + c);
+  }
+  static __device__ __forceinline__ float2 f32(Pair v) { return v; }
+};
+
+template <>
+struct Raw<int8_t> {
+  using Pair = char2;
+  static __device__ __forceinline__ Pair pair(const int8_t* r, int c) {
+    return *reinterpret_cast<const char2*>(r + c);
+  }
+  static __device__ __forceinline__ float2 f32(Pair v) {
+    return make_float2(static_cast<float>(v.x), static_cast<float>(v.y));
+  }
+};
+
+template <>
+struct Raw<__nv_fp8_e4m3> {
+  using Pair = __nv_fp8x2_e4m3;
+  static __device__ __forceinline__ Pair pair(const __nv_fp8_e4m3* r,
+                                              int c) {
+    return *reinterpret_cast<const __nv_fp8x2_e4m3*>(r + c);
+  }
+  static __device__ __forceinline__ float2 f32(Pair v) {
+    return static_cast<float2>(v);  // exact: every e4m3 value is a float
+  }
+};
+
+// The position of the p-th (from 0) set bit of mask, which has more than p.
+__device__ __forceinline__ int nth_set_bit(unsigned mask, int p) {
+  int pos = 0;
+#pragma unroll
+  for (int width = 16; width > 0; width >>= 1) {
+    const int c = __popc((mask >> pos) & ((1u << width) - 1u));
+    if (p >= c) {
+      p -= c;
+      pos += width;
+    }
+  }
+  return pos;
+}
+
+// Warps a query: the least power of two that gives every SM 4 warps,
+// while each warp keeps at least 4 candidates.  On the H100 n = 128 takes
+// 8 (4 and 8 time alike, 1 and 2 slower); from n = 528 on a query has one
+// warp (at n = 2,048 one and two time alike, 4 and 8 slower).
+// tools/kernel_ab.py --phases k1 times every split.
+inline int split_for(int n, int top_k, int sm_count) {
+  const long long want = 4LL * sm_count;
+  int split = 1;
+  while (split < kMaxSplit && static_cast<long long>(n) * split < want &&
+         8 * split <= top_k)
+    split *= 2;
+  return split;
+}
+
+inline int blocks_for(int n, int split) {
+  const int per_block = kWarps / split;
+  return min((n + per_block - 1) / per_block, 65535);
+}
+
+inline int sm_count(int device) {
+  static int cached[64] = {0};
+  if (device < 0 || device >= 64) return 132;
+  if (cached[device] == 0) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cached[device] = sms > 0 ? sms : 132;
+  }
+  return cached[device];
+}
+
+// Adds rows 0 .. cnt - 1 of the warp's candidates (lane j holds row j and
+// its weight) at columns c, c + 1 to (ax, ay), in order, kBatch row loads
+// at a time.  kPairs (m even, so pair loads stay aligned):
+// one load a row, of the raw pair; else (m odd) two loads, converted at
+// once.  A lane past the row's end reads its last pair and adds nothing
+// it stores; a load past cnt reads candidate 0's row and is not added.
+template <typename T, bool kPairs>
+__device__ __forceinline__ void add_rows(const T* __restrict__ values,
+                                         int m, int c, int my_row,
+                                         float my_w, int cnt, float& ax,
+                                         float& ay) {
+  using Pair = typename std::conditional<kPairs, typename Raw<T>::Pair,
+                                         float2>::type;
+  const int cx = kPairs ? min(c, m - 2) : min(c, m - 1);
+  const int cy = min(c + 1, m - 1);
+  for (int jb = 0; jb < cnt; jb += kBatch) {
+    Pair v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = jb + u < cnt ? jb + u : 0;
+      const T* vr = values + static_cast<int64_t>(
+                                 __shfl_sync(kFull, my_row, j)) * m;
+      if constexpr (kPairs) {
+        v[u] = Raw<T>::pair(vr, cx);
+      } else {
+        v[u] = make_float2(Payload<T>::one(vr, cx),
+                           Payload<T>::one(vr, cy));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (jb + u < cnt) {  // warp-uniform
+        const float wj = __shfl_sync(kFull, my_w, jb + u);
+        float2 f;
+        if constexpr (kPairs) {
+          f = Raw<T>::f32(v[u]);
+        } else {
+          f = v[u];
+        }
+        ax = fmaf(wj, f.x, ax);
+        ay = fmaf(wj, f.y, ay);
+      }
+    }
+  }
+}
+
+// The body of one kernel instance: kOneWarp (split == 1) and kPairs
+// (m even) are fixed at compile time, so an instance holds one path's
+// registers only.
+template <typename T, bool kScaled, bool kOneWarp, bool kPairs,
+          typename RowMap>
+__device__ __forceinline__ void gather(
+    const T* __restrict__ values, const float* __restrict__ scale,
+    const int32_t* __restrict__ idx, const float* __restrict__ w,
+    float* __restrict__ out, int n, int top_k, int m, int split_arg,
+    RowMap row_map) {
+  __shared__ float2 part[kWarps][32];  // one 64-column chunk's partials
+  const int split = kOneWarp ? 1 : split_arg;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int per_block = kWarps / split;
+  const int slot = warp / split, piece = warp % split;
+  const int chunk = (top_k + split - 1) / split;
+  const int k_lo = min(top_k, piece * chunk);
+  const int k_hi = min(top_k, k_lo + chunk);
+  // block-uniform trip count: every warp reaches the __syncthreads below
+  for (int tb = blockIdx.x * per_block; tb < n;
+       tb += gridDim.x * per_block) {
+    const int i = tb + slot;
+    const bool live = i < n;
+    const int t = live ? i : 0;
+    const int32_t* it = idx + static_cast<int64_t>(t) * top_k;
+    const float* wt = w + static_cast<int64_t>(t) * top_k;
+    float* ot = out + static_cast<int64_t>(t) * m;
+    for (int c0 = 0; c0 < m; c0 += 64) {
+      const int c = c0 + 2 * lane;
+      float ax = 0.f, ay = 0.f;
+      for (int kb = k_lo; live && kb < k_hi; kb += 32) {
+        const int kk = kb + lane;
+        int my_row = 0;  // rows of K1 and row 9 fit int32
+        float my_w = 0.f;
+        bool mine = false;
+        if (kk < k_hi) {
+          const int64_t row = row_map(it[kk]);
+          my_w = wt[kk];
+          mine = !(RowMap::kMasked && row == kNotMine);
+          if (mine && row < 0) {
+            my_w = __int_as_float(0x7fc00000);  // NaN marks the row
+          } else if (mine) {
+            my_row = static_cast<int>(row);
+            if (kScaled) my_w *= scale[row];
+          }
+        }
+        int cnt = min(32, k_hi - kb);
+        if (RowMap::kMasked) {  // this shard's candidates, in order
+          const unsigned ball = __ballot_sync(kFull, mine);
+          cnt = __popc(ball);
+          const int src = lane < cnt ? nth_set_bit(ball, lane) : lane;
+          my_row = __shfl_sync(kFull, my_row, src);
+          my_w = __shfl_sync(kFull, my_w, src);
+        }
+        add_rows<T, kPairs>(values, m, c, my_row, my_w, cnt, ax, ay);
+      }
+      if (!kOneWarp && split > 1) {  // the parts in warp order, once
+        part[warp][lane] = make_float2(ax, ay);
+        __syncthreads();
+        if (piece == 0) {
+          for (int s = 1; s < split; ++s) {
+            const float2 p = part[warp + s][lane];
+            ax += p.x;
+            ay += p.y;
+          }
+        }
+        __syncthreads();
+      }
+      if (live && piece == 0) {
+        if (c < m) ot[c] = ax;
+        if (c + 1 < m) ot[c + 1] = ay;
+      }
+    }
+  }
+}
+
+}  // namespace gather_batched

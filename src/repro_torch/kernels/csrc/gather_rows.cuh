@@ -1,4 +1,8 @@
-// The weighted row gather shared by K1, B4, B5 and B6:
+// The warp-per-query weighted row gather of B4, B5 and B6, whose row
+// payloads, row maps and loop lookup_bwd.cu shares too.  K1 and the range
+// gather moved to gather_batched.cuh, which reuses this file's
+// Payload and row maps; B4, B5, B6 and lookup_bwd.cu still run the body
+// below:
 //
 //   out[t] = sum_k  w[t,k] * (scale[r] if scaled) * values[r],
 //            r = row_map(idx[t,k])

@@ -25,25 +25,55 @@
 // idx and w (4k bytes each a query) and the output (4m a query).  The
 // 2*n*k*m flops of the in-range terms are far below the fp32 rate.
 //
-// Design: the warp-per-row gather of gather_rows.cuh with the RangeRows
-// row map.  Lane l maps idx[t, l] to its shard row once; an index outside
-// the shard gets weight 0 and the marker kNotMine, and the warp skips that
-// broadcast row (every lane holds the same row, so the branch is uniform)
-// instead of reading a clamped row at weight 0 as the TPU kernels do: with
-// S shards, (S - 1) / S of the reads are skipped.  Not the NaN that the
-// tiered row map gives a missing shard: "not mine" is a 0 term.
+// Design: gather_batched.cuh's body with the RangeRows row map.  Lane l
+// maps idx[t, l] to its shard row once; the warp compacts its candidates
+// to this shard's with a ballot, in candidate order, so an index outside
+// the shard costs no shuffle, branch or read (the TPU kernels read a
+// clamped row at weight 0; with S shards, (S - 1) / S of the reads are
+// skipped), and the in-range rows' loads go out together, kBatch at a
+// time, before the first multiply-add.  At decode sizes a query is split
+// over several warps of a block (from n and the card's SM count).  The
+// old body (gather_rows.cuh, warp per query) shuffled every candidate and
+// skipped the foreign ones inside its unroll-8 loop, so the loads it did
+// issue came in short, ragged batches.  Not the NaN that the tiered row
+// map gives a missing shard: "not mine" is a 0 term.
 
-#include "gather_rows.cuh"
+#include "gather_batched.cuh"
 
-template <typename T, bool kScaled>
-__global__ void __launch_bounds__(gather_rows::kWarps * 32)
+// Blocks an SM for the instances with one warp a query (the mesh step's
+// n): 8, so 32 registers.  A warp here reads only the shard's part of its
+// query's rows (about half on a 2-way split), so more warps keep more
+// loads in flight: 8 blocks ran the range gather 4-17% faster at
+// n = 32,768 than 4, where K1 ran 25-48% slower (tools/gather_sweep.py).
+constexpr int kOneWarpMinBlocks = 8;
+
+template <typename T, bool kScaled, bool kOneWarp, bool kPairs>
+__global__ void __launch_bounds__(gather_batched::kThreads,
+                                  kOneWarp ? kOneWarpMinBlocks
+                                           : gather_batched::kMinBlocks)
 sharded_gather_kernel(const T* __restrict__ values,
                       const float* __restrict__ scale,
                       const int32_t* __restrict__ idx,
                       const float* __restrict__ w, float* __restrict__ out,
-                      int n, int top_k, int m, int base, int rows) {
-  gather_rows::gather_rows<T, kScaled>(values, scale, idx, w, out, n, top_k,
-                                       m, gather_rows::RangeRows{base, rows});
+                      int n, int top_k, int m, int base, int rows,
+                      int split) {
+  gather_batched::gather<T, kScaled, kOneWarp, kPairs>(
+      values, scale, idx, w, out, n, top_k, m, split,
+      gather_rows::RangeRows{base, rows});
+}
+
+template <typename T, bool kScaled, bool kOneWarp, bool kPairs>
+static void launch_instance(const void* values, const void* scale,
+                            const void* idx, const void* w, void* out, int n,
+                            int top_k, int m, int base, int rows, int split,
+                            cudaStream_t stream) {
+  sharded_gather_kernel<T, kScaled, kOneWarp, kPairs>
+      <<<gather_batched::blocks_for(n, split), gather_batched::kThreads, 0,
+         stream>>>(static_cast<const T*>(values),
+                   static_cast<const float*>(scale),
+                   static_cast<const int32_t*>(idx),
+                   static_cast<const float*>(w), static_cast<float*>(out), n,
+                   top_k, m, base, rows, split);
 }
 
 template <typename T, bool kScaled>
@@ -52,12 +82,24 @@ static int launch(const void* values, const void* scale, const void* idx,
                   int base, int rows, int device, void* stream) {
   cudaSetDevice(device);
   if (n > 0) {
-    sharded_gather_kernel<T, kScaled><<<gather_rows::blocks_for(n),
-                                        gather_rows::kWarps * 32, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(values), static_cast<const float*>(scale),
-        static_cast<const int32_t*>(idx), static_cast<const float*>(w),
-        static_cast<float*>(out), n, top_k, m, base, rows);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int split = gather_batched::split_for(
+        n, top_k, gather_batched::sm_count(device));
+    const bool pairs = m % 2 == 0;  // pair loads stay aligned
+    if (split == 1 && pairs)
+      launch_instance<T, kScaled, true, true>(values, scale, idx, w, out, n,
+                                              top_k, m, base, rows, 1, s);
+    else if (split == 1)
+      launch_instance<T, kScaled, true, false>(values, scale, idx, w, out, n,
+                                               top_k, m, base, rows, 1, s);
+    else if (pairs)
+      launch_instance<T, kScaled, false, true>(values, scale, idx, w, out, n,
+                                               top_k, m, base, rows, split,
+                                               s);
+    else
+      launch_instance<T, kScaled, false, false>(values, scale, idx, w, out,
+                                                n, top_k, m, base, rows,
+                                                split, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -600,3 +600,96 @@ print(json.dumps({{"records": run.records, "launches": [
             np.testing.assert_allclose([a["loss"], a["grad_norm"]],
                                        [b["loss"], b["grad_norm"]],
                                        rtol=1e-4)
+
+
+def _gather_case(device, n, m, top_k, queries, seed=0):
+    """K2's top_k indices into a 2^16-row table of width m, uniform or
+    clustered (64 queries near each of n / 64 points, as training's
+    queries crowd rows), with w and the table."""
+    spec = indexing.choose_torus(16)
+    gen = torch.Generator(device=device).manual_seed(seed + n + m + top_k)
+    K = torch.tensor(spec.K, dtype=torch.float32, device=device)
+    q = torch.rand(n, 8, generator=gen, device=device) * K
+    if queries == "clustered" and n >= 64:
+        near = torch.arange(n, device=device) % (n // 64)
+        q = (q[near] + 1e-3 * torch.rand(n, 8, generator=gen,
+                                         device=device)).contiguous()
+    idx, w = e8_lookup.lram_query(q, spec, top_k)
+    values = torch.randn(spec.num_locations, m, generator=gen,
+                         device=device)
+    return idx, w, values
+
+
+def _k1_split(values, idx, w, split):
+    """K1 through its C entry with an explicit split (warps a query)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.function("gather_interp", "gather_interp_f32_split",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+    out = torch.empty(idx.shape[0], values.shape[1], device=values.device)
+    _build.check(fn(values.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), idx.shape[0], idx.shape[1],
+                    values.shape[1], split, values.device.index,
+                    torch.cuda.current_stream().cuda_stream), "K1 split")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [1, 8, 32, 33])
+@pytest.mark.parametrize("m", [62, 64, 256])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 2048, 65536])
+def test_k1_matches_plain_on_card(cuda_device, n, m, top_k):
+    """K1 (gather_batched.cuh's body) against its plain version to 1e-5 on
+    uniform and clustered queries, across the split threshold (n), the odd
+    column and the 64-column loop (m) and one or two candidate batches
+    (top_k): the split the entry picks and every split."""
+    for queries in ("uniform", "clustered"):
+        idx, w, values = _gather_case(cuda_device, n, m, top_k, queries)
+        want = gather_interp.gather_interp_plain(values, idx, w)
+        before = gather_interp.gather_interp.launches
+        got = gather_interp.gather_interp(values, idx, w)
+        assert gather_interp.gather_interp.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        for split in (1, 2, 4, 8):
+            torch.testing.assert_close(_k1_split(values, idx, w, split),
+                                       want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [1, 8, 32, 33])
+@pytest.mark.parametrize("m", [62, 64, 256])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 2048, 65536])
+def test_range_gather_matches_plain_on_card(cuda_device, n, m, top_k):
+    """Row 9's range gather (the compacting body) against its plain
+    version on fp32 (1e-5) and int8 / e4m3 shards (rtol 2e-5 / atol 1e-6),
+    uniform and clustered queries, with every index in the shard (the
+    whole table), none (a shard past the table's rows) and half (the upper
+    half of the table)."""
+    for queries in ("uniform", "clustered"):
+        idx, w, values = _gather_case(cuda_device, n, m, top_k, queries,
+                                      seed=1)
+        rows = values.shape[0]
+        for base, shard_rows in ((0, rows), (rows, rows // 2),
+                                 (rows // 2, rows // 2)):
+            src = values[base % rows:base % rows + shard_rows]
+            for kind in ("none", "int8", "fp8"):
+                if kind == "none":
+                    args, tol = (src.contiguous(),), (1e-5, 1e-5)
+                    fn = sharded_gather.sharded_gather
+                    plain = sharded_gather.sharded_gather_plain
+                else:
+                    pay, s = quant.quantize_rows_np(src.cpu().numpy(), kind)
+                    args = (quant.as_torch_payload(pay).to(cuda_device),
+                            torch.from_numpy(s).to(cuda_device))
+                    tol = (2e-5, 1e-6)
+                    fn = sharded_gather.sharded_gather_quant
+                    plain = sharded_gather.sharded_gather_quant_plain
+                got = fn(*args, idx, w, base)
+                want = plain(*args, idx, w, base)
+                torch.testing.assert_close(got, want, rtol=tol[0],
+                                           atol=tol[1])
+                if base == rows:
+                    assert not got.any()

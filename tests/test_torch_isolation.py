@@ -19,7 +19,11 @@ FORBIDDEN = re.compile(
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """The port, chip_smoke.py and the port's tools (the card A/B and
+    sweep tools and the L2 model)."""
+    tools = [REPO / "tools" / f"{name}.py"
+             for name in ("kernel_ab", "gather_sweep", "l2_order_model")]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + tools
 
 
 def test_port_files_have_no_forbidden_imports():

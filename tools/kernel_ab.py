@@ -1,26 +1,41 @@
-"""Old against new on one card: K2 and the backward's scatter instances of
-a parent checkout, timed in turns with this checkout's on the same inputs.
+"""Old against new on one card: kernels of a parent checkout timed in turns
+with this checkout's on the same inputs.
 
     mkdir -p build/parent && git archive <parent> src | tar -x -C build/parent
-    python3 tools/kernel_ab.py --old build/parent [--sass]
+    python3 tools/kernel_ab.py --old build/parent [--sass] [--phases ...]
 
-Builds the parent's `csrc/e8_lookup.cu` and `csrc/lookup_bwd.cu` with the
-flags of `repro_torch.kernels._build` into `build/kernels_ab/`, beside
-this checkout's (built as the port builds them), and calls both through
-their C entry points (the same names and arguments in both).  At the
-serving and training shapes it holds each against its plain version
-(K2's weights and indices bit-equal, on uniform queries and on
-`lattice.tie_queries`; the backward's dvalues to atol 1e-5, dq / dw to
-rtol 1e-4 / atol 1e-5, on uniform queries and, at n = 65,536, on
-clustered ones: 64 queries near each point, as training's queries crowd
-rows), then times old, new, new, old: each turn the mean
-device time of 20 launches under torch.profiler.  It also times the
-backward's instance without scatter on the same inputs: the scatter's
-share of an instance is its time less that one's.  With `--sass` it
-prints each kernel's static SASS instruction count and the size and mix
-of each loop (a backward branch) from `cuobjdump -sass`.  Prints the
-card (nvidia-smi) and one JSON line per measurement; exits non-zero on a
-failed check.  Needs one card.
+Builds the parent's `csrc/e8_lookup.cu`, `lookup_bwd.cu`,
+`gather_interp.cu` and `sharded_gather.cu` (each against the parent's own
+headers) with the flags of `repro_torch.kernels._build` into
+`build/kernels_ab/`, beside this checkout's (built as the port builds
+them), and calls both through their C entry points (the same names and
+arguments in both).  Each phase holds old and new against the plain
+version first, then times old, new, new, old: each turn the mean device
+time of 20 launches under torch.profiler.  Phases (`--phases`, all by
+default):
+
+  k2     K2 at the serving and training shapes, weights and indices
+         bit-equal on uniform queries and on `lattice.tie_queries`;
+  bwd    the backward's dense scatter instances (dvalues atol 1e-5, dq /
+         dw rtol 1e-4 / atol 1e-5) at n = 128, 2,048 and 65,536, and on
+         clustered queries at 65,536 (64 queries near each point, as
+         training's queries crowd rows), with the instance without
+         scatter on the same inputs (the scatter's share);
+  range  the range backward with dq on both halves of the table;
+  k1     K1 (1e-5) on the dense table and on the tiered flat route at
+         n = 128, 2,048, 16,384 and 65,536, uniform and clustered
+         queries; the new kernel with one warp a query bit-equal to the
+         old one; at the decode sizes every split of a query over warps;
+  row9   the range gather at n = 128 and 32,768 on both 2^19-row shard
+         halves, fp32 (1e-5), int8 and e4m3 (rtol 2e-5 / atol 1e-6);
+  order  the query order K1 was tried with (tools/csrc/query_order.cu):
+         the sort's kernels, and the new K1 on inputs permuted into its
+         order against the given order, at 16,384 and 65,536.
+
+With `--sass` it prints each kernel's static SASS instruction count and
+the size and mix of each loop (a backward branch) from `cuobjdump -sass`.
+Prints the card (nvidia-smi) and one JSON line per measurement; exits
+non-zero on a failed check.  Needs one card.
 """
 
 from __future__ import annotations
@@ -42,14 +57,24 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch import quant  # noqa: E402
 from repro_torch.core import indexing, lattice  # noqa: E402
-from repro_torch.kernels import _build, e8_lookup, ops  # noqa: E402
+from repro_torch.kernels import (_build, e8_lookup, gather_interp,  # noqa: E402
+                                 ops, sharded_gather)
 
-SOURCES = ("e8_lookup", "lookup_bwd")
+SOURCES = ("e8_lookup", "lookup_bwd", "gather_interp", "sharded_gather")
+# each source's kernel for --sass
+SASS_KERNELS = {"e8_lookup": "lram_query_kernel",
+                "lookup_bwd": "lookup_bwd_kernel",
+                "gather_interp": "gather_interp_kernel",
+                "sharded_gather": "sharded_gather_kernel"}
+PHASES = ("k2", "bwd", "range", "k1", "row9", "order")
 AB_DIR = ROOT / "build" / "kernels_ab"
 K2_SHAPES = (128, 2048, 16384, 32768, 65536)
 BWD_SHAPES = (128, 2048, 65536)
 RANGE_N, RANGE_ROWS = 32768, 2**19
+K1_SHAPES = (128, 2048, 16384, 65536)
+ROW9_SHAPES = (128, 32768)
 TOP_K, M = 32, 64
 
 
@@ -144,6 +169,17 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def make_queries(n, kind, spec, gen, device):
+    """Torus queries: uniform, or clustered (64 near each of n / 64
+    points, as training's queries crowd rows)."""
+    K = torch.tensor(spec.K, dtype=torch.float32, device=device)
+    q = torch.rand(n, 8, generator=gen, device=device) * K
+    if kind == "clustered" and n >= 64:
+        q = (q[:n // 64].repeat(64, 1) + 1e-3 * torch.rand(
+            n, 8, generator=gen, device=device)).contiguous()
+    return q
+
+
 def k2_call(fn, cand, nsq, q, top_k, wrap):
     """A raw K2 launch into fresh outputs; returns (call, idx, w)."""
     n = q.shape[0]
@@ -203,7 +239,6 @@ def bwd_phase(lib_old, spec, values, device) -> None:
     instance without scatter on the same inputs."""
     wrap = (ctypes.c_int * 8)(*spec.K)
     gen = torch.Generator(device=device).manual_seed(1)
-    K = torch.tensor(spec.K, dtype=torch.float32, device=device)
     dvalues = torch.zeros_like(values)
     old_dq, old_dw = lib_old.lookup_bwd_dq_f32, lib_old.lookup_bwd_dw_f32
     old_dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
@@ -214,10 +249,7 @@ def bwd_phase(lib_old, spec, values, device) -> None:
     cases = [(n, "uniform") for n in BWD_SHAPES] + [(BWD_SHAPES[-1],
                                                       "clustered")]
     for n, queries in cases:
-        q = torch.rand(n, 8, generator=gen, device=device) * K
-        if queries == "clustered":  # 64 queries near each of n / 64 points
-            q = (q[:n // 64].repeat(64, 1) + 1e-3 * torch.rand(
-                n, 8, generator=gen, device=device)).contiguous()
+        q = make_queries(n, queries, spec, gen, device)
         idx, w = e8_lookup.lram_query(q, spec, TOP_K)
         g = torch.randn(n, M, generator=gen, device=device)
         out = torch.empty((n, 8), device=device)
@@ -320,12 +352,225 @@ def range_phase(lib_old, spec, values, device) -> None:
         emit(row)
 
 
+def k1_phase(old_fn, spec, values, device) -> None:
+    """K1 on the dense table and on the tiered flat route (32 of 128
+    shards cached, the other rows appended), uniform and clustered
+    queries: old and new held to the plain version (1e-5), the new kernel
+    with one warp a query bit-equal to the old one, timed in turns; at the
+    decode sizes every split (warps a query) too."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    for n in K1_SHAPES:
+        for kind in ("uniform", "clustered"):
+            q = make_queries(n, kind, spec, gen, device)
+            idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+            resident = torch.randperm(values.shape[0] // cs.SHARD_ROWS,
+                                      generator=gen, device=device)[
+                                          :cs.CACHE_SLOTS]
+            flat, rws = cs.flat_route(values, idx, resident)
+            for route, table, ix in (("dense", values, idx),
+                                     ("flat", values[flat].contiguous(),
+                                      rws)):
+                want = gather_interp.gather_interp_plain(table, ix, w)
+                out_old = torch.empty_like(want)
+
+                def old_call():
+                    _build.check(old_fn(table.data_ptr(), ix.data_ptr(),
+                                        w.data_ptr(), out_old.data_ptr(), n,
+                                        TOP_K, M, device.index, stream()),
+                                 "old K1")
+
+                def new_call():
+                    return gather_interp.gather_interp(table, ix, w)
+                old_call()
+                new = new_call()
+                torch.cuda.synchronize()
+                row = {"kernel": "gather_interp", "n": n, "queries": kind,
+                       "route": route,
+                       "distinct_rows": torch.unique(ix).numel()}
+                for which, out in (("old", out_old), ("new", new)):
+                    row[f"{which}_err"] = (out - want).abs().max().item()
+                    cs.check(torch.allclose(out, want, rtol=1e-5,
+                                            atol=1e-5),
+                             f"{which} K1 differs from its plain version: "
+                             f"{row}")
+                row["split1_bit_equal_old"] = bool(torch.equal(
+                    k1_split(table, ix, w, 1), out_old))
+                cs.check(row["split1_bit_equal_old"],
+                         f"K1 with one warp a query is not bit-equal to "
+                         f"the old kernel: {row}")
+                row.update(turns(old_call, new_call, "gather_interp_kernel"))
+                if n <= 2048:
+                    row["split_ms"] = {}
+                    for split in (1, 2, 4, 8):
+                        got = k1_split(table, ix, w, split)
+                        cs.check(torch.allclose(got, want, rtol=1e-5,
+                                                atol=1e-5),
+                                 f"K1 split {split} differs at n={n}")
+                        row["split_ms"][split] = cs.device_ms(
+                            lambda: k1_split(table, ix, w, split),
+                            "gather_interp_kernel")
+                row["bound_ms"] = cs.gather_bound(row["distinct_rows"],
+                                                  4 * M, n)[0]
+                emit(row)
+
+
+def k1_split(table, ix, w, split: int) -> torch.Tensor:
+    """The new K1 through its C entry with an explicit split."""
+    fn = _build.function(
+        "gather_interp", "gather_interp_f32_split",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    out = torch.empty(ix.shape[0], table.shape[1], device=table.device)
+    _build.check(fn(table.data_ptr(), ix.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), ix.shape[0], ix.shape[1], table.shape[1],
+                    split, table.device.index, stream()), "K1 split")
+    return out
+
+
+def order_phase(spec, values, device) -> None:
+    """The query order K1 was tried with (tools/csrc/query_order.cu): the
+    sort's kernels, and the new K1 on the indices and weights permuted
+    into its order (the permutation by torch, outside the timing; a kernel
+    that read order[i] itself would add one index load a query), against
+    the new K1 in the given order, on the dense table at n = 16,384 and
+    65,536, uniform and clustered queries.  The ordered output, permuted
+    back, is bit-equal to the unordered one; the order is a permutation
+    grouped by bucket."""
+    src = ROOT / "tools" / "csrc" / "query_order.cu"
+    lib_path = AB_DIR / "libquery_order.so"
+    AB_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(lib_path), str(src)], capture_output=True,
+                          text=True)
+    cs.check(proc.returncode == 0, f"nvcc failed for {src}:\n{proc.stdout}"
+                                   f"{proc.stderr}")
+    for r in cs.ptxas_report(proc.stdout + proc.stderr):
+        emit({"ptxas": "order", **r})
+    lib = ctypes.CDLL(str(lib_path))
+    lib.query_order_scratch.argtypes = [ctypes.c_int]
+    lib.query_order_scratch.restype = ctypes.c_longlong
+    lib.query_order.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    lib.query_order.restype = ctypes.c_int
+    gen = torch.Generator(device=device).manual_seed(5)
+    rows = values.shape[0]
+    for n in (16384, 65536):
+        for kind in ("uniform", "clustered"):
+            q = make_queries(n, kind, spec, gen, device)
+            idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+            scratch = torch.empty(lib.query_order_scratch(n),
+                                  dtype=torch.int32, device=device)
+
+            def sort():
+                _build.check(lib.query_order(idx.data_ptr(),
+                                             scratch.data_ptr(), n, TOP_K,
+                                             rows, device.index, stream()),
+                             "query order")
+            sort()
+            order = scratch[-n:].long()
+            key = idx[:, 0].long() * 16384 // rows
+            cs.check(torch.equal(torch.sort(order).values,
+                                 torch.arange(n, device=device))
+                     and bool((key[order][1:] >= key[order][:-1]).all()),
+                     "the query order is not a permutation by bucket")
+            ix_o, w_o = idx[order].contiguous(), w[order].contiguous()
+            out = gather_interp.gather_interp(values, idx, w)
+            back = torch.empty_like(out)
+            back[order] = gather_interp.gather_interp(values, ix_o, w_o)
+            cs.check(torch.equal(back, out),
+                     f"K1 in the query order is not bit-equal at n={n}")
+            sort_ms, _, _ = cs.device_split(sort, "query_order")
+            row = {"kernel": "gather_interp", "phase": "order", "n": n,
+                   "queries": kind, "sort_ms": sort_ms}
+            for which in ("unordered", "ordered", "ordered", "unordered"):
+                a, b = (idx, w) if which == "unordered" else (ix_o, w_o)
+                row.setdefault(f"{which}_ms", []).append(cs.device_ms(
+                    lambda: gather_interp.gather_interp(values, a, b),
+                    "gather_interp_kernel"))
+            for which in ("unordered", "ordered"):
+                row[f"{which}_ms"] = float(np.mean(row[f"{which}_ms"]))
+            row["ordered_with_sort_ms"] = row["ordered_ms"] + sort_ms
+            emit(row)
+
+
+def row9_phase(lib_old, spec, values, tables, device) -> None:
+    """The range gather on both halves of the table (2^19-row shards at
+    base 0 and 2^19), fp32, int8 and e4m3 shards: old and new held to
+    the plain version (fp32 1e-5; 1-byte rtol 2e-5 / atol 1e-6), timed in
+    turns."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    old = {"fp32": lib_old.sharded_gather_f32,
+           "int8": lib_old.sharded_gather_quant_i8,
+           "fp8": lib_old.sharded_gather_quant_e4m3}
+    old["fp32"].argtypes = sharded_gather._ARGS
+    old["int8"].argtypes = old["fp8"].argtypes = sharded_gather._QUANT_ARGS
+    for fn in old.values():
+        fn.restype = ctypes.c_int
+    for n in ROW9_SHAPES:
+        q = make_queries(n, "uniform", spec, gen, device)
+        idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+        for base in (0, RANGE_ROWS):
+            sl = slice(base, base + RANGE_ROWS)
+            ok = sharded_gather.local_rows(idx, base, RANGE_ROWS)[1]
+            for kind in ("fp32", "int8", "fp8"):
+                if kind == "fp32":
+                    shard, scale = values[sl], None
+                    want = sharded_gather.sharded_gather_plain(shard, idx,
+                                                               w, base)
+                    tol = (1e-5, 1e-5)
+                else:
+                    shard, scale = tables[kind][0][sl], tables[kind][1][sl]
+                    want = sharded_gather.sharded_gather_quant_plain(
+                        shard, scale, idx, w, base)
+                    tol = (2e-5, 1e-6)
+                out_old = torch.empty_like(want)
+                ptrs = [shard.data_ptr()] + ([] if scale is None
+                                             else [scale.data_ptr()])
+
+                def old_call():
+                    _build.check(old[kind](*ptrs, idx.data_ptr(),
+                                           w.data_ptr(), out_old.data_ptr(),
+                                           n, TOP_K, M, base, RANGE_ROWS,
+                                           device.index, stream()),
+                                 "old range gather")
+
+                def new_call():
+                    if scale is None:
+                        return sharded_gather.sharded_gather(shard, idx, w,
+                                                             base)
+                    return sharded_gather.sharded_gather_quant(
+                        shard, scale, idx, w, base)
+                old_call()
+                new = new_call()
+                torch.cuda.synchronize()
+                row = {"kernel": "sharded_gather", "payload": kind, "n": n,
+                       "base": base,
+                       "in_range_share": float(ok.float().mean()),
+                       "distinct_rows": torch.unique(idx[ok]).numel(),
+                       "bit_equal_old": bool(torch.equal(new, out_old))}
+                for which, out in (("old", out_old), ("new", new)):
+                    row[f"{which}_err"] = (out - want).abs().max().item()
+                    cs.check(torch.allclose(out, want, rtol=tol[0],
+                                            atol=tol[1]),
+                             f"{which} range gather differs from its plain "
+                             f"version: {row}")
+                row.update(turns(old_call, new_call,
+                                 "sharded_gather_kernel"))
+                row["bound_ms"] = cs.gather_bound(
+                    row["distinct_rows"], 4 * M if scale is None else M + 4,
+                    n)[0]
+                emit(row)
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--old", required=True, type=Path,
                    help="root of the parent checkout (its src/ at least)")
     p.add_argument("--sass", action="store_true")
+    p.add_argument("--phases", default=",".join(PHASES),
+                   help=f"comma-separated, of {PHASES}")
     args = p.parse_args()
+    phases = args.phases.split(",")
+    cs.check(set(phases) <= set(PHASES), f"--phases: one of {PHASES}")
     cs.check(torch.cuda.is_available(), "needs a card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -339,8 +584,7 @@ def main() -> None:
             for r in cs.ptxas_report(log):
                 emit({"ptxas": which, **r})
     if args.sass:
-        for name, kernel in zip(SOURCES, ("lram_query_kernel",
-                                          "lookup_bwd_kernel")):
+        for name, kernel in SASS_KERNELS.items():
             for which, path in (("old", AB_DIR / f"lib{name}_old.so"),
                                 ("new", _build._target(name))):
                 for r in sass_report(str(path), kernel):
@@ -351,9 +595,28 @@ def main() -> None:
     k2_new = _build.function("e8_lookup", "lram_query_f32", e8_lookup._ARGS)
     k2_old = old["e8_lookup"][0].lram_query_f32
     k2_old.argtypes, k2_old.restype = e8_lookup._ARGS, ctypes.c_int
-    k2_phase(k2_new, k2_old, spec, device)
-    bwd_phase(old["lookup_bwd"][0], spec, values, device)
-    range_phase(old["lookup_bwd"][0], spec, values, device)
+    if "k2" in phases:
+        k2_phase(k2_new, k2_old, spec, device)
+    if "bwd" in phases:
+        bwd_phase(old["lookup_bwd"][0], spec, values, device)
+    if "range" in phases:
+        range_phase(old["lookup_bwd"][0], spec, values, device)
+    if "k1" in phases:
+        k1_old = old["gather_interp"][0].gather_interp_f32
+        k1_old.argtypes = gather_interp._ARGS
+        k1_old.restype = ctypes.c_int
+        k1_phase(k1_old, spec, values, device)
+    if "row9" in phases:
+        host = values.cpu().numpy()
+        tables = {}
+        for kind in cs.PAYLOADS:
+            tq, ts = quant.quantize_rows_np(host, kind)
+            tables[kind] = (quant.as_torch_payload(tq).to(device),
+                            torch.from_numpy(ts).to(device))
+        del host
+        row9_phase(old["sharded_gather"][0], spec, values, tables, device)
+    if "order" in phases:
+        order_phase(spec, values, device)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     emit({"ok": True})
 
