@@ -19,7 +19,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
        `gather_interp`, on the full 2^20-row table, and K1 again at
        n = 65536 on clustered queries (64 near each of n / 64 points, as
        training's queries crowd rows);
-       B4 `gather_interp_quant` on the table quantized to int8 and e4m3;
+       B4 `gather_interp_quant` on the table quantized to int8 and e4m3,
+       at n = 128 and 2048 also at every split (warps a query) with and
+       without its wide loads (through its C entry, not counted);
        B5 `tiered_gather` and B6 `tiered_gather_quant` (int8, e4m3) on a
        full-width device cache (32 slots x 8192 rows) with resident
        indices, B5's call and its yardstick's timed again in turns;
@@ -35,7 +37,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
        backward; with dw, library yardstick the backward of
        `F.embedding_bag` to its per-sample weights) and
        `lookup_bwd_quant` (int8 and e4m3 rows, with dq: path (b)'s
-       backward; with dw: B4's VJP);
+       backward; with dw: B4's VJP); the same at 16384 and 65536 on
+       clustered queries;
        row 9's kernels at n = 128, 2048 and 32768 (one data rank's n on
        the mesh step), on both halves of the table (2^19-row shards at
        base 0 and 2^19): the range gather over fp32 (library yardstick
@@ -111,6 +114,7 @@ It imports nothing of JAX, of the JAX package or of ml_dtypes.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -275,11 +279,59 @@ def gather_bound(distinct_rows: int, row_bytes: int, n: int):
                     2 * n * TOP_K * M)
 
 
+def no_scatter_bound(n: int, distinct: int, row_bytes: int, stage: str,
+                     terms: int, rows_apart: bool):
+    """The bound of a backward instance without scatter: each distinct row
+    read once; g, w and the rows read (with dq also q, and idx where the
+    rows are not idx), the output (dq or dw); 2 flops a term of the dots
+    (`terms` (t, k) pairs), 40 more a term for dq."""
+    if stage == "dq":
+        small = 4 * n * TOP_K * rows_apart + 32 * n + 32 * n
+    else:
+        small = 4 * n * TOP_K
+    return bound_ms(distinct * row_bytes + 4 * n * M + 8 * n * TOP_K + small,
+                    2 * terms * M + (40 * terms if stage == "dq" else 0))
+
+
+def b4_split(table, scale, ix, w, split: int, wide: int) -> torch.Tensor:
+    """B4 through its C entry with an explicit split (warps a query) and
+    variant (wide 1: 8-byte loads where they fit; 0: byte pairs); counts
+    no launch."""
+    name = "i8" if table.dtype == torch.int8 else "e4m3"
+    fn = _build.function(
+        "gather_interp_quant", f"gather_interp_quant_{name}_split",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    out = torch.empty(ix.shape[0], table.shape[1], device=table.device)
+    _build.check(fn(table.data_ptr(), scale.data_ptr(), ix.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), ix.shape[0], ix.shape[1],
+                    table.shape[1], split, wide, table.device.index,
+                    torch.cuda.current_stream().cuda_stream), "B4 split")
+    return out
+
+
+def b4_split_ms(table, scale, ix, w, want) -> dict:
+    """B4 at every split with and without the wide loads, each held
+    against the plain version's output `want` (rtol 2e-5 / atol 1e-6):
+    device ms by split ("8w": 8 warps a query, wide loads; "8p": byte
+    pairs)."""
+    out = {}
+    for split in (1, 2, 4, 8):
+        for wide in (0, 1):
+            got = b4_split(table, scale, ix, w, split, wide)
+            check(torch.allclose(got, want, rtol=2e-5, atol=1e-6),
+                  f"B4 split {split} wide {wide} differs from its plain "
+                  f"version by {(got - want).abs().max().item()}")
+            out[f"{split}{'w' if wide else 'p'}"] = device_ms(
+                lambda: b4_split(table, scale, ix, w, split, wide),
+                "gather_interp_quant_kernel")
+    return out
+
+
 def _kernel_of(symbol: str) -> tuple[str, str]:
     """(kernel name, instance) of a mangled kernel symbol: the name whose
     length prefix ends in `_kernel`, and its template arguments (payload
-    type, then each bool as 0 / 1), e.g. ("lookup_bwd_kernel",
-    "f32,1,0")."""
+    type, then each bool as 0 / 1 and each int), e.g. ("lookup_bwd_kernel",
+    "f32,1,0,0,1")."""
     for m in re.finditer(r"\d+", symbol):  # a hash may run into the prefix
         sizes = {int(m.group()[i:]) for i in range(len(m.group()))}
         name = next((symbol[m.end():m.end() + n] for n in sizes
@@ -294,7 +346,7 @@ def _kernel_of(symbol: str) -> tuple[str, str]:
                        if args.startswith("Ia") else "e4m3"
                        if args.startswith("I13__nv_fp8_e4m3") else "")
             return name, ",".join([payload]
-                                  + re.findall(r"Lb([01])E", args))
+                                  + re.findall(r"L[bi](\d+)E", args))
     return symbol, ""
 
 
@@ -577,7 +629,7 @@ def kernel_phase(device):
         rows["lookup_bwd"] += backward_rows(n, spec, values, q, idx, w, gen)
         for kind in PAYLOADS:
             tq, ts = tables[kind]
-            rows["gather_interp_quant"].append(measure(
+            b4 = measure(
                 f"B4 ({kind})", n,
                 lambda: gather_interp.gather_interp_quant(tq, ts, idx, w),
                 lambda: gather_interp.gather_interp_quant_plain(tq, ts, idx,
@@ -585,7 +637,12 @@ def kernel_phase(device):
                 (2e-5, 1e-6), device_kernel="gather_interp_quant_kernel",
                 bound=gather_bound(distinct, M + 4, n),
                 extra={"payload": kind, "route": "dense",
-                       "distinct_rows": distinct}))
+                       "distinct_rows": distinct})
+            if n <= 2048:  # decode sizes: every split, both variants
+                b4["split_device_ms"] = b4_split_ms(
+                    tq, ts, idx, w,
+                    gather_interp.gather_interp_quant_plain(tq, ts, idx, w))
+            rows["gather_interp_quant"].append(b4)
 
         # the same access pattern moved into the resident shards
         gid = ((resident[(idx >> log2r) % CACHE_SLOTS] << log2r)
@@ -637,6 +694,9 @@ def kernel_phase(device):
     k1_dense_row(rows, n, values, idx, w, "clustered")
     for n in ROWS_SHAPES:
         no_scatter_rows(rows, n, spec, values, tables, wrap, gen)
+    for n in ROWS_SHAPES[-2:]:  # training's crowded rows
+        no_scatter_rows(rows, n, spec, values, tables, wrap, gen,
+                        "clustered")
     for n in RANGE_SHAPES:
         range_rows(rows, n, spec, values, tables, wrap, gen)
     return rows
@@ -793,17 +853,22 @@ def flat_route(values, idx, resident):
     return flat, rows.int().contiguous()
 
 
-def no_scatter_rows(rows, n, spec, values, tables, wrap, gen):
+def no_scatter_rows(rows, n, spec, values, tables, wrap, gen,
+                    queries="uniform"):
     """The tiered train step's kernels at one n, on the flat route of K2's
-    indices (32 of 128 shards cached, the other rows appended): K2 itself
-    where the serving shapes do not hold n; the forward gathers over the
-    flat table, K1 (fp32) and B4 (int8, e4m3), to the serving rows'
-    tolerances; the backward's instances without scatter,
+    indices (32 of 128 shards cached, the other rows appended) for uniform
+    or clustered queries (64 near each of n / 64 points): K2 itself where
+    the serving shapes do not hold n (uniform queries); the forward
+    gathers over the flat table, K1 (fp32) and B4 (int8, e4m3), to the
+    serving rows' tolerances; the backward's instances without scatter,
     `lookup_bwd_rows` (fp32) and `lookup_bwd_quant` (int8, e4m3), each with
     dq and with dw, against `lookup_bwd_plain` to rtol 1e-4 / atol 1e-5
     (the scatter instances' tolerance for dq and dw)."""
     q = torch.rand(n, 8, generator=gen, device=values.device) * wrap
-    if n in SHAPES:
+    if queries == "clustered":
+        q = (q[:n // 64].repeat(64, 1) + 1e-3 * torch.rand(
+            n, 8, generator=gen, device=values.device)).contiguous()
+    if n in SHAPES or queries == "clustered":
         idx, w = e8_lookup.lram_query(q, spec, TOP_K)
     else:
         idx, w = k2_row(rows, n, q, spec, values)
@@ -822,7 +887,7 @@ def no_scatter_rows(rows, n, spec, values, tables, wrap, gen):
         cells.append(("lookup_bwd_quant", kind,
                       tq.view(torch.uint8)[flat].view(tq.dtype),
                       ts[flat].contiguous()))
-    route = {"route": "flat", "distinct_rows": distinct,
+    route = {"route": "flat", "queries": queries, "distinct_rows": distinct,
              "overflow_share": overflow}
     for name, payload, table, scale in cells:
         fn = KERNELS[name][0]
@@ -865,16 +930,11 @@ def no_scatter_rows(rows, n, spec, values, tables, wrap, gen):
                                       mode="sum")
                 library = lambda: torch.autograd.grad(  # noqa: E731
                     bag, ww, g, retain_graph=True)[0]
-            # g, rows and w, and for dq idx and q; the output (dq or dw)
-            small = (4 * n * M + 8 * n * TOP_K
-                     + (4 * n * TOP_K + 32 * n + 32 * n if stage == "dq"
-                        else 4 * n * TOP_K))
-            ops_n = 2 * n * TOP_K * M + (n * TOP_K * 40 if stage == "dq"
-                                         else 0)
             rows[name].append(measure(
                 f"{name} ({payload}, {stage})", n, call, plain, (1e-4, 1e-5),
                 device_kernel="lookup_bwd",
-                bound=bound_ms(distinct * row_bytes + small, ops_n),
+                bound=no_scatter_bound(n, distinct, row_bytes, stage,
+                                       n * TOP_K, rows_apart=True),
                 extra={"payload": payload, "stage": stage, **route},
                 library=library, library_tol=(1e-4, 1e-5)))
 

@@ -5,8 +5,10 @@ stream as `void*`; the return value is `cudaGetLastError()`).  It is
 compiled for `sm_90a` into `build/kernels/lib<name>-<hash>.so` at the root
 of the checkout, keyed by the content hash of the source and of the shared
 headers (`csrc/*.cuh`), the first time a kernel is called, and loaded with
-`ctypes`.  Nothing is compiled when a
-module is imported: the CPU tests import every module and have no nvcc.
+`ctypes`; nvcc's output (each kernel's registers and spills) is kept
+beside it as `lib<name>-<hash>.log`, so a cached build still reports it.
+Nothing is compiled when a module is imported: the CPU tests import every
+module and have no nvcc.
 """
 
 from __future__ import annotations
@@ -71,13 +73,16 @@ def _start(name: str):
 
 def _finish(name: str, out: Path, tmp: Path | None,
             proc: subprocess.Popen | None) -> None:
+    saved = out.with_suffix(".log")  # nvcc's output beside the library
     if proc is None:
-        build_log.setdefault(name, "(cached build)")
+        build_log.setdefault(name, saved.read_text() if saved.exists()
+                             else "(cached build)")
         return
     log, _ = proc.communicate()
     build_log[name] = log
     if proc.returncode != 0:
         raise KernelBuildError(f"nvcc failed for {name}.cu:\n{log}")
+    saved.write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half
 
 

@@ -1,5 +1,6 @@
-// The weighted row gather of K1 (csrc/gather_interp.cu) and row 9 (the
-// range gather, csrc/sharded_gather.cu), redesigned for the H100:
+// The weighted row gather of K1 (csrc/gather_interp.cu), B4
+// (csrc/gather_interp_quant.cu) and row 9 (the range gather,
+// csrc/sharded_gather.cu), redesigned for the H100:
 //
 //   out[t] = sum_k  w[t,k] * (scale[r] if scaled) * values[r],
 //            r = row_map(idx[t,k])
@@ -7,8 +8,9 @@
 // with the row payloads, row maps and numerics of gather_rows.cuh (fp32
 // accumulate; a 1-byte row's scale folded into its weight; a row mapped
 // below 0 gives NaN; a masking row map's "not mine" adds nothing and its
-// row is not read).  B4, B5, B6 and lookup_bwd.cu still run
-// gather_rows.cuh's warp-per-query body.
+// row is not read).  B5 and B6 still run gather_rows.cuh's warp-per-query
+// body; lookup_bwd.cu's instances without scatter have a batched body of
+// their own.
 //
 // Bound: bytes (each distinct row read once, the indices, weights and
 // output; the 2*n*k*m flops are far below the fp32 rate).  The old body
@@ -40,7 +42,14 @@
 //     SM), none spilled; the range gather's one-warp instances 32 (see
 //     sharded_gather.cu; its odd-m ones spill a little).  Clustered
 //     queries (training's) are L2-bound, where the old body's 32
-//     registers ran 64 warps an SM.
+//     registers ran 64 warps an SM;
+//   * kWide (B4 only, 1-byte rows with m % 8 == 0 and an 8-byte aligned
+//     table): 8 bytes a lane, so 8 lanes cover a 64-column chunk of a row
+//     and one warp load serves 4 rows (lane group l >> 3 sums candidates
+//     l >> 3, + 4, + 8, ... in order); kBatch loads then put 32 rows in
+//     flight, and the 4 groups' sums are added at the end by 2
+//     __shfl_xor_sync steps.  It adds in another order than kWide = false
+//     (rtol 2e-5 / atol 1e-6 against the plain version, not bit-equal).
 // Tried and dropped (PERF.md): 16 or 32 row loads in flight, or
 // 4-12 under a 32-48 register cap (tools/gather_sweep.py: spills, fewer
 // blocks an SM, or slower on uniform queries); running the queries in the
@@ -103,6 +112,41 @@ struct Raw<__nv_fp8_e4m3> {
   }
 };
 
+// Eight adjacent columns of a 1-byte row, loaded as one 8-byte word and
+// turned into fp32 only once the batch's loads are out (kWide).
+template <typename T>
+struct Raw8;
+
+template <>
+struct Raw8<int8_t> {
+  static __device__ __forceinline__ void f32(uint2 v, float (&f)[8]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // byte i, sign-extended
+      f[i] = static_cast<float>(static_cast<int>(v.x << (24 - 8 * i)) >> 24);
+      f[i + 4] =
+          static_cast<float>(static_cast<int>(v.y << (24 - 8 * i)) >> 24);
+    }
+  }
+};
+
+template <>
+struct Raw8<__nv_fp8_e4m3> {
+  static __device__ __forceinline__ void f32(uint2 v, float (&f)[8]) {
+    const unsigned words[2] = {v.x, v.y};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // pairs of bytes, as Raw's
+      __nv_fp8x2_e4m3 p;
+      p.__x = static_cast<__nv_fp8x2_storage_t>(words[i >> 1] >>
+                                                (16 * (i & 1)));
+      const float2 x = static_cast<float2>(p);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
+
+constexpr int kWideRows = 4;  // rows one warp load serves (kWide, m = 64)
+
 // The position of the p-th (from 0) set bit of mask, which has more than p.
 __device__ __forceinline__ int nth_set_bit(unsigned mask, int p) {
   int pos = 0;
@@ -118,15 +162,18 @@ __device__ __forceinline__ int nth_set_bit(unsigned mask, int p) {
 }
 
 // Warps a query: the least power of two that gives every SM 4 warps,
-// while each warp keeps at least 4 candidates.  On the H100 n = 128 takes
-// 8 (4 and 8 time alike, 1 and 2 slower); from n = 528 on a query has one
-// warp (at n = 2,048 one and two time alike, 4 and 8 slower).
-// tools/kernel_ab.py --phases k1 times every split.
-inline int split_for(int n, int top_k, int sm_count) {
+// while each warp keeps at least min_per_warp candidates (4; B4's wide
+// loads 32, one batch of kBatch loads of kWideRows rows).  On the H100
+// n = 128 takes 8 (4 and 8 time alike, 1 and 2 slower); from n = 528 on
+// a query has one warp (at n = 2,048 one and two time alike, 4 and 8
+// slower).  With the wide loads one warp a query was fastest at n = 128
+// and 2,048 (0.0023 ms against 0.0026-0.0028 split).  tools/kernel_ab.py
+// --phases k1 and b4 time every split.
+inline int split_for(int n, int top_k, int sm_count, int min_per_warp = 4) {
   const long long want = 4LL * sm_count;
   int split = 1;
   while (split < kMaxSplit && static_cast<long long>(n) * split < want &&
-         8 * split <= top_k)
+         2 * min_per_warp * split <= top_k)
     split *= 2;
   return split;
 }
@@ -193,11 +240,46 @@ __device__ __forceinline__ void add_rows(const T* __restrict__ values,
   }
 }
 
-// The body of one kernel instance: kOneWarp (split == 1) and kPairs
-// (m even) are fixed at compile time, so an instance holds one path's
+// add_rows with 8 columns a lane (kWide): lane group grp = lane >> 3 adds
+// rows grp, grp + 4, ... of candidates 0 .. cnt - 1 at columns c .. c + 7
+// to a, in order, kBatch loads (4 rows each) at a time.  A lane past the
+// row's end reads its last 8 columns and adds nothing it stores; a load
+// past cnt reads candidate 0's row and is not added.
+template <typename T>
+__device__ __forceinline__ void add_rows_wide(const T* __restrict__ values,
+                                              int m, int c, int grp,
+                                              int my_row, float my_w, int cnt,
+                                              float (&a)[8]) {
+  const int cc = min(c, m - 8);
+  for (int jb = 0; jb < cnt; jb += kBatch * kWideRows) {
+    uint2 v[kBatch];
+    float wv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = jb + u * kWideRows + grp;
+      const int src = j < cnt ? j : 0;
+      const T* vr = values + static_cast<int64_t>(
+                                 __shfl_sync(kFull, my_row, src)) * m;
+      v[u] = *reinterpret_cast<const uint2*>(vr + cc);
+      wv[u] = __shfl_sync(kFull, my_w, src);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (jb + u * kWideRows + grp < cnt) {
+        float f[8];
+        Raw8<T>::f32(v[u], f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = fmaf(wv[u], f[i], a[i]);
+      }
+    }
+  }
+}
+
+// The body of one kernel instance: kOneWarp (split == 1), kPairs (m even)
+// and kWide are fixed at compile time, so an instance holds one path's
 // registers only.
 template <typename T, bool kScaled, bool kOneWarp, bool kPairs,
-          typename RowMap>
+          bool kWide = false, typename RowMap>
 __device__ __forceinline__ void gather(
     const T* __restrict__ values, const float* __restrict__ scale,
     const int32_t* __restrict__ idx, const float* __restrict__ w,
@@ -222,8 +304,9 @@ __device__ __forceinline__ void gather(
     const float* wt = w + static_cast<int64_t>(t) * top_k;
     float* ot = out + static_cast<int64_t>(t) * m;
     for (int c0 = 0; c0 < m; c0 += 64) {
-      const int c = c0 + 2 * lane;
+      const int c = c0 + (kWide ? 8 * (lane & 7) : 2 * lane);
       float ax = 0.f, ay = 0.f;
+      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // kWide
       for (int kb = k_lo; live && kb < k_hi; kb += 32) {
         const int kk = kb + lane;
         int my_row = 0;  // rows of K1 and row 9 fit int32
@@ -248,23 +331,58 @@ __device__ __forceinline__ void gather(
           my_row = __shfl_sync(kFull, my_row, src);
           my_w = __shfl_sync(kFull, my_w, src);
         }
-        add_rows<T, kPairs>(values, m, c, my_row, my_w, cnt, ax, ay);
-      }
-      if (!kOneWarp && split > 1) {  // the parts in warp order, once
-        part[warp][lane] = make_float2(ax, ay);
-        __syncthreads();
-        if (piece == 0) {
-          for (int s = 1; s < split; ++s) {
-            const float2 p = part[warp + s][lane];
-            ax += p.x;
-            ay += p.y;
-          }
+        if constexpr (kWide) {
+          add_rows_wide<T>(values, m, c, lane >> 3, my_row, my_w, cnt, a);
+        } else {
+          add_rows<T, kPairs>(values, m, c, my_row, my_w, cnt, ax, ay);
         }
-        __syncthreads();
       }
-      if (live && piece == 0) {
-        if (c < m) ot[c] = ax;
-        if (c + 1 < m) ot[c + 1] = ay;
+      if constexpr (kWide) {
+        // the 4 row groups' sums, on every lane
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          a[i] += __shfl_xor_sync(kFull, a[i], 8);
+          a[i] += __shfl_xor_sync(kFull, a[i], 16);
+        }
+        float* pw = reinterpret_cast<float*>(part[warp]) + 8 * (lane & 7);
+        if (!kOneWarp && split > 1) {  // the parts in warp order, once
+          if (lane < 8) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) pw[i] = a[i];
+          }
+          __syncthreads();
+          if (piece == 0) {
+            for (int s = 1; s < split; ++s) {
+              const float* ps = pw + s * 64;  // part[warp + s], same lane
+#pragma unroll
+              for (int i = 0; i < 8; ++i) a[i] += ps[i];
+            }
+          }
+          __syncthreads();
+        }
+        if (live && piece == 0 && lane < 8 && c < m) {
+          *reinterpret_cast<float4*>(ot + c) =
+              make_float4(a[0], a[1], a[2], a[3]);
+          *reinterpret_cast<float4*>(ot + c + 4) =
+              make_float4(a[4], a[5], a[6], a[7]);
+        }
+      } else {
+        if (!kOneWarp && split > 1) {  // the parts in warp order, once
+          part[warp][lane] = make_float2(ax, ay);
+          __syncthreads();
+          if (piece == 0) {
+            for (int s = 1; s < split; ++s) {
+              const float2 p = part[warp + s][lane];
+              ax += p.x;
+              ay += p.y;
+            }
+          }
+          __syncthreads();
+        }
+        if (live && piece == 0) {
+          if (c < m) ot[c] = ax;
+          if (c + 1 < m) ot[c + 1] = ay;
+        }
       }
     }
   }

@@ -1,14 +1,14 @@
-// The warp-per-query weighted row gather of B4, B5 and B6, whose row
-// payloads, row maps and loop lookup_bwd.cu shares too.  K1 and the range
-// gather moved to gather_batched.cuh, which reuses this file's
-// Payload and row maps; B4, B5, B6 and lookup_bwd.cu still run the body
-// below:
+// The warp-per-query weighted row gather of B5 and B6, the last kernels
+// that run the body below.  K1, B4 and the range gather moved to
+// gather_batched.cuh, which reuses this file's Payload and row maps;
+// lookup_bwd.cu's instances without scatter have a batched body of their
+// own (gather_batched.cuh's payloads):
 //
 //   out[t] = sum_k  w[t,k] * (scale[r] if scaled) * values[r],
 //            r = row_map(idx[t,k])
 //
-// fp32 accumulate.  `values` rows are fp32 (K1, B5) or 1-byte int8 / e4m3
-// payloads with one fp32 scale per row (B4, B6).  The scale is folded into
+// fp32 accumulate.  `values` rows are fp32 (B5) or 1-byte int8 / e4m3
+// payloads with one fp32 scale per row (B6).  The scale is folded into
 // the weight (w * scale, one fp32 product) before the multiply-add, as the
 // TPU kernels' bodies do.  `row_map` is the identity (dense table), the
 // tiered store's shard->slot indirection, or a row-range shard of the

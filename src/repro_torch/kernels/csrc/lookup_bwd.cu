@@ -1,7 +1,8 @@
 // The lookup's backward: one warp-per-query body for dw or dq, templated
-// on the row payload (fp32; int8 or e4m3 with one fp32 scale per row) and
-// on a row range, and a segmented scatter of the table's gradient for the
-// fp32 instances that train a dense table or a row shard of one.
+// on the row payload (fp32; int8 or e4m3 with one fp32 scale per row), a
+// row range and the layout of a row over the lanes, and a segmented
+// scatter of the table's gradient for the fp32 instances that train a
+// dense table or a row shard of one.
 //
 // Per query t and candidate k, with r = rows[t,k] the row the forward read
 // (a dense table's index itself, or a tiered store's row in its flat table
@@ -58,21 +59,36 @@
 // instances write dvalues once (4Nm bytes: 256 MiB at full width).  The
 // 2·n·k·m flops are far below the fp32 rate.
 //
-// Design of the instances without scatter: one warp per query row,
-// grid-stride over rows, 8 warps a block (the gather's layout,
-// gather_rows.cuh).  Each lane keeps two columns of g[t] in registers per
+// Design of the instances without scatter (redesigned for the H100; the
+// old body shuffled out each of a query's 32 rows in turn, loaded it and
+// summed its dot with a 5-step butterfly: 32 dependent round trips and 160
+// shuffles a query).  One warp per query row, grid-stride over rows, 8
+// warps a block.  Each lane keeps its columns of g[t] in registers per
 // 64-column chunk (m <= 256).  Lane l loads rows[t, l] (and, for dq,
-// idx[t, l]; for 1-byte rows, the row's scale), 32 at a time, and the warp
-// broadcasts the row with __shfl_sync.  For each of the k rows the warp
-// reads the row once (a float2, or two bytes converted in registers, per
-// lane; coalesced), forms its part of g . row and sums it with a 5-step
-// __shfl_xor_sync butterfly (on every lane).  Lane k keeps dw_k (times its
-// row's scale for a 1-byte payload).  For dq, lane k then decodes idx_k
-// into its lattice point with the integer ops of the plain version's
-// points_from_indices, takes the nearest-image delta, d^2 and relu^3
-// (explicit round-to-nearest, no FMA, as the plain version computes them),
-// and the warp sums dw_k·relu_k^3·(-delta_k) over k with one butterfly per
-// component; lane 0 writes dq[t].
+// idx[t, l]; for 1-byte rows, the row's scale) once, 32 at a time; the
+// range instances then compact the candidates to the shard's with a
+// ballot, in candidate order (gather_batched.cuh's), so a foreign row is
+// neither read nor shuffled and its dw is 0.  The row loads of a batch go
+// out before its first FMA, with no branch around a load, and a 1-byte
+// payload is converted after them.  Two layouts:
+//   * wide (1-byte rows, m % 8 == 0, an 8-byte aligned table): 8 bytes a
+//     lane, 8 lanes a row, 4 rows a warp load: 8 loads put all 32
+//     candidates' rows in flight; each lane's 8 partial dots are summed
+//     over its 8 lanes by one transpose reduction (7 shuffles), leaving
+//     one candidate's whole dot on each lane;
+//   * pair (fp32 rows, or a 1-byte row that does not fit the wide one): 2
+//     columns a lane, a row a warp load, 8 rows a batch; each batch's 8
+//     partials are transposed and summed over 8-lane groups (7 shuffles),
+//     and the 4 batches' group sums over the 4 groups (3 shuffles).
+// Then one shuffle puts dw_k on lane k, times its row's scale for a 1-byte
+// payload (the scale applied once to the whole dot).  For dq, lane k then
+// decodes idx_k into its lattice point with the integer ops of the plain
+// version's points_from_indices, takes the nearest-image delta, d^2 and
+// relu^3 (explicit round-to-nearest, no FMA, as the plain version computes
+// them), and the warp sums dw_k·relu_k^3·(-delta_k) over k with one
+// butterfly per component; lane 0 writes dq[t].  The dots add in another
+// order than the old body's (rtol 1e-4 / atol 1e-5 against the plain
+// version); given the same dw, dq is the same sum with the same rounding.
 //
 // Design of the scatter instances: a counting sort of the n·k pairs (row,
 // t, k) by row, then passes over the sorted pairs that do the scatter and
@@ -111,7 +127,7 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "gather_rows.cuh"
+#include "gather_batched.cuh"
 
 namespace {
 
@@ -182,7 +198,134 @@ __device__ __forceinline__ void dq_terms(const float (&x)[kDim], float dw_k,
     acc[i] = __fadd_rn(acc[i], __fmul_rn(coef, -delta[i]));
 }
 
-template <typename T, bool kDq, bool kRange>
+// The lanes' partial sums a[0 .. P-1] (P a power of two) over the P lanes
+// whose lane bits kShift .. kShift + log2(P) - 1 differ, transposed and
+// reduced by halving: at each step a lane keeps half its values and adds
+// the partner's copy of that half (P/2 + P/4 + ... + 1 shuffles).  Each
+// lane ends holding the whole group's sum of a[(lane >> kShift) & (P - 1)].
+template <int P, int kShift>
+__device__ __forceinline__ float transpose_sum(float (&a)[P], int lane) {
+#pragma unroll
+  for (int h = P / 2; h > 0; h >>= 1) {
+    const bool up = (lane >> kShift) & h;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? a[i] : a[i + h];
+      const float keep = up ? a[i + h] : a[i];
+      a[i] = keep + __shfl_xor_sync(kFull, send, h << kShift);
+    }
+  }
+  return a[0];
+}
+
+constexpr int kBatch = 8;  // row loads a lane issues before its FMAs
+
+// The dots g[t] . row for candidates 0 .. cnt - 1 of the warp (lane j
+// holds candidate j's row), pair layout: the warp reads one row a load, 2
+// columns a lane of each 64-column chunk, kBatch rows a batch.  A batch's
+// 8 partials a lane are summed over the 8 lanes of a group (lane bits
+// 0-2), leaving lane l candidate 8b + (l & 7)'s part for its group's 16
+// columns; the 4 batches' parts are then summed over the 4 groups (bits
+// 3-4).  Lane l returns candidate l's dot; 0 past cnt.  A load past cnt
+// reads candidate 0's row and is not added; a lane past the row's end
+// reads its last pair and adds nothing.
+template <typename T, int kCh>
+__device__ __forceinline__ float pair_dots(const T* __restrict__ values,
+                                           int m, int lane, int my_row,
+                                           int cnt,
+                                           const float (&gr)[kCh][8]) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    if (kBatch * b < cnt) {  // warp-uniform
+      const T* vr[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = kBatch * b + u;
+        vr[u] = values + static_cast<int64_t>(__shfl_sync(
+                             kFull, my_row, j < cnt ? j : 0)) * m;
+      }
+      float a[kBatch] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) {
+        const int c = ch * 64 + 2 * lane;
+        typename gather_batched::Raw<T>::Pair v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          v[u] = gather_batched::Raw<T>::pair(vr[u], min(c, m - 2));
+        if (c < m) {
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const float2 f = gather_batched::Raw<T>::f32(v[u]);
+            a[u] = fmaf(gr[ch][0], f.x, a[u]);
+            a[u] = fmaf(gr[ch][1], f.y, a[u]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (kBatch * b + u >= cnt) a[u] = 0.f;
+      s[b] = transpose_sum<kBatch, 0>(a, lane);
+    }
+  }
+  return transpose_sum<4, 3>(s, lane);
+}
+
+// The same dots, wide layout (1-byte rows, m % 8 == 0, an 8-byte aligned
+// table): 8 bytes a lane, so the 8 lanes of group grp = lane >> 3 cover a
+// 64-column chunk and one warp load serves 4 rows; load u of lane group
+// grp reads candidate 4u + grp, so 8 loads put all 32 candidates' rows in
+// flight.  The 8 partials a lane are summed over the group's 8 lanes
+// (lane bits 0-2, 7 shuffles): lane l returns candidate 4 (l & 7) + grp's
+// dot (wide_lane() inverts the map); 0 past cnt.
+template <typename T, int kCh>
+__device__ __forceinline__ float wide_dots(const T* __restrict__ values,
+                                           int m, int lane, int my_row,
+                                           int cnt,
+                                           const float (&gr)[kCh][8]) {
+  const int grp = lane >> 3;
+  const T* vr[kBatch];
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    const int j = gather_batched::kWideRows * u + grp;
+    vr[u] = values + static_cast<int64_t>(__shfl_sync(
+                         kFull, my_row, j < cnt ? j : 0)) * m;
+  }
+  float a[kBatch] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ch = 0; ch < kCh; ++ch) {
+    const int c = ch * 64 + 8 * (lane & 7);
+    uint2 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      v[u] = *reinterpret_cast<const uint2*>(vr[u] + min(c, m - 8));
+    if (c < m) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        float f[8];
+        gather_batched::Raw8<T>::f32(v[u], f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[u] = fmaf(gr[ch][i], f[i], a[u]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u)
+    if (gather_batched::kWideRows * u + grp >= cnt) a[u] = 0.f;
+  return transpose_sum<kBatch, 0>(a, lane);
+}
+
+// The lane of wide_dots that holds candidate p's dot.
+__device__ __forceinline__ int wide_lane(int p) {
+  return (p & 3) * 8 + (p >> 2);
+}
+
+// The instances without scatter: dw[t, k], or dq[t] from it; a warp per
+// query (see the file's head).  kWide: the wide layout (1-byte rows, the
+// host checked m % 8 == 0 and the table's alignment); kCh: 64-column
+// chunks a row has at most (1 for m <= 64, else kMaxChunks); kRange: the
+// candidates compacted to the shard's.
+template <typename T, bool kDq, bool kRange, bool kWide, int kCh>
 __global__ void __launch_bounds__(kWarps * 32)
 lookup_bwd_kernel(const T* __restrict__ values,
                   const float* __restrict__ scale,
@@ -194,18 +337,30 @@ lookup_bwd_kernel(const T* __restrict__ values,
   constexpr bool kScaled = !std::is_same<T, float>::value;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int chunks = (m + 63) / 64;
+  // this lane's first column of each 64-column chunk
+  const int col = kWide ? 8 * (lane & 7) : 2 * lane;
   for (int t = blockIdx.x * kWarps + warp; t < n; t += gridDim.x * kWarps) {
     const int32_t* rt = rows + static_cast<int64_t>(t) * top_k;
     const int32_t* it = idx + static_cast<int64_t>(t) * top_k;
     const float* gt = g + static_cast<int64_t>(t) * m;
-    float2 gr[kMaxChunks];
+    float gr[kCh][8];  // g[t] at this lane's columns (2 or 8), 0 past m
 #pragma unroll
-    for (int ch = 0; ch < kMaxChunks; ++ch) {
-      const int c = ch * 64 + 2 * lane;
-      gr[ch] = (ch < chunks && c < m)
-                   ? *reinterpret_cast<const float2*>(gt + c)
-                   : make_float2(0.f, 0.f);
+    for (int ch = 0; ch < kCh; ++ch) {
+      const int c = ch * 64 + col;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) gr[ch][i] = 0.f;
+      if (c < m) {
+        if (kWide) {
+          const float4 lo = *reinterpret_cast<const float4*>(gt + c);
+          const float4 hi = *reinterpret_cast<const float4*>(gt + c + 4);
+          gr[ch][0] = lo.x, gr[ch][1] = lo.y, gr[ch][2] = lo.z;
+          gr[ch][3] = lo.w, gr[ch][4] = hi.x, gr[ch][5] = hi.y;
+          gr[ch][6] = hi.z, gr[ch][7] = hi.w;
+        } else {
+          const float2 v = *reinterpret_cast<const float2*>(gt + c);
+          gr[ch][0] = v.x, gr[ch][1] = v.y;
+        }
+      }
     }
     float qt[kDim];
     float acc[kDim];
@@ -219,36 +374,40 @@ lookup_bwd_kernel(const T* __restrict__ values,
       int32_t my_row = 0;
       int32_t my_idx = 0;
       float my_scale = 1.f;
+      bool mine = false;
       if (kk < top_k) {
         my_row = rt[kk];
-        if (kRange) {  // -1: not this shard's row (a 0 term, not read)
+        mine = true;
+        if (kRange) {  // not this shard's row: a 0 term, not read
           my_row -= base;
-          if (static_cast<uint32_t>(my_row) >=
-              static_cast<uint32_t>(range_rows))
-            my_row = -1;
+          mine = static_cast<uint32_t>(my_row) <
+                 static_cast<uint32_t>(range_rows);
+          if (!mine) my_row = 0;
         }
         if (kDq) my_idx = it[kk];
-        if (kScaled && my_row >= 0) my_scale = scale[my_row];
+        if (kScaled && mine) my_scale = scale[my_row];
       }
-      const int cnt = min(32, top_k - kb);
+      int cnt = min(32, top_k - kb);
+      int row = my_row;  // lane p: the p-th candidate the warp reads
+      int p = lane;      // this lane's candidate among those
+      if (kRange) {      // this shard's candidates, in order
+        const unsigned ball = __ballot_sync(kFull, mine);
+        cnt = __popc(ball);
+        row = __shfl_sync(
+            kFull, my_row,
+            lane < cnt ? gather_batched::nth_set_bit(ball, lane) : lane);
+        p = __popc(ball & ((1u << lane) - 1u));
+      }
+      float dot;
+      if constexpr (kWide) {
+        dot = wide_dots<T, kCh>(values, m, lane, row, cnt, gr);
+      } else {
+        dot = pair_dots<T, kCh>(values, m, lane, row, cnt, gr);
+      }
+      const float dwj =
+          __shfl_sync(kFull, dot, kWide ? wide_lane(p & 31) : p & 31);
       float my_dw = 0.f;
-      for (int j = 0; j < cnt; ++j) {
-        const int64_t row = __shfl_sync(kFull, my_row, j);
-        if (kRange && row < 0) continue;  // warp-uniform; dw_j stays 0
-        const T* vr = values + row * m;
-        float part = 0.f;
-#pragma unroll
-        for (int ch = 0; ch < kMaxChunks; ++ch) {
-          const int c = ch * 64 + 2 * lane;
-          if (ch < chunks && c < m) {
-            const float2 v = gather_rows::Payload<T>::pair(vr, c);
-            part = fmaf(gr[ch].x, v.x, part);
-            part = fmaf(gr[ch].y, v.y, part);
-          }
-        }
-        const float dwj = warp_sum(part);
-        if (lane == j) my_dw = kScaled ? my_scale * dwj : dwj;
-      }
+      if (mine) my_dw = kScaled ? my_scale * dwj : dwj;
       if (kk < top_k) {
         if (kDq) {
           float x[kDim];
@@ -622,17 +781,48 @@ Torus torus_of(const int* wrap) {
   return torus;
 }
 
+template <typename T, bool kDq, bool kRange, bool kWide, int kCh>
+void launch_instance(const void* values, const void* scale, const void* rows,
+                     const void* idx, const void* g, const void* q, void* out,
+                     int n, int top_k, int m, const int* wrap,
+                     cudaStream_t stream, int base, int range_rows) {
+  lookup_bwd_kernel<T, kDq, kRange, kWide, kCh>
+      <<<blocks_for(n), kWarps * 32, 0, stream>>>(
+          static_cast<const T*>(values), static_cast<const float*>(scale),
+          static_cast<const int32_t*>(rows), static_cast<const int32_t*>(idx),
+          static_cast<const float*>(g), static_cast<const float*>(q),
+          static_cast<float*>(out), n, top_k, m, torus_of(wrap), base,
+          range_rows);
+}
+
+// The instance for the payload, m and the table's alignment: the wide
+// layout for 1-byte rows with m % 8 == 0 on an 8-byte aligned table, else
+// the pair layout; one 64-column chunk for m <= 64, else up to kMaxChunks.
 template <typename T, bool kDq, bool kRange = false>
 void launch_body(const void* values, const void* scale, const void* rows,
                  const void* idx, const void* g, const void* q, void* out,
                  int n, int top_k, int m, const int* wrap,
                  cudaStream_t stream, int base = 0, int range_rows = 0) {
-  lookup_bwd_kernel<T, kDq, kRange><<<blocks_for(n), kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(values), static_cast<const float*>(scale),
-      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(idx),
-      static_cast<const float*>(g), static_cast<const float*>(q),
-      static_cast<float*>(out), n, top_k, m, torus_of(wrap), base,
-      range_rows);
+  constexpr bool kScaled = !std::is_same<T, float>::value;
+  const bool wide = kScaled && m % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(values) % 8 == 0;
+  const bool one = m <= 64;
+  if (wide && one)
+    launch_instance<T, kDq, kRange, kScaled, 1>(values, scale, rows, idx, g,
+                                                q, out, n, top_k, m, wrap,
+                                                stream, base, range_rows);
+  else if (wide)
+    launch_instance<T, kDq, kRange, kScaled, kMaxChunks>(
+        values, scale, rows, idx, g, q, out, n, top_k, m, wrap, stream, base,
+        range_rows);
+  else if (one)
+    launch_instance<T, kDq, kRange, false, 1>(values, scale, rows, idx, g, q,
+                                              out, n, top_k, m, wrap, stream,
+                                              base, range_rows);
+  else
+    launch_instance<T, kDq, kRange, false, kMaxChunks>(
+        values, scale, rows, idx, g, q, out, n, top_k, m, wrap, stream, base,
+        range_rows);
 }
 
 template <typename T, bool kDq, bool kRange = false>

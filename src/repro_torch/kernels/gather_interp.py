@@ -47,13 +47,13 @@ def gather_interp_quant_plain(q: torch.Tensor, scale: torch.Tensor,
 
 
 def flat_gather_args(table: torch.Tensor, idx: torch.Tensor,
-                     w: torch.Tensor, what: str):
-    """Check what the warp-per-row gather kernels take and flatten idx/w to
-    (n, k): returns (idx2, w2, lead shape)."""
+                     w: torch.Tensor, what: str, align: int = 8):
+    """Check what the gather kernels take (a table aligned to `align`
+    bytes) and flatten idx/w to (n, k): returns (idx2, w2, lead shape)."""
     if table.ndim != 2 or not table.is_contiguous() \
-            or table.data_ptr() % 8:
-        raise ValueError(f"{what}: the table must be a contiguous, 8-byte "
-                         f"aligned (rows, m) tensor")
+            or table.data_ptr() % align:
+        raise ValueError(f"{what}: the table must be a contiguous, "
+                         f"{align}-byte aligned (rows, m) tensor")
     if idx.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError(f"{what}: idx must be int32 and w float32, got "
                         f"{idx.dtype} and {w.dtype}")
@@ -111,7 +111,9 @@ def gather_interp_quant(q: torch.Tensor, scale: torch.Tensor,
                         idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sum_k (w[..., k] * scale[i]) * q[i] -> (..., m) float32.
 
-    q (N, m) int8 or float8_e4m3fn, contiguous; scale (N,) float32;
+    q (N, m) int8 or float8_e4m3fn, contiguous, at any alignment (the
+    kernel loads 8 bytes a lane from an 8-byte aligned table with m % 8
+    == 0, else byte pairs or single bytes); scale (N,) float32;
     idx (..., k) int32 in [0, N); w (..., k) float32.  On a CUDA tensor
     the output carries no gradient, so it raises when w requires grad
     under grad mode: `gather_interp_quant_vjp` is the differentiable form.
@@ -126,7 +128,8 @@ def gather_interp_quant(q: torch.Tensor, scale: torch.Tensor,
             or not scale.is_contiguous() or scale.device != q.device:
         raise ValueError("scale must be a contiguous float32 (N,) tensor on "
                          "the payload's device")
-    idx2, w2, lead = flat_gather_args(q, idx, w, "gather_interp_quant")
+    idx2, w2, lead = flat_gather_args(q, idx, w, "gather_interp_quant",
+                                      align=1)
     n, top_k, m, out = gather_output(q, idx2)
     if n:
         fn = _build.function("gather_interp_quant", _QUANT_SYMBOL[q.dtype],

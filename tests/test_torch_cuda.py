@@ -603,9 +603,10 @@ print(json.dumps({{"records": run.records, "launches": [
 
 
 def _gather_case(device, n, m, top_k, queries, seed=0):
-    """K2's top_k indices into a 2^16-row table of width m, uniform or
-    clustered (64 queries near each of n / 64 points, as training's
-    queries crowd rows), with w and the table."""
+    """K2's top_k indices for n torus queries into a 2^16-row table of
+    width m, uniform or clustered (64 queries near each of n / 64 points,
+    as training's queries crowd rows): (spec, q, idx, w, the table, an
+    upstream gradient g)."""
     spec = indexing.choose_torus(16)
     gen = torch.Generator(device=device).manual_seed(seed + n + m + top_k)
     K = torch.tensor(spec.K, dtype=torch.float32, device=device)
@@ -614,10 +615,12 @@ def _gather_case(device, n, m, top_k, queries, seed=0):
         near = torch.arange(n, device=device) % (n // 64)
         q = (q[near] + 1e-3 * torch.rand(n, 8, generator=gen,
                                          device=device)).contiguous()
-    idx, w = e8_lookup.lram_query(q, spec, top_k)
+    with torch.no_grad():
+        idx, w = e8_lookup.lram_query(q, spec, top_k)
     values = torch.randn(spec.num_locations, m, generator=gen,
                          device=device)
-    return idx, w, values
+    g = torch.randn(n, m, generator=gen, device=device)
+    return spec, q, idx, w, values, g
 
 
 def _k1_split(values, idx, w, split):
@@ -647,7 +650,8 @@ def test_k1_matches_plain_on_card(cuda_device, n, m, top_k):
     column and the 64-column loop (m) and one or two candidate batches
     (top_k): the split the entry picks and every split."""
     for queries in ("uniform", "clustered"):
-        idx, w, values = _gather_case(cuda_device, n, m, top_k, queries)
+        _, _, idx, w, values, _ = _gather_case(cuda_device, n, m, top_k,
+                                               queries)
         want = gather_interp.gather_interp_plain(values, idx, w)
         before = gather_interp.gather_interp.launches
         got = gather_interp.gather_interp(values, idx, w)
@@ -669,8 +673,8 @@ def test_range_gather_matches_plain_on_card(cuda_device, n, m, top_k):
     whole table), none (a shard past the table's rows) and half (the upper
     half of the table)."""
     for queries in ("uniform", "clustered"):
-        idx, w, values = _gather_case(cuda_device, n, m, top_k, queries,
-                                      seed=1)
+        _, _, idx, w, values, _ = _gather_case(cuda_device, n, m, top_k,
+                                               queries, seed=1)
         rows = values.shape[0]
         for base, shard_rows in ((0, rows), (rows, rows // 2),
                                  (rows // 2, rows // 2)):
@@ -693,3 +697,133 @@ def test_range_gather_matches_plain_on_card(cuda_device, n, m, top_k):
                                            atol=tol[1])
                 if base == rows:
                     assert not got.any()
+
+
+def _b4_split(q, scale, idx, w, split, wide):
+    """B4 through its C entry with an explicit split and variant (wide 1:
+    8-byte loads where they fit; 0: byte pairs)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    symbol = {torch.int8: "gather_interp_quant_i8_split",
+              torch.float8_e4m3fn: "gather_interp_quant_e4m3_split"}
+    fn = _build.function("gather_interp_quant", symbol[q.dtype],
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                         + [ctypes.c_void_p])
+    out = torch.empty(idx.shape[0], q.shape[1], device=q.device)
+    _build.check(fn(q.data_ptr(), scale.data_ptr(), idx.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), idx.shape[0], idx.shape[1],
+                    q.shape[1], split, wide, q.device.index,
+                    torch.cuda.current_stream().cuda_stream), "B4 split")
+    return out
+
+
+def _misaligned(q: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of the 1-byte table q whose base lies `offset` bytes past an
+    8-byte boundary."""
+    buf = torch.empty(q.numel() + 8, dtype=torch.uint8, device=q.device)
+    flat = buf[offset:offset + q.numel()]
+    flat.copy_(q.view(torch.uint8).reshape(-1))
+    view = flat.view(q.dtype).view(q.shape)
+    assert view.data_ptr() % 8 == offset
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [8, 32, 40])
+@pytest.mark.parametrize("m", [64, 66, 128])
+@pytest.mark.parametrize("n", [1, 128, 2048])
+def test_b4_every_split_matches_plain_on_card(cuda_device, n, m, top_k):
+    """B4 (gather_batched.cuh's body) on int8 and e4m3 tables, uniform and
+    clustered queries, against its plain version (rtol 2e-5 / atol 1e-6):
+    the entry's own choice, every split with the wide loads and with byte
+    pairs, and tables whose base is 1, 2 or 4 bytes past an 8-byte
+    boundary.  With one warp a query on byte pairs it adds in the old
+    body's order, bit for bit: the order of K1's one-warp instance
+    (itself bit-equal to the old body) on the payload as fp32 with the
+    scale folded into the weight."""
+    for queries in ("uniform", "clustered"):
+        _, _, idx, w, values, _ = _gather_case(cuda_device, n, m, top_k,
+                                               queries, seed=2)
+        for kind in ("int8", "fp8"):
+            q, s = _quantized(values, kind)
+            want = gather_interp.gather_interp_quant_plain(q, s, idx, w)
+            before = gather_interp.gather_interp_quant.launches
+            got = gather_interp.gather_interp_quant(q, s, idx, w)
+            assert gather_interp.gather_interp_quant.launches == before + 1
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+            for split in (1, 2, 4, 8):
+                for wide in (0, 1):
+                    torch.testing.assert_close(
+                        _b4_split(q, s, idx, w, split, wide), want,
+                        rtol=2e-5, atol=1e-6)
+            ws = (w * s[idx.long()]).contiguous()
+            assert torch.equal(_b4_split(q, s, idx, w, 1, 0),
+                               _k1_split(quant.take_rows(
+                                   q, torch.arange(q.shape[0],
+                                                   device=cuda_device)),
+                                   idx, ws, 1))
+            for offset in (1, 2, 4):
+                torch.testing.assert_close(
+                    gather_interp.gather_interp_quant(
+                        _misaligned(q, offset), s, idx, w),
+                    want, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["dq", "dw"])
+@pytest.mark.parametrize("top_k", [8, 32, 40])
+@pytest.mark.parametrize("m", [64, 66, 128])
+def test_backward_without_scatter_layouts_on_card(cuda_device, m, top_k,
+                                                  stage):
+    """Row 8's body in every instance without scatter, on both layouts
+    (the wide one: 1-byte rows at m = 64 and 128; byte or fp32 pairs at
+    m = 66 and for fp32 rows), uniform and clustered queries: the rows
+    instances over a shuffled flat table (`lookup_bwd_rows`,
+    `lookup_bwd_quant`), and the 1-byte range instances on a shard that
+    holds all, none or half of the table, against `lookup_bwd_plain` (rtol
+    1e-4 / atol 1e-5); a candidate outside the shard has a dw of exactly
+    0."""
+    for queries in ("uniform", "clustered"):
+        spec, q, idx, w, values, g = _gather_case(cuda_device, 2048, m,
+                                                  top_k, queries)
+        extra = {"q": q, "spec": spec} if stage == "dq" else {}
+        perm = torch.randperm(values.shape[0], device=cuda_device)
+        rows = torch.argsort(perm)[idx.long()].int().contiguous()
+        flat = values[perm].contiguous()
+        for kind in ("none", "int8", "fp8"):
+            table, scale = flat, None
+            if kind != "none":
+                table, scale = _quantized(flat, kind)
+            fn = ops.lookup_bwd_rows if kind == "none" \
+                else ops.lookup_bwd_quant
+            args = (table, rows) if kind == "none" else (table, scale, rows)
+            before = fn.launches
+            got = fn(*args, w, g, **({"idx": idx, **extra}
+                                     if stage == "dq" else {}))
+            assert fn.launches == before + 1
+            _, want = ops.lookup_bwd_plain(table, idx, w, g, extra.get("q"),
+                                           spec, scale=scale, rows=rows,
+                                           scatter=False)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        num = values.shape[0]
+        for base, shard_rows in ((0, num), (num, num // 2),
+                                 (num // 2, num // 2)):
+            src = values[base % num:base % num + shard_rows]
+            ok = sharded_gather.local_rows(idx, base, shard_rows)[1]
+            for kind in ("int8", "fp8"):
+                shard, scale = _quantized(src.contiguous(), kind)
+                before = ops.lookup_bwd_range.launches
+                dv, got = ops.lookup_bwd_range(shard, idx, w, g, base,
+                                               scale=scale, **extra)
+                assert ops.lookup_bwd_range.launches == before + 1
+                assert dv is None
+                _, want = ops.lookup_bwd_plain(
+                    shard, idx, w, g, extra.get("q"), spec, scale=scale,
+                    scatter=False, base=base)
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+                if stage == "dw":
+                    assert not got[~ok].any()
+                    if base == num:
+                        assert not ok.any()

@@ -121,3 +121,25 @@ def test_lram_query_plain_matches_pallas_on_ties(top_k):
     # the rule is exercised: a share of the queries (all at top-32, a
     # quarter at top-8) have exact ties inside their top-k
     assert (w[:, 1:] == w[:, :-1]).any(-1).float().mean() >= 0.2
+
+
+def test_build_keeps_nvcc_output_beside_the_library(tmp_path):
+    """A library built once reports nvcc's output (each kernel's registers
+    and spills) again when a later process finds it built."""
+    from repro_torch.kernels import _build
+
+    class Done:  # a finished nvcc
+        returncode = 0
+
+        def communicate(self):
+            return "ptxas info    : Used 64 registers", None
+
+    out, tmp = tmp_path / "libk-0.so", tmp_path / "libk-0.tmp"
+    tmp.write_bytes(b"")
+    _build._finish("k", out, tmp, Done())
+    assert out.exists() and not tmp.exists()
+    _build.build_log.pop("k")
+    _build._finish("k", out, None, None)  # found built
+    assert _build.build_log.pop("k") == "ptxas info    : Used 64 registers"
+    _build._finish("k", tmp_path / "libk-1.so", None, None)
+    assert _build.build_log.pop("k") == "(cached build)"

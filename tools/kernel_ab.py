@@ -5,14 +5,16 @@ with this checkout's on the same inputs.
     python3 tools/kernel_ab.py --old build/parent [--sass] [--phases ...]
 
 Builds the parent's `csrc/e8_lookup.cu`, `lookup_bwd.cu`,
-`gather_interp.cu` and `sharded_gather.cu` (each against the parent's own
-headers) with the flags of `repro_torch.kernels._build` into
+`gather_interp.cu`, `gather_interp_quant.cu` and `sharded_gather.cu` (each
+against the parent's own headers) with the flags of
+`repro_torch.kernels._build` into
 `build/kernels_ab/`, beside this checkout's (built as the port builds
 them), and calls both through their C entry points (the same names and
 arguments in both).  Each phase holds old and new against the plain
 version first, then times old, new, new, old: each turn the mean device
-time of 20 launches under torch.profiler.  Phases (`--phases`, all by
-default):
+time of 20 launches under torch.profiler.  Prints each kernel's registers
+and spills, old and new, from nvcc's `ptxas` lines.  Phases (`--phases`,
+all by default):
 
   k2     K2 at the serving and training shapes, weights and indices
          bit-equal on uniform queries and on `lattice.tie_queries`;
@@ -30,7 +32,17 @@ default):
          halves, fp32 (1e-5), int8 and e4m3 (rtol 2e-5 / atol 1e-6);
   order  the query order K1 was tried with (tools/csrc/query_order.cu):
          the sort's kernels, and the new K1 on inputs permuted into its
-         order against the given order, at 16,384 and 65,536.
+         order against the given order, at 16,384 and 65,536;
+  b4     B4 on int8 and e4m3 tables (rtol 2e-5 / atol 1e-6) at n = 128,
+         2,048 and 65,536 on the dense table and at 16,384 and 65,536 on
+         the tiered flat route, uniform and clustered queries; the new
+         kernel with one warp a query on byte pairs bit-equal to the old
+         one; the wide loads against byte pairs, each at the entry's split
+         for it, in turns; at the decode sizes every split with each;
+  bwdq   the backward's instances without scatter (rtol 1e-4 / atol
+         1e-5): rows fp32 / int8 / e4m3, dq and dw, on the flat route at
+         16,384 and 65,536, uniform and clustered; range int8 / e4m3, dq
+         and dw, at 32,768 on both 2^19-row shard halves.
 
 With `--sass` it prints each kernel's static SASS instruction count and
 the size and mix of each loop (a backward branch) from `cuobjdump -sass`.
@@ -62,20 +74,25 @@ from repro_torch.core import indexing, lattice  # noqa: E402
 from repro_torch.kernels import (_build, e8_lookup, gather_interp,  # noqa: E402
                                  ops, sharded_gather)
 
-SOURCES = ("e8_lookup", "lookup_bwd", "gather_interp", "sharded_gather")
+SOURCES = ("e8_lookup", "lookup_bwd", "gather_interp",
+           "gather_interp_quant", "sharded_gather")
 # each source's kernel for --sass
 SASS_KERNELS = {"e8_lookup": "lram_query_kernel",
                 "lookup_bwd": "lookup_bwd_kernel",
                 "gather_interp": "gather_interp_kernel",
+                "gather_interp_quant": "gather_interp_quant_kernel",
                 "sharded_gather": "sharded_gather_kernel"}
-PHASES = ("k2", "bwd", "range", "k1", "row9", "order")
+PHASES = ("k2", "bwd", "range", "k1", "row9", "order", "b4", "bwdq")
 AB_DIR = ROOT / "build" / "kernels_ab"
 K2_SHAPES = (128, 2048, 16384, 32768, 65536)
 BWD_SHAPES = (128, 2048, 65536)
 RANGE_N, RANGE_ROWS = 32768, 2**19
 K1_SHAPES = (128, 2048, 16384, 65536)
 ROW9_SHAPES = (128, 32768)
+B4_SHAPES = (128, 2048, 65536)
+FLAT_SHAPES = (16384, 65536)  # the tiered train step's n, and a larger one
 TOP_K, M = 32, 64
+QUANT_SYMBOL = {"int8": "i8", "fp8": "e4m3"}
 
 
 def emit(obj) -> None:
@@ -143,12 +160,14 @@ def sass_report(lib_path: str, kernel: str) -> list[dict]:
     return out
 
 
-def turns(fn_old, fn_new, kernel: str) -> dict:
+def turns(fn_old, fn_new, kernel: str, names=("old", "new")) -> dict:
     """Device ms of one call, old, new, new, old: of the kernels whose
-    names hold `kernel`, and of all the call's device work (fills too)."""
-    got = {"old": [], "new": []}
-    for which in ("old", "new", "new", "old"):
-        ours, rest, _ = cs.device_split(fn_old if which == "old" else fn_new,
+    names hold `kernel`, and of all the call's device work (fills too).
+    `names` labels the two (a variant against another: "pair", "wide")."""
+    a, b = names
+    got = {a: [], b: []}
+    for which in (a, b, b, a):
+        ours, rest, _ = cs.device_split(fn_old if which == a else fn_new,
                                         kernel)
         got[which].append((ours, ours + (rest or 0.0)))
     out = {}
@@ -157,11 +176,11 @@ def turns(fn_old, fn_new, kernel: str) -> dict:
         out[f"{which}_call_device_ms"] = float(np.mean([p[1] for p in pairs]))
         out[f"{which}_turns"] = [p[0] for p in pairs]
     _, per_kernel, counts = cs.profile(lambda: [fn_new() for _ in range(20)])
-    out["new_by_kernel_ms"] = {
+    out[f"{b}_by_kernel_ms"] = {
         k[:48]: per_kernel[k] / counts[k] / 1e3 for k in per_kernel}
-    out["old_over_new"] = out["old_ms"] / out["new_ms"]
-    out["call_old_over_new"] = (out["old_call_device_ms"]
-                                / out["new_call_device_ms"])
+    out[f"{a}_over_{b}"] = out[f"{a}_ms"] / out[f"{b}_ms"]
+    out[f"call_{a}_over_{b}"] = (out[f"{a}_call_device_ms"]
+                                 / out[f"{b}_call_device_ms"])
     return out
 
 
@@ -194,10 +213,10 @@ def k2_call(fn, cand, nsq, q, top_k, wrap):
 
 
 def k2_phase(new_fn, old_fn, spec, device) -> None:
-    cand_new, nsq = e8_lookup._padded_candidates(device)
-    cand, _ = lattice.candidate_arrays()
-    cand_old = torch.from_numpy(np.ascontiguousarray(np.concatenate(
-        [cand, np.zeros((256 - len(cand), 8), np.float32)]).T)).to(device)
+    """K2 old and new on the candidate layout of `e8_lookup` (the
+    parent's kernel takes the same one), each held to its plain version
+    bit for bit."""
+    cand, nsq = e8_lookup._padded_candidates(device)
     wrap = (ctypes.c_int * 8)(*spec.K)
     gen = torch.Generator(device=device).manual_seed(0)
     K = torch.tensor(spec.K, dtype=torch.float32, device=device)
@@ -211,18 +230,18 @@ def k2_phase(new_fn, old_fn, spec, device) -> None:
                 row = {"kernel": "lram_query", "n": n, "queries": name,
                        "top_k": top_k}
                 calls = {}
-                for which, fn, cnd in (("old", old_fn, cand_old),
-                                       ("new", new_fn, cand_new)):
-                    call, idx, w = k2_call(fn, cnd, nsq, q, top_k, wrap)
+                for which, fn in (("old", old_fn), ("new", new_fn)):
+                    call, idx, w = k2_call(fn, cand, nsq, q, top_k, wrap)
                     call()
                     torch.cuda.synchronize()
                     row[f"{which}_same_idx_frac"] = \
                         (idx == idx_p).float().mean().item()
                     row[f"{which}_w_bit_equal"] = bool(torch.equal(w, w_p))
                     calls[which] = call
-                cs.check(row["new_same_idx_frac"] == 1.0
-                         and row["new_w_bit_equal"],
-                         f"K2 differs from its plain version: {row}")
+                    cs.check(row[f"{which}_same_idx_frac"] == 1.0
+                             and row[f"{which}_w_bit_equal"],
+                             f"{which} K2 differs from its plain version: "
+                             f"{row}")
                 if top_k == TOP_K:
                     row.update(turns(calls["old"], calls["new"],
                                      "lram_query_kernel"))
@@ -232,20 +251,24 @@ def k2_phase(new_fn, old_fn, spec, device) -> None:
                 emit(row)
 
 
+def old_function(lib_old, symbol: str, argtypes):
+    """The parent's C entry `symbol` (the same arguments as this
+    checkout's)."""
+    fn = getattr(lib_old, symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
 def bwd_phase(lib_old, spec, values, device) -> None:
     """The dense scatter instances (B3's backward with dq, B1's VJP with
-    dw): the parent's kernel (its call zero-fills dvalues first, as its
-    wrapper did) against this checkout's wrapper, and this checkout's
-    instance without scatter on the same inputs."""
+    dw): the parent's kernel against this checkout's wrapper, and this
+    checkout's instance without scatter on the same inputs."""
     wrap = (ctypes.c_int * 8)(*spec.K)
     gen = torch.Generator(device=device).manual_seed(1)
     dvalues = torch.zeros_like(values)
-    old_dq, old_dw = lib_old.lookup_bwd_dq_f32, lib_old.lookup_bwd_dw_f32
-    old_dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-    old_dw.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    old_dq.restype = old_dw.restype = ctypes.c_int
+    old_dq = old_function(lib_old, "lookup_bwd_dq_f32", ops._DQ_ARGS)
+    old_dw = old_function(lib_old, "lookup_bwd_dw_f32", ops._DW_ARGS)
+    rows = values.shape[0]
     cases = [(n, "uniform") for n in BWD_SHAPES] + [(BWD_SHAPES[-1],
                                                       "clustered")]
     for n, queries in cases:
@@ -254,20 +277,21 @@ def bwd_phase(lib_old, spec, values, device) -> None:
         g = torch.randn(n, M, generator=gen, device=device)
         out = torch.empty((n, 8), device=device)
         out_w = torch.empty((n, TOP_K), device=device)
+        scratch = ops._scatter_scratch(n, TOP_K, rows, device)
 
         def old_dq_call():
-            dvalues.zero_()
             _build.check(old_dq(values.data_ptr(), idx.data_ptr(),
                                 w.data_ptr(), g.data_ptr(), q.data_ptr(),
-                                dvalues.data_ptr(), out.data_ptr(), n, TOP_K,
-                                M, wrap, device.index, stream()), "old dq")
+                                dvalues.data_ptr(), out.data_ptr(),
+                                scratch.data_ptr(), n, TOP_K, M, rows, wrap,
+                                device.index, stream()), "old dq")
 
         def old_dw_call():
-            dvalues.zero_()
             _build.check(old_dw(values.data_ptr(), idx.data_ptr(),
                                 w.data_ptr(), g.data_ptr(),
-                                dvalues.data_ptr(), out_w.data_ptr(), n,
-                                TOP_K, M, device.index, stream()), "old dw")
+                                dvalues.data_ptr(), out_w.data_ptr(),
+                                scratch.data_ptr(), n, TOP_K, M, rows,
+                                device.index, stream()), "old dw")
         stages = {"dq": (old_dq_call, out, {"q": q, "spec": spec}),
                   "dw": (old_dw_call, out_w, {})}
         for stage, (old_call, old_out, extra) in stages.items():
@@ -312,10 +336,8 @@ def range_phase(lib_old, spec, values, device) -> None:
     wrap = (ctypes.c_int * 8)(*spec.K)
     gen = torch.Generator(device=device).manual_seed(2)
     K = torch.tensor(spec.K, dtype=torch.float32, device=device)
-    old_fn = lib_old.lookup_bwd_range_dq_f32
-    old_fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-    old_fn.restype = ctypes.c_int
+    old_fn = old_function(lib_old, "lookup_bwd_range_dq_f32",
+                          ops._RANGE_DQ_ARGS[True])
     n = RANGE_N
     q = torch.rand(n, 8, generator=gen, device=device) * K
     idx, w = e8_lookup.lram_query(q, spec, TOP_K)
@@ -326,14 +348,15 @@ def range_phase(lib_old, spec, values, device) -> None:
                                           base=base)
         dvalues = torch.zeros_like(shard)
         out = torch.empty((n, 8), device=device)
+        scratch = ops._scatter_scratch(n, TOP_K, RANGE_ROWS, device)
 
         def old_call():
-            dvalues.zero_()
             _build.check(old_fn(shard.data_ptr(), idx.data_ptr(),
                                 w.data_ptr(), g.data_ptr(), q.data_ptr(),
-                                dvalues.data_ptr(), out.data_ptr(), n, TOP_K,
-                                M, base, RANGE_ROWS, wrap, device.index,
-                                stream()), "old range dq")
+                                dvalues.data_ptr(), out.data_ptr(),
+                                scratch.data_ptr(), n, TOP_K, M, base,
+                                RANGE_ROWS, wrap, device.index, stream()),
+                         "old range dq")
 
         def new_call():
             return ops.lookup_bwd_range(shard, idx, w, g, base, q=q,
@@ -352,12 +375,28 @@ def range_phase(lib_old, spec, values, device) -> None:
         emit(row)
 
 
-def k1_phase(old_fn, spec, values, device) -> None:
+def old_split_function(lib_old, symbol: str, argtypes):
+    """The parent's entry with an explicit split, or None where it has
+    none (its kernel then runs one warp a query at every n)."""
+    if not hasattr(lib_old, symbol):
+        return None
+    return old_function(lib_old, symbol, argtypes)
+
+
+K1_SPLIT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+B4_SPLIT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def k1_phase(lib_old, spec, values, device) -> None:
     """K1 on the dense table and on the tiered flat route (32 of 128
     shards cached, the other rows appended), uniform and clustered
     queries: old and new held to the plain version (1e-5), the new kernel
-    with one warp a query bit-equal to the old one, timed in turns; at the
-    decode sizes every split (warps a query) too."""
+    with one warp a query bit-equal to the old one with one warp a query
+    (the parent's split entry, or its kernel where it has none), timed in
+    turns; at the decode sizes every split (warps a query) too."""
+    old_fn = old_function(lib_old, "gather_interp_f32", gather_interp._ARGS)
+    old_split = old_split_function(lib_old, "gather_interp_f32_split",
+                                   K1_SPLIT_ARGS)
     gen = torch.Generator(device=device).manual_seed(3)
     for n in K1_SHAPES:
         for kind in ("uniform", "clustered"):
@@ -393,8 +432,15 @@ def k1_phase(old_fn, spec, values, device) -> None:
                                             atol=1e-5),
                              f"{which} K1 differs from its plain version: "
                              f"{row}")
+                ref = out_old
+                if old_split is not None:
+                    ref = torch.empty_like(want)
+                    _build.check(old_split(
+                        table.data_ptr(), ix.data_ptr(), w.data_ptr(),
+                        ref.data_ptr(), n, TOP_K, M, 1, device.index,
+                        stream()), "old K1 split")
                 row["split1_bit_equal_old"] = bool(torch.equal(
-                    k1_split(table, ix, w, 1), out_old))
+                    k1_split(table, ix, w, 1), ref))
                 cs.check(row["split1_bit_equal_old"],
                          f"K1 with one warp a query is not bit-equal to "
                          f"the old kernel: {row}")
@@ -416,9 +462,8 @@ def k1_phase(old_fn, spec, values, device) -> None:
 
 def k1_split(table, ix, w, split: int) -> torch.Tensor:
     """The new K1 through its C entry with an explicit split."""
-    fn = _build.function(
-        "gather_interp", "gather_interp_f32_split",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn = _build.function("gather_interp", "gather_interp_f32_split",
+                         K1_SPLIT_ARGS)
     out = torch.empty(ix.shape[0], table.shape[1], device=table.device)
     _build.check(fn(table.data_ptr(), ix.data_ptr(), w.data_ptr(),
                     out.data_ptr(), ix.shape[0], ix.shape[1], table.shape[1],
@@ -561,6 +606,236 @@ def row9_phase(lib_old, spec, values, tables, device) -> None:
                 emit(row)
 
 
+def entry_split(n: int, per_warp: int = 4) -> int:
+    """The split (warps a query) gather_batched::split_for gives n, each
+    warp keeping at least `per_warp` candidates (B4's wide loads 32)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = 1
+    while split < 8 and n * split < 4 * sms \
+            and 2 * per_warp * split <= TOP_K:
+        split *= 2
+    return split
+
+
+def flat_cell(values, tables, idx, gen):
+    """The tiered flat route of idx (32 of 128 shards cached, the other
+    rows appended): (rows, {payload: (table, scale)}) over the fp32 table
+    and each 1-byte one."""
+    resident = torch.randperm(values.shape[0] // cs.SHARD_ROWS,
+                              generator=gen, device=values.device)[
+                                  :cs.CACHE_SLOTS]
+    flat, rws = cs.flat_route(values, idx, resident)
+    out = {"fp32": (values[flat].contiguous(), None)}
+    for kind, (tq, ts) in tables.items():
+        # rows taken through the payload's bytes (indexing takes no fp8)
+        out[kind] = (tq.view(torch.uint8)[flat].view(tq.dtype),
+                     ts[flat].contiguous())
+    return rws, out
+
+
+def b4_phase(lib_old, spec, values, tables, device) -> None:
+    """B4 on the dense int8 / e4m3 tables at n = 128, 2,048 and 65,536 and
+    on the flat route at 16,384 and 65,536, uniform and clustered queries:
+    old and new held to the plain version (rtol 2e-5 / atol 1e-6), the new
+    kernel with one warp a query on byte pairs bit-equal to the old one,
+    old and new timed in turns, then byte pairs against the wide loads,
+    each at the split the entry gives it; at the decode sizes every split
+    with each."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    old = {kind: old_function(lib_old, f"gather_interp_quant_{sym}",
+                              gather_interp._QUANT_ARGS)
+           for kind, sym in QUANT_SYMBOL.items()}
+    old_split = {kind: old_split_function(
+        lib_old, f"gather_interp_quant_{sym}_split", B4_SPLIT_ARGS)
+        for kind, sym in QUANT_SYMBOL.items()}
+    cells = [("dense", n) for n in B4_SHAPES] \
+        + [("flat", n) for n in FLAT_SHAPES]
+    for route, n in cells:
+        for queries in ("uniform", "clustered"):
+            q = make_queries(n, queries, spec, gen, device)
+            idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+            ix, by_kind = idx, tables
+            if route == "flat":
+                ix, by_kind = flat_cell(values, tables, idx, gen)
+            distinct = torch.unique(ix).numel()
+            split, split_wide = entry_split(n), entry_split(n, 32)
+            for kind in cs.PAYLOADS:
+                tq, ts = by_kind[kind]
+                want = gather_interp.gather_interp_quant_plain(tq, ts, ix, w)
+                out_old = torch.empty_like(want)
+
+                def old_call():
+                    _build.check(old[kind](tq.data_ptr(), ts.data_ptr(),
+                                           ix.data_ptr(), w.data_ptr(),
+                                           out_old.data_ptr(), n, TOP_K, M,
+                                           device.index, stream()),
+                                 "old B4")
+
+                def new_call():
+                    return gather_interp.gather_interp_quant(tq, ts, ix, w)
+                old_call()
+                new = new_call()
+                torch.cuda.synchronize()
+                row = {"kernel": "gather_interp_quant", "payload": kind,
+                       "n": n, "queries": queries, "route": route,
+                       "distinct_rows": distinct, "split_pair": split,
+                       "split_wide": split_wide}
+                for which, out in (("old", out_old), ("new", new)):
+                    row[f"{which}_err"] = (out - want).abs().max().item()
+                    cs.check(torch.allclose(out, want, rtol=2e-5,
+                                            atol=1e-6),
+                             f"{which} B4 differs from its plain version: "
+                             f"{row}")
+                ref = out_old
+                if old_split[kind] is not None:  # one warp, byte pairs
+                    ref = torch.empty_like(want)
+                    _build.check(old_split[kind](
+                        tq.data_ptr(), ts.data_ptr(), ix.data_ptr(),
+                        w.data_ptr(), ref.data_ptr(), n, TOP_K, M, 1, 0,
+                        device.index, stream()), "old B4 split")
+                row["split1_pairs_bit_equal_old"] = bool(torch.equal(
+                    cs.b4_split(tq, ts, ix, w, 1, 0), ref))
+                cs.check(row["split1_pairs_bit_equal_old"],
+                         f"B4 with one warp a query on byte pairs is not "
+                         f"bit-equal to the old kernel: {row}")
+                row.update(turns(old_call, new_call,
+                                 "gather_interp_quant_kernel"))
+                row.update(turns(
+                    lambda: cs.b4_split(tq, ts, ix, w, split, 0),
+                    lambda: cs.b4_split(tq, ts, ix, w, split_wide, 1),
+                    "gather_interp_quant_kernel", ("pair", "wide")))
+                if n <= 2048:
+                    row["split_ms"] = {}
+                    for sp in (1, 2, 4, 8):
+                        for wide in (0, 1):
+                            cs.check(torch.allclose(
+                                cs.b4_split(tq, ts, ix, w, sp, wide), want,
+                                rtol=2e-5, atol=1e-6),
+                                f"B4 split {sp} wide {wide} differs at "
+                                f"n={n}")
+                            row["split_ms"][f"{sp}{'w' if wide else 'p'}"] = \
+                                cs.device_ms(lambda: cs.b4_split(
+                                    tq, ts, ix, w, sp, wide),
+                                    "gather_interp_quant_kernel")
+                row["bound_ms"] = cs.gather_bound(distinct, M + 4, n)[0]
+                emit(row)
+
+
+def bwdq_cell(row, old_call, out_old, new_call, want, bound) -> dict:
+    """Hold old and new against the plain version (rtol 1e-4 / atol 1e-5)
+    and time them in turns: one row of the bwdq phase."""
+    old_call()
+    new = new_call()
+    torch.cuda.synchronize()
+    for which, out in (("old", out_old), ("new", new)):
+        row[f"{which}_err"] = (out - want).abs().max().item()
+        cs.check(torch.allclose(out, want, rtol=1e-4, atol=1e-5),
+                 f"{which} backward without scatter differs from its plain "
+                 f"version: {row}")
+    row.update(turns(old_call, new_call, "lookup_bwd_kernel"))
+    row["bound_ms"], row["bound_by"] = bound
+    return row
+
+
+def bwdq_phase(lib_old, spec, values, tables, device) -> None:
+    """The backward's instances without scatter: rows fp32 / int8 / e4m3
+    (`lookup_bwd_rows`, `lookup_bwd_quant`), dq and dw, on the flat route
+    at 16,384 and 65,536, uniform and clustered queries; range int8 / e4m3
+    (`lookup_bwd_range`), dq and dw, at 32,768 on both 2^19-row shard
+    halves (a foreign candidate's dw exactly 0)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    wrap = (ctypes.c_int * 8)(*spec.K)
+    name = {"fp32": "f32", **QUANT_SYMBOL}
+    for n in FLAT_SHAPES:
+        for queries in ("uniform", "clustered"):
+            q = make_queries(n, queries, spec, gen, device)
+            idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+            g = torch.randn(n, M, generator=gen, device=device)
+            rws, by_kind = flat_cell(values, tables, idx, gen)
+            distinct = torch.unique(rws).numel()
+            for payload, (table, scale) in by_kind.items():
+                fn = ops.lookup_bwd_rows if scale is None \
+                    else ops.lookup_bwd_quant
+                args = (table, rws) if scale is None else (table, scale, rws)
+                ptrs = (table.data_ptr(),
+                        None if scale is None else scale.data_ptr(),
+                        rws.data_ptr())
+                for stage in ("dq", "dw"):
+                    dq = stage == "dq"
+                    extra = {"idx": idx, "q": q, "spec": spec} if dq else {}
+                    want = ops.lookup_bwd_plain(
+                        table, idx, w, g, extra.get("q"), spec, scale=scale,
+                        rows=rws, scatter=False)[1]
+                    out_old = torch.empty_like(want)
+                    old_fn = old_function(
+                        lib_old, f"lookup_bwd_rows_{stage}_{name[payload]}",
+                        ops._ROWS_DQ_ARGS if dq else ops._ROWS_DW_ARGS)
+                    head = (idx.data_ptr(), w.data_ptr(), g.data_ptr(),
+                            q.data_ptr()) if dq else (w.data_ptr(),
+                                                      g.data_ptr())
+                    tail = (n, TOP_K, M) + ((wrap,) if dq else ())
+
+                    def old_call():
+                        _build.check(old_fn(*ptrs, *head, out_old.data_ptr(),
+                                            *tail, device.index, stream()),
+                                     "old backward without scatter")
+                    row = {"kernel": fn.__name__, "payload": payload,
+                           "stage": stage, "n": n, "queries": queries,
+                           "route": "flat", "distinct_rows": distinct}
+                    emit(bwdq_cell(
+                        row, old_call, out_old,
+                        lambda: fn(*args, w, g, **extra), want,
+                        cs.no_scatter_bound(
+                            n, distinct, 4 * M if scale is None else M + 4,
+                            stage, n * TOP_K, rows_apart=True)))
+    n = RANGE_N
+    q = make_queries(n, "uniform", spec, gen, device)
+    idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+    g = torch.randn(n, M, generator=gen, device=device)
+    for base in (0, RANGE_ROWS):
+        ok = sharded_gather.local_rows(idx, base, RANGE_ROWS)[1]
+        distinct = torch.unique(idx[ok]).numel()
+        for kind in cs.PAYLOADS:
+            shard = tables[kind][0][base:base + RANGE_ROWS]
+            scale = tables[kind][1][base:base + RANGE_ROWS]
+            for stage in ("dq", "dw"):
+                dq = stage == "dq"
+                extra = {"q": q, "spec": spec} if dq else {}
+                want = ops.lookup_bwd_plain(shard, idx, w, g, extra.get("q"),
+                                            spec, scale=scale, scatter=False,
+                                            base=base)[1]
+                out_old = torch.empty_like(want)
+                old_fn = old_function(
+                    lib_old, f"lookup_bwd_range_{stage}_{name[kind]}",
+                    (ops._RANGE_DQ_ARGS if dq else ops._RANGE_DW_ARGS)[False])
+                mid = (q.data_ptr(),) if dq else ()
+                tail = (wrap,) if dq else ()
+
+                def old_call():
+                    _build.check(old_fn(shard.data_ptr(), scale.data_ptr(),
+                                        idx.data_ptr(), w.data_ptr(),
+                                        g.data_ptr(), *mid,
+                                        out_old.data_ptr(), n, TOP_K, M,
+                                        base, RANGE_ROWS, *tail,
+                                        device.index, stream()),
+                                 "old range backward")
+
+                def new_call():
+                    return ops.lookup_bwd_range(shard, idx, w, g, base,
+                                                scale=scale, **extra)[1]
+                row = {"kernel": "lookup_bwd_range", "payload": kind,
+                       "stage": stage, "n": n, "base": base,
+                       "in_range_share": float(ok.float().mean()),
+                       "distinct_rows": distinct}
+                emit(bwdq_cell(row, old_call, out_old, new_call, want,
+                               cs.no_scatter_bound(
+                                   n, distinct, M + 4, stage,
+                                   int(ok.sum()), rows_apart=False)))
+                if not dq:
+                    cs.check(not new_call()[~ok].any(),
+                             "a foreign candidate's dw is not 0")
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--old", required=True, type=Path,
@@ -602,21 +877,23 @@ def main() -> None:
     if "range" in phases:
         range_phase(old["lookup_bwd"][0], spec, values, device)
     if "k1" in phases:
-        k1_old = old["gather_interp"][0].gather_interp_f32
-        k1_old.argtypes = gather_interp._ARGS
-        k1_old.restype = ctypes.c_int
-        k1_phase(k1_old, spec, values, device)
-    if "row9" in phases:
+        k1_phase(old["gather_interp"][0], spec, values, device)
+    tables = {}  # payload -> (q, scale) of the whole table
+    if {"row9", "b4", "bwdq"} & set(phases):
         host = values.cpu().numpy()
-        tables = {}
         for kind in cs.PAYLOADS:
             tq, ts = quant.quantize_rows_np(host, kind)
             tables[kind] = (quant.as_torch_payload(tq).to(device),
                             torch.from_numpy(ts).to(device))
         del host
+    if "row9" in phases:
         row9_phase(old["sharded_gather"][0], spec, values, tables, device)
     if "order" in phases:
         order_phase(spec, values, device)
+    if "b4" in phases:
+        b4_phase(old["gather_interp_quant"][0], spec, values, tables, device)
+    if "bwdq" in phases:
+        bwdq_phase(old["lookup_bwd"][0], spec, values, tables, device)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     emit({"ok": True})
 
