@@ -309,21 +309,52 @@ def b4_split(table, scale, ix, w, split: int, wide: int) -> torch.Tensor:
     return out
 
 
-def b4_split_ms(table, scale, ix, w, want) -> dict:
-    """B4 at every split with and without the wide loads, each held
-    against the plain version's output `want` (rtol 2e-5 / atol 1e-6):
-    device ms by split ("8w": 8 warps a query, wide loads; "8p": byte
-    pairs)."""
+def b5_split(cache, gid, slot_table, w, split: int) -> torch.Tensor:
+    """B5 through its C entry with an explicit split; counts no launch."""
+    fn = _build.function(
+        "tiered_gather", "tiered_gather_f32_split",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    out = torch.empty(gid.shape[0], cache.shape[1], device=cache.device)
+    _build.check(fn(cache.data_ptr(), gid.data_ptr(), slot_table.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), gid.shape[0], gid.shape[1],
+                    cache.shape[1], tiered_gather._log2(SHARD_ROWS), split,
+                    cache.device.index,
+                    torch.cuda.current_stream().cuda_stream), "B5 split")
+    return out
+
+
+def b6_split(cache, scale, gid, slot_table, w, split: int,
+             wide: int) -> torch.Tensor:
+    """B6 through its C entry with an explicit split and variant (wide 1:
+    8-byte loads where they fit; 0: byte pairs); counts no launch."""
+    name = "i8" if cache.dtype == torch.int8 else "e4m3"
+    fn = _build.function(
+        "tiered_gather", f"tiered_gather_quant_{name}_split",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    out = torch.empty(gid.shape[0], cache.shape[1], device=cache.device)
+    _build.check(fn(cache.data_ptr(), scale.data_ptr(), gid.data_ptr(),
+                    slot_table.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    gid.shape[0], gid.shape[1], cache.shape[1],
+                    tiered_gather._log2(SHARD_ROWS), split, wide,
+                    cache.device.index,
+                    torch.cuda.current_stream().cuda_stream), "B6 split")
+    return out
+
+
+def split_ms(what: str, call, want, kernel: str, wides=(0, 1)) -> dict:
+    """A gather at every split (warps a query) and variant through its C
+    entry, `call(split, wide)`, each held against the plain version's
+    output `want` (rtol 2e-5 / atol 1e-6): device ms of `kernel` by split
+    ("8w": 8 warps a query, wide loads; "8p": pairs)."""
     out = {}
     for split in (1, 2, 4, 8):
-        for wide in (0, 1):
-            got = b4_split(table, scale, ix, w, split, wide)
+        for wide in wides:
+            got = call(split, wide)
             check(torch.allclose(got, want, rtol=2e-5, atol=1e-6),
-                  f"B4 split {split} wide {wide} differs from its plain "
+                  f"{what} split {split} wide {wide} differs from its plain "
                   f"version by {(got - want).abs().max().item()}")
             out[f"{split}{'w' if wide else 'p'}"] = device_ms(
-                lambda: b4_split(table, scale, ix, w, split, wide),
-                "gather_interp_quant_kernel")
+                lambda: call(split, wide), kernel)
     return out
 
 
@@ -616,6 +647,7 @@ def kernel_phase(device):
                                           generator=host_gen).int()
     slot_table = slot_table.to(device)
     resident = resident.to(device)
+    identity = torch.arange(num_shards, dtype=torch.int32, device=device)
     log2r = SHARD_ROWS.bit_length() - 1
 
     rows = {name: [] for name in KERNELS}
@@ -639,51 +671,20 @@ def kernel_phase(device):
                 extra={"payload": kind, "route": "dense",
                        "distinct_rows": distinct})
             if n <= 2048:  # decode sizes: every split, both variants
-                b4["split_device_ms"] = b4_split_ms(
-                    tq, ts, idx, w,
-                    gather_interp.gather_interp_quant_plain(tq, ts, idx, w))
+                b4["split_device_ms"] = split_ms(
+                    "B4", lambda sp, wd: b4_split(tq, ts, idx, w, sp, wd),
+                    gather_interp.gather_interp_quant_plain(tq, ts, idx, w),
+                    "gather_interp_quant_kernel")
             rows["gather_interp_quant"].append(b4)
 
-        # the same access pattern moved into the resident shards
+        # the same access pattern moved into the resident shards of the
+        # 32-slot cache; then the whole table resident, as serve paths (c)
+        # and (d) hold it after warm() (128 slots, shard s in slot s), so
+        # that B5 and B6 read the rows K1 and B4 read above
         gid = ((resident[(idx >> log2r) % CACHE_SLOTS] << log2r)
                | (idx & (SHARD_ROWS - 1))).int()
-        distinct = torch.unique(gid).numel()
-        rows64 = tiered_gather.cache_rows(gid, slot_table, SHARD_ROWS)
-        rows["tiered_gather"].append(b5 := measure(
-            "B5", n,
-            lambda: tiered_gather.tiered_gather(
-                cache, gid, slot_table, w, shard_rows=SHARD_ROWS,
-                resident=True),
-            lambda: tiered_gather.tiered_gather_plain(
-                cache, gid, slot_table, w, shard_rows=SHARD_ROWS),
-            (2e-5, 1e-6), device_kernel="tiered_gather_kernel",
-            bound=gather_bound(distinct, 4 * M, n),
-            extra={"distinct_rows": distinct,
-                   "library_note": "embedding_bag on pre-translated "
-                                   "rows; translation not timed"},
-            # the translation to cache rows is left out of the timing
-            library=lambda: F.embedding_bag(rows64, cache,
-                                            per_sample_weights=w,
-                                            mode="sum")))
-        # call ms of B5 and of its yardstick again, in turns
-        b5["ms_turns"], b5["library_ms_turns"] = in_turns(
-            lambda: tiered_gather.tiered_gather(
-                cache, gid, slot_table, w, shard_rows=SHARD_ROWS,
-                resident=True),
-            lambda: F.embedding_bag(rows64, cache, per_sample_weights=w,
-                                    mode="sum"))
-        for kind in PAYLOADS:
-            cq, cs = caches[kind]
-            rows["tiered_gather_quant"].append(measure(
-                f"B6 ({kind})", n,
-                lambda: tiered_gather.tiered_gather_quant(
-                    cq, cs, gid, slot_table, w, shard_rows=SHARD_ROWS,
-                    resident=True),
-                lambda: tiered_gather.tiered_gather_quant_plain(
-                    cq, cs, gid, slot_table, w, shard_rows=SHARD_ROWS),
-                (2e-5, 1e-6), device_kernel="tiered_gather_quant_kernel",
-                bound=gather_bound(distinct, M + 4, n),
-                extra={"payload": kind, "distinct_rows": distinct}))
+        tiered_rows(rows, n, cache, caches, slot_table, gid, w, CACHE_SLOTS)
+        tiered_rows(rows, n, values, tables, identity, idx, w, num_shards)
     # K1 on clustered queries (64 near each of n / 64 points), as
     # training's queries crowd rows
     n = SHAPES[-1]
@@ -700,6 +701,65 @@ def kernel_phase(device):
     for n in RANGE_SHAPES:
         range_rows(rows, n, spec, values, tables, wrap, gen)
     return rows
+
+
+def tiered_rows(rows, n, cache, caches, slot_table, gid, w, slots):
+    """B5 on the fp32 cache and B6 on each 1-byte one (`caches`: payload
+    -> (q, scale)) through `slot_table`, against their plain versions
+    (rtol 2e-5 / atol 1e-6); library yardstick for B5 `F.embedding_bag`
+    on the rows already translated (the translation not timed); at the
+    decode sizes every split (B6: with and without the wide loads)."""
+    distinct = torch.unique(gid).numel()
+    rows64 = tiered_gather.cache_rows(gid, slot_table, SHARD_ROWS)
+    extra = {"cache_slots": slots, "distinct_rows": distinct}
+
+    def b5():
+        return tiered_gather.tiered_gather(cache, gid, slot_table, w,
+                                           shard_rows=SHARD_ROWS,
+                                           resident=True)
+
+    def b5_library():
+        return F.embedding_bag(rows64, cache, per_sample_weights=w,
+                               mode="sum")
+    row = measure(
+        f"B5 ({slots} slots)", n, b5,
+        lambda: tiered_gather.tiered_gather_plain(
+            cache, gid, slot_table, w, shard_rows=SHARD_ROWS),
+        (2e-5, 1e-6), device_kernel="tiered_gather_kernel",
+        bound=gather_bound(distinct, 4 * M, n),
+        extra={**extra, "library_note": "embedding_bag on pre-translated "
+                                        "rows; translation not timed"},
+        library=b5_library)
+    # call ms of B5 and of its yardstick again, in turns
+    row["ms_turns"], row["library_ms_turns"] = in_turns(b5, b5_library)
+    if n <= 2048:
+        row["split_device_ms"] = split_ms(
+            f"B5 ({slots} slots)",
+            lambda sp, _: b5_split(cache, gid, slot_table, w, sp),
+            tiered_gather.tiered_gather_plain(cache, gid, slot_table, w,
+                                              shard_rows=SHARD_ROWS),
+            "tiered_gather_kernel", wides=(0,))
+    rows["tiered_gather"].append(row)
+    for kind in PAYLOADS:
+        cq, cs = caches[kind]
+
+        def plain():
+            return tiered_gather.tiered_gather_quant_plain(
+                cq, cs, gid, slot_table, w, shard_rows=SHARD_ROWS)
+        row = measure(
+            f"B6 ({kind}, {slots} slots)", n,
+            lambda: tiered_gather.tiered_gather_quant(
+                cq, cs, gid, slot_table, w, shard_rows=SHARD_ROWS,
+                resident=True),
+            plain, (2e-5, 1e-6), device_kernel="tiered_gather_quant_kernel",
+            bound=gather_bound(distinct, M + 4, n),
+            extra={**extra, "payload": kind})
+        if n <= 2048:
+            row["split_device_ms"] = split_ms(
+                f"B6 ({kind}, {slots} slots)",
+                lambda sp, wd: b6_split(cq, cs, gid, slot_table, w, sp, wd),
+                plain(), "tiered_gather_quant_kernel")
+        rows["tiered_gather_quant"].append(row)
 
 
 def k1_dense_row(rows, n, values, idx, w, queries):

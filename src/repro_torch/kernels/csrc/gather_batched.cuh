@@ -1,22 +1,27 @@
 // The weighted row gather of K1 (csrc/gather_interp.cu), B4
-// (csrc/gather_interp_quant.cu) and row 9 (the range gather,
-// csrc/sharded_gather.cu), redesigned for the H100:
+// (csrc/gather_interp_quant.cu), B5 and B6 (csrc/tiered_gather.cu) and
+// row 9 (the range gather, csrc/sharded_gather.cu), redesigned for the
+// H100:
 //
 //   out[t] = sum_k  w[t,k] * (scale[r] if scaled) * values[r],
 //            r = row_map(idx[t,k])
 //
-// with the row payloads, row maps and numerics of gather_rows.cuh (fp32
+// with the row payloads and row maps of gather_rows.cuh (fp32
 // accumulate; a 1-byte row's scale folded into its weight; a row mapped
 // below 0 gives NaN; a masking row map's "not mine" adds nothing and its
-// row is not read).  B5 and B6 still run gather_rows.cuh's warp-per-query
-// body; lookup_bwd.cu's instances without scatter have a batched body of
-// their own.
+// row is not read).  lookup_bwd.cu's instances without scatter have a
+// batched body of their own.
 //
 // Bound: bytes (each distinct row read once, the indices, weights and
-// output; the 2*n*k*m flops are far below the fp32 rate).  The old body
+// output; the 2*n*k*m flops are far below the fp32 rate: at n = 128,
+// top-32, m = 64, 0.00033 ms for an fp32 table, 0.00010 for a 1-byte
+// one at 3.35 TB/s).  The warp-per-query body these kernels ran before
 // was latency-bound at decode sizes: a warp walked its query's 32 rows in
 // unroll-8 batches, about five dependent memory round trips a query, and
-// at n = 128 its 16 blocks left most of the 132 SMs idle.  This one:
+// at n = 128 its 16 blocks left most of the 132 SMs idle: 0.0077 ms for
+// K1, 0.0082 for B4, 0.0078 for B5 and 0.0083 for B6 (int8) there, where
+// this body takes 0.0024, 0.0023, 0.0026 and 0.0027 (device time,
+// tools/kernel_ab.py on an NVIDIA H100 80GB HBM3 at 700.00 W).  This one:
 //   * a warp loads its candidates' indices and weights once (lane l holds
 //     candidate l) and maps them to table rows;
 //   * with a masking row map (row 9) the warp compacts the candidates to
@@ -35,21 +40,29 @@
 //     through shared memory and the output row is written once, so the
 //     result is deterministic for a given n.  With split = 1 a warp sums
 //     its query in candidate order, as the old body did: the same fp32
-//     operations in the same order, so K1's output is bit-equal to the
-//     old kernel's;
+//     operations in the same order, so K1's and B5's outputs, and B4's
+//     and B6's on byte pairs, are bit-equal to the old kernels';
 //   * one kernel instance per (split == 1, m even) pair, so each holds
 //     only its own path's registers: at most 64 (4 blocks of 8 warps an
 //     SM), none spilled; the range gather's one-warp instances 32 (see
-//     sharded_gather.cu; its odd-m ones spill a little).  Clustered
+//     sharded_gather.cu; its odd-m ones spill a little), B5's and B6's
+//     48 (see tiered_gather.cu).  Clustered
 //     queries (training's) are L2-bound, where the old body's 32
 //     registers ran 64 warps an SM;
-//   * kWide (B4 only, 1-byte rows with m % 8 == 0 and an 8-byte aligned
-//     table): 8 bytes a lane, so 8 lanes cover a 64-column chunk of a row
-//     and one warp load serves 4 rows (lane group l >> 3 sums candidates
-//     l >> 3, + 4, + 8, ... in order); kBatch loads then put 32 rows in
-//     flight, and the 4 groups' sums are added at the end by 2
-//     __shfl_xor_sync steps.  It adds in another order than kWide = false
-//     (rtol 2e-5 / atol 1e-6 against the plain version, not bit-equal).
+//   * kWide (B4 and B6, 1-byte rows with m % 8 == 0 and an 8-byte aligned
+//     table, fits_wide): 8 bytes a lane, so 8 lanes cover a 64-column
+//     chunk of a row and one warp load serves 4 rows (lane group l >> 3
+//     sums candidates l >> 3, + 4, + 8, ... in order); kBatch loads then
+//     put 32 rows in flight, and the 4 groups' sums are added at the end
+//     by 2 __shfl_xor_sync steps.  It adds in another order than kWide =
+//     false (rtol 2e-5 / atol 1e-6 against the plain version on K2's
+//     weights, not bit-equal);
+//   * kWide with kInOrder (B6): the same wide loads, but a batch's 32 rows
+//     go through a 2 KiB tile of the warp's in shared memory and each lane
+//     then adds its two columns in candidate order, as byte pairs do:
+//     bit-equal to byte pairs at the same split.  With 32 weights of up to
+//     1 each the 4 groups' order strayed from the plain version's
+//     candidate order by 1.2e-6 on a sum near 0, past atol 1e-6.
 // Tried and dropped (PERF.md): 16 or 32 row loads in flight, or
 // 4-12 under a 32-48 register cap (tools/gather_sweep.py: spills, fewer
 // blocks an SM, or slower on uniform queries); running the queries in the
@@ -57,6 +70,8 @@
 // --phases order: faster on uniform queries, slower on clustered ones).
 
 #pragma once
+
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -162,13 +177,13 @@ __device__ __forceinline__ int nth_set_bit(unsigned mask, int p) {
 }
 
 // Warps a query: the least power of two that gives every SM 4 warps,
-// while each warp keeps at least min_per_warp candidates (4; B4's wide
-// loads 32, one batch of kBatch loads of kWideRows rows).  On the H100
-// n = 128 takes 8 (4 and 8 time alike, 1 and 2 slower); from n = 528 on
-// a query has one warp (at n = 2,048 one and two time alike, 4 and 8
-// slower).  With the wide loads one warp a query was fastest at n = 128
-// and 2,048 (0.0023 ms against 0.0026-0.0028 split).  tools/kernel_ab.py
-// --phases k1 and b4 time every split.
+// while each warp keeps at least min_per_warp candidates (4; the wide
+// loads of B4 and B6 32, one batch of kBatch loads of kWideRows rows).
+// On the H100 n = 128 takes 8 (4 and 8 time alike, 1 and 2 slower); from
+// n = 528 on a query has one warp (at n = 2,048 one and two time alike, 4
+// and 8 slower).  With the wide loads one warp a query was fastest at
+// n = 128 and 2,048 (0.0023 ms against 0.0026-0.0028 split).
+// tools/kernel_ab.py --phases k1, b4, b5 and b6 time every split.
 inline int split_for(int n, int top_k, int sm_count, int min_per_warp = 4) {
   const long long want = 4LL * sm_count;
   int split = 1;
@@ -176,6 +191,12 @@ inline int split_for(int n, int top_k, int sm_count, int min_per_warp = 4) {
          2 * min_per_warp * split <= top_k)
     split *= 2;
   return split;
+}
+
+// Whether the wide loads (kWide) fit a 1-byte table: 8-byte words of
+// whole 8-column groups.
+inline bool fits_wide(const void* values, int m) {
+  return m % 8 == 0 && reinterpret_cast<uintptr_t>(values) % 8 == 0;
 }
 
 inline int blocks_for(int n, int split) {
@@ -275,17 +296,63 @@ __device__ __forceinline__ void add_rows_wide(const T* __restrict__ values,
   }
 }
 
-// The body of one kernel instance: kOneWarp (split == 1), kPairs (m even)
-// and kWide are fixed at compile time, so an instance holds one path's
-// registers only.
+// add_rows' sum on add_rows_wide's loads (kWide with kInOrder): the
+// 8-byte words of a batch's rows go through the warp's tile in shared
+// memory, and the lane then adds columns c, c + 1 of rows 0 .. cnt - 1
+// (cnt <= 32) in order: add_rows' fp32 operations in add_rows' order, with
+// a quarter of its loads.  Every word of the tile is written each batch (a
+// lane past the row's end writes its last 8 columns), so a lane past the
+// row's end reads initialized bytes and stores nothing.
+template <typename T>
+__device__ __forceinline__ void add_rows_wide_in_order(
+    const T* __restrict__ values, int m, int c0, int lane, int my_row,
+    float my_w, int cnt, float& ax, float& ay) {
+  constexpr int kRows = kBatch * kWideRows;  // rows a batch: 32
+  __shared__ uint2 tile[kWarps][kRows][8];   // a warp's rows, 64 bytes each
+  uint2(*rows)[8] = tile[threadIdx.x >> 5];
+  const int grp = lane >> 3, col = lane & 7;
+  const int cc = min(c0 + 8 * col, m - 8);
+  uint2 v[kBatch];
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    const int j = u * kWideRows + grp;
+    const T* vr = values + static_cast<int64_t>(__shfl_sync(
+                               kFull, my_row, j < cnt ? j : 0)) * m;
+    v[u] = *reinterpret_cast<const uint2*>(vr + cc);
+  }
+  __syncwarp();  // the last chunk's reads of the tile are done
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) rows[u * kWideRows + grp][col] = v[u];
+  __syncwarp();
+  using Pair = typename Raw<T>::Pair;
+  const Pair* mine = reinterpret_cast<const Pair*>(rows[0]) + lane;
+  auto add = [&](int j) {
+    const float wj = __shfl_sync(kFull, my_w, j);
+    const float2 f = Raw<T>::f32(mine[j * 32]);  // 32 pairs a row
+    ax = fmaf(wj, f.x, ax);
+    ay = fmaf(wj, f.y, ay);
+  };
+  if (cnt == kRows) {  // warp-uniform; no guard, so the tile's reads can
+#pragma unroll         // go out ahead of the chain of FMAs
+    for (int j = 0; j < kRows; ++j) add(j);
+  } else {
+    for (int j = 0; j < cnt; ++j) add(j);
+  }
+}
+
+// The body of one kernel instance: kOneWarp (split == 1), kPairs (m even),
+// kWide and kInOrder are fixed at compile time, so an instance holds one
+// path's registers only.
 template <typename T, bool kScaled, bool kOneWarp, bool kPairs,
-          bool kWide = false, typename RowMap>
+          bool kWide = false, bool kInOrder = false, typename RowMap>
 __device__ __forceinline__ void gather(
     const T* __restrict__ values, const float* __restrict__ scale,
     const int32_t* __restrict__ idx, const float* __restrict__ w,
     float* __restrict__ out, int n, int top_k, int m, int split_arg,
     RowMap row_map) {
   __shared__ float2 part[kWarps][32];  // one 64-column chunk's partials
+  // the wide loads' 4 lane groups, each summing its own rows (not kInOrder)
+  constexpr bool kGroups = kWide && !kInOrder;
   const int split = kOneWarp ? 1 : split_arg;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -304,12 +371,12 @@ __device__ __forceinline__ void gather(
     const float* wt = w + static_cast<int64_t>(t) * top_k;
     float* ot = out + static_cast<int64_t>(t) * m;
     for (int c0 = 0; c0 < m; c0 += 64) {
-      const int c = c0 + (kWide ? 8 * (lane & 7) : 2 * lane);
+      const int c = c0 + (kGroups ? 8 * (lane & 7) : 2 * lane);
       float ax = 0.f, ay = 0.f;
-      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // kWide
+      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // kGroups
       for (int kb = k_lo; live && kb < k_hi; kb += 32) {
         const int kk = kb + lane;
-        int my_row = 0;  // rows of K1 and row 9 fit int32
+        int my_row = 0;  // a row fits int32: each wrapper refuses 2^31 rows
         float my_w = 0.f;
         bool mine = false;
         if (kk < k_hi) {
@@ -331,13 +398,16 @@ __device__ __forceinline__ void gather(
           my_row = __shfl_sync(kFull, my_row, src);
           my_w = __shfl_sync(kFull, my_w, src);
         }
-        if constexpr (kWide) {
+        if constexpr (kGroups) {
           add_rows_wide<T>(values, m, c, lane >> 3, my_row, my_w, cnt, a);
+        } else if constexpr (kWide) {
+          add_rows_wide_in_order<T>(values, m, c0, lane, my_row, my_w, cnt,
+                                    ax, ay);
         } else {
           add_rows<T, kPairs>(values, m, c, my_row, my_w, cnt, ax, ay);
         }
       }
-      if constexpr (kWide) {
+      if constexpr (kGroups) {
         // the 4 row groups' sums, on every lane
 #pragma unroll
         for (int i = 0; i < 8; ++i) {

@@ -14,7 +14,7 @@
 // sizes a query split over up to 8 warps of a block (the split from n and
 // the card's SM count), so that n = 128 fills the card; 4 blocks an SM
 // (at most 64 registers).  With split 1 the output is bit-equal to the
-// old warp-per-query body's (gather_rows.cuh).
+// old warp-per-query body's (once in gather_rows.cuh).
 //
 // Tried and dropped: running the queries in the order of their top
 // candidate's row (a counting sort on the card, then the gather in that

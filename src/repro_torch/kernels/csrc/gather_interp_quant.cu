@@ -12,13 +12,13 @@
 // weights and 4*n*m of output, at 3.35 TB/s.
 //
 // Design: gather_batched.cuh's body (K1's) with the identity row map.
-// The old body (gather_rows.cuh, warp per query) made about five dependent
-// round trips a query, with a conversion beside each load and 16 blocks
-// at n = 128.  Here lane l gathers the scale of its own index and folds it
-// into its weight (one fp32 product, the Pallas body's order) before the
-// warp broadcast, and the raw 1-byte payload is converted to fp32 (int8 by
-// a plain conversion, e4m3 by __nv_fp8x2_e4m3 -> float2, exact) only
-// after a batch's loads are out.  Two layouts:
+// The old body (warp per query, once in gather_rows.cuh) made about five
+// dependent round trips a query, with a conversion beside each load and
+// 16 blocks at n = 128.  Here lane l gathers the scale of its own index
+// and folds it into its weight (one fp32 product, the Pallas body's
+// order) before the warp broadcast, and the raw 1-byte payload is
+// converted to fp32 (int8 by a plain conversion, e4m3 by __nv_fp8x2_e4m3
+// -> float2, exact) only after a batch's loads are out.  Two layouts:
 //   * wide (gather_batched.cuh's kWide; m % 8 == 0 and an 8-byte aligned
 //     table): 8 bytes a lane, so one warp load serves 4 rows at m = 64 and
 //     8 loads put a query's 32 rows in flight at once; the split leaves
@@ -66,11 +66,6 @@ static void launch_instance(const void* q, const void* scale,
                    top_k, m, split);
 }
 
-// Whether the wide loads fit: 8-byte words of whole 8-column groups.
-static bool fits_wide(const void* q, int m) {
-  return m % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 8 == 0;
-}
-
 // wide: 1 for the wide loads where they fit, 0 for the pair loads.
 template <typename T>
 static int launch(const void* q, const void* scale, const void* idx,
@@ -78,7 +73,7 @@ static int launch(const void* q, const void* scale, const void* idx,
                   int split, int wide, cudaStream_t stream) {
   // pair loads stay aligned
   const bool pairs = m % 2 == 0 && reinterpret_cast<uintptr_t>(q) % 2 == 0;
-  if (wide && fits_wide(q, m)) {
+  if (wide && gather_batched::fits_wide(q, m)) {
     if (split == 1)
       launch_instance<T, true, true, true>(q, scale, idx, w, out, n, top_k,
                                            m, 1, stream);
@@ -107,9 +102,10 @@ static int launch_auto(const void* q, const void* scale, const void* idx,
                        int device, void* stream) {
   cudaSetDevice(device);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int per_warp = fits_wide(q, m) ? gather_batched::kBatch *
-                                             gather_batched::kWideRows
-                                       : 4;
+  const int per_warp =
+      gather_batched::fits_wide(q, m)
+          ? gather_batched::kBatch * gather_batched::kWideRows
+          : 4;
   return launch<T>(q, scale, idx, w, out, n, top_k, m,
                    gather_batched::split_for(
                        n, top_k, gather_batched::sm_count(device), per_warp),

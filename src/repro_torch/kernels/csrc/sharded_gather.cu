@@ -33,10 +33,10 @@
 // skipped), and the in-range rows' loads go out together, kBatch at a
 // time, before the first multiply-add.  At decode sizes a query is split
 // over several warps of a block (from n and the card's SM count).  The
-// old body (gather_rows.cuh, warp per query) shuffled every candidate and
-// skipped the foreign ones inside its unroll-8 loop, so the loads it did
-// issue came in short, ragged batches.  Not the NaN that the tiered row
-// map gives a missing shard: "not mine" is a 0 term.
+// old body (warp per query, once in gather_rows.cuh) shuffled every
+// candidate and skipped the foreign ones inside its unroll-8 loop, so the
+// loads it did issue came in short, ragged batches.  Not the NaN that the
+// tiered row map gives a missing shard: "not mine" is a 0 term.
 
 #include "gather_batched.cuh"
 

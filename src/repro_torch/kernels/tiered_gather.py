@@ -10,8 +10,10 @@ through the shard -> slot indirection
 Torch counterpart of `repro.kernels.tiered_gather` (`tiered_gather_pallas`,
 `tiered_gather_quant_pallas`).  On a CUDA tensor `tiered_gather` and
 `tiered_gather_quant` launch the hand-written kernels in
-`csrc/tiered_gather.cu` (design and bound noted there) or raise; on a CPU
-tensor they take `tiered_gather_plain` / `tiered_gather_quant_plain`.
+`csrc/tiered_gather.cu` (design and bound noted there; the body is K1's
+and B4's, `csrc/gather_batched.cuh`) or raise; on a CPU tensor they take
+`tiered_gather_plain` / `tiered_gather_quant_plain`.  The kernels keep a
+cache row in an int32, so they refuse a cache of 2^31 rows or more.
 
 Every index must lie in a resident shard.  The tiered store knows this
 from its residency map before it calls and passes the verdict as
@@ -87,6 +89,12 @@ def _check_slot_table(cache_flat: torch.Tensor,
                          "tensor on the cache's device")
 
 
+def _check_cache_rows(cache_flat: torch.Tensor, what: str) -> None:
+    if cache_flat.shape[0] >= 2**31:
+        raise ValueError(f"{what}: a cache of {cache_flat.shape[0]} rows "
+                         f"does not fit the kernels' int32 rows")
+
+
 def tiered_gather(cache_flat: torch.Tensor, idx: torch.Tensor,
                   slot_table: torch.Tensor, w: torch.Tensor, *,
                   shard_rows: int, resident: bool) -> torch.Tensor:
@@ -104,6 +112,7 @@ def tiered_gather(cache_flat: torch.Tensor, idx: torch.Tensor,
     if cache_flat.dtype != torch.float32:
         raise TypeError(f"tiered_gather kernel takes a float32 cache, got "
                         f"{cache_flat.dtype}")
+    _check_cache_rows(cache_flat, "tiered_gather")
     _check_slot_table(cache_flat, slot_table)
     idx2, w2, lead = flat_gather_args(cache_flat, idx, w, "tiered_gather")
     n, top_k, m, out = gather_output(cache_flat, idx2)
@@ -123,7 +132,10 @@ def tiered_gather_quant(cache_flat: torch.Tensor, scale_flat: torch.Tensor,
                         w: torch.Tensor, *, shard_rows: int,
                         resident: bool) -> torch.Tensor:
     """B6: B5 over an int8 / float8_e4m3fn cache with per-row fp32 scales
-    (scale_flat (slots * shard_rows,)) -> (..., m) float32."""
+    (scale_flat (slots * shard_rows,)) -> (..., m) float32.  The cache may
+    lie at any alignment (the kernel loads 8 bytes a lane from an 8-byte
+    aligned cache with m % 8 == 0, byte pairs from a 2-byte aligned one
+    with m even, single bytes otherwise)."""
     _check_resident(resident)
     if not cache_flat.is_cuda:
         return tiered_gather_quant_plain(cache_flat, scale_flat, idx,
@@ -133,6 +145,7 @@ def tiered_gather_quant(cache_flat: torch.Tensor, scale_flat: torch.Tensor,
     if cache_flat.dtype not in _QUANT_SYMBOL:
         raise TypeError(f"tiered_gather_quant kernel takes int8 or "
                         f"float8_e4m3fn caches, got {cache_flat.dtype}")
+    _check_cache_rows(cache_flat, "tiered_gather_quant")
     if scale_flat.dtype != torch.float32 \
             or scale_flat.shape != cache_flat.shape[:1] \
             or not scale_flat.is_contiguous() \
@@ -141,7 +154,7 @@ def tiered_gather_quant(cache_flat: torch.Tensor, scale_flat: torch.Tensor,
                          "tensor on the cache's device")
     _check_slot_table(cache_flat, slot_table)
     idx2, w2, lead = flat_gather_args(cache_flat, idx, w,
-                                      "tiered_gather_quant")
+                                      "tiered_gather_quant", align=1)
     n, top_k, m, out = gather_output(cache_flat, idx2)
     if n:
         fn = _build.function("tiered_gather", _QUANT_SYMBOL[cache_flat.dtype],

@@ -128,14 +128,15 @@ def test_b4_matches_plain_on_card(cuda_device, kind, n):
         rtol=2e-5, atol=1e-6)
 
 
-def _resident_call(device, n, gen, slots=32, shard_rows=8192, shards=128):
+def _resident_call(device, n, gen, slots=32, shard_rows=8192, shards=128,
+                   top_k=32):
     slot_table = torch.full((shards,), -1, dtype=torch.int32)
     resident = torch.randperm(shards, generator=gen)[:slots]
     slot_table[resident] = torch.randperm(slots, generator=gen).int()
-    pick = resident[torch.randint(0, slots, (n, 32), generator=gen)]
+    pick = resident[torch.randint(0, slots, (n, top_k), generator=gen)]
     gid = (pick * shard_rows
-           + torch.randint(0, shard_rows, (n, 32), generator=gen)).int()
-    w = torch.rand(n, 32, generator=gen)
+           + torch.randint(0, shard_rows, (n, top_k), generator=gen)).int()
+    w = torch.rand(n, top_k, generator=gen)
     return slot_table.to(device), gid.to(device), w.to(device)
 
 
@@ -178,6 +179,165 @@ def test_b5_marks_rows_of_absent_shards_nan(cuda_device):
     out = tiered_gather.tiered_gather(cache, idx, slot_table, w,
                                       shard_rows=4, resident=True)
     assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()
+
+
+def _b5_split(cache, gid, slot_table, w, split, shard_rows):
+    """B5 through its C entry with an explicit split (warps a query)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.function("tiered_gather", "tiered_gather_f32_split",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                         + [ctypes.c_void_p])
+    out = torch.empty(gid.shape[0], cache.shape[1], device=cache.device)
+    _build.check(fn(cache.data_ptr(), gid.data_ptr(), slot_table.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), gid.shape[0], gid.shape[1],
+                    cache.shape[1], tiered_gather._log2(shard_rows), split,
+                    cache.device.index,
+                    torch.cuda.current_stream().cuda_stream), "B5 split")
+    return out
+
+
+def _b6_split(q, scale, gid, slot_table, w, split, wide, shard_rows):
+    """B6 through its C entry with an explicit split and variant (wide 1:
+    8-byte loads where they fit; 0: byte pairs)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    symbol = {torch.int8: "tiered_gather_quant_i8_split",
+              torch.float8_e4m3fn: "tiered_gather_quant_e4m3_split"}
+    fn = _build.function("tiered_gather", symbol[q.dtype],
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p])
+    out = torch.empty(gid.shape[0], q.shape[1], device=q.device)
+    _build.check(fn(q.data_ptr(), scale.data_ptr(), gid.data_ptr(),
+                    slot_table.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    gid.shape[0], gid.shape[1], q.shape[1],
+                    tiered_gather._log2(shard_rows), split, wide,
+                    q.device.index, torch.cuda.current_stream().cuda_stream),
+                 "B6 split")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [32, 20])
+@pytest.mark.parametrize("m", [64, 8, 7, 72, 128])
+@pytest.mark.parametrize("n", [1, 128, 2048])
+def test_b5_b6_every_split_matches_plain_on_card(cuda_device, n, m, top_k):
+    """B5 and B6 (gather_batched.cuh's body through the slot table) on K2's
+    indices and weights into a 2^16-row table, against their plain
+    versions (rtol 2e-5 / atol 1e-6): the entry's own choice and every
+    split; B6 on int8 and e4m3 caches with the wide loads and with byte
+    pairs (m = 64, 8, 72, 128) or single bytes (m = 7), the wide loads'
+    ragged last chunk (m = 72) and their tile reused over two 64-column
+    chunks (m = 128).  Two caches: 16 of 64 shards resident in shuffled
+    slots, and a full 128-slot cache with the identity slot table.  At
+    every split B5 adds in K1's order and B6, on either layout, in B4's
+    byte pairs' order, bit for bit: each equals K1's / B4's explicit-split
+    entry over the rows the slot table maps to.  B6's entry also takes
+    caches whose base is 1, 2 or 4 bytes past an 8-byte boundary (single
+    bytes, byte pairs), bit-equal to B4's entry on the same table."""
+    _, _, idx, w, values, _ = _gather_case(cuda_device, n, m, top_k,
+                                           "uniform", seed=3)
+    gen = torch.Generator().manual_seed(n + m + top_k)
+    shards, slots, shard_rows = 64, 16, values.shape[0] // 64
+    log2r = tiered_gather._log2(shard_rows)
+    resident = torch.randperm(shards, generator=gen)[:slots]
+    slot_table = torch.full((shards,), -1, dtype=torch.int32)
+    slot_table[resident] = torch.randperm(slots, generator=gen).int()
+    resident = resident.to(cuda_device)
+    gid = ((resident[(idx >> log2r) % slots] << log2r)
+           | (idx & (shard_rows - 1))).int()
+    cache = torch.randn(slots * shard_rows, m, generator=gen)
+    cases = [(cache.to(cuda_device), slot_table.to(cuda_device), gid,
+              shard_rows),
+             (values, torch.arange(128, dtype=torch.int32,
+                                   device=cuda_device), idx,
+              values.shape[0] // 128)]
+    for cache, slot_table, gid, shard_rows in cases:
+        rows = tiered_gather.cache_rows(gid, slot_table,
+                                        shard_rows).int().contiguous()
+        want = tiered_gather.tiered_gather_plain(cache, gid, slot_table, w,
+                                                 shard_rows=shard_rows)
+        before = tiered_gather.tiered_gather.launches
+        got = tiered_gather.tiered_gather(cache, gid, slot_table, w,
+                                          shard_rows=shard_rows,
+                                          resident=True)
+        assert tiered_gather.tiered_gather.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+        for split in (1, 2, 4, 8):
+            got = _b5_split(cache, gid, slot_table, w, split, shard_rows)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+            assert torch.equal(got, _k1_split(cache, rows, w, split))
+        for kind in ("int8", "fp8"):
+            q, s = _quantized(cache, kind)
+            want = tiered_gather.tiered_gather_quant_plain(
+                q, s, gid, slot_table, w, shard_rows=shard_rows)
+            before = tiered_gather.tiered_gather_quant.launches
+            got = tiered_gather.tiered_gather_quant(
+                q, s, gid, slot_table, w, shard_rows=shard_rows,
+                resident=True)
+            assert tiered_gather.tiered_gather_quant.launches == before + 1
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+            for split in (1, 2, 4, 8):
+                pairs = _b4_split(q, s, rows, w, split, 0)
+                for wide in (0, 1):
+                    got = _b6_split(q, s, gid, slot_table, w, split, wide,
+                                    shard_rows)
+                    torch.testing.assert_close(got, want, rtol=2e-5,
+                                               atol=1e-6)
+                    assert torch.equal(got, pairs)
+            for offset in (1, 2, 4):
+                qo = _misaligned(q, offset)
+                got = tiered_gather.tiered_gather_quant(
+                    qo, s, gid, slot_table, w, shard_rows=shard_rows,
+                    resident=True)
+                torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+                assert torch.equal(
+                    got, gather_interp.gather_interp_quant(qo, s, rows, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 7])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_b6_marks_rows_of_absent_shards_nan(cuda_device, kind, m):
+    """B6's twin of the B5 test: a row with a candidate whose shard has no
+    slot comes out NaN in every column, never an out-of-bounds read, with
+    the wide loads (m = 8) and on single bytes (m = 7), at the entry's
+    split and at every explicit one."""
+    slot_table = torch.tensor([0, -1], dtype=torch.int32, device=cuda_device)
+    q, s = _quantized(torch.ones(4, m, device=cuda_device), kind)
+    idx = torch.tensor([[0, 1], [4, 5], [2, 6]], dtype=torch.int32,
+                       device=cuda_device)
+    w = torch.ones(3, 2, device=cuda_device)
+    outs = [tiered_gather.tiered_gather_quant(q, s, idx, slot_table, w,
+                                              shard_rows=4, resident=True)]
+    outs += [_b6_split(q, s, idx, slot_table, w, split, wide, 4)
+             for split in (1, 2, 4, 8) for wide in (0, 1)]
+    for out in outs:
+        assert torch.isfinite(out[0]).all() and torch.isnan(out[1:]).all()
+
+
+@pytest.mark.cuda
+def test_b5_b6_refuse_caches_of_2_31_rows(cuda_device):
+    """The kernels keep a cache row in an int32, so the wrappers refuse a
+    cache of 2^31 rows (expanded views: no memory is taken)."""
+    rows = 2**31
+    slot_table = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    idx = torch.zeros(1, 32, dtype=torch.int32, device=cuda_device)
+    w = torch.ones(1, 32, device=cuda_device)
+    cache = torch.zeros(1, 64, device=cuda_device).expand(rows, 64)
+    with pytest.raises(ValueError, match="int32"):
+        tiered_gather.tiered_gather(cache, idx, slot_table, w,
+                                    shard_rows=rows, resident=True)
+    q = torch.zeros(1, 64, dtype=torch.int8,
+                    device=cuda_device).expand(rows, 64)
+    scale = torch.ones(1, device=cuda_device).expand(rows)
+    with pytest.raises(ValueError, match="int32"):
+        tiered_gather.tiered_gather_quant(q, scale, idx, slot_table, w,
+                                          shard_rows=rows, resident=True)
 
 
 @pytest.mark.cuda

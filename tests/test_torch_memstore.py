@@ -54,13 +54,13 @@ def _reference_table(store) -> dict | np.ndarray:
 
 
 def _cache_and_slots(rng, quant_kind, slots=4, shard_rows=64, shards=16,
-                     m=64):
+                     m=64, top_k=32):
     rows = rng.normal(size=(slots * shard_rows, m)).astype(np.float32)
     slot_table = np.full(shards, -1, np.int32)
     resident = rng.choice(shards, size=slots, replace=False)
     slot_table[resident] = rng.permutation(slots)
-    gid = (rng.choice(resident, size=(6, 32)) * shard_rows
-           + rng.integers(0, shard_rows, size=(6, 32))).astype(np.int32)
+    gid = (rng.choice(resident, size=(6, top_k)) * shard_rows
+           + rng.integers(0, shard_rows, size=(6, top_k))).astype(np.int32)
     w = rng.uniform(0, 1, size=gid.shape).astype(np.float32)
     if quant_kind == "none":
         return rows, None, slot_table, gid, w
@@ -69,11 +69,16 @@ def _cache_and_slots(rng, quant_kind, slots=4, shard_rows=64, shards=16,
 
 
 @pytest.mark.parametrize("quant_kind", QUANTS)
-def test_tiered_gather_plain_matches_pallas(quant_kind):
+@pytest.mark.parametrize("m,top_k", [(64, 32), (8, 32), (7, 20)])
+def test_tiered_gather_plain_matches_pallas(m, top_k, quant_kind):
     """B5 (fp32) and B6 (int8, fp8) plain versions against
-    tiered_gather[_quant]_pallas in interpret mode, rtol 2e-5 / atol 1e-6."""
+    tiered_gather[_quant]_pallas in interpret mode, rtol 2e-5 / atol 1e-6,
+    at the layouts between which the CUDA kernels choose: full rows at
+    top-32 (B6 with the wide loads), 8 columns (wide on 8-byte words), and
+    7 columns at top-20 (single bytes, a split that leaves warps short)."""
     rng = np.random.default_rng(1)
-    cache, scale, slot_table, gid, w = _cache_and_slots(rng, quant_kind)
+    cache, scale, slot_table, gid, w = _cache_and_slots(rng, quant_kind, m=m,
+                                                        top_k=top_k)
     tw, tg, ts = (torch.from_numpy(w), torch.from_numpy(gid),
                   torch.from_numpy(slot_table))
     if scale is None:
@@ -93,7 +98,7 @@ def test_tiered_gather_plain_matches_pallas(quant_kind):
             jnp.asarray(jq), jnp.asarray(scale), jnp.asarray(gid),
             jnp.asarray(slot_table), jnp.asarray(w), shard_rows=64,
             interpret=True)
-    assert got.shape == (6, 64)
+    assert got.shape == (6, m)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=1e-6)
 

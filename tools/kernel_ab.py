@@ -5,8 +5,8 @@ with this checkout's on the same inputs.
     python3 tools/kernel_ab.py --old build/parent [--sass] [--phases ...]
 
 Builds the parent's `csrc/e8_lookup.cu`, `lookup_bwd.cu`,
-`gather_interp.cu`, `gather_interp_quant.cu` and `sharded_gather.cu` (each
-against the parent's own headers) with the flags of
+`gather_interp.cu`, `gather_interp_quant.cu`, `sharded_gather.cu` and
+`tiered_gather.cu` (each against the parent's own headers) with the flags of
 `repro_torch.kernels._build` into
 `build/kernels_ab/`, beside this checkout's (built as the port builds
 them), and calls both through their C entry points (the same names and
@@ -42,7 +42,21 @@ all by default):
   bwdq   the backward's instances without scatter (rtol 1e-4 / atol
          1e-5): rows fp32 / int8 / e4m3, dq and dw, on the flat route at
          16,384 and 65,536, uniform and clustered; range int8 / e4m3, dq
-         and dw, at 32,768 on both 2^19-row shard halves.
+         and dw, at 32,768 on both 2^19-row shard halves;
+  b5     B5 (rtol 2e-5 / atol 1e-6) at n = 128, 2,048 and 65,536, uniform
+         and clustered queries, on two caches: chip_smoke's 32-slot cache
+         (32 of the 128 shards in shuffled slots, random rows) and a
+         128-slot cache holding the whole table, shard s in slot s, as
+         serve path (c) holds it after warm(); the new kernel with one
+         warp a query bit-equal to the old one; on the 128-slot cache K1
+         on the same rows in turns with B5; at the decode sizes every
+         split;
+  b6     B6 on int8 and e4m3 caches, the same cells as b5 (the 128-slot
+         cache against B4 on the same rows, as serve path (d)); one warp a
+         query bit-equal to the old kernel on byte pairs and with the wide
+         loads (which add in candidate order); the wide loads against byte
+         pairs, each at the entry's split for it; at the decode sizes every
+         split with each.
 
 With `--sass` it prints each kernel's static SASS instruction count and
 the size and mix of each loop (a backward branch) from `cuobjdump -sass`.
@@ -72,17 +86,20 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch import quant  # noqa: E402
 from repro_torch.core import indexing, lattice  # noqa: E402
 from repro_torch.kernels import (_build, e8_lookup, gather_interp,  # noqa: E402
-                                 ops, sharded_gather)
+                                 ops, sharded_gather, tiered_gather)
 
 SOURCES = ("e8_lookup", "lookup_bwd", "gather_interp",
-           "gather_interp_quant", "sharded_gather")
-# each source's kernel for --sass
-SASS_KERNELS = {"e8_lookup": "lram_query_kernel",
-                "lookup_bwd": "lookup_bwd_kernel",
-                "gather_interp": "gather_interp_kernel",
-                "gather_interp_quant": "gather_interp_quant_kernel",
-                "sharded_gather": "sharded_gather_kernel"}
-PHASES = ("k2", "bwd", "range", "k1", "row9", "order", "b4", "bwdq")
+           "gather_interp_quant", "sharded_gather", "tiered_gather")
+# each source's kernels for --sass
+SASS_KERNELS = {"e8_lookup": ("lram_query_kernel",),
+                "lookup_bwd": ("lookup_bwd_kernel",),
+                "gather_interp": ("gather_interp_kernel",),
+                "gather_interp_quant": ("gather_interp_quant_kernel",),
+                "sharded_gather": ("sharded_gather_kernel",),
+                "tiered_gather": ("tiered_gather_kernel",
+                                  "tiered_gather_quant_kernel")}
+PHASES = ("k2", "bwd", "range", "k1", "row9", "order", "b4", "bwdq", "b5",
+          "b6")
 AB_DIR = ROOT / "build" / "kernels_ab"
 K2_SHAPES = (128, 2048, 16384, 32768, 65536)
 BWD_SHAPES = (128, 2048, 65536)
@@ -90,6 +107,7 @@ RANGE_N, RANGE_ROWS = 32768, 2**19
 K1_SHAPES = (128, 2048, 16384, 65536)
 ROW9_SHAPES = (128, 32768)
 B4_SHAPES = (128, 2048, 65536)
+TIERED_SHAPES = (128, 2048, 65536)
 FLAT_SHAPES = (16384, 65536)  # the tiered train step's n, and a larger one
 TOP_K, M = 32, 64
 QUANT_SYMBOL = {"int8": "i8", "fp8": "e4m3"}
@@ -160,15 +178,19 @@ def sass_report(lib_path: str, kernel: str) -> list[dict]:
     return out
 
 
-def turns(fn_old, fn_new, kernel: str, names=("old", "new")) -> dict:
+def turns(fn_old, fn_new, kernel, names=("old", "new")) -> dict:
     """Device ms of one call, old, new, new, old: of the kernels whose
-    names hold `kernel`, and of all the call's device work (fills too).
-    `names` labels the two (a variant against another: "pair", "wide")."""
+    names hold `kernel` (or, for two different kernels, the pair's first
+    in old's call and second in new's), and of all the call's device work
+    (fills too).  `names` labels the two (a variant against another:
+    "pair", "wide")."""
     a, b = names
+    kernels = {a: kernel, b: kernel} if isinstance(kernel, str) \
+        else dict(zip(names, kernel))
     got = {a: [], b: []}
     for which in (a, b, b, a):
         ours, rest, _ = cs.device_split(fn_old if which == a else fn_new,
-                                        kernel)
+                                        kernels[which])
         got[which].append((ours, ours + (rest or 0.0)))
     out = {}
     for which, pairs in got.items():
@@ -721,6 +743,183 @@ def b4_phase(lib_old, spec, values, tables, device) -> None:
                 emit(row)
 
 
+def tiered_caches(values, tables, device) -> dict:
+    """{slots: (fp32 cache, {payload: (q, scale)}, slot table, resident
+    shards)}: chip_smoke's 32-slot cache (random rows; 32 of the 128
+    shards, in shuffled slots) and the 128-slot cache that holds the whole
+    table (`values`, `tables`), shard s in slot s."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    shards = values.shape[0] // cs.SHARD_ROWS
+    cache = torch.randn(cs.CACHE_SLOTS * cs.SHARD_ROWS, M, generator=gen,
+                        device=device)
+    quantized = {}
+    for kind in cs.PAYLOADS:
+        tq, ts = quant.quantize_rows_np(cache.cpu().numpy(), kind)
+        quantized[kind] = (quant.as_torch_payload(tq).to(device),
+                           torch.from_numpy(ts).to(device))
+    host_gen = torch.Generator().manual_seed(8)
+    resident = torch.randperm(shards, generator=host_gen)[:cs.CACHE_SLOTS]
+    slot_table = torch.full((shards,), -1, dtype=torch.int32)
+    slot_table[resident] = torch.randperm(cs.CACHE_SLOTS,
+                                          generator=host_gen).int()
+    identity = torch.arange(shards, dtype=torch.int32, device=device)
+    return {cs.CACHE_SLOTS: (cache, quantized, slot_table.to(device),
+                             resident.to(device)),
+            shards: (values, tables, identity, identity)}
+
+
+def tiered_cells(spec, caches, gen, device):
+    """(n, queries, slots, cache, 1-byte caches, slot table, gid, idx, w)
+    of every b5 / b6 cell: K2's indices of uniform or clustered queries,
+    moved into the cache's resident shards (`gid`; the 128-slot cache's
+    are K2's own)."""
+    log2r = tiered_gather._log2(cs.SHARD_ROWS)
+    for n in TIERED_SHAPES:
+        for queries in ("uniform", "clustered"):
+            q = make_queries(n, queries, spec, gen, device)
+            idx, w = e8_lookup.lram_query(q, spec, TOP_K)
+            for slots, (cache, quantized, slot_table, resident) \
+                    in caches.items():
+                gid = ((resident[(idx >> log2r) % slots] << log2r)
+                       | (idx & (cs.SHARD_ROWS - 1))).int()
+                yield (n, queries, slots, cache, quantized, slot_table, gid,
+                       idx, w)
+
+
+def b5_phase(lib_old, spec, values, caches, device) -> None:
+    """B5 on both caches: old and new held to the plain version (rtol
+    2e-5 / atol 1e-6), the new kernel with one warp a query bit-equal to
+    the old one (which runs one warp a query at every n), timed in turns;
+    on the 128-slot cache K1 on the same rows in turns with the new B5; at
+    the decode sizes every split."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    old = old_function(lib_old, "tiered_gather_f32", tiered_gather._ARGS)
+    log2r = tiered_gather._log2(cs.SHARD_ROWS)
+    full = max(caches)
+    for n, queries, slots, cache, _, slot_table, gid, idx, w in \
+            tiered_cells(spec, caches, gen, device):
+        want = tiered_gather.tiered_gather_plain(cache, gid, slot_table, w,
+                                                 shard_rows=cs.SHARD_ROWS)
+        out_old = torch.empty_like(want)
+
+        def old_call():
+            _build.check(old(cache.data_ptr(), gid.data_ptr(),
+                             slot_table.data_ptr(), w.data_ptr(),
+                             out_old.data_ptr(), n, TOP_K, M, log2r,
+                             device.index, stream()), "old B5")
+
+        def new_call():
+            return tiered_gather.tiered_gather(cache, gid, slot_table, w,
+                                               shard_rows=cs.SHARD_ROWS,
+                                               resident=True)
+        old_call()
+        new = new_call()
+        torch.cuda.synchronize()
+        distinct = torch.unique(gid).numel()
+        row = {"kernel": "tiered_gather", "n": n, "queries": queries,
+               "cache_slots": slots, "distinct_rows": distinct,
+               "split": entry_split(n)}
+        for which, out in (("old", out_old), ("new", new)):
+            row[f"{which}_err"] = (out - want).abs().max().item()
+            cs.check(torch.allclose(out, want, rtol=2e-5, atol=1e-6),
+                     f"{which} B5 differs from its plain version: {row}")
+        row["split1_bit_equal_old"] = bool(torch.equal(
+            cs.b5_split(cache, gid, slot_table, w, 1), out_old))
+        cs.check(row["split1_bit_equal_old"],
+                 f"B5 with one warp a query is not bit-equal to the old "
+                 f"kernel: {row}")
+        row.update(turns(old_call, new_call, "tiered_gather_kernel"))
+        if slots == full:  # K1's rows
+            row.update(turns(
+                lambda: gather_interp.gather_interp(values, idx, w),
+                new_call, ("gather_interp_kernel", "tiered_gather_kernel"),
+                ("k1", "b5")))
+        if n <= 2048:
+            row["split_ms"] = cs.split_ms(
+                "B5", lambda sp, _: cs.b5_split(cache, gid, slot_table, w,
+                                                sp),
+                want, "tiered_gather_kernel", wides=(0,))
+        row["bound_ms"] = cs.gather_bound(distinct, 4 * M, n)[0]
+        emit(row)
+
+
+def b6_phase(lib_old, spec, tables, caches, device) -> None:
+    """B6 on both caches, int8 and e4m3: old and new held to the plain
+    version (rtol 2e-5 / atol 1e-6), the new kernel with one warp a query
+    bit-equal to the old one on byte pairs and with the wide loads, timed
+    in turns; on the
+    128-slot cache B4 on the same rows in turns with the new B6; byte
+    pairs against the wide loads, each at the split the entry gives it;
+    at the decode sizes every split with each."""
+    gen = torch.Generator(device=device).manual_seed(10)
+    old = {kind: old_function(lib_old, f"tiered_gather_quant_{sym}",
+                              tiered_gather._QUANT_ARGS)
+           for kind, sym in QUANT_SYMBOL.items()}
+    log2r = tiered_gather._log2(cs.SHARD_ROWS)
+    full = max(caches)
+    for n, queries, slots, _, quantized, slot_table, gid, idx, w in \
+            tiered_cells(spec, caches, gen, device):
+        distinct = torch.unique(gid).numel()
+        split, split_wide = entry_split(n), entry_split(n, 32)
+        for kind in cs.PAYLOADS:
+            tq, ts = quantized[kind]
+            want = tiered_gather.tiered_gather_quant_plain(
+                tq, ts, gid, slot_table, w, shard_rows=cs.SHARD_ROWS)
+            out_old = torch.empty_like(want)
+
+            def old_call():
+                _build.check(old[kind](tq.data_ptr(), ts.data_ptr(),
+                                       gid.data_ptr(), slot_table.data_ptr(),
+                                       w.data_ptr(), out_old.data_ptr(), n,
+                                       TOP_K, M, log2r, device.index,
+                                       stream()), "old B6")
+
+            def new_call():
+                return tiered_gather.tiered_gather_quant(
+                    tq, ts, gid, slot_table, w, shard_rows=cs.SHARD_ROWS,
+                    resident=True)
+            old_call()
+            new = new_call()
+            torch.cuda.synchronize()
+            row = {"kernel": "tiered_gather_quant", "payload": kind, "n": n,
+                   "queries": queries, "cache_slots": slots,
+                   "distinct_rows": distinct, "split_pair": split,
+                   "split_wide": split_wide}
+            for which, out in (("old", out_old), ("new", new)):
+                row[f"{which}_err"] = (out - want).abs().max().item()
+                cs.check(torch.allclose(out, want, rtol=2e-5, atol=1e-6),
+                         f"{which} B6 differs from its plain version: {row}")
+            for wide, layout in ((0, "pairs"), (1, "wide")):
+                key = f"split1_{layout}_bit_equal_old"
+                row[key] = bool(torch.equal(
+                    cs.b6_split(tq, ts, gid, slot_table, w, 1, wide),
+                    out_old))
+                cs.check(row[key], f"B6 with one warp a query ({layout}) is "
+                                   f"not bit-equal to the old kernel: {row}")
+            row.update(turns(old_call, new_call,
+                             "tiered_gather_quant_kernel"))
+            if slots == full:  # B4's rows
+                bq, bs = tables[kind]
+                row.update(turns(
+                    lambda: gather_interp.gather_interp_quant(bq, bs, idx,
+                                                              w),
+                    new_call, ("gather_interp_quant_kernel",
+                               "tiered_gather_quant_kernel"), ("b4", "b6")))
+            row.update(turns(
+                lambda: cs.b6_split(tq, ts, gid, slot_table, w, split, 0),
+                lambda: cs.b6_split(tq, ts, gid, slot_table, w, split_wide,
+                                    1),
+                "tiered_gather_quant_kernel", ("pair", "wide")))
+            if n <= 2048:
+                row["split_ms"] = cs.split_ms(
+                    f"B6 ({kind})",
+                    lambda sp, wd: cs.b6_split(tq, ts, gid, slot_table, w,
+                                               sp, wd),
+                    want, "tiered_gather_quant_kernel")
+            row["bound_ms"] = cs.gather_bound(distinct, M + 4, n)[0]
+            emit(row)
+
+
 def bwdq_cell(row, old_call, out_old, new_call, want, bound) -> dict:
     """Hold old and new against the plain version (rtol 1e-4 / atol 1e-5)
     and time them in turns: one row of the bwdq phase."""
@@ -859,11 +1058,12 @@ def main() -> None:
             for r in cs.ptxas_report(log):
                 emit({"ptxas": which, **r})
     if args.sass:
-        for name, kernel in SASS_KERNELS.items():
+        for name, kernels in SASS_KERNELS.items():
             for which, path in (("old", AB_DIR / f"lib{name}_old.so"),
                                 ("new", _build._target(name))):
-                for r in sass_report(str(path), kernel):
-                    emit({"sass": which, **r})
+                for kernel in kernels:
+                    for r in sass_report(str(path), kernel):
+                        emit({"sass": which, **r})
     spec = indexing.choose_torus(20)
     gen = torch.Generator(device=device).manual_seed(0)
     values = torch.randn(spec.num_locations, M, generator=gen, device=device)
@@ -879,7 +1079,7 @@ def main() -> None:
     if "k1" in phases:
         k1_phase(old["gather_interp"][0], spec, values, device)
     tables = {}  # payload -> (q, scale) of the whole table
-    if {"row9", "b4", "bwdq"} & set(phases):
+    if {"row9", "b4", "bwdq", "b5", "b6"} & set(phases):
         host = values.cpu().numpy()
         for kind in cs.PAYLOADS:
             tq, ts = quant.quantize_rows_np(host, kind)
@@ -894,6 +1094,12 @@ def main() -> None:
         b4_phase(old["gather_interp_quant"][0], spec, values, tables, device)
     if "bwdq" in phases:
         bwdq_phase(old["lookup_bwd"][0], spec, values, tables, device)
+    if {"b5", "b6"} & set(phases):
+        caches = tiered_caches(values, tables, device)
+        if "b5" in phases:
+            b5_phase(old["tiered_gather"][0], spec, values, caches, device)
+        if "b6" in phases:
+            b6_phase(old["tiered_gather"][0], spec, tables, caches, device)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     emit({"ok": True})
 
