@@ -73,6 +73,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
      torch.profiler (busy share, top kernels, and K1's device time in it
      beside its bound on that step's own indices: each distinct row they
      name read once);
+ 6a. crash and resume (dense): the same training with `--ckpt-dir` (under
+     the system temp directory, deleted afterwards) `--ckpt-every 10
+     --simulate-failure-at 15`: only `SimulatedFailure` is caught, then
+     the same command again.  Fails unless the relaunch prints `resumed
+     from step 10`, its step-10 loss is the crashed run's bit for bit,
+     steps 10-14 are within rtol 1e-4 and 15-19 within 1e-3 of phase 6's
+     uninterrupted run, and K2, K1 and `lookup_bwd` launched in both runs
+     (counts reset just before each, read just after).  Each save's
+     snapshot and write ms and bytes, the restore's ms;
  6b. the mesh: 4 ranks spawned on the one card (gloo, which sums CUDA
      tensors through host memory: data 2 x model 2, the 2^20-row table
      row-sharded over model, 128 MiB a rank).  Each rank checks two
@@ -100,12 +109,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
      median over steps 6-20, tokens/s, peak device memory, the write-back's
      and the flat route's host ms a step, bytes copied to the host a step,
      hit rate and overflow share; then one more step under torch.profiler;
+ 7a. crash, resume and serve (tiered int8): `lram-tiered-q8` at full width
+     (`--batch 8 --seq 64 --steps 6 --ckpt-every 3`), a failure before step
+     4, the relaunch: its step-3 loss is the crashed run's bit for bit and
+     every shard it restored (payload and scales) equals the saved file;
+     then `serve --ckpt-dir --warmup --json` restores step 6, serves 8 of 8
+     requests through K2 + B4, from the trained table bit for bit;
+ 7b. train the paper's PKM baseline `lram-bert-pkm` at full width (2^16 x
+     512 table, 8 heads, top-32; `--batch 8 --seq 256 --steps 20`): the
+     reference has no Pallas kernel there, so no kernel of the port may
+     launch (counts reset just before, read just after, all 0); the loss
+     falls; step-time median over 6-20, tokens/s, peak memory and one
+     profiled step (busy share, top kernels);
   8. serve the smoke configs (tiered and q8) on the card and on the CPU
      (plain versions), and tiered against dense on the card, with the same
      weights, comparing every request's first logits to 1e-5; train the
      lram-bert-medium, lram-tiered and lram-tiered-q8 smoke configs 5
      steps on the card and on the CPU from the same seed's weights and
-     batches, per-step losses and gradient norms to rtol 1e-4;
+     batches, per-step losses and gradient norms to rtol 1e-4, and
+     lram-bert-pkm's smoke config the same way;
   9. last lines: the card again, the `kernels` JSON line, and
      {"ok": true, "device": {...}}.
 
@@ -114,15 +136,19 @@ It imports nothing of JAX, of the JAX package or of ml_dtypes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -135,8 +161,10 @@ import torch.nn.functional as F  # noqa: E402
 
 # fails here, printing nothing, when the checkout around the script is missing
 from repro_torch import configs, data, quant  # noqa: E402
-from repro_torch.core import indexing, lattice  # noqa: E402
-from repro_torch.distributed import collectives, sharding  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.checkpoint.manager import _load, _tree_items  # noqa: E402
+from repro_torch.core import indexing, lattice, lookup  # noqa: E402
+from repro_torch.distributed import collectives, fault, sharding  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, e8_lookup, gather_interp, ops, sharded_gather, tiered_gather)
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
@@ -1647,6 +1675,242 @@ def mesh_phase(dense_records, argv=MESH_ARGS, device_name="cuda"):
     return total, quant_total
 
 
+PKM_ARGS = ["--arch", "lram-bert-pkm", "--batch", "8", "--seq", "256",
+            "--steps", str(TRAIN_STEPS), "--json"]
+
+
+def pkm_train_path():
+    """Train the paper's PKM baseline at full width (2^16 x 512 table, 8
+    heads, top-32); returns (launch counts, run).  The reference computes
+    PKM without a Pallas kernel, so no kernel of the port may launch here:
+    the counts are reset just before and read just after, and must all be
+    0."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run = train.main(PKM_ARGS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(not any(launches.values()),
+          f"pkm: a kernel of the port launched on the PKM path: {launches}")
+    check(len(run.records) == TRAIN_STEPS, "pkm: steps missing")
+    losses = [r["loss"] for r in run.records]
+    norms = [r["grad_norm"] for r in run.records]
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"pkm: non-finite loss or grad norm: {losses} {norms}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"pkm: the loss did not fall (steps 1-5 mean "
+                        f"{first}, steps 16-20 mean {last})")
+    step_ms = [r["step_ms"] for r in run.records]
+    median_ms = float(np.median(step_ms[5:]))
+    tokens = run.dcfg.global_batch * run.dcfg.seq_len
+    print(json.dumps({
+        "train": "lram-bert-pkm", "argv": PKM_ARGS,
+        "tokens_per_step": tokens, "losses": losses, "grad_norms": norms,
+        "loss_mean_steps_1_5": first, "loss_mean_steps_16_20": last,
+        "step_ms": step_ms, "step_ms_median_steps_6_20": median_ms,
+        "tokens_per_sec": tokens / (median_ms / 1e3),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "wall_s_incl_init_and_eval": wall_s,
+        "final_eval_loss": run.final_eval_loss, "launches": launches,
+    }), flush=True)
+    return launches, run
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        return self.kept.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+class RecordingManager(CheckpointManager):
+    """The CLIs' checkpoint manager, kept for its save and restore
+    timings; right after a restore it holds every store it streamed into
+    against the checkpoint's shard files (payload and scales equal)."""
+
+    made: list = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.restored_stores = []
+        RecordingManager.made.append(self)
+
+    def restore(self, like, **kw):
+        step, tree = super().restore(like, **kw)
+        stores = {id(x): x for _, x in _tree_items(like)
+                  if lookup.is_store(x)}
+        self.restored_stores = list(stores.values())
+        d = os.path.join(self.dir, f"step_{step:012d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            metas = [m for m in json.load(f)["leaves"].values()
+                     if m.get("kind") == "tiered"]
+        check(len(metas) == len(self.restored_stores),
+              "restore: one tiered entry a store")
+        for store, meta in zip(self.restored_stores, metas):
+            shards = os.path.join(d, meta["dir"])
+            for i in range(store.num_shards):
+                same = np.array_equal(store.shard_host(i), _load(
+                    os.path.join(shards, f"shard_{i:06d}.npy")))
+                if store.quant != "none":
+                    same &= np.array_equal(store.shard_scale_host(i), _load(
+                        os.path.join(shards, f"scale_{i:06d}.npy")))
+                check(same, f"restore: shard {i} differs from the saved one")
+        return step, tree
+
+
+def _cli(main, argv, *, crash: bool = False):
+    """Run a CLI's `main` with the launch counts reset just before and
+    read just after; returns (result or the failure, its step records,
+    its output, launch counts).  With `crash` it must raise
+    SimulatedFailure, and only that is caught."""
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    with contextlib.redirect_stdout(tee):
+        if crash:
+            try:
+                main(argv)
+            except fault.SimulatedFailure as e:
+                result = e
+            else:
+                fail(f"{argv}: no SimulatedFailure")
+        else:
+            result = main(argv)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    out = tee.kept.getvalue()
+    steps = [json.loads(x) for x in out.splitlines()
+             if x.startswith('{"step"')]
+    return result, steps, out, launches
+
+
+def _history(managers) -> list[dict]:
+    """Each save's snapshot and write ms and bytes, each restore's ms."""
+    return [h for m in managers for h in m.history]
+
+
+def dense_resume_path(dense_records, ckpt_dir):
+    """lram-bert-medium (`--placement pallas`) at full width saves every 10
+    steps, fails before step 15 and is relaunched: the relaunch resumes
+    from step 10; its step-10 loss is the crashed run's bit for bit (the
+    forward's kernels K2 and K1 are deterministic); steps 10-14 within
+    rtol 1e-4 and 15-19 within 1e-3 of `train_path`'s uninterrupted run
+    (the backward's scatter adds in atomic order).  Returns the launch
+    counts of both runs."""
+    argv = TRAIN_ARGS + ["--ckpt-dir", ckpt_dir, "--ckpt-every", "10"]
+    _, crashed, _, crash_launches = _cli(
+        train.main, argv + ["--simulate-failure-at", "15"], crash=True)
+    check([r["step"] for r in crashed] == list(range(15)),
+          "dense resume: the crashed run's steps")
+    run, _, out, resume_launches = _cli(train.main, argv)
+    check("resumed from step 10\n" in out and run.start_step == 10,
+          "dense resume: the relaunch did not resume from step 10")
+    for name, launches in (("crashed", crash_launches),
+                           ("resumed", resume_launches)):
+        for kernel in ("lram_query", "gather_interp", "lookup_bwd"):
+            check(launches[kernel] > 0,
+                  f"dense resume: {kernel} never launched in the {name} run")
+    got = [r["loss"] for r in run.records]
+    want = [r["loss"] for r in dense_records[10:]]
+    check(got[0] == crashed[10]["loss"],
+          f"dense resume: step 10 loss {got[0]} != the crashed run's "
+          f"{crashed[10]['loss']}")
+    err = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    check(len(got) == 10 and max(err[:5]) <= 1e-4 and max(err) <= 1e-3,
+          f"dense resume: losses {got} against {want}")
+    print(json.dumps({
+        "resume": "lram-bert-medium", "argv": argv,
+        "crashed_losses": [r["loss"] for r in crashed],
+        "resumed_losses": got, "uninterrupted_losses": want,
+        "rel_err_steps_10_14": max(err[:5]), "rel_err_steps_10_19": max(err),
+        "checkpoints": _history(RecordingManager.made),
+        "launches_crashed": crash_launches,
+        "launches_resumed": resume_launches,
+    }), flush=True)
+    return crash_launches, resume_launches
+
+
+Q8_CKPT_ARGS = ["--arch", "lram-tiered-q8", "--batch", "8", "--seq", "64",
+                "--steps", "6", "--ckpt-every", "3", "--json"]
+
+
+def tiered_resume_path(ckpt_dir):
+    """lram-tiered-q8 at full width saves at step 3, fails before step 4
+    and is relaunched: its step-3 loss is the crashed run's bit for bit,
+    and every shard it restored (payload, scales) is the saved one.  Then
+    `serve --ckpt-dir` restores step 6 and serves 8 requests through K2 +
+    B4 from a table equal to the trained one bit for bit.  Returns the
+    three runs' launch counts."""
+    argv = Q8_CKPT_ARGS + ["--ckpt-dir", ckpt_dir]
+    _, crashed, _, crash_launches = _cli(
+        train.main, argv + ["--simulate-failure-at", "4"], crash=True)
+    run, _, out, resume_launches = _cli(train.main, argv)
+    check("resumed from step 3\n" in out and run.start_step == 3,
+          "q8 resume: the relaunch did not resume from step 3")
+    check(run.records[0]["loss"] == crashed[3]["loss"],
+          f"q8 resume: step 3 loss {run.records[0]['loss']} != the crashed "
+          f"run's {crashed[3]['loss']}")
+    (trained,) = run.stores
+    train_managers = list(RecordingManager.made)
+    serve_argv = ["--arch", "lram-tiered-q8", "--ckpt-dir", ckpt_dir,
+                  "--json"] + SERVE_ARGS
+    report, _, out, serve_launches = _cli(serve.main, serve_argv)
+    check('{"restored_step": 6}' in out.splitlines(),
+          "q8 serve: did not restore step 6")
+    check(len(report.requests) == 8,
+          f"q8 serve: served {len(report.requests)} of 8 requests")
+    for kernel in ("lram_query", "gather_interp_quant"):
+        check(serve_launches[kernel] > 0,
+              f"q8 serve: {kernel} never launched")
+    (served,) = RecordingManager.made[-1].restored_stores
+    served.flush()
+    check(np.array_equal(served._host, trained._host)
+          and np.array_equal(served._host_scale, trained._host_scale),
+          "q8 serve: the served table is not the trained one")
+    for name, launches in (("crashed", crash_launches),
+                           ("resumed", resume_launches)):
+        for kernel in ("lram_query", "gather_interp_quant",
+                       "lookup_bwd_quant"):
+            check(launches[kernel] > 0,
+                  f"q8 resume: {kernel} never launched in the {name} run")
+    print(json.dumps({
+        "resume": "lram-tiered-q8", "argv": argv,
+        "crashed_losses": [r["loss"] for r in crashed],
+        "resumed_losses": [r["loss"] for r in run.records],
+        "checkpoints": _history(train_managers),
+        "serve_restore": _history(RecordingManager.made[-1:]),
+        "serve_tokens_per_sec": report.tokens_per_sec,
+        "serve_decode_p50_ms": report.p50_ms(),
+        "launches_crashed": crash_launches,
+        "launches_resumed": resume_launches,
+        "launches_serve": serve_launches,
+    }), flush=True)
+    return crash_launches, resume_launches, serve_launches
+
+
+@contextlib.contextmanager
+def checkpoint_dir():
+    """A checkpoint directory under the system temp directory, deleted
+    afterwards; meanwhile the CLIs make RecordingManagers."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    patched = (train.CheckpointManager, serve.CheckpointManager)
+    train.CheckpointManager = serve.CheckpointManager = RecordingManager
+    RecordingManager.made = []
+    try:
+        yield root
+    finally:
+        train.CheckpointManager, serve.CheckpointManager = patched
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def train_parity(arch: str, extra=()) -> None:
     """A smoke config, 5 steps on the card and on the CPU (plain versions)
     from the same seed's weights and batches: per-step losses and gradient
@@ -1718,6 +1982,9 @@ def main() -> None:
     profile_train_step(run)
     dense_records = run.records
     del run
+    with checkpoint_dir() as ckpt:
+        launches["ckpt_crashed"], launches["ckpt_resumed"] = \
+            dense_resume_path(dense_records, ckpt)
     launches["mesh_train"], launches["mesh_quant_forward"] = mesh_phase(
         dense_records)
     for name, (_, gather, bwd) in TIERED_TRAIN.items():
@@ -1725,8 +1992,15 @@ def main() -> None:
         profile_train_step(run, f"train step {name}", (
             "lram_query_kernel", f"{gather}_kernel", "lookup_bwd"))
         del run
+    with checkpoint_dir() as ckpt:
+        (launches["q8_ckpt_crashed"], launches["q8_ckpt_resumed"],
+         launches["q8_ckpt_serve"]) = tiered_resume_path(ckpt)
+    launches["pkm_train"], run = pkm_train_path()
+    profile_train_step(run, "train step lram-bert-pkm", ours=())
+    del run
     parity_phase()
     train_parity("lram-bert-medium", ["--placement", "pallas"])
+    train_parity("lram-bert-pkm")
     train_parity("lram-tiered")
     train_parity("lram-tiered-q8")
     check(not {"jax", "repro", "ml_dtypes"} & set(sys.modules),

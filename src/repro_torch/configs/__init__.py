@@ -2,7 +2,7 @@
 `get_smoke_config(name)`, as in `repro.configs`.  Only the archs whose
 families are ported are registered (the paper's `lram-bert-*` models and
 the tiered serving archs); the rest raise KeyError naming the reference's
-list, and `lram-bert-pkm` raises NotImplementedError naming ROADMAP A4."""
+list."""
 
 from __future__ import annotations
 

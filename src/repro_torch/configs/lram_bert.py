@@ -4,16 +4,18 @@ layernorm, learned positions (max_seq 256), vocab 30000, with the 4th
 layer's FFN replaced by the memory block dense(w->w) . LRAM(w->4w) .
 dense(4w->w), batchnorm query, top-32.
 
-Variants: baseline | small (2^18 slots) | medium (2^20) | large (2^22) —
-paper Tables 2 & 5.  `pkm` (the product-key baseline) is not ported yet.
-The smoke configs (w=64, 3 layers, 4 heads, vocab 256, max_seq 64, the
-memory FFN at layer 1 with 2^16 slots) are the reference's letter for
-letter.
+Variants: baseline | pkm (the product-key baseline: 2^16 x 512 table, 8
+heads, key dim 64, top-32, batchnorm query) | small (2^18 slots) | medium
+(2^20) | large (2^22) — paper Tables 2 & 5.  The smoke configs (w=64, 3
+layers, 4 heads, vocab 256, max_seq 64, the memory FFN at layer 1 with
+2^16 slots; pkm 16^2 x 64, 2 heads, key dim 16, top-4) are the
+reference's letter for letter.
 """
 
 import dataclasses
 
 from repro_torch.core import lram as lram_mod
+from repro_torch.core.pkm import PKMConfig
 from repro_torch.models.config import ModelConfig
 
 _MEM_LAYER = 3  # "the fourth transformer layer" (0-indexed)
@@ -43,10 +45,6 @@ def _base(vocab: int = 30000, w: int = 512) -> ModelConfig:
 
 
 def _check(variant: str) -> None:
-    if variant == "pkm":
-        raise NotImplementedError(
-            "lram-bert-pkm needs the product-key memory (core/pkm.py), "
-            "which is not ported to torch yet: ROADMAP A4")
     if variant not in VARIANTS:
         raise KeyError(f"unknown lram-bert variant {variant!r}; known: "
                        f"{VARIANTS}")
@@ -57,6 +55,14 @@ def config(variant: str = "baseline") -> ModelConfig:
     cfg = _base()
     if variant == "baseline":
         return cfg
+    if variant == "pkm":
+        return dataclasses.replace(
+            cfg,
+            name="lram-bert-pkm",
+            pkm_layers=(_MEM_LAYER,),
+            pkm=PKMConfig(n_keys=256, heads=8, key_dim=64, value_dim=512,
+                          top_k=32, query_norm="batch"),
+        )
     return dataclasses.replace(
         cfg,
         name=f"lram-bert-{variant}",
@@ -79,6 +85,13 @@ def smoke_config(variant: str = "baseline") -> ModelConfig:
     )
     if variant == "baseline":
         return cfg
+    if variant == "pkm":
+        return dataclasses.replace(
+            cfg,
+            pkm_layers=(1,),
+            pkm=PKMConfig(n_keys=16, heads=2, key_dim=16, value_dim=64,
+                          top_k=4, query_norm="batch"),
+        )
     return dataclasses.replace(
         cfg,
         lram_layers=(1,),

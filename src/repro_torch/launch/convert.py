@@ -1,4 +1,4 @@
-"""Turn the reference's (params, state) pytrees into the port's modules.
+"""The port's modules <-> the reference's (params, state) pytrees.
 
 The input is the JAX pytree with every leaf already a numpy array (for
 example `jax.tree.map(np.asarray, params)`), so this module imports no
@@ -6,6 +6,25 @@ JAX.  Keys map one to one onto the `Transformer`'s `state_dict`: nested
 dict keys join with "." and the leading layer axis of a stacked ("run", n)
 segment is split into n per-layer entries.  Dense kernels keep their
 (in, out) layout.  Batchnorm running stats come from `state`.
+
+The names, both ways (`reference_path` is the table; `state_dict_from_jax`
+walks it backwards):
+
+    port (state_dict key)               reference pytree path
+    embed.embedding                     params/embed/embedding
+    segments.seg0.<i>.attn.wq.kernel    params/segments/seg0/attn/wq/kernel,
+                                        layer i of the stacked run
+    segments.seg1.memffn.lram.values    params/segments/seg1/memffn/lram/values
+    ....lram.values.q / .scale          .../lram/values/0 / 1 (QuantizedTable)
+    ....memffn.lram.qnorm.mean          model_state/seg1/lram/qnorm/mean
+    segments.seg1.pkm.values            params/segments/seg1/pkm/values
+    segments.seg1.pkm.qnorm.var         model_state/seg1/qnorm/var
+    Adam's mu / nu of <key>             opt/mu/<path> / opt/nu/<path>
+    Adam's step                         opt/step
+
+`reference_tree` builds the reference's tree from a model (and its Adam
+state) with stacked runs, the form the checkpoint manager writes, and
+`load_reference_tree` copies such a tree back, IN PLACE.
 
 A memory layer's table (`...lram.values`) is an (N, m) fp32 array, or a
 quantized table as ``{"q": payload, "scale": scales}``: the reference's
@@ -26,6 +45,12 @@ from repro_torch.core.lram import LRAM
 from repro_torch.launch import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+
+# a memory layer's FFN module, by kind ("memory", i, kind)
+_MEMORY_MODULE = {"lram": "memffn", "pkm": "pkm"}
+# a QuantizedTable's buffers, in the order of the reference's pytree children
+_QUANT_CHILDREN = ("q", "scale")
+_STATS = ("mean", "var")  # batchnorm running stats: the model state
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -56,11 +81,130 @@ def state_dict_from_jax(params, state, cfg: ModelConfig
         else:
             for key, arr in leaves.items():
                 flat[f"segments.{name}.{key}"] = arr
-            # memffn_init's state is {"lram": {"qnorm": {mean, var}}}
+            # lram's state is {"lram": {"qnorm": ...}} under memffn; pkm's
+            # {"qnorm": ...} under pkm
+            module = _MEMORY_MODULE[seg[2]]
             for key, arr in _flatten(state.get(name, {})).items():
-                flat[f"segments.{name}.memffn.{key}"] = arr
+                flat[f"segments.{name}.{module}.{key}"] = arr
     return {k: torch.from_numpy(np.array(v, copy=True))
             for k, v in flat.items()}
+
+
+def reference_path(key: str, cfg: ModelConfig) -> tuple[str, int | None]:
+    """(the reference's pytree path, the layer's index in a stacked run or
+    None) of a port `state_dict` key (or a tiered table's `...values`)."""
+    parts = key.split(".")
+    if parts[0] != "segments":
+        return "params/" + "/".join(parts), None
+    name = parts[1]
+    seg = transformer.layer_plan(cfg)[int(name.removeprefix("seg"))]
+    if seg[0] == "run":
+        return f"params/segments/{name}/" + "/".join(parts[3:]), \
+            int(parts[2])
+    rest = parts[2:]
+    if rest[-1] in _STATS and rest[-2] == "qnorm":  # drop memffn / pkm
+        return f"model_state/{name}/" + "/".join(rest[1:]), None
+    if rest[-1] in _QUANT_CHILDREN and rest[-2] == "values":
+        rest = rest[:-1] + [str(_QUANT_CHILDREN.index(rest[-1]))]
+    return f"params/segments/{name}/" + "/".join(rest), None
+
+
+def _nest(flat: dict[str, object]) -> dict:
+    tree: dict = {}
+    for path, leaf in flat.items():
+        *parents, last = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
+def reference_tree(model: transformer.Transformer, opt_state=None, *,
+                   like: bool = False) -> dict:
+    """The reference's tree of the model: {"params", "model_state"} and,
+    with `opt_state`, "opt" ({"mu", "nu", "step"}).  A run's layers are
+    stacked (a copy); every other leaf is the live tensor; a tiered store
+    is the store itself, under params and under both moments, as the
+    reference's Adam state holds the same node.  With `like` the leaves
+    are meta tensors of the same shapes (a restore target)."""
+    cfg = model.cfg
+    groups: dict[str, list] = {}
+    for key, t in model.state_dict(keep_vars=True).items():
+        path, layer = reference_path(key, cfg)
+        groups.setdefault(path, []).append((layer, t))
+    # the state_dict does not carry a tiered store (at `...lram.values`)
+    stores = {reference_path(k, cfg)[0]: s
+              for k, s in lookup.find_stores(model)}
+
+    def leaf(parts):
+        layer, t = parts[0]
+        if like:
+            shape = (len(parts),) * (layer is not None) + tuple(t.shape)
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+        if layer is None:
+            return t.detach()
+        return torch.stack([x.detach() for _, x in
+                            sorted(parts, key=lambda p: p[0])])
+
+    flat = {path: leaf(parts) for path, parts in groups.items()}
+    flat.update(stores)
+    if opt_state is not None:
+        for moment in ("mu", "nu"):
+            at = f"opt/{moment}/"
+            per_path: dict[str, list] = {}
+            for key, t in opt_state[moment].items():
+                path, layer = reference_path(key, cfg)
+                per_path.setdefault(at + path.removeprefix("params/"),
+                                    []).append((layer, t))
+            flat.update({p: leaf(parts) for p, parts in per_path.items()})
+            flat.update({at + p.removeprefix("params/"): store
+                         for p, store in stores.items()})
+        step = opt_state["step"]
+        flat["opt/step"] = (torch.empty((), dtype=step.dtype, device="meta")
+                            if like else step.detach())
+    tree = _nest(flat)
+    tree.setdefault("model_state", {})  # no memory layer: an empty state
+    return tree
+
+
+def _as_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A restored leaf as a CPU tensor of `like`'s dtype (an fp8 payload
+    arrives as its uint8 bytes)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if like.dtype == torch.float8_e4m3fn:
+        return t.view(torch.float8_e4m3fn)
+    return t.to(like.dtype)
+
+
+@torch.no_grad()
+def load_reference_tree(model: transformer.Transformer, tree: dict,
+                        opt_state=None) -> None:
+    """Copy a reference tree (numpy leaves, as `CheckpointManager.restore`
+    returns it) into the model's parameters and batchnorm stats and, with
+    `opt_state`, into Adam's moments and step, IN PLACE.  Tiered stores
+    were streamed in place by the restore itself."""
+    cfg = model.cfg
+
+    def get(path: str):
+        node = tree
+        for p in path.split("/"):
+            node = node[p]
+        return node
+
+    def fill(t: torch.Tensor, path: str, layer) -> None:
+        arr = get(path)
+        t.copy_(_as_tensor(arr if layer is None else arr[layer], t))
+
+    for key, t in model.state_dict(keep_vars=True).items():
+        fill(t, *reference_path(key, cfg))
+    if opt_state is None:
+        return
+    for moment in ("mu", "nu"):
+        for key, t in opt_state[moment].items():
+            path, layer = reference_path(key, cfg)
+            fill(t, f"opt/{moment}/" + path.removeprefix("params/"), layer)
+    opt_state["step"].copy_(torch.from_numpy(np.asarray(get("opt/step"))))
 
 
 def _load_tables(model: transformer.Transformer,

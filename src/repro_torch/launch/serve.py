@@ -19,7 +19,11 @@ report's `cache` carries the store's hit rate, hits, misses, uncached
 rows, fills and evictions; `--cache-slots` resizes the device cache (128
 holds the whole full-width table).  `--placement` overrides the placement:
 `pallas` serves from a dense table on the device with the CUDA kernels,
-`reference` runs the plain path (CPU only).
+`reference` runs the plain path (CPU only).  `--ckpt-dir` restores the
+newest valid checkpoint of that directory (one `repro_torch.launch.train`
+or the reference's trainer wrote) into the model before serving: its
+parameters and batchnorm stats, a tiered table streamed into the store in
+place; it prints `{"restored_step": N}`.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.launch import resolve_device
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.launch import convert, resolve_device
 from repro_torch.models import transformer
 from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
 
@@ -62,6 +67,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain versions)")
+    p.add_argument("--ckpt-dir", default="",
+                   help="restore params from this checkpoint dir before "
+                        "serving (e.g. one written by repro_torch.launch."
+                        "train)")
     p.add_argument("--warmup", action="store_true",
                    help="run every prefill bucket and one decode tick "
                         "before the timed trace")
@@ -91,6 +100,13 @@ def main(argv=None):
             cfg.lram, tiered=dataclasses.replace(
                 cfg.lram.tiered, cache_slots=args.cache_slots)))
     model = transformer.init(cfg, seed=args.seed).to(device)
+    if args.ckpt_dir:
+        step, restored = CheckpointManager(args.ckpt_dir).restore(
+            convert.reference_tree(model, like=True))
+        if restored is None:
+            raise SystemExit(f"no restorable checkpoint in {args.ckpt_dir}")
+        convert.load_reference_tree(model, restored)
+        print(json.dumps({"restored_step": step}), flush=True)
     trace = synthetic_trace(
         np.random.default_rng(args.seed),
         2 * args.batch if args.requests is None else args.requests,

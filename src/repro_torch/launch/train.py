@@ -11,12 +11,32 @@
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch lram-bert-medium --placement sharded --use-mesh \\
         --batch 8 --seq 256 --steps 20 --json   # data 2 x model 2
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch lram-bert-pkm --smoke --device cpu --steps 20 \\
+        --ckpt-dir /tmp/ckpt --ckpt-every 10 --simulate-failure-at 15
+    # ...raises SimulatedFailure at step 15; the same command again prints
+    # "resumed from step 10" and trains steps 10-19
 
 config -> init (weights drawn on the CPU from `--seed`, then moved to
 `--device`) -> train step (MLM/CLM loss, backward, Adam with the paper's
 10x memory-value learning rate and one global-norm clip) over the
 stateless synthetic data (`repro_torch.data`, seeded as the reference
-seeds it) -> a final evaluation (held-out loss and fact recall).
+seeds it) -> checkpoint / auto-resume -> heartbeat and straggler log ->
+failure injection -> a final evaluation (held-out loss and fact recall).
+
+`--ckpt-dir` keeps checkpoints there (`repro_torch.checkpoint`, the
+reference's files and names: `launch.convert.reference_tree`): a save
+every `--ckpt-every` steps, asynchronous (the host copy now, the write
+in a thread; blocking with a tiered store), and after the last step
+(unless that step's was one of them).  A launch with checkpoints in the
+directory first restores the newest valid one (parameters, Adam's
+moments and step, the batchnorm stats, every tiered store's shards,
+streamed in after the cache was warmed, as the reference orders it),
+prints `resumed from step N` and trains from step N; the data is
+stateless in the step, so the losses go on as without the interruption.
+`--simulate-failure-at N` waits for the pending save and raises
+`SimulatedFailure` before step N.  A step slower than twice the running
+median is a straggler (`distributed.fault`).
 
 The device is `cuda` unless `--device cpu` is given; with no card it
 raises rather than falling back.  `--placement` overrides the memory
@@ -46,8 +66,8 @@ batch's.  Rank 0 prints; every rank evaluates the whole eval batch, so
 that all of them issue the same collectives.
 
 Not ported yet, and refused with the ROADMAP item that ports them:
-checkpoints and failure injection, gradient compression, telemetry,
-memory growth and observability.
+gradient compression, telemetry, memory growth, observability, and
+checkpoints on a mesh of several ranks.
 """
 
 from __future__ import annotations
@@ -62,17 +82,16 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import configs, data, optim
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import lookup
-from repro_torch.distributed import collectives, context, sharding
+from repro_torch.distributed import collectives, context, fault, sharding
+from repro_torch.launch import convert
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import resolve_device
 from repro_torch.models import transformer
 
 # flag -> (value that means "off", the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "ckpt_dir": ("", "A5/A9 (checkpoints)"),
-    "ckpt_every": (100, "A5/A9 (checkpoints)"),
-    "simulate_failure_at": (-1, "A5/A9 (resume from a checkpoint)"),
     "compression": ("none", "A3 (optim/compression.py)"),
     "telemetry": (False, "A10 (memctl telemetry)"),
     "grow_at": ("", "A10 (memctl growth)"),
@@ -169,7 +188,8 @@ def evaluate(model: transformer.Transformer, dcfg: data.DataConfig, *,
 class TrainRun:
     """What `main` leaves behind: the trained model, the optimizer state,
     the step function (for one more, profiled, step), the data config,
-    one record per step and the tiered stores it trained by write-back."""
+    one record per step (from `start_step`, 0 or the step resumed from)
+    and the tiered stores it trained by write-back."""
 
     model: transformer.Transformer
     opt_state: dict
@@ -179,6 +199,7 @@ class TrainRun:
     final_eval_loss: float
     final_fact_recall: float
     stores: list
+    start_step: int = 0
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -203,15 +224,18 @@ def build_argparser() -> argparse.ArgumentParser:
                         "plain versions)")
     p.add_argument("--json", action="store_true",
                    help="one JSON line per step and a summary")
-    # the reference's flags whose machinery is not ported: refused
-    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-dir", default="",
+                   help="checkpoint here; resume from the newest valid "
+                        "checkpoint found")
     p.add_argument("--ckpt-every", type=int, default=100)
-    p.add_argument("--simulate-failure-at", type=int, default=-1)
+    p.add_argument("--simulate-failure-at", type=int, default=-1,
+                   help="raise SimulatedFailure before this step")
+    p.add_argument("--use-mesh", action="store_true")
+    # the reference's flags whose machinery is not ported: refused
     p.add_argument("--compression", default="none",
                    choices=["none", "int8", "topk"])
     p.add_argument("--telemetry", action="store_true")
     p.add_argument("--grow-at", default="")
-    p.add_argument("--use-mesh", action="store_true")
     p.add_argument("--metrics-dir", default="")
     p.add_argument("--profile-dir", default="")
     return p
@@ -227,6 +251,10 @@ def _refuse_unported(args) -> None:
 def main(argv=None) -> TrainRun:
     args = build_argparser().parse_args(argv)
     _refuse_unported(args)
+    if args.ckpt_dir and args.use_mesh and mesh_lib.world_size() > 1:
+        raise SystemExit("--ckpt-dir on a mesh of several ranks is not "
+                         "ported to torch yet: ROADMAP A5/A9 part 2 "
+                         "(checkpoints on a mesh)")
     mesh = None
     if args.use_mesh and mesh_lib.world_size() > 1:
         mesh, device = mesh_lib.init_mesh(args.device)
@@ -266,15 +294,37 @@ def main(argv=None) -> TrainRun:
     opt_state = optim.adam_init(dict(model.named_parameters()))
     step_fn = build_train_step(model, opt_cfg, mesh)
 
-    records = []
-    for step in range(args.steps):
+    start_step, mgr = 0, None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, keep=3)
+        if mgr.latest_step() is not None:
+            found, tree = mgr.restore(
+                convert.reference_tree(model, opt_state, like=True))
+            if tree is not None:
+                convert.load_reference_tree(model, tree, opt_state)
+                start_step = found
+                print(f"resumed from step {start_step}", flush=True)
+
+    monitor = fault.HeartbeatMonitor(num_hosts=mesh_lib.world_size())
+    timer = fault.StepTimer()
+    records, saved = [], start_step
+    for step in range(start_step, args.steps):
+        if step == args.simulate_failure_at:
+            if mgr:
+                mgr.wait()
+            raise fault.SimulatedFailure(
+                f"injected failure at step {step} (relaunch to resume)")
         t0 = time.perf_counter()
         batch = batch_to(data.get_batch(dcfg, step=step), device)
         metrics = step_fn(opt_state, batch)
         rec = {"step": step,
                **{k: float(metrics[k])  # the host sync ends the step
                   for k in ("loss", "xent", "grad_norm", "lr")}}
-        rec["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        rec["step_ms"] = 1e3 * dt
+        timer.record(dt)
+        monitor.heartbeat(dist.get_rank() if mesh is not None else 0, dt)
+        rec["straggler"] = timer.is_outlier(dt)
         if stores:
             rec["cache_hit"] = float(np.mean([s.hit_rate() for s in stores]))
         records.append(rec)
@@ -285,13 +335,22 @@ def main(argv=None) -> TrainRun:
             print(json.dumps({"step": step, "loss": round(rec["loss"], 4),
                               "xent": round(rec["xent"], 4),
                               "grad_norm": round(rec["grad_norm"], 3),
-                              "sec": round(rec["step_ms"] / 1e3, 3)}))
+                              "sec": round(dt, 3)})
+                  + (" STRAGGLER" if rec["straggler"] else ""))
+        if mgr and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            mgr.save(step + 1, convert.reference_tree(model, opt_state),
+                     blocking=False)
+            saved = step + 1
         if args.eval_every and (step + 1) % args.eval_every == 0:
             eval_loss, recall = evaluate(model, dcfg)
             if main_rank:
                 print(json.dumps({"eval_loss": round(eval_loss, 4),
                                   "fact_recall": round(recall, 4)}))
 
+    if mgr:
+        if saved != args.steps:  # else the last step's save is under way
+            mgr.save(args.steps, convert.reference_tree(model, opt_state))
+        mgr.wait()
     eval_loss, recall = evaluate(model, dcfg)
     for store in stores:
         store.flush()
@@ -312,7 +371,7 @@ def main(argv=None) -> TrainRun:
             or None,
         }), flush=True)
     return TrainRun(model, opt_state, step_fn, dcfg, records, eval_loss,
-                    recall, stores)
+                    recall, stores, start_step)
 
 
 if __name__ == "__main__":

@@ -41,10 +41,15 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     the same (index, update) sequence gives the reference's payloads bit
     for bit.
 
+  * **Checkpoint I/O** — `shard_host` / `shard_scale_host` read a shard
+    through the cache (a dirty slot wins), `load_shard` replaces one (a
+    quantized payload, its scales or fp32 rows, converted to the store's
+    kind) and refreshes a cached copy, `load_dense` replaces the table and
+    empties the cache: what `repro_torch.checkpoint` streams.
+
 Every mutation of residency, LRU order, the cache mirror and `stats`
-takes the store's re-entrant lock.  Not ported yet (ROADMAP A8): `mmap`
-backing, checkpoint shard I/O (with A9), `grow_rows` (with A10) and fills
-on a side stream.
+takes the store's re-entrant lock.  Not ported yet: `mmap` backing and
+fills on a side stream (ROADMAP A8), `grow_rows` (A10).
 """
 
 from __future__ import annotations
@@ -155,12 +160,7 @@ class TieredValueStore(nn.Module):
             values = values.detach().cpu().numpy()
         values = np.asarray(values, np.float32)
         store = cls(values.shape[0], values.shape[1], spec)
-        shaped = values.reshape(store._host.shape)
-        if store.quant == "none":
-            store._host[...] = shaped
-        else:
-            store._host[...], store._host_scale[...] = \
-                quant.quantize_rows_np(shaped, store.quant)
+        store._fill_host(values)
         return store
 
     @classmethod
@@ -186,6 +186,31 @@ class TieredValueStore(nn.Module):
             return self._host.reshape(self.num_rows, self.m).copy()
         return quant.dequantize_rows_np(self._host, self._host_scale) \
             .reshape(self.num_rows, self.m)
+
+    def _fill_host(self, values: np.ndarray) -> None:
+        shaped = np.asarray(values, np.float32).reshape(self._host.shape)
+        if self.quant == "none":
+            self._host[...] = shaped
+        else:  # nearest rounding: the dense QuantizedTable's payload
+            self._host[...], self._host_scale[...] = \
+                quant.quantize_rows_np(shaped, self.quant)
+
+    def load_dense(self, values) -> None:
+        """Replace the table with fp32 `values` (N, m), quantized (nearest)
+        on the way in if the spec is quantized; empties the cache."""
+        values = np.asarray(values)
+        if values.shape != (self.num_rows, self.m):
+            raise ValueError(f"shape {values.shape} != "
+                             f"{(self.num_rows, self.m)}")
+        with self._lock:
+            self._shard_slot[:] = -1
+            self._slot_shard[:] = -1
+            self._lru.clear()
+            self._free = list(range(self.cache_slots - 1, -1, -1))
+            self._dirty.clear()
+            self._dev_stale.clear()
+            self._cache_dev = self._scale_dev = None
+            self._fill_host(values)
 
     def _apply(self, fn, recurse=True):
         # `.to()` / `.cuda()`: the host tier stays; the device tier follows
@@ -515,6 +540,64 @@ class TieredValueStore(nn.Module):
                 self._flush_slot_to_host(slot)
                 self.stats["dirty_writebacks"] += 1
             self._dirty.clear()
+
+    # ---------------------------------------------------------- checkpoint
+
+    def shard_host(self, i: int) -> np.ndarray:
+        """Shard `i`'s stored payload as seen through the cache (a dirty
+        slot wins): fp32 rows, or the 1-byte payload of a quantized store
+        (e4m3 as uint8 bytes), whose scales `shard_scale_host` gives."""
+        with self._lock:
+            slot = int(self._shard_slot[i])
+            if slot >= 0 and slot in self._dirty:
+                return self.cache_np[slot].copy()
+            return self._host[i].copy()
+
+    def shard_scale_host(self, i: int) -> np.ndarray:
+        """Per-row fp32 scales of shard `i` (quantized stores only)."""
+        if self.quant == "none":
+            raise ValueError("a dense store has no scales")
+        with self._lock:
+            slot = int(self._shard_slot[i])
+            if slot >= 0 and slot in self._dirty:
+                return self.cache_scale_np[slot].copy()
+            return self._host_scale[i].copy()
+
+    def load_shard(self, i: int, arr: np.ndarray,
+                   scale: np.ndarray | None = None) -> None:
+        """Replace shard `i` with `arr` (shard_rows, m): fp32 rows
+        (quantized, nearest, if the store is), or a 1-byte payload (int8,
+        or e4m3 as uint8 bytes) with its per-row `scale` (dequantized for a
+        dense store, requantized for one of the other kind).  A cached copy
+        is refreshed: stale on the device, no longer dirty."""
+        arr = np.asarray(arr)
+        if arr.shape != (self.shard_rows, self.m):
+            raise ValueError(f"shard {i}: shape {arr.shape} != "
+                             f"{(self.shard_rows, self.m)}")
+        if scale is not None and arr.dtype.itemsize != 1:
+            raise ValueError("scale given but payload is not quantized")
+        if self.quant == "none":
+            q = (quant.dequantize_rows_np(arr, scale) if scale is not None
+                 else np.asarray(arr, np.float32))
+            s = None
+        elif scale is None:  # fp rows: quantize (nearest) on the way in
+            q, s = quant.quantize_rows_np(arr, self.quant)
+        elif arr.dtype != self.storage_dtype:  # the other kind: requantize
+            q, s = quant.quantize_rows_np(
+                quant.dequantize_rows_np(arr, scale), self.quant)
+        else:
+            q, s = arr, np.asarray(scale, np.float32)
+        with self._lock:
+            self._host[i] = q
+            if s is not None:
+                self._host_scale[i] = s
+            slot = int(self._shard_slot[i])
+            if slot >= 0:  # refresh the cached copy too
+                self.cache_np[slot] = q
+                if s is not None:
+                    self.cache_scale_np[slot] = s
+                self._dirty.discard(slot)
+                self._dev_stale.add(slot)
 
     # --------------------------------------------------------------- stats
 

@@ -9,9 +9,10 @@ kept so every config of the reference can be expressed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 from repro_torch.core.lram import LRAMConfig
+from repro_torch.core.pkm import PKMConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +70,7 @@ class ModelConfig:
     lram_layers: tuple[int, ...] = ()
     lram: Optional[LRAMConfig] = None
     pkm_layers: tuple[int, ...] = ()
-    pkm: Optional[Any] = None            # PKMConfig (not ported yet)
+    pkm: Optional[PKMConfig] = None
 
     # objective / numerics
     objective: str = "clm"               # clm | mlm

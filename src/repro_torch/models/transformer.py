@@ -13,8 +13,10 @@ position per batch slot.  `loss_fn` is the masked cross-entropy of both
 objectives (clm next token, mlm masked positions).
 The KV cache keeps the reference's layout (a run's cache stacks a leading
 layer axis) and is updated IN PLACE by decode and by `write_cache_slot`.
-Other families (MoE, SSM, hybrid, enc-dec, VLM) and PKM memory layers are
-not ported yet and raise.
+A ("memory", i, "pkm") layer's FFN is the product-key memory baseline
+(`repro_torch.core.pkm`), applied to the normed residual with no dense
+around it.  Other families (MoE, SSM, hybrid, enc-dec, VLM) are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 
 from repro_torch import nn as tnn
 from repro_torch.core import lram as lram_mod
+from repro_torch.core import pkm as pkm_mod
 from repro_torch.data import IGNORE
 from repro_torch.distributed import collectives, context
 from repro_torch.models import attention
@@ -58,8 +61,6 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.num_experts > 0:
         raise NotImplementedError(
             f"the {cfg.family} family is not yet ported to torch")
-    if cfg.pkm_layers:
-        raise NotImplementedError("PKM memory layers are not yet ported")
     if cfg.pos_scheme not in ("rope", "learned", "none"):
         raise NotImplementedError(
             f"pos_scheme {cfg.pos_scheme!r} is not yet ported to torch")
@@ -113,17 +114,26 @@ class Layer(_Block):
 
 
 class MemoryLayer(_Block):
-    """Attention + the paper's memory FFN (dense -> LRAM -> dense)."""
+    """Attention + a memory FFN: the paper's block (dense -> LRAM ->
+    dense, `memffn`) for kind "lram", the product-key memory (`pkm`) for
+    kind "pkm"."""
 
-    def __init__(self, cfg: ModelConfig, *,
+    def __init__(self, cfg: ModelConfig, kind: str, *,
                  generator: torch.Generator | None = None):
         super().__init__(cfg, generator)
-        self.memffn = lram_mod.memffn_init(cfg.d_model, cfg.lram,
-                                           generator=generator)
+        self.kind = kind
+        if kind == "lram":
+            self.memffn = lram_mod.memffn_init(cfg.d_model, cfg.lram,
+                                               generator=generator)
+        else:
+            self.pkm = pkm_mod.pkm_init(cfg.d_model, cfg.pkm,
+                                        generator=generator)
 
     def ffn(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return lram_mod.memffn_apply(self.memffn, self.ffn_norm(x),
-                                     train=train)
+        if self.kind == "lram":
+            return lram_mod.memffn_apply(self.memffn, self.ffn_norm(x),
+                                         train=train)
+        return pkm_mod.pkm_apply(self.pkm, self.ffn_norm(x), train=train)
 
 
 class Transformer(nn.Module):
@@ -153,7 +163,8 @@ class Transformer(nn.Module):
                     Layer(cfg, generator=generator) for _ in range(seg[1])
                 )
             else:
-                segs[f"seg{si}"] = MemoryLayer(cfg, generator=generator)
+                segs[f"seg{si}"] = MemoryLayer(cfg, seg[2],
+                                                generator=generator)
         self.segments = nn.ModuleDict(segs)
 
     def embed_tokens(self, tokens: torch.Tensor, positions) -> torch.Tensor:

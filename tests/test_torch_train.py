@@ -80,13 +80,6 @@ def test_configs_match_reference(variant):
         assert t.param_count() == j.param_count()
 
 
-def test_pkm_variant_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        configs.get_config("lram-bert-pkm")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        configs.get_smoke_config("lram-bert-pkm")
-
-
 def test_converted_weights_carry_every_leaf(ref):
     """pos_embed, the layernorms, lm_head, the memory FFN and the qnorm
     running stats cross from the JAX pytree unchanged."""
@@ -250,18 +243,24 @@ def test_cli_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--ckpt-dir", "x"], ["--ckpt-every", "10"],
-    ["--simulate-failure-at", "1"],
     ["--compression", "int8"], ["--telemetry"], ["--grow-at", "2:17"],
-    ["--use-mesh"], ["--metrics-dir", "x"],
+    ["--use-mesh"], ["--use-mesh", "--ckpt-dir", "x"], ["--metrics-dir", "x"],
     ["--profile-dir", "x"], ["--placement", "sharded-tiered"],
 ])
-def test_cli_refuses_what_is_not_ported(flag, capsys):
-    """Each option that is not ported exits naming its ROADMAP item.
+def test_cli_refuses_what_is_not_ported(flag, capsys, monkeypatch):
+    """Each option that is not ported exits naming its ROADMAP item:
+    `--ckpt-dir` under a launch of several ranks (WORLD_SIZE 2 here; it
+    exits before joining a process group) names A5/A9 part 2.
     `--use-mesh` is ported: outside a launch of several ranks it trains on
     one process without a mesh, as the reference does on one device, and
     gives the run without the flag (the 4-rank run is
     tests/test_torch_mesh_train.py)."""
+    if "--ckpt-dir" in flag:
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        with pytest.raises(SystemExit, match="ROADMAP A5/A9 part 2"):
+            train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                        "--steps", "1", *flag])
+        return
     if flag == ["--use-mesh"]:
         argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
                 "2", "--batch", "2", "--seq", "16", "--placement", "pallas",
