@@ -25,6 +25,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
        B5 `tiered_gather` and B6 `tiered_gather_quant` (int8, e4m3) on a
        full-width device cache (32 slots x 8192 rows) with resident
        indices, B5's call and its yardstick's timed again in turns;
+       at n = 128 and 2048 serve paths (e)'s and (f)'s calls: one of
+       the 4 row ranges, every token's k elements with the other ranges'
+       reading the range's first routed row at weight 0, K1 over the
+       range's flat route (8 of its 32 shards cached) and B5 on the
+       range resident in 32 shuffled slots;
        the backward kernel `lookup_bwd` in both instantiations (B3's
        backward with dq, B1's VJP with dw) on the full table with K2's
        indices, library yardstick for the dw instance: the backward of
@@ -57,9 +62,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
        (b)    `lram-tiered-q8` on its own spec: K2 + B4;
        (c)    `lram-tiered --cache-slots 128` (the whole table resident
               after warm()): K2 + B5 on every lookup;
-       (d)    `lram-tiered-q8 --cache-slots 128`: K2 + B6.
-     All five serve the same seed's weights, so (a) and (c) must give the
-     dense path's first logits and (d) those of (b), to 1e-5;
+       (d)    `lram-tiered-q8 --cache-slots 128`: K2 + B6;
+       (e)    `lram-sharded-tiered` on its own spec (4 row ranges, each a
+              tiered store caching 8 of its 32 shards; each range the
+              indices name gathers all k of every token, the other
+              ranges' elements at weight 0, and the partials are added
+              in range order): K2 + K1 on the ranges' overflow routes;
+       (f)    `lram-sharded-tiered --cache-slots 32` (every range
+              resident): K2 + B5 on every range's lookups.
+     All seven serve the same seed's weights, so (a), (c), (e) and (f)
+     must give the dense path's first logits and (d) those of (b), to
+     1e-5;
   5. a shorter serve of each path's warmed engine under torch.profiler:
      kernel time by name and the device's busy share;
   6. train `lram-bert-medium` at full width through
@@ -97,15 +110,32 @@ Phases, each fatal on failure (exit code != 0, no result line):
      all 20: atomics sum in another order).  Step-time median, tokens/s,
      peak memory per rank, and two more steps with every sum across
      ranks timed (their share of the step);
+ 6c. crash, resume and elastic restore on the mesh: 6b's run with
+     `--steps 12 --ckpt-every 6 --ckpt-dir` (every rank snapshots, the
+     table shard and its moments gathered over model on a gloo group of
+     host arrays; rank 0 writes) fails before step 9 on every rank (only
+     `SimulatedFailure` caught, after a barrier behind rank 0's write);
+     4 new ranks relaunch it.  Fails unless rank 0 alone prints `resumed
+     from step 6`, the step-6 loss is the crashed run's bit for bit,
+     steps 6-11 are within rtol 1e-5 of 6b's, K2, the range gather and
+     the range backward launched on every rank in both runs, and the
+     step-12 checkpoint has 6a's leaf names, shapes, dtypes and bytes (to
+     256 B of JSON).  Then one process restores it into the dense pallas
+     table (`--steps 14`): `resumed from step 12`, steps 12-13 within
+     rtol 1e-5 of 6b's, K2, K1 and `lookup_bwd` launched.  Every rank's
+     snapshot (gather included), write and restore ms, and the bytes;
   7. train `lram-tiered` (path (a)) and `lram-tiered-q8` (path (b)) at
      full width on their own tiered spec through `train.main` (`--batch 8
      --seq 64 --steps 20`: n = 16,384 lookups a step, the table in host
      RAM, 32 of 128 shards cached, the write-back's sparse SGD at 1e-3),
-     each with the launch counts set to 0 just before and read just
-     after; fails unless K2, the gather (K1 or B4) and the path's backward
+     and (7c) `lram-sharded-tiered` 10 steps (4 ranges, 8 of 32 shards
+     cached a range; K1 over the ranges' concatenated flat tables), each
+     with the launch counts set to 0 just before and read just after;
+     fails unless K2, the gather (K1 or B4) and the path's backward
      instance launched (the backward once a step), one write-back ran a
-     step, the loss fell (steps 16-20 below steps 1-5), and the host tier
-     changed on rows the write-back touched and nowhere else.  Step-time
+     step (a range write-back a range), the loss fell (the last 5 steps
+     below steps 1-5), and the host tier changed on rows the write-back
+     touched and nowhere else.  Step-time
      median over steps 6-20, tokens/s, peak device memory, the write-back's
      and the flat route's host ms a step, bytes copied to the host a step,
      hit rate and overflow share; then one more step under torch.profiler;
@@ -124,10 +154,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
   8. serve the smoke configs (tiered and q8) on the card and on the CPU
      (plain versions), and tiered against dense on the card, with the same
      weights, comparing every request's first logits to 1e-5; train the
-     lram-bert-medium, lram-tiered and lram-tiered-q8 smoke configs 5
-     steps on the card and on the CPU from the same seed's weights and
-     batches, per-step losses and gradient norms to rtol 1e-4, and
-     lram-bert-pkm's smoke config the same way;
+     lram-bert-medium, lram-tiered, lram-tiered-q8 and
+     lram-sharded-tiered smoke configs 5 steps on the card and on the CPU
+     from the same seed's weights and batches, per-step losses and
+     gradient norms to rtol 1e-4, and lram-bert-pkm's smoke config the
+     same way;
   9. last lines: the card again, the `kernels` JSON line, and
      {"ok": true, "device": {...}}.
 
@@ -169,6 +200,8 @@ from repro_torch.kernels import (  # noqa: E402
     _build, e8_lookup, gather_interp, ops, sharded_gather, tiered_gather)
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.distributed.sharded_lram import (  # noqa: E402
+    ShardedTieredStore)
 from repro_torch.memstore import TieredValueStore  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -187,6 +220,7 @@ TOP_K = 32
 LOG2_LOCATIONS = 20
 M = 64
 SHARD_ROWS, CACHE_SLOTS = 8192, 32  # lram-tiered's full-width TieredSpec
+ST_RANGES, ST_CACHE_SLOTS = 4, 8  # lram-sharded-tiered's, a range
 PAYLOADS = ("int8", "fp8")
 
 CSRC = "src/repro_torch/kernels/csrc"
@@ -253,6 +287,11 @@ PATHS = {
     "d_tiered_q8_resident": (["--arch", "lram-tiered-q8",
                               "--cache-slots", "128"],
                              ("lram_query", "tiered_gather_quant")),
+    "e_sharded_tiered": (["--arch", "lram-sharded-tiered"],
+                         ("lram_query", "gather_interp")),
+    "f_sharded_tiered_resident": (["--arch", "lram-sharded-tiered",
+                                   "--cache-slots", "32"],
+                                  ("lram_query", "tiered_gather")),
 }
 
 
@@ -713,6 +752,8 @@ def kernel_phase(device):
                | (idx & (SHARD_ROWS - 1))).int()
         tiered_rows(rows, n, cache, caches, slot_table, gid, w, CACHE_SLOTS)
         tiered_rows(rows, n, values, tables, identity, idx, w, num_shards)
+        if n <= 2048:  # serve (e)'s and (f)'s decode tick and prefill
+            sharded_tiered_rows(rows, n, values, idx, w, gen)
     # K1 on clustered queries (64 near each of n / 64 points), as
     # training's queries crowd rows
     n = SHAPES[-1]
@@ -922,23 +963,91 @@ def range_backward_row(n, stage, payload, table, scale, base, spec, q, idx,
 
 
 def flat_route(values, idx, resident):
-    """A tiered store's flat route over the full table: the resident
-    shards' rows (the device cache) with the other rows appended, one per
-    index, and each index's row in that flat table."""
+    """A tiered store's flat route over its table `values`: the resident
+    shards' rows (the device cache, `resident` in slot order) with the
+    other rows appended, one per index, and each index's row in that
+    flat table."""
     log2r = SHARD_ROWS.bit_length() - 1
+    slots = resident.numel()
     shard, row = idx.long() >> log2r, idx.long() & (SHARD_ROWS - 1)
     slot_of = torch.full((values.shape[0] // SHARD_ROWS,), -1,
                          dtype=torch.long, device=values.device)
-    slot_of[resident] = torch.arange(CACHE_SLOTS, device=values.device)
+    slot_of[resident] = torch.arange(slots, device=values.device)
     slot = slot_of[shard]
     mask = slot >= 0
     rows = torch.where(mask, slot * SHARD_ROWS + row, 0)
-    rows[~mask] = CACHE_SLOTS * SHARD_ROWS + torch.arange(
+    rows[~mask] = slots * SHARD_ROWS + torch.arange(
         int((~mask).sum()), device=values.device)
     cache_rows = (resident[:, None] * SHARD_ROWS + torch.arange(
         SHARD_ROWS, device=values.device)).reshape(-1)
     flat = torch.cat([cache_rows, idx.long()[~mask]])
     return flat, rows.int().contiguous()
+
+
+def sharded_tiered_rows(rows, n, values, idx, w, gen):
+    """The gathers of serve paths (e) and (f) at one of their n (a decode
+    tick, a prefill), on K2's indices over the full table split into
+    `lram-sharded-tiered`'s 4 row ranges: one range's call as
+    `ShardedTieredStore.gather` makes it, every token's k elements with
+    those of the other ranges reading the range's first routed row at
+    weight 0.  K1 over the range's flat route with 8 of its 32 shards
+    cached (path (e)) and B5 on its whole range resident in 32 shuffled
+    slots (path (f)), each against its plain version at the tolerance of
+    its other rows; library yardstick `F.embedding_bag` on the same rows
+    (B5's pre-translated)."""
+    rng_rows, r = values.shape[0] // ST_RANGES, 1
+    part = values[r * rng_rows:(r + 1) * rng_rows]
+    sel = (idx // rng_rows) == r
+    local = idx[sel] - r * rng_rows    # the routed elements, in order
+    wm = torch.where(sel, w, 0.0).contiguous()
+    shards = rng_rows // SHARD_ROWS
+    extra = {"range": f"{r} of {ST_RANGES}",
+             "routed_share": float(sel.float().mean())}
+
+    cached = torch.randperm(shards, generator=gen,
+                            device=values.device)[:ST_CACHE_SLOTS]
+    flat, routed = flat_route(part, local, cached)
+    table = part[flat].contiguous()
+    rws = torch.full_like(idx, int(routed[0]))
+    rws[sel] = routed
+    distinct = torch.unique(rws).numel()
+    rows["gather_interp"].append(measure(
+        "K1 (sharded-tiered (e), one range's flat route)", n,
+        lambda: gather_interp.gather_interp(table, rws, wm),
+        lambda: gather_interp.gather_interp_plain(table, rws, wm),
+        (1e-5, 1e-5), device_kernel="gather_interp_kernel",
+        bound=gather_bound(distinct, 4 * M, n),
+        extra={**extra, "route": "sharded-tiered (e)",
+               "cache_slots": ST_CACHE_SLOTS, "distinct_rows": distinct,
+               "overflow_share": float(
+                   (routed >= ST_CACHE_SLOTS * SHARD_ROWS).float().mean())},
+        library=lambda: F.embedding_bag(rws.long(), table,
+                                        per_sample_weights=wm, mode="sum")))
+
+    slot_of = torch.randperm(shards, generator=gen, device=values.device)
+    cache = torch.empty_like(part)
+    cache.view(shards, SHARD_ROWS, M)[slot_of] = part.view(
+        shards, SHARD_ROWS, M)
+    slot_table = slot_of.int()
+    gid = torch.full_like(idx, int(local[0]))
+    gid[sel] = local
+    distinct = torch.unique(gid).numel()
+    rows64 = tiered_gather.cache_rows(gid, slot_table, SHARD_ROWS)
+    rows["tiered_gather"].append(measure(
+        "B5 (sharded-tiered (f), one range resident)", n,
+        lambda: tiered_gather.tiered_gather(cache, gid, slot_table, wm,
+                                            shard_rows=SHARD_ROWS,
+                                            resident=True),
+        lambda: tiered_gather.tiered_gather_plain(
+            cache, gid, slot_table, wm, shard_rows=SHARD_ROWS),
+        (2e-5, 1e-6), device_kernel="tiered_gather_kernel",
+        bound=gather_bound(distinct, 4 * M, n),
+        extra={**extra, "route": "sharded-tiered (f)", "cache_slots": shards,
+               "distinct_rows": distinct,
+               "library_note": "embedding_bag on pre-translated rows; "
+                               "translation not timed"},
+        library=lambda: F.embedding_bag(rows64, cache,
+                                        per_sample_weights=wm, mode="sum")))
 
 
 def no_scatter_rows(rows, n, spec, values, tables, wrap, gen,
@@ -1277,14 +1386,28 @@ def profile_train_step(run, label: str = "train step",
     }), flush=True)
 
 
-# path -> (arch, its forward gather, its backward instance)
+# path -> (arch, its store's class, its forward gather, its backward
+# instance, steps)
 TIERED_TRAIN = {
-    "a_train_tiered": ("lram-tiered", "gather_interp", "lookup_bwd_rows"),
-    "b_train_tiered_q8": ("lram-tiered-q8", "gather_interp_quant",
-                          "lookup_bwd_quant"),
+    "a_train_tiered": ("lram-tiered", TieredValueStore, "gather_interp",
+                       "lookup_bwd_rows", TRAIN_STEPS),
+    "b_train_tiered_q8": ("lram-tiered-q8", TieredValueStore,
+                          "gather_interp_quant", "lookup_bwd_quant",
+                          TRAIN_STEPS),
+    "c_train_sharded_tiered": ("lram-sharded-tiered", ShardedTieredStore,
+                               "gather_interp", "lookup_bwd_rows", 10),
 }
-TIERED_ARGS = ["--batch", "8", "--seq", "64", "--steps", str(TRAIN_STEPS),
-               "--json"]
+TIERED_ARGS = ["--batch", "8", "--seq", "64", "--json"]
+
+
+def _host_tier(store):
+    """A copy of the host tier: its payload as (N, m) rows and its scales
+    (or None), every range's for a sharded-tiered store."""
+    parts = getattr(store, "parts", [store])
+    host = np.concatenate([p._host.reshape(p.num_rows, -1) for p in parts])
+    if parts[0]._host_scale is None:
+        return host, None
+    return host, np.concatenate([p._host_scale.reshape(-1) for p in parts])
 
 
 def tiered_train_path(name: str):
@@ -1296,21 +1419,20 @@ def tiered_train_path(name: str):
     backward, by the synchronize its own copy to the host would make, and
     its host work), the host index arrays it applies are kept and reduced
     to the touched rows after the run, and the flat route's host time and
-    stats are read per call."""
-    arch, gather, bwd = TIERED_TRAIN[name]
-    argv = ["--arch", arch, *TIERED_ARGS]
+    stats are read per call.  A sharded-tiered store writes back once a
+    step and each of its ranges once a step."""
+    arch, cls, gather, bwd, steps = TIERED_TRAIN[name]
+    argv = ["--arch", arch, *TIERED_ARGS, "--steps", str(steps)]
     before, applied, wb, fwd = {}, [], [], []
     bind = train.bind_stores
-    writeback = TieredValueStore.writeback
-    apply_writeback = TieredValueStore.apply_writeback
-    lookup_rows = TieredValueStore.lookup_rows
+    writeback = cls.writeback
+    apply_writeback = cls.apply_writeback
+    lookup_rows = cls.lookup_rows
 
     def bind_and_copy(model, lr):
         stores = bind(model, lr)
         for store in stores:
-            before[id(store)] = (store._host.copy(),
-                                 None if store._host_scale is None
-                                 else store._host_scale.copy())
+            before[id(store)] = _host_tier(store)
         return stores
 
     def timed_writeback(self, idx, w, g):
@@ -1342,9 +1464,9 @@ def tiered_train_path(name: str):
 
     torch.cuda.reset_peak_memory_stats()
     train.bind_stores = bind_and_copy
-    TieredValueStore.writeback = timed_writeback
-    TieredValueStore.apply_writeback = kept_apply_writeback
-    TieredValueStore.lookup_rows = timed_lookup_rows
+    cls.writeback = timed_writeback
+    cls.apply_writeback = kept_apply_writeback
+    cls.lookup_rows = timed_lookup_rows
     reset_counts()
     t0 = time.perf_counter()
     try:
@@ -1352,32 +1474,34 @@ def tiered_train_path(name: str):
         torch.cuda.synchronize()
     finally:
         train.bind_stores = bind
-        TieredValueStore.writeback = writeback
-        TieredValueStore.apply_writeback = apply_writeback
-        TieredValueStore.lookup_rows = lookup_rows
+        cls.writeback = writeback
+        cls.apply_writeback = apply_writeback
+        cls.lookup_rows = lookup_rows
     wall_s = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(len(run.records) == TRAIN_STEPS, f"{name}: steps missing")
+    check(len(run.records) == steps, f"{name}: steps missing")
     for kernel in ("lram_query", gather):
-        check(launches[kernel] >= TRAIN_STEPS,
+        check(launches[kernel] >= steps,
               f"{name}: {kernel} launched {launches[kernel]} times in "
-              f"{TRAIN_STEPS} steps")
-    check(launches[bwd] == TRAIN_STEPS,
+              f"{steps} steps")
+    check(launches[bwd] == steps,
           f"{name}: the backward instance {bwd} launched {launches[bwd]} "
-          f"times in {TRAIN_STEPS} steps (one memory layer: once a step)")
+          f"times in {steps} steps (one memory layer: once a step)")
     (store,) = run.stores
-    check(store.stats["writebacks"] == TRAIN_STEPS == len(wb)
-          == len(applied),
-          f"{name}: {store.stats['writebacks']} write-backs in "
-          f"{TRAIN_STEPS} steps")
-    check(not store._dirty, f"{name}: dirty slots after the flush")
+    ranges = getattr(store, "num_ranges", 1)
+    check(store.stats["writebacks"] == steps * ranges
+          and steps == len(wb) == len(applied),
+          f"{name}: {len(wb)} write-backs ({store.stats['writebacks']} "
+          f"range write-backs) in {steps} steps")
+    check(not any(p._dirty for p in getattr(store, "parts", [store])),
+          f"{name}: dirty slots after the flush")
     host0, scale0 = before[id(store)]
+    host1, scale1 = _host_tier(store)
     rows_n = store.num_rows
-    changed = (store._host.reshape(rows_n, -1)
-               != host0.reshape(rows_n, -1)).any(-1)
+    changed = (host1 != host0).any(-1)
     if scale0 is not None:
-        changed |= store._host_scale.reshape(-1) != scale0.reshape(-1)
+        changed |= scale1 != scale0
     hit = np.zeros(rows_n, bool)
     hit[np.concatenate([i.reshape(-1) for i in applied])] = True
     check(not (changed & ~hit).any(),
@@ -1390,26 +1514,26 @@ def tiered_train_path(name: str):
           f"{name}: non-finite loss or grad norm: {losses} {norms}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     check(last < first, f"{name}: the loss did not fall (steps 1-5 mean "
-                        f"{first}, steps 16-20 mean {last})")
+                        f"{first}, the last 5 steps' mean {last})")
     step_ms = [r["step_ms"] for r in run.records]
     median_ms = float(np.median(step_ms[5:]))
     tokens = run.dcfg.global_batch * run.dcfg.seq_len
     steady = lambda recs, key: float(np.median(  # noqa: E731
         [r[key] for r in recs[5:]]))
     print(json.dumps({
-        "train": name, "argv": argv,
+        "train": name, "argv": argv, "ranges": ranges,
         "tokens_per_step": tokens, "lookups_per_step": tokens * 32,
         "losses": losses, "grad_norms": norms,
-        "loss_mean_steps_1_5": first, "loss_mean_steps_16_20": last,
-        "step_ms": step_ms, "step_ms_median_steps_6_20": median_ms,
+        "loss_mean_steps_1_5": first, "loss_mean_last_5_steps": last,
+        "step_ms": step_ms, "step_ms_median_steps_6_on": median_ms,
         "tokens_per_sec": tokens / (median_ms / 1e3),
         "peak_memory_bytes": peak, "wall_s_incl_init_and_eval": wall_s,
-        "writeback_host_ms_median_6_20": steady(wb, "host_ms"),
-        "writeback_wait_ms_median_6_20": steady(wb, "wait_ms"),
+        "writeback_host_ms_median_6_on": steady(wb, "host_ms"),
+        "writeback_wait_ms_median_6_on": steady(wb, "wait_ms"),
         "to_host_bytes_per_step": wb[0]["to_host_bytes"],
-        "flat_route_host_ms_median_6_20": steady(fwd, "host_ms"),
-        "fill_bytes_per_step_median_6_20": steady(fwd, "fill_bytes"),
-        "overflow_bytes_per_step_median_6_20": steady(fwd,
+        "flat_route_host_ms_median_6_on": steady(fwd, "host_ms"),
+        "fill_bytes_per_step_median_6_on": steady(fwd, "fill_bytes"),
+        "overflow_bytes_per_step_median_6_on": steady(fwd,
                                                       "overflow_bytes"),
         "hit_rate_train": float(np.mean([f["hit_rate"] for f in fwd])),
         "overflow_share_train": float(np.mean([f["overflow_share"]
@@ -1491,17 +1615,66 @@ def _quant_cells_agree(args, device, mesh) -> dict:
     return errs
 
 
-def mesh_rank(rank: int, port: int, results, argv, device_name) -> None:
-    """One rank of the mesh phase (a spawned process; all ranks on the one
-    card): the two forward checks, the mesh training through `train.main`
-    with its launch counts reset just before and read just after, then two
-    more steps with every sum across ranks timed."""
+def _rank_env(rank: int, port: int) -> None:
+    """A spawned rank's torchrun environment (all ranks on the one card),
+    and no TF32, as in the parent."""
     os.environ.update({"RANK": str(rank), "LOCAL_RANK": str(rank),
                        "WORLD_SIZE": str(MESH_RANKS),
                        "LOCAL_WORLD_SIZE": str(MESH_RANKS),
                        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def _spawn_ranks(fn, args, what: str) -> tuple[list[dict], float]:
+    """Run fn(rank, port, results, *args) in MESH_RANKS spawned processes
+    (a free port for their rendezvous); fails if a rank fails, dies or
+    outlasts MESH_TIMEOUT_S, or fewer than all report.  Returns every
+    rank's result, by rank, and the wall seconds."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = mp.start_processes(fn, args=(port, results, *args),
+                               nprocs=MESH_RANKS, join=False,
+                               start_method="spawn")
+    got = []
+    try:
+        while True:
+            while not results.empty():  # a rank blocks on a full pipe
+                got.append(results.get())
+            if procs.join(timeout=5):
+                break
+            check(time.perf_counter() - t0 < MESH_TIMEOUT_S,
+                  f"{what}: the ranks outlasted {MESH_TIMEOUT_S} s "
+                  f"(a missing collective?)")
+    except mp.ProcessRaisedException as e:
+        fail(f"{what}: a rank failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"{what}: a rank died: {e}")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall_s = time.perf_counter() - t0
+    while not results.empty():
+        got.append(results.get())
+    check(len(got) == MESH_RANKS, f"{what}: {len(got)} of {MESH_RANKS} "
+                                  f"ranks reported")
+    return sorted(got, key=lambda r: r["rank"]), wall_s
+
+
+def mesh_rank(rank: int, port: int, results, argv, device_name) -> None:
+    """One rank of the mesh phase (a spawned process; all ranks on the one
+    card): the two forward checks, the mesh training through `train.main`
+    with its launch counts reset just before and read just after, then two
+    more steps with every sum across ranks timed."""
+    _rank_env(rank, port)
     args = train.build_argparser().parse_args(argv)
     mesh, device = mesh_lib.init_mesh(device_name)
     out = {"rank": rank, "coords": mesh.coords, "mesh": mesh.shape,
@@ -1565,47 +1738,12 @@ def mesh_phase(dense_records, argv=MESH_ARGS, device_name="cuda"):
     the losses are finite and fall, they match the dense run of phase 6
     (rtol 1e-4 over steps 1-5, 1e-3 over all 20), and the two forward
     checks hold to 1e-5.  Returns the launch counts summed over ranks
-    (training, and the 1-byte forward check)."""
-    import torch.multiprocessing as mp
-
+    (training, and the 1-byte forward check) and rank 0's losses."""
     if device_name == "cuda":
         torch.cuda.empty_cache()
     steps = train.build_argparser().parse_args(argv).steps
-    ctx = mp.get_context("spawn")
-    results = ctx.SimpleQueue()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    t0 = time.perf_counter()
-    procs = mp.start_processes(mesh_rank,
-                               args=(port, results, argv, device_name),
-                               nprocs=MESH_RANKS, join=False,
-                               start_method="spawn")
-    got = []
-    try:
-        while True:
-            while not results.empty():  # a rank blocks on a full pipe
-                got.append(results.get())
-            if procs.join(timeout=5):
-                break
-            check(time.perf_counter() - t0 < MESH_TIMEOUT_S,
-                  f"mesh phase: the ranks outlasted {MESH_TIMEOUT_S} s "
-                  f"(a missing collective?)")
-    except mp.ProcessRaisedException as e:
-        fail(f"mesh phase: a rank failed:\n{e}")
-    except mp.ProcessExitedException as e:
-        fail(f"mesh phase: a rank died: {e}")
-    finally:
-        for p in procs.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    wall_s = time.perf_counter() - t0
-    while not results.empty():
-        got.append(results.get())
-    check(len(got) == MESH_RANKS, f"mesh phase: {len(got)} of "
-                                  f"{MESH_RANKS} ranks reported")
-    ranks = sorted(got, key=lambda r: r["rank"])
+    ranks, wall_s = _spawn_ranks(mesh_rank, (argv, device_name),
+                                 "mesh phase")
     dense = [r["loss"] for r in dense_records]
     for r in ranks:
         who = f"mesh rank {r['rank']}"
@@ -1672,7 +1810,7 @@ def mesh_phase(dense_records, argv=MESH_ARGS, device_name="cuda"):
     total = {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
     quant_total = {k: sum(r["quant_launches"][k] for r in ranks)
                    for k in KERNELS}
-    return total, quant_total
+    return total, quant_total, losses.tolist()
 
 
 PKM_ARGS = ["--arch", "lram-bert-pkm", "--batch", "8", "--seq", "256",
@@ -1835,7 +1973,153 @@ def dense_resume_path(dense_records, ckpt_dir):
         "launches_crashed": crash_launches,
         "launches_resumed": resume_launches,
     }), flush=True)
-    return crash_launches, resume_launches
+    saved = {"layout": _layout(ckpt_dir, 10), "bytes": next(
+        h["bytes"] for h in _history(RecordingManager.made)
+        if h["op"] == "save" and h["step"] == 10)}
+    return crash_launches, resume_launches, saved
+
+
+def _layout(ckpt_dir: str, step: int) -> dict:
+    """A checkpoint's leaf names, shapes, dtypes and kinds (no checksums)."""
+    with open(os.path.join(ckpt_dir, f"step_{step:012d}",
+                           "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    return {n: [m.get("shape"), m.get("dtype"), m.get("kind")]
+            for n, m in leaves.items()}
+
+
+MESH_CKPT_ARGS = ["--arch", "lram-bert-medium", "--placement", "sharded",
+                  "--use-mesh", "--batch", "8", "--seq", "256", "--steps",
+                  "12", "--ckpt-every", "6", "--json"]
+MESH_CRASH_AT = 9
+# one process restores the mesh's step-12 checkpoint into the dense table
+ELASTIC_ARGS = ["--arch", "lram-bert-medium", "--placement", "pallas",
+                "--batch", "8", "--seq", "256", "--steps", "14", "--json"]
+
+
+def mesh_ckpt_rank(rank: int, port: int, results, argv, device_name,
+                   crash: bool) -> None:
+    """One rank of phase 6c (a spawned process): `train.main(argv)` with
+    its launch counts reset just before and read just after and its
+    checkpoint managers recorded; with `crash` it must raise
+    SimulatedFailure, and only that is caught."""
+    _rank_env(rank, port)
+    train.CheckpointManager = RecordingManager
+    RecordingManager.made = []
+    tee = _Tee(sys.stdout)
+    reset_counts()
+    with contextlib.redirect_stdout(tee):
+        try:
+            run = train.main(argv)
+        except fault.SimulatedFailure:
+            run = None
+    _sync(torch.device(device_name))
+    launches = read_counts()
+    check((run is None) == crash, f"mesh resume rank {rank}: "
+          f"{'no' if crash else 'a'} SimulatedFailure")
+    out = tee.kept.getvalue().splitlines()
+    results.put({
+        "rank": rank, "launches": launches,
+        "history": _history(RecordingManager.made),
+        "steps": [json.loads(x) for x in out if x.startswith('{"step"')],
+        "resumed": [x for x in out if x.startswith("resumed from")],
+        "start_step": None if run is None else run.start_step,
+        "records": [] if run is None else run.records})
+    dist.destroy_process_group()
+
+
+# the mesh resume's and the elastic restore's losses against phase 6b's:
+# the same steps from the same state, apart in float rounding only (the
+# scatter's atomics; one process's sums against the mesh's): 1.3e-7 at
+# most measured on an H100
+RESUME_RTOL = 1e-5
+
+
+def mesh_resume_path(mesh_losses, dense_saved, ckpt_dir,
+                     argv=MESH_CKPT_ARGS, device_name="cuda",
+                     dense_argv=ELASTIC_ARGS):
+    """Phase 6c: the mesh run of phase 6b (4 ranks, data 2 x model 2, the
+    table row-sharded over model) with a save every 6 steps fails before
+    step 9 on every rank and is relaunched on 4 new ranks: rank 0 alone
+    prints `resumed from step 6`, the step-6 loss is the crashed run's
+    bit for bit, steps 6-11 are within rtol 1e-5 of phase 6b's, K2, the
+    range gather and the range backward launched on every rank in both
+    runs, and the step-12 checkpoint has phase 6a's leaf names, shapes,
+    dtypes and bytes (a one-process checkpoint's).  Then one process
+    restores it into the dense pallas table and trains steps 12-13 (rtol
+    1e-5 of phase 6b's; K2, K1 and `lookup_bwd` launched).  Returns the
+    three runs' launch counts (the mesh runs' summed over ranks)."""
+    if device_name == "cuda":
+        torch.cuda.empty_cache()
+    argv = argv + ["--ckpt-dir", ckpt_dir]
+    crashed, crash_s = _spawn_ranks(
+        mesh_ckpt_rank, (argv + ["--simulate-failure-at",
+                                 str(MESH_CRASH_AT)], device_name, True),
+        "mesh crash")
+    resumed, resume_s = _spawn_ranks(
+        mesh_ckpt_rank, (argv, device_name, False), "mesh resume")
+    crash_losses = [x["loss"] for x in crashed[0]["steps"]]
+    check(len(crash_losses) == MESH_CRASH_AT,
+          f"mesh crash: {len(crash_losses)} steps before the failure")
+    check(resumed[0]["resumed"] == ["resumed from step 6"]
+          and not any(r["resumed"] for r in resumed[1:])
+          and all(r["start_step"] == 6 for r in resumed),
+          "mesh resume: rank 0 alone should print resumed from step 6")
+    got = [x["loss"] for x in resumed[0]["records"]]
+    check(len(got) == 6 and got[0] == crash_losses[6],
+          f"mesh resume: step 6 loss {got[:1]} != the crashed run's "
+          f"{crash_losses[6]}")
+    err = [abs(a - b) / abs(b) for a, b in zip(got, mesh_losses[6:12])]
+    check(max(err) <= RESUME_RTOL, f"mesh resume: losses {got} against phase "
+                            f"6b's {mesh_losses[6:12]}")
+    for name, ranks in (("crashed", crashed), ("resumed", resumed)):
+        for r in ranks:
+            for kernel in ("lram_query", "sharded_gather",
+                           "lookup_bwd_range"):
+                check(r["launches"][kernel] > 0,
+                      f"mesh {name} rank {r['rank']}: {kernel} never "
+                      f"launched")
+    layout = _layout(ckpt_dir, 12)
+    check(layout == dense_saved["layout"],
+          "mesh resume: the step-12 checkpoint's leaves differ from phase "
+          "6a's one-process checkpoint")
+    saves = [h for h in resumed[0]["history"] if h["op"] == "save"]
+    check(abs(saves[-1]["bytes"] - dense_saved["bytes"]) <= 256,
+          f"mesh resume: {saves[-1]['bytes']} bytes saved against phase "
+          f"6a's {dense_saved['bytes']}")
+    run, _, out, dense_launches = _cli(train.main,
+                                       dense_argv + ["--ckpt-dir", ckpt_dir])
+    check("resumed from step 12\n" in out and run.start_step == 12,
+          "mesh elastic restore: one process did not resume from step 12")
+    dense_got = [r["loss"] for r in run.records]
+    dense_err = [abs(a - b) / abs(b)
+                 for a, b in zip(dense_got, mesh_losses[12:14])]
+    check(len(dense_got) == 2 and max(dense_err) <= RESUME_RTOL,
+          f"mesh elastic restore: losses {dense_got} against phase 6b's "
+          f"{mesh_losses[12:14]}")
+    for kernel in ("lram_query", "gather_interp", "lookup_bwd"):
+        check(dense_launches[kernel] > 0,
+              f"mesh elastic restore: {kernel} never launched")
+    print(json.dumps({
+        "resume": "mesh lram-bert-medium", "argv": argv,
+        "crashed_losses": crash_losses, "resumed_losses": got,
+        "uninterrupted_losses": mesh_losses[6:12],
+        "rel_err_steps_6_11": max(err),
+        "checkpoints_by_rank": {
+            "crashed": [r["history"] for r in crashed],
+            "resumed": [r["history"] for r in resumed]},
+        "wall_s_crashed": crash_s, "wall_s_resumed": resume_s,
+        "elastic_restore_one_process": {
+            "argv": dense_argv, "losses": dense_got,
+            "mesh_losses": mesh_losses[12:14], "rel_err": max(dense_err),
+            "checkpoints": _history(RecordingManager.made[-1:]),
+            "launches": dense_launches},
+        "launches_crashed_by_rank": [r["launches"] for r in crashed],
+        "launches_resumed_by_rank": [r["launches"] for r in resumed],
+    }), flush=True)
+    total = [{k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+             for ranks in (crashed, resumed)]
+    return total[0], total[1], dense_launches
 
 
 Q8_CKPT_ARGS = ["--arch", "lram-tiered-q8", "--batch", "8", "--seq", "64",
@@ -1974,6 +2258,11 @@ def main() -> None:
         "d_vs_b": same_first_logits(
             "(d) vs (b)", reports["d_tiered_q8_resident"],
             reports["b_tiered_q8"]),
+        "e_vs_dense": same_first_logits(
+            "(e) vs dense", reports["e_sharded_tiered"], reports["dense"]),
+        "f_vs_dense": same_first_logits(
+            "(f) vs dense", reports["f_sharded_tiered_resident"],
+            reports["dense"]),
     }}), flush=True)
     del reports
     for name in PATHS:
@@ -1983,11 +2272,15 @@ def main() -> None:
     dense_records = run.records
     del run
     with checkpoint_dir() as ckpt:
-        launches["ckpt_crashed"], launches["ckpt_resumed"] = \
+        launches["ckpt_crashed"], launches["ckpt_resumed"], dense_saved = \
             dense_resume_path(dense_records, ckpt)
-    launches["mesh_train"], launches["mesh_quant_forward"] = mesh_phase(
-        dense_records)
-    for name, (_, gather, bwd) in TIERED_TRAIN.items():
+    launches["mesh_train"], launches["mesh_quant_forward"], mesh_losses = \
+        mesh_phase(dense_records)
+    with checkpoint_dir() as ckpt:
+        (launches["mesh_ckpt_crashed"], launches["mesh_ckpt_resumed"],
+         launches["mesh_ckpt_one_process"]) = mesh_resume_path(
+            mesh_losses, dense_saved, ckpt)
+    for name, (_, _, gather, _, _) in TIERED_TRAIN.items():
         launches[name], run = tiered_train_path(name)
         profile_train_step(run, f"train step {name}", (
             "lram_query_kernel", f"{gather}_kernel", "lookup_bwd"))
@@ -2003,6 +2296,7 @@ def main() -> None:
     train_parity("lram-bert-pkm")
     train_parity("lram-tiered")
     train_parity("lram-tiered-q8")
+    train_parity("lram-sharded-tiered")
     check(not {"jax", "repro", "ml_dtypes"} & set(sys.modules),
           "the port pulled in JAX, the JAX package or ml_dtypes")
 

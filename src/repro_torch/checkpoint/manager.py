@@ -37,7 +37,19 @@ Guarantees:
     materialized (dequantized) on the host;
   * growth      — a smaller memory table restores into a larger one by
     tiling (`j mod old_N`); a shrink or a shard geometry mismatch raises
-    `CheckpointError`.
+    `CheckpointError`;
+  * mesh        — `sharding` ({leaf name: (mesh, axis)}, from
+    `launch.convert.reference_sharding`) names the leaves that hold this
+    rank's rows of a table split over a mesh axis.  A save on a mesh is
+    called by every rank: those leaves are gathered into their global
+    arrays (`distributed.sharding.gather_rows`, over the axis's gloo
+    group, in `save` itself: the writer thread issues no collective), and
+    rank 0 alone writes, renames and prunes, so the files are a
+    one-process run's.  A tiered store is alike on every rank; rank 0
+    streams it.  A restore with `sharding` checks each such leaf against
+    `like`'s global shape and keeps this rank's rows of it
+    (`distributed.sharding.own_rows`): a checkpoint restores onto any
+    mesh shape, onto one process, or from one process onto a mesh.
 
 fp8 payloads are e4m3 bytes: written as numpy's `<V1` (the descr the
 reference's `ml_dtypes.float8_e4m3fn` arrays get), read back from `V1` as
@@ -56,9 +68,11 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import quant
 from repro_torch.core import lookup
+from repro_torch.distributed import sharding as mesh_rows
 
 _MANIFEST = "manifest.json"
 _FP8 = "float8_e4m3fn"
@@ -239,18 +253,32 @@ class CheckpointManager:
 
     # ---------------- save ----------------
 
-    def save(self, step: int, tree, *, blocking: bool = True) -> None:
+    def save(self, step: int, tree, *, blocking: bool = True,
+             sharding: dict | None = None) -> None:
+        """Checkpoint `tree` as step `step`.  With `sharding` ({leaf name:
+        (mesh, axis)}) or in any run of several ranks every rank calls
+        this: the named leaves are gathered over their axis, and only
+        rank 0 writes."""
         t0 = time.perf_counter()
+        sharding = sharding or {}
+        writer = not dist.is_initialized() or dist.get_rank() == 0
         # copy to host memory now: the live tensors change in place
         host, stores = [], []
         for name, leaf in _tree_items(tree):
             if lookup.is_store(leaf):
                 stores.append((name, leaf))
-            else:
+            elif name in sharding:  # a collective: every rank, in order
+                arr, dtype = _host_copy(leaf)
+                arr = mesh_rows.gather_rows(arr, *sharding[name])
+                if writer:
+                    host.append((name, arr, dtype))
+            elif writer:
                 host.append((name, *_host_copy(leaf)))
         record = {"op": "save", "step": step,
                   "snapshot_ms": 1e3 * (time.perf_counter() - t0)}
         self.history.append(record)
+        if not writer:
+            return
         self.wait()  # one writer at a time (async or blocking)
         if blocking or stores:  # shard streaming reads live store state
             self._write(step, host, stores, record)
@@ -382,12 +410,20 @@ class CheckpointManager:
             out[name] = out[target]
         return out
 
-    def restore(self, like, *, step: int | None = None):
+    def restore(self, like, *, step: int | None = None,
+                sharding: dict | None = None):
         """Restore into the structure of `like` (a tree of arrays, tensors,
         meta tensors or stores: a leaf gives the shape and dtype).  Tries
         newest-first until a valid checkpoint loads.  Returns (step, tree)
         with numpy leaves (fp8 payloads as uint8 bytes) and every store
         loaded in place, or (None, None) if nothing restorable.
+
+        `sharding` ({leaf name: (mesh, axis)}, the reference's elastic
+        re-placement) names the leaves of which this rank keeps its rows:
+        `like` gives their global shape, the leaf is restored whole and
+        this rank's rows [i * R, (i + 1) * R) of it are returned.  Every
+        other leaf restores whole.  No collective: each rank reads the
+        checkpoint itself.
 
         Tiered shards are checksummed *while* streaming into the target
         store (single read); a corrupt shard aborts that attempt and falls
@@ -402,10 +438,11 @@ class CheckpointManager:
         mutated: list = []
         for s in steps:
             try:
-                tree = self._assemble(like, self._load_dir(s), s, mutated)
+                tree = self._assemble(like, self._load_dir(s), s, mutated,
+                                      sharding or {})
             except (_StructureMismatch, CheckpointError):
                 raise  # `like` does not match the checkpoint: caller error
-            except (OSError, ValueError, EOFError):  # missing or corrupt
+            except Exception:  # missing, corrupt or a malformed manifest
                 continue
             self.history.append({"op": "restore", "step": s,
                                  "ms": 1e3 * (time.perf_counter() - t0)})
@@ -418,7 +455,7 @@ class CheckpointManager:
             )
         return None, None
 
-    def _assemble(self, like, data, found, mutated=None):
+    def _assemble(self, like, data, found, mutated=None, sharding=None):
         items = _tree_items(like)
         missing = [n for n, _ in items if n not in data]
         if missing:
@@ -453,6 +490,8 @@ class CheckpointManager:
             want = _numpy_dtype(getattr(proto, "dtype", None))
             if want is not None and arr.dtype != want:
                 arr = arr.astype(want)
+            if sharding and name in sharding:
+                arr = mesh_rows.own_rows(arr, *sharding[name])
             leaves.append(arr)
         return _rebuild(like, iter(leaves))
 

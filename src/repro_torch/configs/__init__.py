@@ -1,8 +1,8 @@
 """Architecture registry of the port: `get_config(name)` /
 `get_smoke_config(name)`, as in `repro.configs`.  Only the archs whose
 families are ported are registered (the paper's `lram-bert-*` models and
-the tiered serving archs); the rest raise KeyError naming the reference's
-list."""
+the tiered serving archs, `lram-sharded-tiered` among them); the rest
+raise KeyError naming the reference's list."""
 
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ _MODULES = {
     "lram-bert-large": "lram_bert",
     "lram-tiered": "lram_tiered",
     "lram-tiered-q8": "lram_tiered_q8",
+    "lram-sharded-tiered": "lram_sharded_tiered",
 }
 
 

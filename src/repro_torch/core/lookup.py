@@ -9,8 +9,9 @@ read: how the table is built (`build_table` from the init-time fp32 draw,
 * **placement** — ``dense`` (one tensor on the device) | ``tiered`` (host
   shards + a device hot cache, `repro_torch.memstore`) | ``sharded`` (the
   table's rows split over the ``model`` axis of the ambient mesh,
-  `repro_torch.distributed.sharded_lram`).  ``sharded-tiered`` is not
-  ported yet and raises.
+  `repro_torch.distributed.sharded_lram`) | ``sharded-tiered`` (the rows
+  split into ranges, each a tiered store of its own, all in one process:
+  `sharded_lram.ShardedTieredStore`).
 * **storage** — ``fp32`` | ``int8`` | ``fp8`` (1-byte payload + per-row
   fp32 scales, `repro_torch.quant`).
 * **kernel** — the reference's names, so configs and CLI flags carry over:
@@ -20,9 +21,10 @@ read: how the table is built (`build_table` from the init-time fp32 draw,
   table, in q on the others);
   ``reference`` is the plain torch functions (plain autograd), for CPU
   tables only: on a CUDA table it raises, so no run on the card silently
-  skips the kernels.  ``auto`` resolves to ``pallas`` for the tiered and
-  sharded placements (the reference picks ``reference`` there only
-  because its Pallas kernels run interpreted off a TPU).
+  skips the kernels.  ``auto`` resolves to ``pallas`` for the tiered,
+  sharded and sharded-tiered placements (the reference picks
+  ``reference`` there only because its Pallas kernels run interpreted
+  off a TPU).
 
 Unsupported cells raise :class:`LookupPlanError` at resolve time.  The
 serve engine reads the plan's ``supports_prefetch`` flag to find the
@@ -51,12 +53,6 @@ IMPL_PLACEMENT = {
     "tiered": "tiered",
     "sharded": "sharded",
     "sharded-tiered": "sharded-tiered",
-}
-
-# placements not ported yet -> the ROADMAP item that ports them
-_NOT_PORTED = {
-    "sharded-tiered": "ROADMAP A12 part 2 (distribution: the row-range "
-                      "tiered stores)",
 }
 
 # (kernel, storage class) -> (module, function).  The storage class names a
@@ -200,12 +196,6 @@ def _resolve_cached(cfg, impl: str, mesh) -> LookupPlan:
         )
     storage = _resolve_storage(cfg, placement)
     kernel = _resolve_kernel(cfg, placement, impl)
-    if placement in _NOT_PORTED:
-        raise LookupPlanError(
-            placement, storage, kernel,
-            f"{placement!r} is not ported to torch yet: "
-            f"{_NOT_PORTED[placement]}",
-        )
     if placement == "tiered":
         from repro_torch.memstore import interp
 
@@ -214,6 +204,10 @@ def _resolve_cached(cfg, impl: str, mesh) -> LookupPlan:
         from repro_torch.distributed import sharded_lram
 
         return sharded_lram.sharded_plan(cfg, storage, kernel, mesh)
+    if placement == "sharded-tiered":
+        from repro_torch.distributed import sharded_lram
+
+        return sharded_lram.sharded_tiered_plan(cfg, storage, kernel, mesh)
     return _dense_plan(storage, kernel)
 
 
@@ -241,7 +235,7 @@ def _resolve_kernel(cfg, placement: str, impl: str) -> str:
     if kernel == "auto":
         if placement == "dense":
             kernel = "pallas" if impl == "pallas" else "reference"
-        elif placement in ("tiered", "sharded"):
+        elif placement in ("tiered", "sharded", "sharded-tiered"):
             kernel = "pallas"
         else:
             kernel = "reference"
@@ -346,13 +340,20 @@ def merged_tiered_spec(cfg, storage: str, kernel: str):
 
 
 def is_store(x) -> bool:
-    """A tiered value store (the tables the engine warms and prefetches)."""
+    """A tiered value store (the tables the engine warms and prefetches):
+    a `TieredValueStore` or a `ShardedTieredStore`."""
+    from repro_torch.distributed.sharded_lram import ShardedTieredStore
     from repro_torch.memstore import TieredValueStore
 
-    return isinstance(x, TieredValueStore)
+    return isinstance(x, (TieredValueStore, ShardedTieredStore))
 
 
 def find_stores(model: nn.Module) -> list[tuple[str, Any]]:
-    """(name, store) for every distinct tiered store in a model."""
-    return [(name, mod) for name, mod in model.named_modules()
-            if is_store(mod)]
+    """(name, store) for every distinct tiered store in a model; the
+    range stores inside a `ShardedTieredStore` are its own, not listed."""
+    out = []
+    for name, mod in model.named_modules():
+        if is_store(mod) and not any(n == "" or name.startswith(f"{n}.")
+                                     for n, _ in out):
+            out.append((name, mod))
+    return out

@@ -11,7 +11,8 @@ dense(4w -> w) that replaces a transformer FFN (paper §3.1).
 
 The table and the two memory-read steps come from the resolved lookup
 plan (`repro_torch.core.lookup`): an fp32 `Parameter`, a `QuantizedTable`,
-a `TieredValueStore` or this rank's row shard of the table.  Not ported
+a `TieredValueStore`, a `ShardedTieredStore` or this rank's row shard of
+the table.  Not ported
 yet, and listed in ROADMAP: the per-tenant overlay hook of the
 reference's `lram_apply`.
 """
@@ -43,6 +44,8 @@ class LRAMConfig:
     tiered: Any = None              # memstore.TieredSpec for tiered placements
     table_quant: str = "none"       # storage: none | int8 | fp8
     lookup_kernel: str = "auto"     # kernel: auto | reference | pallas
+    model_shards: int = 0           # sharded-tiered row-range owners
+    #                                 (0 = ambient mesh's model-axis size)
 
     def __post_init__(self):
         if self.table_quant not in ("none", "int8", "fp8"):

@@ -5,7 +5,8 @@ A :class:`Mesh` names the axes of the ranks of a `torch.distributed` run,
 ("data", "model") as the reference's host mesh does, with the ranks laid
 out row-major over the axes (rank = d * M + m for a data x model mesh),
 and holds one `ProcessGroup` per axis: the ranks that differ from this one
-in that axis alone.  `set_mesh` makes it ambient: the lookup registry
+in that axis alone (and a gloo twin of each for the checkpoint's host
+gathers).  `set_mesh` makes it ambient: the lookup registry
 resolves the `sharded` placement against it (`repro_torch.core.lookup`),
 and in train mode, where each data rank holds its slice of the global
 batch, the batchnorm statistics and the loss's denominator sum over its
@@ -41,7 +42,7 @@ class Mesh:
         strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
         self.coords = {a: (rank // s) % n
                        for a, s, n in zip(axes, strides, shape)}
-        self._groups = {}
+        self._groups, self._io_groups = {}, {}
         # every rank creates every group, in the same order
         for i, axis in enumerate(axes):
             others = [range(n) if j != i else (0,)
@@ -50,8 +51,10 @@ class Mesh:
                 ranks = [sum(c * s for c, s in zip(start, strides))
                          + k * strides[i] for k in range(shape[i])]
                 group = dist.new_group(ranks)
+                io_group = dist.new_group(ranks, backend="gloo")
                 if rank in ranks:
                     self._groups[axis] = group
+                    self._io_groups[axis] = io_group
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
@@ -64,6 +67,13 @@ class Mesh:
         """The ranks that share every coordinate with this one but
         `axis`'s."""
         return self._groups[axis]
+
+    def io_group(self, axis: str) -> dist.ProcessGroup:
+        """`group(axis)`'s ranks in a gloo group of their own, for the
+        checkpoint's gathers of host arrays: no collective of it
+        interleaves with the training's on `group(axis)`, and the arrays
+        stay in host memory under any backend."""
+        return self._io_groups[axis]
 
 
 _MESH: Optional[Mesh] = None

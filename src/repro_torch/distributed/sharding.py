@@ -3,10 +3,19 @@
 ``data`` and the memory tables' rows over the axis their plan names.
 The dense weights stay replicated on every rank (the reference's GSPMD
 FSDP/TP rules for them are a memory layout, ROADMAP A12 part 2).
+
+Between a rank's rows and the global array, for checkpoints (the
+reference checkpoints a sharded table as its global array):
+`gather_rows` joins the row shards of one leaf on the first rank of its
+group, and `own_rows` keeps this rank's rows of a global leaf, as
+`shard_params` does.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core import lookup
@@ -71,3 +80,34 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
         else:
             layer.values = nn.Parameter(values.detach()[lo:hi].clone())
     return model
+
+
+def gather_rows(arr: np.ndarray, mesh, axis: str) -> np.ndarray | None:
+    """The global array of a leaf split by rows over `axis` (a table's
+    payload, scales or Adam moment), from this rank's host rows `arr`:
+    gathered over `mesh.io_group(axis)` (gloo, host memory) in
+    coordinate order onto the group's first rank, which returns it.  Only
+    the ranks whose other coordinates are all 0 (the group of rank 0)
+    take part; every other rank returns None at once."""
+    if any(mesh.index(a) for a in mesh.axis_names if a != axis):
+        return None
+    if mesh.size(axis) == 1:
+        return arr
+    group = mesh.io_group(axis)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    parts = ([torch.empty_like(t) for _ in range(mesh.size(axis))]
+             if mesh.index(axis) == 0 else None)
+    dist.gather(t, parts, dst=dist.get_global_rank(group, 0), group=group)
+    return None if parts is None else torch.cat(parts).numpy()
+
+
+def own_rows(arr, mesh, axis: str):
+    """This rank's rows [i * R, (i + 1) * R) of a global leaf (i its
+    coordinate along `axis`, R = rows / size): the inverse of
+    `gather_rows`."""
+    n, i = mesh.size(axis), mesh.index(axis)
+    if arr.shape[0] % n:
+        raise ValueError(f"{arr.shape[0]} rows do not split over the {n} "
+                         f"ranks of {axis!r}")
+    rows = arr.shape[0] // n
+    return arr[i * rows:(i + 1) * rows]

@@ -24,7 +24,13 @@ walks it backwards):
 
 `reference_tree` builds the reference's tree from a model (and its Adam
 state) with stacked runs, the form the checkpoint manager writes, and
-`load_reference_tree` copies such a tree back, IN PLACE.
+`load_reference_tree` copies such a tree back, IN PLACE.  On a mesh a
+row-sharded table (and its two moments) is this rank's rows: the
+reference's tree holds the global array, so `reference_tree(like=True)`
+gives the global shapes, `reference_sharding` names those leaves for the
+checkpoint manager (which gathers them on save and keeps this rank's
+rows on restore), and `load_reference_tree` keeps this rank's rows of a
+global leaf it is given.
 
 A memory layer's table (`...lram.values`) is an (N, m) fp32 array, or a
 quantized table as ``{"q": payload, "scale": scales}``: the reference's
@@ -42,6 +48,7 @@ import torch
 
 from repro_torch.core import lookup
 from repro_torch.core.lram import LRAM
+from repro_torch.distributed import context, sharding
 from repro_torch.launch import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
@@ -120,14 +127,40 @@ def _nest(flat: dict[str, object]) -> dict:
     return tree
 
 
+def _moment_path(moment: str, path: str) -> str:
+    return f"opt/{moment}/" + path.removeprefix("params/")
+
+
+def reference_sharding(model: transformer.Transformer,
+                       opt_state=None) -> dict[str, tuple]:
+    """{reference leaf name: (mesh, axis)} of every leaf that holds this
+    rank's rows of a table split over an axis of the ambient mesh (its
+    payload or scales, and with `opt_state` its Adam moments): the
+    checkpoint manager's `sharding`.  {} without a mesh."""
+    mesh = context.get_mesh()
+    out = {}
+    for prefix, axis in sharding.sharded_tables(model, mesh).items():
+        for key in model.state_dict(keep_vars=True):
+            if key != prefix and not key.startswith(prefix + "."):
+                continue
+            path, _ = reference_path(key, model.cfg)
+            out[path] = (mesh, axis)
+            if opt_state is not None and key in opt_state["mu"]:
+                for moment in ("mu", "nu"):
+                    out[_moment_path(moment, path)] = (mesh, axis)
+    return out
+
+
 def reference_tree(model: transformer.Transformer, opt_state=None, *,
                    like: bool = False) -> dict:
     """The reference's tree of the model: {"params", "model_state"} and,
     with `opt_state`, "opt" ({"mu", "nu", "step"}).  A run's layers are
-    stacked (a copy); every other leaf is the live tensor; a tiered store
-    is the store itself, under params and under both moments, as the
-    reference's Adam state holds the same node.  With `like` the leaves
-    are meta tensors of the same shapes (a restore target)."""
+    stacked (a copy); every other leaf is the live tensor (on a mesh, a
+    row-sharded table's are this rank's rows); a tiered store is the
+    store itself, under params and under both moments, as the reference's
+    Adam state holds the same node.  With `like` the leaves are meta
+    tensors of the reference's shapes (a restore target): the global
+    shape of a row-sharded leaf."""
     cfg = model.cfg
     groups: dict[str, list] = {}
     for key, t in model.state_dict(keep_vars=True).items():
@@ -136,29 +169,32 @@ def reference_tree(model: transformer.Transformer, opt_state=None, *,
     # the state_dict does not carry a tiered store (at `...lram.values`)
     stores = {reference_path(k, cfg)[0]: s
               for k, s in lookup.find_stores(model)}
+    spread = reference_sharding(model, opt_state) if like else {}
 
-    def leaf(parts):
+    def leaf(path, parts):
         layer, t = parts[0]
         if like:
             shape = (len(parts),) * (layer is not None) + tuple(t.shape)
+            if path in spread:
+                mesh, axis = spread[path]
+                shape = (shape[0] * mesh.size(axis),) + shape[1:]
             return torch.empty(shape, dtype=t.dtype, device="meta")
         if layer is None:
             return t.detach()
         return torch.stack([x.detach() for _, x in
                             sorted(parts, key=lambda p: p[0])])
 
-    flat = {path: leaf(parts) for path, parts in groups.items()}
+    flat = {path: leaf(path, parts) for path, parts in groups.items()}
     flat.update(stores)
     if opt_state is not None:
         for moment in ("mu", "nu"):
-            at = f"opt/{moment}/"
             per_path: dict[str, list] = {}
             for key, t in opt_state[moment].items():
                 path, layer = reference_path(key, cfg)
-                per_path.setdefault(at + path.removeprefix("params/"),
+                per_path.setdefault(_moment_path(moment, path),
                                     []).append((layer, t))
-            flat.update({p: leaf(parts) for p, parts in per_path.items()})
-            flat.update({at + p.removeprefix("params/"): store
+            flat.update({p: leaf(p, parts) for p, parts in per_path.items()})
+            flat.update({_moment_path(moment, p): store
                          for p, store in stores.items()})
         step = opt_state["step"]
         flat["opt/step"] = (torch.empty((), dtype=step.dtype, device="meta")
@@ -182,9 +218,12 @@ def load_reference_tree(model: transformer.Transformer, tree: dict,
                         opt_state=None) -> None:
     """Copy a reference tree (numpy leaves, as `CheckpointManager.restore`
     returns it) into the model's parameters and batchnorm stats and, with
-    `opt_state`, into Adam's moments and step, IN PLACE.  Tiered stores
-    were streamed in place by the restore itself."""
+    `opt_state`, into Adam's moments and step, IN PLACE.  On a mesh a
+    row-sharded leaf may be global (this rank's rows are kept) or this
+    rank's rows already (a restore with `reference_sharding`).  Tiered
+    stores were streamed in place by the restore itself."""
     cfg = model.cfg
+    spread = reference_sharding(model, opt_state)
 
     def get(path: str):
         node = tree
@@ -194,7 +233,10 @@ def load_reference_tree(model: transformer.Transformer, tree: dict,
 
     def fill(t: torch.Tensor, path: str, layer) -> None:
         arr = get(path)
-        t.copy_(_as_tensor(arr if layer is None else arr[layer], t))
+        arr = arr if layer is None else arr[layer]
+        if path in spread and arr.shape[0] != t.shape[0]:
+            arr = sharding.own_rows(arr, *spread[path])
+        t.copy_(_as_tensor(arr, t))
 
     for key, t in model.state_dict(keep_vars=True).items():
         fill(t, *reference_path(key, cfg))
@@ -203,7 +245,7 @@ def load_reference_tree(model: transformer.Transformer, tree: dict,
     for moment in ("mu", "nu"):
         for key, t in opt_state[moment].items():
             path, layer = reference_path(key, cfg)
-            fill(t, f"opt/{moment}/" + path.removeprefix("params/"), layer)
+            fill(t, _moment_path(moment, path), layer)
     opt_state["step"].copy_(torch.from_numpy(np.asarray(get("opt/step"))))
 
 

@@ -14,16 +14,21 @@ tick before the trace, so its timings exclude each shape's first call.
 
 `lram-tiered` and `lram-tiered-q8` serve on their own placement, `tiered`:
 the table lives in host RAM, a device cache holds the hot shards, and the
-gathers run the CUDA kernels (their plain versions on the CPU).  The
-report's `cache` carries the store's hit rate, hits, misses, uncached
-rows, fills and evictions; `--cache-slots` resizes the device cache (128
-holds the whole full-width table).  `--placement` overrides the placement:
-`pallas` serves from a dense table on the device with the CUDA kernels,
-`reference` runs the plain path (CPU only).  `--ckpt-dir` restores the
+gathers run the CUDA kernels (their plain versions on the CPU).
+`lram-sharded-tiered` serves on `sharded-tiered`: 4 row ranges, each a
+tiered store with its own cache, warmed and prefetched range by range.
+The report's `cache` carries the stores' hit rate, hits, misses, uncached
+rows, fills and evictions; `--cache-slots` resizes the device cache of a
+tiered store or of every range (128 holds the whole full-width
+`lram-tiered` table, 32 the whole `lram-sharded-tiered` one).
+`--placement` overrides the placement: `pallas` serves from a dense table
+on the device with the CUDA kernels, `sharded-tiered` from the row
+ranges, `reference` runs the plain path (CPU only).  `--ckpt-dir` restores the
 newest valid checkpoint of that directory (one `repro_torch.launch.train`
 or the reference's trainer wrote) into the model before serving: its
 parameters and batchnorm stats, a tiered table streamed into the store in
-place; it prints `{"restored_step": N}`.
+place; it prints `{"restored_step": N}`.  A mesh run's checkpoint holds
+the global arrays, so it serves as a one-process run's does.
 """
 
 from __future__ import annotations

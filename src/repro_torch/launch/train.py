@@ -16,6 +16,12 @@
         --ckpt-dir /tmp/ckpt --ckpt-every 10 --simulate-failure-at 15
     # ...raises SimulatedFailure at step 15; the same command again prints
     # "resumed from step 10" and trains steps 10-19
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch lram-bert-medium --smoke --device cpu --placement sharded \\
+        --use-mesh --steps 12 --ckpt-dir /tmp/ck --ckpt-every 6 \\
+        --simulate-failure-at 9     # again without the last flag: resumes
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch lram-sharded-tiered --smoke --device cpu --json --steps 5
 
 config -> init (weights drawn on the CPU from `--seed`, then moved to
 `--device`) -> train step (MLM/CLM loss, backward, Adam with the paper's
@@ -43,12 +49,16 @@ raises rather than falling back.  `--placement` overrides the memory
 layer's lookup placement as the serve CLI's does: `pallas` is the dense
 table with the CUDA kernels (K2 + K1 forward, the backward kernel
 `lookup_bwd`), `reference` the plain path (CPU only), `tiered` the tiered
-store.  A tiered table (`lram-tiered`, `lram-tiered-q8`) trains through
-the store's write-back, as the reference binds it: the store applies its
-own sparse SGD step at lr x `--memory-lr-mult` (int8 rows requantized with
-stochastic rounding), Adam and the clip never see it, and the stores are
-flushed at the end.  A dense quantized table is frozen and is refused: the
-reference trains a quantized table only through the tiered write-back.
+store, `sharded-tiered` its row ranges, `sharded` the table's rows split
+over the mesh's ``model`` axis.  A tiered table (`lram-tiered`,
+`lram-tiered-q8`) trains through the store's write-back, as the reference
+binds it: the store applies its own sparse SGD step at lr x
+`--memory-lr-mult` (int8 rows requantized with stochastic rounding), Adam
+and the clip never see it, and the stores are flushed at the end.  So
+does a `ShardedTieredStore` (`lram-sharded-tiered`, or `--placement
+sharded-tiered`), each row range through its own store.  A dense
+quantized table is frozen and is refused: the reference trains a
+quantized table only through the tiered write-back.
 `--json` prints one line per step (loss, xent, grad norm, lr, step ms and
 the cache hit rate of a tiered table) and a summary.
 
@@ -65,9 +75,20 @@ counts every table row once.  The losses it reports are the global
 batch's.  Rank 0 prints; every rank evaluates the whole eval batch, so
 that all of them issue the same collectives.
 
+`--ckpt-dir` on a mesh: every rank takes part in each save (a
+row-sharded table and its moments are gathered over ``model`` into the
+reference's global arrays, `convert.reference_sharding`) and rank 0 alone
+writes, so the checkpoint is a one-process run's, leaf for leaf.  On a
+relaunch every rank builds and shards the model, restores (each keeping
+its rows: the mesh's shape may differ from the saving run's, or the run
+may have one process); the ranks compare the steps they restored and
+raise `CheckpointError` unless all found the same (a rank that fell back
+alone would train from another step), and rank 0 prints `resumed from
+step N`.  On `--simulate-failure-at` every rank waits for rank 0's pending write at a
+barrier, then raises.
+
 Not ported yet, and refused with the ROADMAP item that ports them:
-gradient compression, telemetry, memory growth, observability, and
-checkpoints on a mesh of several ranks.
+gradient compression, telemetry, memory growth and observability.
 """
 
 from __future__ import annotations
@@ -82,7 +103,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import configs, data, optim
-from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint import CheckpointError, CheckpointManager
 from repro_torch.core import lookup
 from repro_torch.distributed import collectives, context, fault, sharding
 from repro_torch.launch import convert
@@ -202,6 +223,19 @@ class TrainRun:
     start_step: int = 0
 
 
+def same_step_on_every_rank(found: int | None) -> None:
+    """Raise `CheckpointError` on every rank unless all of them restored
+    the same step (None: nothing).  Each rank restores on its own and
+    falls back past a checkpoint it cannot read, so one rank could resume
+    from an older step than the others, and the run's collectives would
+    then hang or mix steps."""
+    steps: list = [None] * dist.get_world_size()
+    dist.all_gather_object(steps, found)
+    if len(set(steps)) > 1:
+        raise CheckpointError(
+            f"the ranks restored different steps (by rank: {steps})")
+
+
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="lram-bert-small")
@@ -251,10 +285,6 @@ def _refuse_unported(args) -> None:
 def main(argv=None) -> TrainRun:
     args = build_argparser().parse_args(argv)
     _refuse_unported(args)
-    if args.ckpt_dir and args.use_mesh and mesh_lib.world_size() > 1:
-        raise SystemExit("--ckpt-dir on a mesh of several ranks is not "
-                         "ported to torch yet: ROADMAP A5/A9 part 2 "
-                         "(checkpoints on a mesh)")
     mesh = None
     if args.use_mesh and mesh_lib.world_size() > 1:
         mesh, device = mesh_lib.init_mesh(args.device)
@@ -295,14 +325,22 @@ def main(argv=None) -> TrainRun:
     step_fn = build_train_step(model, opt_cfg, mesh)
 
     start_step, mgr = 0, None
+    # a row-sharded table's leaves: gathered on save, this rank's rows kept
+    # on restore
+    spread = convert.reference_sharding(model, opt_state)
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, keep=3)
+        found, tree = None, None
         if mgr.latest_step() is not None:
             found, tree = mgr.restore(
-                convert.reference_tree(model, opt_state, like=True))
-            if tree is not None:
-                convert.load_reference_tree(model, tree, opt_state)
-                start_step = found
+                convert.reference_tree(model, opt_state, like=True),
+                sharding=spread)
+        if mesh is not None:
+            same_step_on_every_rank(found)
+        if tree is not None:
+            convert.load_reference_tree(model, tree, opt_state)
+            start_step = found
+            if main_rank:
                 print(f"resumed from step {start_step}", flush=True)
 
     monitor = fault.HeartbeatMonitor(num_hosts=mesh_lib.world_size())
@@ -312,6 +350,8 @@ def main(argv=None) -> TrainRun:
         if step == args.simulate_failure_at:
             if mgr:
                 mgr.wait()
+            if mesh is not None:  # no rank exits while rank 0 writes
+                dist.barrier()
             raise fault.SimulatedFailure(
                 f"injected failure at step {step} (relaunch to resume)")
         t0 = time.perf_counter()
@@ -339,7 +379,7 @@ def main(argv=None) -> TrainRun:
                   + (" STRAGGLER" if rec["straggler"] else ""))
         if mgr and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
             mgr.save(step + 1, convert.reference_tree(model, opt_state),
-                     blocking=False)
+                     blocking=False, sharding=spread)
             saved = step + 1
         if args.eval_every and (step + 1) % args.eval_every == 0:
             eval_loss, recall = evaluate(model, dcfg)
@@ -349,7 +389,8 @@ def main(argv=None) -> TrainRun:
 
     if mgr:
         if saved != args.steps:  # else the last step's save is under way
-            mgr.save(args.steps, convert.reference_tree(model, opt_state))
+            mgr.save(args.steps, convert.reference_tree(model, opt_state),
+                     sharding=spread)
         mgr.wait()
     eval_loss, recall = evaluate(model, dcfg)
     for store in stores:

@@ -1,10 +1,12 @@
 """The tiered placement of the lookup registry (torch counterpart of
 `repro.memstore.interp`).
 
-`tiered_plan` builds the plan whose table is a `TieredValueStore`; its
-table trains through the store's write-back (``table_update =
-"writeback"``).  Two differentiable entry points, the counterparts of the
-reference's traced VJP, both one autograd Function of `ops` over the store
+`tiered_plan` builds the plan whose table is a `TieredValueStore`, and
+`store_plan` the same plan over any store of that surface (the
+sharded-tiered placement's `ShardedTieredStore` too); its table trains
+through the store's write-back (``table_update = "writeback"``).  Two
+differentiable entry points, the counterparts of the reference's traced
+VJP, both one autograd Function of `ops` over the store
 as a `RowSource` (its flat route `lookup_rows`: the cache with the
 overflow rows appended, then K1 or B4; its write-back as the sink):
 
@@ -39,15 +41,17 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def tiered_interp(store: TieredValueStore, idx, w):
+def tiered_interp(store, idx, w):
     """sum_k w[..., k] * store[idx[..., k]] -> (..., m), differentiable in
-    w; the table's gradient w (x) g goes to the store's write-back."""
+    w; the table's gradient w (x) g goes to the store's write-back.
+    `store` is a `TieredValueStore` or a `ShardedTieredStore` (the same
+    `gather` / `lookup_rows` / `writeback` surface)."""
     if _needs_grad(w):
         return ops.source_gather(_row_source(store), idx, w)
     return store.gather(idx, w)
 
 
-def _row_source(store: TieredValueStore) -> ops.RowSource:
+def _row_source(store) -> ops.RowSource:
     """The store's flat route as the joined lookup reads it, its
     write-back as the sink."""
     return ops.RowSource(store.lookup_rows, store.writeback)
@@ -56,23 +60,45 @@ def _row_source(store: TieredValueStore) -> ops.RowSource:
 def tiered_plan(cfg, storage: str, kernel: str) -> lookup.LookupPlan:
     cell = ("tiered", storage, kernel)
     spec = lookup.merged_tiered_spec(cfg, storage, kernel)
+    check_spec(cell, spec, cfg.num_locations)
+    return store_plan(
+        cell, TieredValueStore, "tiered",
+        build_table=lambda dense: TieredValueStore.from_dense(dense, spec),
+        table_from_payload=lambda q, scale: TieredValueStore.from_payload(
+            q, scale, spec))
+
+
+def check_spec(cell, spec, rows: int) -> None:
+    """Raise for a spec the port cannot build: a backing other than RAM,
+    or a store of `rows` rows (the table, or one row range of it) not a
+    multiple of the shard size."""
     if spec.backing != "ram":
         raise lookup.LookupPlanError(
             *cell, f"backing={spec.backing!r} is not ported to torch yet: "
             f"ROADMAP A8 (tiered store, mmap backing)",
         )
-    if cfg.num_locations % spec.shard_rows:
+    if rows % spec.shard_rows:
         raise lookup.LookupPlanError(
-            *cell, f"num_locations={cfg.num_locations} not divisible by "
+            *cell, f"a store of {rows} rows is not divisible by "
             f"TieredSpec.shard_rows={spec.shard_rows}",
         )
+
+
+def store_plan(cell, store_type: type, impl: str, *, build_table,
+               table_from_payload) -> lookup.LookupPlan:
+    """The plan of a placement whose table is a store of `store_type` (a
+    `TieredValueStore` or a `ShardedTieredStore`): `tiered_interp` and the
+    joined lookup over the store as a `RowSource`, trained by its
+    write-back, prefetched by the serve engine.  `impl` is the
+    `interp_impl` that builds such a table."""
+    storage, kernel = cell[1], cell[2]
     query = lookup.query_fn(kernel)
 
     def check_store(values):
-        if not isinstance(values, TieredValueStore):
+        if not isinstance(values, store_type):
             raise lookup.LookupPlanError(
-                *cell, "the table must be a TieredValueStore: init the "
-                "layer with LRAMConfig(interp_impl='tiered')",
+                *cell, f"the table must be a {store_type.__name__}: init "
+                f"the layer with LRAMConfig(interp_impl={impl!r})",
             )
         if kernel == "reference" and values.device.type != "cpu":
             raise lookup.LookupPlanError(
@@ -94,11 +120,8 @@ def tiered_plan(cfg, storage: str, kernel: str) -> lookup.LookupPlan:
         return values.gather(idx, w), idx, w
 
     return lookup.LookupPlan(
-        *cell, query=query,
-        build_table=lambda dense: TieredValueStore.from_dense(dense, spec),
+        *cell, query=query, build_table=build_table,
         interp=interp, lookup=lookup_fn,
-        table_from_payload=(
-            None if storage == "fp32" else
-            lambda q, scale: TieredValueStore.from_payload(q, scale, spec)),
+        table_from_payload=None if storage == "fp32" else table_from_payload,
         supports_prefetch=True, table_update="writeback",
     )

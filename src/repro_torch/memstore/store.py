@@ -170,13 +170,20 @@ class TieredValueStore(nn.Module):
         e4m3 bytes as uint8) and these (N,) scales, bit for bit."""
         q = np.asarray(q)
         store = cls(q.shape[0], q.shape[1], spec)
-        if store.quant == "none" or q.dtype != store.storage_dtype:
-            raise ValueError(f"a {q.dtype} payload does not fit a store of "
-                             f"quant={store.quant!r}")
-        store._host[...] = q.reshape(store._host.shape)
-        store._host_scale[...] = np.asarray(scale, np.float32).reshape(
-            store._host_scale.shape)
+        store.load_payload(q, scale)
         return store
+
+    def load_payload(self, q: np.ndarray, scale: np.ndarray) -> None:
+        """Fill the host tier of a quantized store with this (N, m)
+        payload and these (N,) scales, bit for bit (the cache is not
+        touched: call before the first lookup)."""
+        q = np.asarray(q)
+        if self.quant == "none" or q.dtype != self.storage_dtype:
+            raise ValueError(f"a {q.dtype} payload does not fit a store of "
+                             f"quant={self.quant!r}")
+        self._host[...] = q.reshape(self._host.shape)
+        self._host_scale[...] = np.asarray(scale, np.float32).reshape(
+            self._host_scale.shape)
 
     def to_dense(self) -> np.ndarray:
         """Flush the dirty slots and return the full (dequantized) table as
@@ -365,31 +372,46 @@ class TieredValueStore(nn.Module):
         `lookup` are).  idx (..., k) int32 and w (..., k) float32 live on
         the store's device; idx is read on the host to map shards."""
         lead, top_k = idx.shape[:-1], idx.shape[-1]
-        mapped = self._map(idx.reshape(-1).cpu().numpy())
+        out = self._gather_mapped(
+            self._map(idx.reshape(-1).cpu().numpy()),
+            w.reshape(-1, top_k).float().contiguous(),
+            idx.reshape(-1, top_k))
+        return out.reshape(*lead, self.m)
+
+    def _gather_mapped(self, mapped, w2: torch.Tensor, idx2=None,
+                       sel=None) -> torch.Tensor:
+        """(n, m) = sum_k w2 * rows of ids `_map` mapped: B5 / B6 when
+        every one is resident, else K1 / B4 over the flat route.  `idx2`,
+        the (n, k) ids on the device, where the caller has them.  With
+        `sel`, a bool mask over the n * k elements, the ids mapped are
+        the selected elements' and every other element reads the first
+        selected one's row: the caller gives those weight 0."""
         self._sync_device()
-        w2 = w.reshape(-1, top_k).float().contiguous()
+        spread = ((lambda a: a) if sel is None
+                  else (lambda a: _spread(a, sel)))
         if self.spec.use_pallas and mapped[3].all():
+            if idx2 is None:
+                shard, row = mapped[:2]
+                idx2 = self._device_rows(spread(shard * self.shard_rows
+                                                + row))
             cache = self._payload(self._cache_dev)
             slot_table = torch.from_numpy(self._shard_slot).to(self.device)
-            idx2 = idx.reshape(-1, top_k).to(torch.int32).contiguous()
+            idx2 = idx2.reshape(w2.shape).to(torch.int32).contiguous()
             if self.quant != "none":
-                out = tiered_gather.tiered_gather_quant(
+                return tiered_gather.tiered_gather_quant(
                     cache, self._scale_dev, idx2, slot_table, w2,
                     shard_rows=self.shard_rows, resident=True)
-            else:
-                out = tiered_gather.tiered_gather(
-                    cache, idx2, slot_table, w2,
-                    shard_rows=self.shard_rows, resident=True)
-            return out.reshape(*lead, self.m)
-        table, scale, rows = self._flat_table(*mapped)
+            return tiered_gather.tiered_gather(
+                cache, idx2, slot_table, w2, shard_rows=self.shard_rows,
+                resident=True)
+        raw, scale, rows = self._flat_table(*mapped)
+        table = self._payload(raw)
         kernel = "pallas" if self.spec.use_pallas else "reference"
-        rows = rows.reshape(-1, top_k)
+        rows = self._device_rows(spread(rows)).reshape(w2.shape)
         if scale is not None:
-            out = lookup.kernel_gather(kernel, "quant")(table, scale, rows,
-                                                       w2)
-        else:
-            out = lookup.kernel_gather(kernel, "fp32")(table, rows, w2)
-        return out.reshape(*lead, self.m)
+            return lookup.kernel_gather(kernel, "quant")(table, scale, rows,
+                                                         w2)
+        return lookup.kernel_gather(kernel, "fp32")(table, rows, w2)
 
     def lookup_rows(self, idx: torch.Tensor):
         """(table, scales or None, rows): the rows a lookup of `idx` reads,
@@ -404,38 +426,40 @@ class TieredValueStore(nn.Module):
         mapped whole, so that fills, LRU order and stats are the one-rank
         run's on every rank (the int8 write-back draws in an order that
         depends on them), and this rank's rows are returned."""
-        flat = idx.reshape(-1)
-        group = context.axis_group("data")
-        mapped = self._map(collectives.all_gather_rows(flat, group)
-                           .cpu().numpy())
-        if group is not None:
-            own = slice(dist.get_rank(group) * flat.numel(),
-                        (dist.get_rank(group) + 1) * flat.numel())
-            mapped = tuple(a[own] for a in mapped)
+        raw, scale, rows = self._flat_rows(*global_indices(idx))
+        return self._payload(raw), scale, \
+            self._device_rows(rows).reshape(idx.shape)
+
+    def _flat_rows(self, flat_idx: np.ndarray, keep=None):
+        """(raw table, scales or None, int64 rows) of global row ids,
+        with no collective: map them all (stats, fills, LRU), then build
+        the flat table for those `keep` selects (a bool mask; None: all)
+        and sync the device."""
+        mapped = self._map(flat_idx)
+        if keep is not None:
+            mapped = tuple(a[keep] for a in mapped)
         self._sync_device()
-        table, scale, rows = self._flat_table(*mapped)
-        return table, scale, rows.reshape(idx.shape)
+        return self._flat_table(*mapped)
 
     def _flat_table(self, shard, row, slot, mask):
         """The reference's XLA route: flat rows into the device cache with
-        the overflow rows appended from the host tier."""
-        cache = self._payload(self._cache_dev)
-        scales = self._scale_dev
+        the overflow rows appended from the host tier.  The table is raw
+        (fp8 as its uint8 bytes: `_payload` views it), the rows numpy."""
+        table, table_scale = self._cache_dev, self._scale_dev
         slot_rows = np.where(mask, slot * self.shard_rows + row, 0)
-        table, table_scale = cache, scales
         if not mask.all():
             inv = ~mask
             ovf = self._host[shard[inv], row[inv]]
-            slot_rows[inv] = cache.shape[0] + np.arange(len(ovf))
-            raw = torch.cat([self._cache_dev,
-                             torch.from_numpy(ovf).to(self.device)])
-            table = self._payload(raw)
-            if scales is not None:  # overflow rows stay 1-byte + scales
+            slot_rows[inv] = table.shape[0] + np.arange(len(ovf))
+            table = torch.cat([table, torch.from_numpy(ovf).to(self.device)])
+            if table_scale is not None:  # overflow rows stay 1-byte
                 ovf_scale = self._host_scale[shard[inv], row[inv]]
                 table_scale = torch.cat(
-                    [scales, torch.from_numpy(ovf_scale).to(self.device)])
-        rows = torch.from_numpy(slot_rows.astype(np.int32)).to(self.device)
-        return table, table_scale, rows
+                    [table_scale, torch.from_numpy(ovf_scale).to(self.device)])
+        return table, table_scale, slot_rows
+
+    def _device_rows(self, rows: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(rows.astype(np.int32)).to(self.device)
 
     # ------------------------------------------------------------ training
 
@@ -450,13 +474,8 @@ class TieredValueStore(nn.Module):
         order (not w ⊗ g, k times larger) and applies the global batch's
         update, as the one-rank run does.  A no-op while `writeback_lr` is
         0."""
-        if self.writeback_lr <= 0.0:
-            return
-        group = context.axis_group("data")
-        idx_np, w_np, g_np = (
-            collectives.all_gather_rows(t.detach(), group).cpu().numpy()
-            for t in (idx, w.float(), g.float()))
-        self.apply_writeback(idx_np, w_np[..., None] * g_np[..., None, :])
+        if self.writeback_lr > 0.0:
+            self.apply_writeback(*global_update(idx, w, g))
 
     def apply_writeback(self, idx, wg) -> None:
         """Sparse SGD write-back: values[idx] -= writeback_lr * wg.
@@ -627,3 +646,37 @@ class TieredValueStore(nn.Module):
                 f"shards={self.num_shards}x{self.shard_rows}, "
                 f"slots={self.cache_slots}, quant={self.quant!r}, "
                 f"device={self.device}")
+
+
+def _spread(a: np.ndarray, sel: np.ndarray) -> np.ndarray:
+    """`a`'s values where `sel` is set, in order, and its first value at
+    every other place."""
+    out = np.full(sel.shape, a[0], a.dtype)
+    out[sel] = a
+    return out
+
+
+def global_indices(idx: torch.Tensor):
+    """(the global batch's flat indices on the host, the bool mask of this
+    rank's among them or None): idx is this rank's slice of the batch,
+    gathered over the ambient mesh's ``data`` axis in rank order (C3)."""
+    flat = idx.reshape(-1)
+    group = context.axis_group("data")
+    glob = collectives.all_gather_rows(flat, group).cpu().numpy()
+    if group is None:
+        return glob, None
+    keep = np.zeros(glob.size, bool)
+    rank = dist.get_rank(group)
+    keep[rank * flat.numel():(rank + 1) * flat.numel()] = True
+    return glob, keep
+
+
+def global_update(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """(idx, w ⊗ g) of the global batch on the host, the write-back's
+    input: idx, w and g gathered over the ambient mesh's ``data`` axis in
+    rank order (not w ⊗ g, k times larger), w ⊗ g formed in float32."""
+    group = context.axis_group("data")
+    idx_np, w_np, g_np = (
+        collectives.all_gather_rows(t.detach(), group).cpu().numpy()
+        for t in (idx, w.float(), g.float()))
+    return idx_np, w_np[..., None] * g_np[..., None, :]

@@ -22,7 +22,8 @@ PLACE (decode writes its row, admission copies into the slot); the
 reference donates and replaces the cache instead.
 
 Tiered memory: when the model's lookup plan `supports_prefetch`, the
-engine collects the model's tiered stores, warms them and resets their
+engine collects the model's tiered stores (a `ShardedTieredStore` as one:
+its warm and prefetch reach every range), warms them and resets their
 stats at the start of `run`, attributes each prefill's and each tick's
 hit / miss / uncached deltas to the requests in flight, and calls
 `prefetch_last()` after every tick.  Prefill lookups count every position

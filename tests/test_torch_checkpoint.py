@@ -18,6 +18,8 @@ import torch
 from repro import configs as j_configs
 from repro import optim as j_optim
 from repro.checkpoint import CheckpointManager as JCheckpointManager
+from repro.distributed.sharded_lram import (
+    ShardedTieredStore as JShardedTieredStore)
 from repro.memstore import TieredSpec as JTieredSpec
 from repro.memstore import TieredValueStore as JTieredValueStore
 from repro.checkpoint.manager import _tree_items as j_tree_items
@@ -29,7 +31,7 @@ from repro_torch.launch import convert, train
 from repro_torch.memstore import TieredSpec, TieredValueStore
 
 SMOKE_ARCHS = ["lram-bert-small", "lram-bert-pkm", "lram-tiered",
-               "lram-tiered-q8"]
+               "lram-tiered-q8", "lram-sharded-tiered"]
 
 
 @pytest.fixture
@@ -403,7 +405,7 @@ def _jax_tree(arch):
 def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
-    if isinstance(tree, JTieredValueStore):
+    if isinstance(tree, (JTieredValueStore, JShardedTieredStore)):
         shards = range(tree.num_shards)
         payload = np.concatenate([tree.shard_host(i) for i in shards])
         if tree.quant == "none":

@@ -80,7 +80,6 @@ def test_lram_query_interpolates_lattice_points():
 @pytest.mark.parametrize("cell,item", [
     (dict(interp_impl="tiered", tiered=TieredSpec(backing="mmap")), "A8"),
     (dict(interp_impl="sharded"), "needs an ambient mesh"),
-    (dict(interp_impl="sharded-tiered", table_quant="int8"), "A12"),
 ])
 def test_unported_cells_raise(cell, item):
     with pytest.raises(lookup.LookupPlanError, match=item):

@@ -172,8 +172,9 @@ def test_store_matches_reference_store(quant_kind):
 
 def test_tiered_cells_resolve():
     """auto -> pallas on the tiered placement (both archs), the spec folds
-    in the storage and kernel, reference is CPU-only plain, and the
-    unported and conflicting cells raise."""
+    in the storage and kernel, reference is CPU-only plain, the config
+    resolves to the sharded-tiered cell under that override, and the
+    conflicting cell raises."""
     cfg = configs.get_smoke_config("lram-tiered").lram
     plan = lookup.resolve(cfg)
     assert plan.cell == ("tiered", "fp32", "pallas")
@@ -186,8 +187,9 @@ def test_tiered_cells_resolve():
     assert lookup.resolve(ref).cell == ("tiered", "fp32", "reference")
     with pytest.raises(lookup.LookupPlanError, match="conflicts"):
         lookup.resolve(dataclasses.replace(q8, table_quant="fp8"))
-    with pytest.raises(lookup.LookupPlanError, match="A12"):
-        lookup.resolve(cfg, "sharded-tiered")
+    sharded = lookup.resolve(cfg, "sharded-tiered")
+    assert sharded.cell == ("sharded-tiered", "fp32", "pallas")
+    assert sharded.supports_prefetch and sharded.table_update == "writeback"
 
 
 def test_reference_cell_store_matches_kernel_cell():

@@ -236,10 +236,3 @@ def test_sharded_plan_without_a_mesh_raises(storage):
     with pytest.raises(lookup.LookupPlanError, match="needs an ambient mesh"):
         lookup.resolve(LRAMConfig(log2_locations=LOG2, heads=HEADS,
                                   interp_impl="sharded", table_quant=storage))
-
-
-def test_sharded_tiered_still_raises_naming_its_item():
-    with pytest.raises(lookup.LookupPlanError, match="A12 part 2"):
-        lookup.resolve(LRAMConfig(log2_locations=LOG2,
-                                  interp_impl="sharded-tiered"))
-

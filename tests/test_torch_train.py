@@ -244,23 +244,14 @@ def test_cli_trains_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--compression", "int8"], ["--telemetry"], ["--grow-at", "2:17"],
-    ["--use-mesh"], ["--use-mesh", "--ckpt-dir", "x"], ["--metrics-dir", "x"],
-    ["--profile-dir", "x"], ["--placement", "sharded-tiered"],
+    ["--use-mesh"], ["--metrics-dir", "x"], ["--profile-dir", "x"],
 ])
-def test_cli_refuses_what_is_not_ported(flag, capsys, monkeypatch):
-    """Each option that is not ported exits naming its ROADMAP item:
-    `--ckpt-dir` under a launch of several ranks (WORLD_SIZE 2 here; it
-    exits before joining a process group) names A5/A9 part 2.
+def test_cli_refuses_what_is_not_ported(flag, capsys):
+    """Each option that is not ported exits naming its ROADMAP item.
     `--use-mesh` is ported: outside a launch of several ranks it trains on
     one process without a mesh, as the reference does on one device, and
     gives the run without the flag (the 4-rank run is
     tests/test_torch_mesh_train.py)."""
-    if "--ckpt-dir" in flag:
-        monkeypatch.setenv("WORLD_SIZE", "2")
-        with pytest.raises(SystemExit, match="ROADMAP A5/A9 part 2"):
-            train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                        "--steps", "1", *flag])
-        return
     if flag == ["--use-mesh"]:
         argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
                 "2", "--batch", "2", "--seq", "16", "--placement", "pallas",

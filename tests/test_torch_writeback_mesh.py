@@ -1,6 +1,8 @@
 """The tiered write-back on a mesh with 2 ``data`` ranks: every rank
 applies the global batch's update, in the one-rank order, so every rank's
-host tier ends equal to the one-rank run's.
+host tier ends equal to the one-rank run's (a tiered store's, and a
+sharded-tiered store's, whose ranges are mapped and written back in turn
+after the one gather over ``data``).
 
 The reference applies the global batch's (idx, w ⊗ g) once to its one
 store (`repro/memstore/interp.py:98-105`); the port's store gathers idx, w
@@ -37,9 +39,10 @@ RANK_CODE = textwrap.dedent("""
         os.environ["ARGS"]), "--use-mesh"])
     store = run.stores[0]
     table = store.to_dense()
+    scale = (np.concatenate([p._host_scale for p in getattr(
+        store, "parts", [store])]) if store.quant != "none" else np.zeros(0))
     np.savez(os.path.join(os.environ["OUT"], f"rank{dist.get_rank()}.npz"),
-             table=table, scale=store._host_scale if store.quant != "none"
-             else np.zeros(0), stats=json.dumps(store.stats))
+             table=table, scale=scale, stats=json.dumps(store.stats))
     dist.destroy_process_group()
 """)
 
@@ -48,7 +51,8 @@ def _store(run_or_model):
     return [s for _, s in lookup.find_stores(run_or_model)][0]
 
 
-@pytest.fixture(scope="module", params=["lram-tiered", "lram-tiered-q8"])
+@pytest.fixture(scope="module", params=["lram-tiered", "lram-tiered-q8",
+                                        "lram-sharded-tiered"])
 def runs(request, tmp_path_factory):
     """(arch, the 2 ranks' results, the one-rank run's, the init table)."""
     arch = request.param
@@ -61,7 +65,7 @@ def runs(request, tmp_path_factory):
     one = train.main(["--arch", arch, *ARGS])
     store = one.stores[0]
     single = {"table": store.to_dense(), "stats": dict(store.stats),
-              "scale": store._host_scale}
+              "scale": getattr(store, "_host_scale", None)}
     init = _store(transformer.init(configs.get_smoke_config(arch),
                                    seed=0)).to_dense()
     return arch, ranks, single, init
@@ -75,10 +79,13 @@ def test_ranks_hold_the_same_host_tier(runs):
 
 
 def test_one_write_back_a_step_on_every_rank(runs):
-    _, ranks, single, _ = runs
+    """One write-back a step, a range (every step touches both ranges of
+    the sharded-tiered smoke table)."""
+    arch, ranks, single, _ = runs
+    want = 3 * (2 if arch == "lram-sharded-tiered" else 1)
     for r in ranks:
-        assert r["stats"]["writebacks"] == 3
-    assert single["stats"]["writebacks"] == 3
+        assert r["stats"]["writebacks"] == want
+    assert single["stats"]["writebacks"] == want
     # the forwards mapped the global batch: the one-rank run's traffic
     for key in ("lookups", "hits", "misses", "uncached", "fills",
                 "evictions"):
@@ -94,7 +101,7 @@ def test_host_tier_equals_the_one_rank_run(runs):
     arch, ranks, single, init = runs
     got, want = ranks[0]["table"], single["table"]
     assert np.count_nonzero((want - init).any(-1)) > 0
-    if arch == "lram-tiered":
+    if arch != "lram-tiered-q8":
         np.testing.assert_allclose(got - init, want - init, rtol=1e-5,
                                    atol=1e-7)
     else:
