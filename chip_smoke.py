@@ -97,19 +97,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      snapshot and write ms and bytes, the restore's ms;
  6b. the mesh: 4 ranks spawned on the one card (gloo, which sums CUDA
      tensors through host memory: data 2 x model 2, the 2^20-row table
-     row-sharded over model, 128 MiB a rank).  Each rank checks two
-     full-width forwards first: the first eval batch's logits on its
-     shard against the dense pallas table's (1e-5), and the sharded int8
-     and e4m3 cells' `lram_apply` against the dense 1-byte cell's (B4) on
-     the same payloads (1e-5).  Then `train.main` (`--placement sharded
-     --use-mesh --batch 8 --seq 256 --steps 20`: n = 32,768 lookups a
-     rank a step), launch counts reset just before and read just after;
-     fails unless K2, the range gather and the range backward launched
-     on every rank (the backward once a step), the losses are finite and
-     fall, and they match phase 6's (rtol 1e-4 over steps 1-5, 1e-3 over
-     all 20: atomics sum in another order).  Step-time median, tokens/s,
-     peak memory per rank, and two more steps with every sum across
-     ranks timed (their share of the step);
+     row-sharded over model, 128 MiB a rank; every dense leaf the
+     reference's GSPMD rules split kept as the rank's block, gathered
+     whole for each forward).  Each rank checks two full-width forwards
+     first: the first eval batch's logits on its shard (the dense blocks
+     gathered) against the dense pallas table's (1e-5), and the sharded
+     int8 and e4m3 cells' `lram_apply` against the dense 1-byte cell's
+     (B4) on the same payloads (1e-5).  Then `train.main` (`--placement
+     sharded --use-mesh --batch 8 --seq 256 --steps 20`: n = 32,768
+     lookups a rank a step), launch counts reset just before and read
+     just after; fails unless K2, the range gather and the range backward
+     launched on every rank (the backward once a step), the losses are
+     finite and fall, they match phase 6's (rtol 1e-4 over steps 1-5,
+     1e-3 over all 20: atomics sum in another order), and after the run
+     each rank holds no more bytes of dense parameters and Adam moments
+     than its blocks' share plus the replicated leaves (listed).
+     Step-time median, tokens/s, peak memory and held bytes per rank, and
+     two more steps with every sum and every gather across ranks timed
+     (ms, bytes and share of the step);
  6c. crash, resume and elastic restore on the mesh: 6b's run with
      `--steps 12 --ckpt-every 6 --ckpt-dir` (every rank snapshots, the
      table shard and its moments gathered over model on a gloo group of
@@ -120,10 +125,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      steps 6-11 are within rtol 1e-5 of 6b's, K2, the range gather and
      the range backward launched on every rank in both runs, and the
      step-12 checkpoint has 6a's leaf names, shapes, dtypes and bytes (to
-     256 B of JSON).  Then one process restores it into the dense pallas
+     256 B of JSON), and each relaunched rank holds only its blocks'
+     share as in 6b (every rank's peak memory reported).  Then one process restores it into the dense pallas
      table (`--steps 14`): `resumed from step 12`, steps 12-13 within
      rtol 1e-5 of 6b's, K2, K1 and `lookup_bwd` launched.  Every rank's
-     snapshot (gather included), write and restore ms, and the bytes;
+     snapshot (the gathers of the blocks and the table shard included),
+     write and restore ms, and the bytes;
+ 6d. the pipeline: 4 ranks spawned on a ("pod",) mesh run
+     `distributed.pipeline.pipeline_apply` (GPipe, 4 microbatches) over 4
+     full-width plain layers of lram-bert-medium (w 512, d_ff 2048), a
+     stage a rank, on x (8, 256, 512); fails unless every rank's output
+     is within 1e-5 (rtol and atol) of the 4 layers applied in sequence
+     in one process.  Both timed;
+ 6e. gradient compression: lram-bert-medium at full width, `--placement
+     pallas --compression int8` and then `topk`, 10 steps each; fails
+     unless K2, K1 and `lookup_bwd` launched (the backward once a step),
+     the losses are finite and the mean of steps 6-10 is below that of
+     steps 1-5.  Step-time median over steps 6-10, tokens/s, peak
+     memory;
   7. train `lram-tiered` (path (a)) and `lram-tiered-q8` (path (b)) at
      full width on their own tiered spec through `train.main` (`--batch 8
      --seq 64 --steps 20`: n = 16,384 lookups a step, the table in host
@@ -157,8 +176,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      lram-bert-medium, lram-tiered, lram-tiered-q8 and
      lram-sharded-tiered smoke configs 5 steps on the card and on the CPU
      from the same seed's weights and batches, per-step losses and
-     gradient norms to rtol 1e-4, and lram-bert-pkm's smoke config the
-     same way;
+     gradient norms to rtol 1e-4, and lram-bert-pkm's smoke config and
+     lram-bert-medium's with `--compression int8` and `topk` the same
+     way;
   9. last lines: the card again, the `kernels` JSON line, and
      {"ok": true, "device": {...}}.
 
@@ -195,7 +215,8 @@ from repro_torch import configs, data, quant  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.checkpoint.manager import _load, _tree_items  # noqa: E402
 from repro_torch.core import indexing, lattice, lookup  # noqa: E402
-from repro_torch.distributed import collectives, fault, sharding  # noqa: E402
+from repro_torch.distributed import (  # noqa: E402
+    collectives, context, fault, pipeline, sharding)
 from repro_torch.kernels import (  # noqa: E402
     _build, e8_lookup, gather_interp, ops, sharded_gather, tiered_gather)
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
@@ -1567,8 +1588,8 @@ def _mesh_config(args, placement: str, **lram_kw):
 
 def _logits_agree(args, device, mesh) -> float:
     """The eval forward of the run's first eval batch on the dense pallas
-    table and on this rank's shard, from the same seed's weights: the
-    largest logit difference."""
+    table and on this rank's shard (the dense blocks gathered whole),
+    from the same seed's weights: the largest logit difference."""
     cfg = _mesh_config(args, "pallas")
     dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                            global_batch=args.batch, objective=cfg.objective,
@@ -1580,8 +1601,9 @@ def _logits_agree(args, device, mesh) -> float:
                                  seed=args.seed)
         if placement == "sharded":
             sharding.shard_params(model, mesh)
-        with torch.no_grad():
-            out.append(transformer.forward(model.to(device), batch))
+        model = model.to(device)
+        with torch.no_grad(), sharding.gathered(model):
+            out.append(transformer.forward(model, batch))
         del model
     return (out[0] - out[1]).abs().max().item()
 
@@ -1613,6 +1635,43 @@ def _quant_cells_agree(args, device, mesh) -> dict:
         errs[kind] = (got - want).abs().max().item()
         del dense, shard
     return errs
+
+
+def held_dense_bytes(model, opt_state, mesh) -> dict:
+    """The bytes of dense parameters and Adam moments this rank holds
+    between steps (every leaf but a row-sharded table's), against its
+    share: a split leaf's block (its whole / the ranks of its spec's
+    axes) and every replicated leaf whole, three times (the parameter, mu
+    and nu).  Fails if a dense leaf is whole after the step or a rank
+    holds more than its share; lists the replicated leaves."""
+    tables = set(sharding.sharded_tables(model, mesh))
+    blocks = sharding.dense_blocks(model)
+    check(blocks is not None and not blocks.whole,
+          "mesh: the dense weights are not this rank's blocks between "
+          "steps")
+    held = share = whole = 0
+    replicated = {}
+    for k, p in model.named_parameters():
+        if k in tables:
+            continue
+        size = p.element_size()
+        if k in blocks.specs:
+            full = math.prod(blocks.shapes[k]) * size
+            part = full // math.prod(
+                mesh.size(a) for a in sharding.spec_axes(blocks.specs[k]))
+        else:
+            full = part = p.numel() * size
+            replicated[k] = full
+        held += sum(t.numel() * t.element_size() for t in (
+            p, opt_state["mu"][k], opt_state["nu"][k]))
+        share += 3 * part
+        whole += 3 * full
+    check(held <= share, f"mesh: a rank holds {held} B of dense parameters "
+                         f"and moments against its share of {share} B")
+    return {"held_bytes": held, "share_bytes": share,
+            "whole_bytes": whole, "split_leaves": len(blocks.specs),
+            "replicated_leaves": replicated,
+            "replicated_bytes": 3 * sum(replicated.values())}
 
 
 def _rank_env(rank: int, port: int) -> None:
@@ -1694,38 +1753,56 @@ def mesh_rank(rank: int, port: int, results, argv, device_name) -> None:
                                 if device.type == "cuda" else None)
     out["records"] = run.records
     out["final_eval_loss"] = run.final_eval_loss
-    # two more steps, every sum across ranks timed (the device synchronized
-    # before and after each, so its time is the collective's alone)
-    all_reduce = collectives.all_reduce_
-    comm = []
+    out["held"] = held_dense_bytes(run.model, run.opt_state, mesh)
+    # two more steps, every sum and gather across ranks timed (the device
+    # synchronized before and after each, so its time is the collective's
+    # alone); a gather's bytes are those it receives
+    all_reduce, all_gather = (collectives.all_reduce_,
+                              collectives.all_gather_blocks)
+    comm = {"sum": [], "gather": []}
 
-    def timed(t, group):
+    def timed_sum(t, group):
         _sync(device)
         t0 = time.perf_counter()
         all_reduce(t, group)
         _sync(device)
-        comm.append((time.perf_counter() - t0, t.numel() * t.element_size()))
+        comm["sum"].append((time.perf_counter() - t0,
+                            t.numel() * t.element_size()))
         return t
 
-    collectives.all_reduce_ = timed
-    walls = []
+    def timed_gather(t, group):
+        _sync(device)
+        t0 = time.perf_counter()
+        parts = all_gather(t, group)
+        _sync(device)
+        comm["gather"].append((time.perf_counter() - t0, sum(
+            p.numel() * p.element_size() for p in parts)))
+        return parts
+
+    collectives.all_reduce_ = timed_sum
+    collectives.all_gather_blocks = timed_gather
+    timed = []
     try:
         for step in (args.steps, args.steps + 1):
             batch = train.batch_to(data.get_batch(run.dcfg, step=step),
                                    device)
-            comm.clear()
+            for v in comm.values():
+                v.clear()
             t0 = time.perf_counter()
             run.step_fn(run.opt_state, batch)
             _sync(device)
-            walls.append((time.perf_counter() - t0,
-                          sum(c for c, _ in comm), len(comm),
-                          sum(b for _, b in comm)))
+            wall = time.perf_counter() - t0
+            rec = {"wall_ms": 1e3 * wall}
+            for kind, calls in comm.items():
+                ms = 1e3 * sum(c for c, _ in calls)
+                rec.update({f"{kind}_ms": ms, f"{kind}s": len(calls),
+                            f"{kind}_bytes": sum(b for _, b in calls),
+                            f"{kind}_share": ms / rec["wall_ms"]})
+            timed.append(rec)
     finally:
         collectives.all_reduce_ = all_reduce
-    out["timed_steps"] = [{"wall_ms": 1e3 * w, "collective_ms": 1e3 * c,
-                           "collectives": k, "collective_bytes": b,
-                           "collective_share": c / w}
-                          for w, c, k, b in walls]
+        collectives.all_gather_blocks = all_gather
+    out["timed_steps"] = timed
     results.put(out)
     dist.destroy_process_group()
 
@@ -1798,6 +1875,7 @@ def mesh_phase(dense_records, argv=MESH_ARGS, device_name="cuda"):
         "tokens_per_sec": tokens / (median_ms / 1e3),
         "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
                                       for r in ranks],
+        "held_dense_by_rank": [r["held"] for r in ranks],
         "timed_steps_by_rank": [r["timed_steps"] for r in ranks],
         "logits_max_abs_err_by_rank": [r["logits_max_abs_err"]
                                        for r in ranks],
@@ -2002,7 +2080,8 @@ def mesh_ckpt_rank(rank: int, port: int, results, argv, device_name,
     """One rank of phase 6c (a spawned process): `train.main(argv)` with
     its launch counts reset just before and read just after and its
     checkpoint managers recorded; with `crash` it must raise
-    SimulatedFailure, and only that is caught."""
+    SimulatedFailure, and only that is caught.  Reports its peak device
+    memory, and after a run that ends its held dense bytes."""
     _rank_env(rank, port)
     train.CheckpointManager = RecordingManager
     RecordingManager.made = []
@@ -2024,7 +2103,11 @@ def mesh_ckpt_rank(rank: int, port: int, results, argv, device_name,
         "steps": [json.loads(x) for x in out if x.startswith('{"step"')],
         "resumed": [x for x in out if x.startswith("resumed from")],
         "start_step": None if run is None else run.start_step,
-        "records": [] if run is None else run.records})
+        "records": [] if run is None else run.records,
+        "held": None if run is None else held_dense_bytes(
+            run.model, run.opt_state, context.get_mesh()),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                              if device_name == "cuda" else None)})
     dist.destroy_process_group()
 
 
@@ -2114,12 +2197,155 @@ def mesh_resume_path(mesh_losses, dense_saved, ckpt_dir,
             "mesh_losses": mesh_losses[12:14], "rel_err": max(dense_err),
             "checkpoints": _history(RecordingManager.made[-1:]),
             "launches": dense_launches},
+        "held_dense_resumed_by_rank": [r["held"] for r in resumed],
+        "peak_memory_bytes_by_rank": {
+            "crashed": [r["peak_memory_bytes"] for r in crashed],
+            "resumed": [r["peak_memory_bytes"] for r in resumed]},
         "launches_crashed_by_rank": [r["launches"] for r in crashed],
         "launches_resumed_by_rank": [r["launches"] for r in resumed],
     }), flush=True)
     total = [{k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
              for ranks in (crashed, resumed)]
     return total[0], total[1], dense_launches
+
+
+# phase 6d: GPipe over a ("pod",) mesh of the 4 ranks, a full-width plain
+# layer of lram-bert-medium a stage, x (8, 256, 512) in 4 microbatches
+PIPE_SHAPE = (8, 256)
+PIPE_MICROBATCHES = 4
+PIPE_TOL = 1e-5
+PIPE_TIMED = 3
+
+
+def pipeline_rank(rank: int, port: int, results, device_name) -> None:
+    """One rank of phase 6d (a spawned process): the 4 layers (drawn alike
+    on every rank from one seed) through `pipeline_apply`, this rank the
+    stage at its coordinate along ``pod``, against the 4 applied in
+    sequence in this process; both timed (the device synchronized)."""
+    _rank_env(rank, port)
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method="env://",
+                            world_size=MESH_RANKS, rank=rank)
+    mesh = context.Mesh((MESH_RANKS,), ("pod",))
+    cfg = configs.get_config("lram-bert-medium")
+    gen = torch.Generator().manual_seed(11)
+    layers = [transformer.Layer(cfg, generator=gen).to(device)
+              for _ in range(MESH_RANKS)]
+    x = torch.randn(*PIPE_SHAPE, cfg.d_model,
+                    generator=torch.Generator().manual_seed(12)).to(device)
+
+    def stage(layer, h):
+        positions = torch.arange(h.shape[1], device=h.device).expand(
+            h.shape[0], -1)
+        return layer.full(h, positions, causal=False)[0]
+
+    def piped():
+        return pipeline.pipeline_apply(stage, layers, x, mesh=mesh,
+                                       axis="pod",
+                                       num_microbatches=PIPE_MICROBATCHES)
+
+    def sequential():
+        h = x
+        with torch.no_grad():
+            for layer in layers:
+                h = stage(layer, h)
+        return h
+
+    times = {}
+    for name, fn in (("pipeline", piped), ("sequential", sequential)):
+        got = fn()  # the first call: set-up
+        ms = []
+        for _ in range(PIPE_TIMED):
+            dist.barrier()
+            _sync(device)
+            t0 = time.perf_counter()
+            got = fn()
+            _sync(device)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        times[name] = (got, ms)
+    out, want = times["pipeline"][0], times["sequential"][0]
+    results.put({
+        "rank": rank, "stage": mesh.index("pod"),
+        "shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+        "max_abs_err": (out - want).abs().max().item(),
+        "close": bool(torch.allclose(out, want, rtol=PIPE_TOL,
+                                     atol=PIPE_TOL)),
+        "pipeline_ms": times["pipeline"][1],
+        "sequential_ms": times["sequential"][1]})
+    dist.destroy_process_group()
+
+
+def pipeline_phase(device_name="cuda") -> None:
+    """Phase 6d: 4 ranks on a ("pod",) mesh run `pipeline_apply` with 4
+    microbatches over 4 full-width plain layers of lram-bert-medium (w =
+    512, d_ff 2048), x (8, 256, 512); fails unless every rank's output is
+    finite, of x's shape and within 1e-5 (rtol and atol) of the 4 layers
+    applied in sequence on one process."""
+    if device_name == "cuda":
+        torch.cuda.empty_cache()
+    ranks, wall_s = _spawn_ranks(pipeline_rank, (device_name,),
+                                 "pipeline phase")
+    for r in ranks:
+        check(r["finite"] and r["shape"] == [*PIPE_SHAPE, 512]
+              and r["close"],
+              f"pipeline rank {r['rank']}: output {r['shape']} differs from "
+              f"the sequential layers by {r['max_abs_err']}")
+    print(json.dumps({
+        "pipeline": "GPipe over pod", "stages": MESH_RANKS,
+        "microbatches": PIPE_MICROBATCHES, "x": [*PIPE_SHAPE, 512],
+        "stage": "lram-bert-medium Layer (w 512, d_ff 2048)",
+        "max_abs_err_by_rank": [r["max_abs_err"] for r in ranks],
+        "pipeline_ms_by_rank": [r["pipeline_ms"] for r in ranks],
+        "sequential_ms_by_rank": [r["sequential_ms"] for r in ranks],
+        "wall_s_incl_spawn": wall_s}), flush=True)
+
+
+# phase 6e: the dense training with each gradient codec
+COMP_STEPS = 10
+COMP_ARGS = ["--arch", "lram-bert-medium", "--placement", "pallas",
+             "--batch", "8", "--seq", "256", "--steps", str(COMP_STEPS),
+             "--json"]
+
+
+def compression_path(kind: str) -> dict:
+    """Phase 6e: lram-bert-medium at full width, `--compression kind`, 10
+    steps, launch counts reset just before and read just after; fails
+    unless K2, K1 and `lookup_bwd` launched (the backward once a step),
+    every loss is finite and the mean of steps 6-10 is below that of
+    steps 1-5.  Returns the launch counts."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = COMP_ARGS + ["--compression", kind]
+    run, _, _, launches = _cli(train.main, argv)
+    who = f"compression {kind}"
+    check(len(run.records) == COMP_STEPS, f"{who}: steps missing")
+    for kernel in ("lram_query", "gather_interp"):
+        check(launches[kernel] >= COMP_STEPS,
+              f"{who}: {kernel} launched {launches[kernel]} times")
+    check(launches["lookup_bwd"] == COMP_STEPS,
+          f"{who}: the backward launched {launches['lookup_bwd']} times")
+    losses = [r["loss"] for r in run.records]
+    norms = [r["grad_norm"] for r in run.records]
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{who}: non-finite loss or grad norm: {losses} {norms}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[5:]))
+    check(last < first, f"{who}: the loss did not fall ({losses})")
+    step_ms = [r["step_ms"] for r in run.records]
+    median_ms = float(np.median(step_ms[5:]))
+    tokens = run.dcfg.global_batch * run.dcfg.seq_len
+    print(json.dumps({
+        "train": f"lram-bert-medium --compression {kind}", "argv": argv,
+        "losses": losses, "grad_norms": norms,
+        "loss_mean_steps_1_5": first, "loss_mean_steps_6_10": last,
+        "step_ms": step_ms, "step_ms_median_steps_6_10": median_ms,
+        "tokens_per_sec": tokens / (median_ms / 1e3),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches}), flush=True)
+    del run
+    return launches
 
 
 Q8_CKPT_ARGS = ["--arch", "lram-tiered-q8", "--batch", "8", "--seq", "64",
@@ -2205,7 +2431,7 @@ def train_parity(arch: str, extra=()) -> None:
             "4", "--seq", "32", "--seed", "1"]
     card = train.main(argv + ["--device", "cuda"])
     cpu = train.main(argv + ["--device", "cpu"])
-    out = {"parity": f"smoke train card vs CPU: {arch}"}
+    out = {"parity": f"smoke train card vs CPU: {arch}", "args": list(extra)}
     for key in ("loss", "grad_norm"):
         pairs = [(a[key], b[key]) for a, b in zip(card.records, cpu.records)]
         err = max(abs(a - b) / abs(b) for a, b in pairs)
@@ -2280,6 +2506,9 @@ def main() -> None:
         (launches["mesh_ckpt_crashed"], launches["mesh_ckpt_resumed"],
          launches["mesh_ckpt_one_process"]) = mesh_resume_path(
             mesh_losses, dense_saved, ckpt)
+    pipeline_phase()
+    for kind in ("int8", "topk"):
+        launches[f"compression_{kind}"] = compression_path(kind)
     for name, (_, _, gather, _, _) in TIERED_TRAIN.items():
         launches[name], run = tiered_train_path(name)
         profile_train_step(run, f"train step {name}", (
@@ -2293,6 +2522,9 @@ def main() -> None:
     del run
     parity_phase()
     train_parity("lram-bert-medium", ["--placement", "pallas"])
+    for kind in ("int8", "topk"):
+        train_parity("lram-bert-medium", ["--placement", "pallas",
+                                          "--compression", kind])
     train_parity("lram-bert-pkm")
     train_parity("lram-tiered")
     train_parity("lram-tiered-q8")

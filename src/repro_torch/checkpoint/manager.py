@@ -38,17 +38,18 @@ Guarantees:
   * growth      — a smaller memory table restores into a larger one by
     tiling (`j mod old_N`); a shrink or a shard geometry mismatch raises
     `CheckpointError`;
-  * mesh        — `sharding` ({leaf name: (mesh, axis)}, from
+  * mesh        — `sharding` ({leaf name: (mesh, spec)}, from
     `launch.convert.reference_sharding`) names the leaves that hold this
-    rank's rows of a table split over a mesh axis.  A save on a mesh is
-    called by every rank: those leaves are gathered into their global
-    arrays (`distributed.sharding.gather_rows`, over the axis's gloo
-    group, in `save` itself: the writer thread issues no collective), and
-    rank 0 alone writes, renames and prunes, so the files are a
-    one-process run's.  A tiered store is alike on every rank; rank 0
-    streams it.  A restore with `sharding` checks each such leaf against
-    `like`'s global shape and keeps this rank's rows of it
-    (`distributed.sharding.own_rows`): a checkpoint restores onto any
+    rank's block of a leaf split over mesh axes (a dense leaf by the
+    GSPMD rules, a table's rows).  A save on a mesh is called by every
+    rank: those leaves are gathered into their global arrays
+    (`distributed.sharding.gather_block`, over the gloo group of the
+    spec's axes, in `save` itself: the writer thread issues no
+    collective), and rank 0 alone writes, renames and prunes, so the
+    files are a one-process run's.  A tiered store is alike on every
+    rank; rank 0 streams it.  A restore with `sharding` checks each such
+    leaf against `like`'s global shape and keeps this rank's block of it
+    (`distributed.sharding.own_block`): a checkpoint restores onto any
     mesh shape, onto one process, or from one process onto a mesh.
 
 fp8 payloads are e4m3 bytes: written as numpy's `<V1` (the descr the
@@ -72,7 +73,7 @@ import torch.distributed as dist
 
 from repro_torch import quant
 from repro_torch.core import lookup
-from repro_torch.distributed import sharding as mesh_rows
+from repro_torch.distributed import sharding as mesh_blocks
 
 _MANIFEST = "manifest.json"
 _FP8 = "float8_e4m3fn"
@@ -256,8 +257,8 @@ class CheckpointManager:
     def save(self, step: int, tree, *, blocking: bool = True,
              sharding: dict | None = None) -> None:
         """Checkpoint `tree` as step `step`.  With `sharding` ({leaf name:
-        (mesh, axis)}) or in any run of several ranks every rank calls
-        this: the named leaves are gathered over their axis, and only
+        (mesh, spec)}) or in any run of several ranks every rank calls
+        this: the named leaves are gathered over their axes, and only
         rank 0 writes."""
         t0 = time.perf_counter()
         sharding = sharding or {}
@@ -269,7 +270,7 @@ class CheckpointManager:
                 stores.append((name, leaf))
             elif name in sharding:  # a collective: every rank, in order
                 arr, dtype = _host_copy(leaf)
-                arr = mesh_rows.gather_rows(arr, *sharding[name])
+                arr = mesh_blocks.gather_block(arr, *sharding[name])
                 if writer:
                     host.append((name, arr, dtype))
             elif writer:
@@ -418,10 +419,10 @@ class CheckpointManager:
         with numpy leaves (fp8 payloads as uint8 bytes) and every store
         loaded in place, or (None, None) if nothing restorable.
 
-        `sharding` ({leaf name: (mesh, axis)}, the reference's elastic
-        re-placement) names the leaves of which this rank keeps its rows:
-        `like` gives their global shape, the leaf is restored whole and
-        this rank's rows [i * R, (i + 1) * R) of it are returned.  Every
+        `sharding` ({leaf name: (mesh, spec)}, the reference's elastic
+        re-placement) names the leaves of which this rank keeps its
+        block: `like` gives their global shape, the leaf is restored
+        whole and this rank's block of it is returned.  Every
         other leaf restores whole.  No collective: each rank reads the
         checkpoint itself.
 
@@ -491,7 +492,7 @@ class CheckpointManager:
             if want is not None and arr.dtype != want:
                 arr = arr.astype(want)
             if sharding and name in sharding:
-                arr = mesh_rows.own_rows(arr, *sharding[name])
+                arr = mesh_blocks.own_block(arr, *sharding[name])
             leaves.append(arr)
         return _rebuild(like, iter(leaves))
 

@@ -1,11 +1,14 @@
-"""Sums across the ranks of a process group, plain and differentiable,
-and the gather of a batch's rows.
+"""Sums across the ranks of a process group, plain, differentiable and
+compressed, and the gathers of a batch's rows and of a leaf's blocks.
 
-`all_reduce_` is the one place the port reduces tensors across ranks, and
-`all_gather_rows` the one place it gathers them.  On
-a gloo group it reduces CUDA tensors too: gloo stages them through host
-memory, which is how the one-card mesh (several ranks on one H100) runs;
-NCCL reduces them on the cards.
+`all_reduce_` is the one place the port sums tensors across ranks, and
+`all_gather_blocks` the one place it gathers them (`all_gather_rows`
+concatenates its parts).  On a gloo group they take CUDA tensors too:
+gloo stages them through host memory, which is how the one-card mesh
+(several ranks on one H100) runs; NCCL moves them on the cards.
+`compressed_psum` is the reference's wire form of the int8 gradient
+codec: a common scale (one max over the group), an int32 sum of the int8
+payloads, the sum dequantized.
 
 The differentiable forms are Megatron's conjugate pair and their product,
 for values that every rank of the group computes alike downstream:
@@ -40,6 +43,17 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
+def all_gather_blocks(t: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's `t` (alike in shape), in the group's rank order; [t]
+    for a group of None or of one rank."""
+    if _trivial(group):
+        return [t]
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return parts
+
+
 def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """Every rank's `t` (alike in shape) concatenated along dim 0 in the
     group's rank order: the global batch, for tensors of each data rank's
@@ -47,10 +61,28 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     group of None or of one rank."""
     if _trivial(group):
         return t
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts)
+    return torch.cat(all_gather_blocks(t, group))
+
+
+def all_max_(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of `t` over `group`, in place; returns it."""
+    if not _trivial(group):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
+def compressed_psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Common-scale int8 all-reduce over `group` (the reference's
+    `compressed_psum`): every rank quantizes against the largest scale of
+    the group, the int8 payloads are summed in int32 (worst case 127 x
+    ranks, far below 2^31) and the sum is dequantized, float32.  Its
+    error is at most scale / 2 x ranks; pair it with error feedback
+    upstream (`repro_torch.optim.compression`)."""
+    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    scale = all_max_(scale.float().reshape(1), group)[0]
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    total = all_reduce_(q.to(torch.int32), group)
+    return total.float() * scale
 
 
 def all_reduce_flat_(tensors: list[torch.Tensor], group) -> None:

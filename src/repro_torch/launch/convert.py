@@ -25,12 +25,13 @@ walks it backwards):
 `reference_tree` builds the reference's tree from a model (and its Adam
 state) with stacked runs, the form the checkpoint manager writes, and
 `load_reference_tree` copies such a tree back, IN PLACE.  On a mesh a
-row-sharded table (and its two moments) is this rank's rows: the
-reference's tree holds the global array, so `reference_tree(like=True)`
-gives the global shapes, `reference_sharding` names those leaves for the
-checkpoint manager (which gathers them on save and keeps this rank's
-rows on restore), and `load_reference_tree` keeps this rank's rows of a
-global leaf it is given.
+dense leaf the GSPMD rules split is this rank's block and a row-sharded
+table its rows (and so are their two moments): the reference's tree
+holds the global array, so `reference_tree(like=True)` gives the global
+shapes, `reference_sharding` names those leaves for the checkpoint
+manager (which gathers them on save and keeps this rank's block on
+restore), and `load_reference_tree` keeps this rank's block of a global
+leaf it is given.
 
 A memory layer's table (`...lram.values`) is an (N, m) fp32 array, or a
 quantized table as ``{"q": payload, "scale": scales}``: the reference's
@@ -133,21 +134,20 @@ def _moment_path(moment: str, path: str) -> str:
 
 def reference_sharding(model: transformer.Transformer,
                        opt_state=None) -> dict[str, tuple]:
-    """{reference leaf name: (mesh, axis)} of every leaf that holds this
-    rank's rows of a table split over an axis of the ambient mesh (its
-    payload or scales, and with `opt_state` its Adam moments): the
-    checkpoint manager's `sharding`.  {} without a mesh."""
+    """{reference leaf name: (mesh, spec)} of every leaf of which this rank
+    holds a part on the ambient mesh (`sharding.split_leaves`: a dense
+    block, a row-sharded table's payload, scales or values, and with
+    `opt_state` their Adam moments; a stacked run's spec leads with None):
+    the checkpoint manager's `sharding`.  {} without a mesh."""
     mesh = context.get_mesh()
     out = {}
-    for prefix, axis in sharding.sharded_tables(model, mesh).items():
-        for key in model.state_dict(keep_vars=True):
-            if key != prefix and not key.startswith(prefix + "."):
-                continue
-            path, _ = reference_path(key, model.cfg)
-            out[path] = (mesh, axis)
-            if opt_state is not None and key in opt_state["mu"]:
-                for moment in ("mu", "nu"):
-                    out[_moment_path(moment, path)] = (mesh, axis)
+    for key, spec in sharding.split_leaves(model, mesh).items():
+        path, layer = reference_path(key, model.cfg)
+        spec = (None,) * (layer is not None) + tuple(spec)
+        out[path] = (mesh, spec)
+        if opt_state is not None and key in opt_state["mu"]:
+            for moment in ("mu", "nu"):
+                out[_moment_path(moment, path)] = (mesh, spec)
     return out
 
 
@@ -156,11 +156,11 @@ def reference_tree(model: transformer.Transformer, opt_state=None, *,
     """The reference's tree of the model: {"params", "model_state"} and,
     with `opt_state`, "opt" ({"mu", "nu", "step"}).  A run's layers are
     stacked (a copy); every other leaf is the live tensor (on a mesh, a
-    row-sharded table's are this rank's rows); a tiered store is the
-    store itself, under params and under both moments, as the reference's
-    Adam state holds the same node.  With `like` the leaves are meta
-    tensors of the reference's shapes (a restore target): the global
-    shape of a row-sharded leaf."""
+    split leaf's is this rank's block); a tiered store is the store
+    itself, under params and under both moments, as the reference's Adam
+    state holds the same node.  With `like` the leaves are meta tensors of
+    the reference's shapes (a restore target): the global shape of a
+    split leaf."""
     cfg = model.cfg
     groups: dict[str, list] = {}
     for key, t in model.state_dict(keep_vars=True).items():
@@ -176,8 +176,8 @@ def reference_tree(model: transformer.Transformer, opt_state=None, *,
         if like:
             shape = (len(parts),) * (layer is not None) + tuple(t.shape)
             if path in spread:
-                mesh, axis = spread[path]
-                shape = (shape[0] * mesh.size(axis),) + shape[1:]
+                shape = sharding.global_shape(shape, spread[path][1],
+                                              spread[path][0])
             return torch.empty(shape, dtype=t.dtype, device="meta")
         if layer is None:
             return t.detach()
@@ -219,8 +219,8 @@ def load_reference_tree(model: transformer.Transformer, tree: dict,
     """Copy a reference tree (numpy leaves, as `CheckpointManager.restore`
     returns it) into the model's parameters and batchnorm stats and, with
     `opt_state`, into Adam's moments and step, IN PLACE.  On a mesh a
-    row-sharded leaf may be global (this rank's rows are kept) or this
-    rank's rows already (a restore with `reference_sharding`).  Tiered
+    split leaf may be global (this rank's block is kept) or this rank's
+    block already (a restore with `reference_sharding`).  Tiered
     stores were streamed in place by the restore itself."""
     cfg = model.cfg
     spread = reference_sharding(model, opt_state)
@@ -234,8 +234,9 @@ def load_reference_tree(model: transformer.Transformer, tree: dict,
     def fill(t: torch.Tensor, path: str, layer) -> None:
         arr = get(path)
         arr = arr if layer is None else arr[layer]
-        if path in spread and arr.shape[0] != t.shape[0]:
-            arr = sharding.own_rows(arr, *spread[path])
+        if path in spread and tuple(arr.shape) != tuple(t.shape):
+            mesh, spec = spread[path]
+            arr = sharding.own_block(arr, mesh, spec[layer is not None:])
         t.copy_(_as_tensor(arr, t))
 
     for key, t in model.state_dict(keep_vars=True).items():

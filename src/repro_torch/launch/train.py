@@ -11,6 +11,9 @@
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch lram-bert-medium --placement sharded --use-mesh \\
         --batch 8 --seq 256 --steps 20 --json   # data 2 x model 2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch lram-bert-medium --smoke --device cpu --placement sharded \\
+        --use-mesh --mesh-shape 2x1x2 --compression int8 --steps 5 --json
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch lram-bert-pkm --smoke --device cpu --steps 20 \\
         --ckpt-dir /tmp/ckpt --ckpt-every 10 --simulate-failure-at 15
@@ -64,31 +67,39 @@ the cache hit rate of a tiered table) and a summary.
 
 `--use-mesh` under a launch of several ranks (torchrun: WORLD_SIZE > 1)
 joins the process group and builds the host mesh (`launch.mesh`: data x
-model, 4 ranks are 2 x 2); with one rank it trains without a mesh, as the
-reference does on one device.  Every rank draws the whole model on the
-CPU from `--seed`, keeps its rows of a `--placement sharded` table
-(`distributed.sharding.shard_params`) and moves to its device; the dense
-weights stay replicated.  A step takes the rank's slice of the global
-batch, sums the gradients over ``data`` (one all-reduce for the dense
-weights, one for the table shard), and clips by the global norm that
-counts every table row once.  The losses it reports are the global
-batch's.  Rank 0 prints; every rank evaluates the whole eval batch, so
-that all of them issue the same collectives.
+model, 4 ranks are 2 x 2, or `--mesh-shape` DxM or PxDxM with a ``pod``
+axis); with one rank it trains without a mesh, as the reference does on
+one device.  Every rank draws the whole model on the CPU from `--seed`,
+keeps its block of every dense leaf the reference's GSPMD rules split
+(FSDP over the batch axes, TP over ``model``) and its rows of a
+`--placement sharded` table (`distributed.sharding.shard_params`), and
+moves to its device.  A step takes the rank's slice of the global
+batch, gathers the dense blocks whole for the forward and backward and
+releases them, sums the gradients over the batch axes (one all-reduce
+for the dense weights, one for the table shard), clips by the global
+norm that counts every table row once, and steps Adam on its blocks and
+rows alone.  The losses it reports are the global batch's.  Rank 0
+prints; every rank evaluates the whole eval batch (under the gathered
+weights), so that all of them issue the same collectives.
 
-`--ckpt-dir` on a mesh: every rank takes part in each save (a
-row-sharded table and its moments are gathered over ``model`` into the
-reference's global arrays, `convert.reference_sharding`) and rank 0 alone
-writes, so the checkpoint is a one-process run's, leaf for leaf.  On a
-relaunch every rank builds and shards the model, restores (each keeping
-its rows: the mesh's shape may differ from the saving run's, or the run
-may have one process); the ranks compare the steps they restored and
+`--compression int8|topk` codes the summed gradients with error feedback
+before Adam (`optim.compression`), as the reference's step does.
+
+`--ckpt-dir` on a mesh: every rank takes part in each save (every split
+leaf, a dense block or a table's rows, and their moments are gathered
+over their axes into the reference's global arrays,
+`convert.reference_sharding`) and rank 0 alone writes, so the checkpoint
+is a one-process run's, leaf for leaf.  On a relaunch every rank builds
+and shards the model, restores (each keeping its blocks: the mesh's
+shape may differ from the saving run's, or the run may have one
+process); the ranks compare the steps they restored and
 raise `CheckpointError` unless all found the same (a rank that fell back
 alone would train from another step), and rank 0 prints `resumed from
-step N`.  On `--simulate-failure-at` every rank waits for rank 0's pending write at a
-barrier, then raises.
+step N`.  On `--simulate-failure-at` every rank waits for rank 0's
+pending write at a barrier, then raises.
 
 Not ported yet, and refused with the ROADMAP item that ports them:
-gradient compression, telemetry, memory growth and observability.
+telemetry, memory growth and observability.
 """
 
 from __future__ import annotations
@@ -113,7 +124,6 @@ from repro_torch.models import transformer
 
 # flag -> (value that means "off", the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "compression": ("none", "A3 (optim/compression.py)"),
     "telemetry": (False, "A10 (memctl telemetry)"),
     "grow_at": ("", "A10 (memctl growth)"),
     "metrics_dir": ("", "A13 (observability)"),
@@ -142,44 +152,65 @@ def batch_to(batch: dict, device) -> dict[str, torch.Tensor]:
 
 
 def build_train_step(model: transformer.Transformer,
-                     opt_cfg: optim.OptimConfig, mesh=None):
+                     opt_cfg: optim.OptimConfig, mesh=None,
+                     compression: str = "none"):
     """`train_step(opt_state, batch) -> metrics`: loss and backward through
     the model, then Adam over every parameter, IN PLACE (parameters,
     moments, step counter and the batchnorm running stats).  The metrics
     are device tensors: loss, xent, aux, ntokens, grad_norm, lr.
 
     With a mesh (the ambient one, `context.set_mesh`) `batch` is the
-    global batch: the step takes this data rank's slice, sums the
-    gradients over ``data`` (one flattened all-reduce for the replicated
-    weights, one for the row shards of the tables), clips by the global
-    norm (the shards' squares summed over their axis) and steps Adam on
-    its own rows.  loss and xent are the global batch's (the parts summed
-    over ``data``)."""
+    global batch: the step takes this data rank's slice, gathers the
+    dense leaves' blocks whole (`sharding.gathered`), runs the forward and
+    backward, releases them, sums the gradients over the batch axes (one
+    flattened all-reduce for the dense weights, whole, one for the row
+    shards of the tables), clips by the global norm (the shards' squares
+    summed over their axis) and steps Adam on its own blocks and rows.
+    loss and xent are the global batch's (the parts summed over the batch
+    axes).
+
+    `compression` ("int8", "topk") codes the summed gradients with error
+    feedback before Adam (`optim.compress_gradients`, as the reference's
+    step does): a row-sharded table's gradient as its global array.  The
+    residual mirrors the gradients (the dense ones whole) from the first
+    step on."""
     params = dict(model.named_parameters())
     shards = sharding.sharded_tables(model, mesh)
-    data_group = context.axis_group("data") if mesh is not None else None
+    blocks = sharding.dense_blocks(model)
+    batch_group = context.batch_group() if mesh is not None else None
     shard_group = (mesh.group(next(iter(shards.values()))) if shards
                    else None)
+    comp = None  # the codec's state, made from the first step's gradients
 
     def train_step(opt_state, batch):
+        nonlocal comp
         batch = sharding.batch_slice(mesh, batch)
-        loss, metrics = transformer.loss_fn(model, batch, train=True)
-        loss.backward()
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in params.items()}
-        if data_group is not None:
+        with sharding.gathered(model):
+            loss, metrics = transformer.loss_fn(model, batch, train=True)
+            loss.backward()
+            grads = {k: p.grad if p.grad is not None
+                     else torch.zeros_like(p) for k, p in params.items()}
+            for p in params.values():
+                p.grad = None
+        if batch_group is not None:
             collectives.all_reduce_flat_(
-                [g for k, g in grads.items() if k not in shards], data_group)
+                [g for k, g in grads.items() if k not in shards],
+                batch_group)
             collectives.all_reduce_flat_([grads[k] for k in shards],
-                                         data_group)
+                                         batch_group)
             for key in ("xent", "aux"):
                 metrics[key] = collectives.all_reduce_(
-                    metrics[key].detach().clone(), data_group)
-            loss = collectives.all_reduce_(loss.detach().clone(), data_group)
-        stats = optim.adam_update(params, grads, opt_state, opt_cfg,
-                                  sharded=tuple(shards), group=shard_group)
-        for p in params.values():
-            p.grad = None
+                    metrics[key].detach().clone(), batch_group)
+            loss = collectives.all_reduce_(loss.detach().clone(),
+                                           batch_group)
+        if compression != "none":
+            if comp is None:
+                comp = optim.compression_init(grads, compression)
+            grads, comp = optim.compress_gradients(
+                grads, comp, groups={k: shard_group for k in shards})
+        stats = optim.adam_update(
+            params, grads, opt_state, opt_cfg, sharded=tuple(shards),
+            group=shard_group, blocks=blocks.index if blocks else None)
         return {**{k: v.detach() for k, v in metrics.items()}, **stats,
                 "loss": loss.detach()}
 
@@ -189,17 +220,20 @@ def build_train_step(model: transformer.Transformer,
 @torch.no_grad()
 def evaluate(model: transformer.Transformer, dcfg: data.DataConfig, *,
              steps: int = 4):
-    """(mean held-out loss over `steps` batches, fact recall on the probe)."""
+    """(mean held-out loss over `steps` batches, fact recall on the probe),
+    under the dense leaves gathered whole (a collective on a mesh: every
+    rank evaluates the whole batches)."""
     device = next(model.parameters()).device
     table = data.make_fact_table(dcfg)
     losses = []
-    for i in range(steps):
-        batch = batch_to(data.get_batch(dcfg, step=10_000_000 + i,
-                                        table=table), device)
-        loss, _ = transformer.loss_fn(model, batch, train=False)
-        losses.append(float(loss))
     probe = batch_to(data.fact_eval_batch(dcfg, n=64, table=table), device)
-    pred = transformer.forward(model, probe).argmax(-1)
+    with sharding.gathered(model):
+        for i in range(steps):
+            batch = batch_to(data.get_batch(dcfg, step=10_000_000 + i,
+                                            table=table), device)
+            loss, _ = transformer.loss_fn(model, batch, train=False)
+            losses.append(float(loss))
+        pred = transformer.forward(model, probe).argmax(-1)
     mask = probe["labels"] != data.IGNORE
     recall = float((mask & (pred == probe["labels"])).sum() / mask.sum())
     return float(np.mean(losses)), recall
@@ -265,9 +299,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--simulate-failure-at", type=int, default=-1,
                    help="raise SimulatedFailure before this step")
     p.add_argument("--use-mesh", action="store_true")
-    # the reference's flags whose machinery is not ported: refused
+    p.add_argument("--mesh-shape", default="",
+                   help="DxM (data x model) or PxDxM (pod x data x model); "
+                        "default: the reference's host-mesh rule")
     p.add_argument("--compression", default="none",
-                   choices=["none", "int8", "topk"])
+                   choices=["none", "int8", "topk"],
+                   help="code the summed gradients (error feedback)")
+    # the reference's flags whose machinery is not ported: refused
     p.add_argument("--telemetry", action="store_true")
     p.add_argument("--grow-at", default="")
     p.add_argument("--metrics-dir", default="")
@@ -287,7 +325,8 @@ def main(argv=None) -> TrainRun:
     _refuse_unported(args)
     mesh = None
     if args.use_mesh and mesh_lib.world_size() > 1:
-        mesh, device = mesh_lib.init_mesh(args.device)
+        mesh, device = mesh_lib.init_mesh(args.device,
+                                          shape=args.mesh_shape or None)
     else:
         device = resolve_device(args.device)
     main_rank = mesh is None or dist.get_rank() == 0
@@ -316,17 +355,17 @@ def main(argv=None) -> TrainRun:
     opt_cfg = optim.OptimConfig(lr=args.lr,
                                 memory_lr_mult=args.memory_lr_mult)
     model = transformer.init(cfg, seed=args.seed)
-    if mesh is not None:  # every rank drew the whole model; keep its rows
+    if mesh is not None:  # every rank drew the whole model; keep its part
         sharding.shard_params(model, mesh)
     model = model.to(device)
     # a store's table is no Parameter: Adam and the clip never see it
     stores = bind_stores(model, args.lr * args.memory_lr_mult)
     opt_state = optim.adam_init(dict(model.named_parameters()))
-    step_fn = build_train_step(model, opt_cfg, mesh)
+    step_fn = build_train_step(model, opt_cfg, mesh, args.compression)
 
     start_step, mgr = 0, None
-    # a row-sharded table's leaves: gathered on save, this rank's rows kept
-    # on restore
+    # the split leaves (dense blocks, a row-sharded table's rows, their
+    # moments): gathered on save, this rank's block kept on restore
     spread = convert.reference_sharding(model, opt_state)
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, keep=3)

@@ -659,9 +659,9 @@ def _spread(a: np.ndarray, sel: np.ndarray) -> np.ndarray:
 def global_indices(idx: torch.Tensor):
     """(the global batch's flat indices on the host, the bool mask of this
     rank's among them or None): idx is this rank's slice of the batch,
-    gathered over the ambient mesh's ``data`` axis in rank order (C3)."""
+    gathered over the ambient mesh's batch axes in rank order (C3)."""
     flat = idx.reshape(-1)
-    group = context.axis_group("data")
+    group = context.batch_group()
     glob = collectives.all_gather_rows(flat, group).cpu().numpy()
     if group is None:
         return glob, None
@@ -673,9 +673,9 @@ def global_indices(idx: torch.Tensor):
 
 def global_update(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     """(idx, w ⊗ g) of the global batch on the host, the write-back's
-    input: idx, w and g gathered over the ambient mesh's ``data`` axis in
+    input: idx, w and g gathered over the ambient mesh's batch axes in
     rank order (not w ⊗ g, k times larger), w ⊗ g formed in float32."""
-    group = context.axis_group("data")
+    group = context.batch_group()
     idx_np, w_np, g_np = (
         collectives.all_gather_rows(t.detach(), group).cpu().numpy()
         for t in (idx, w.float(), g.float()))

@@ -166,11 +166,18 @@ class Transformer(nn.Module):
                 segs[f"seg{si}"] = MemoryLayer(cfg, seg[2],
                                                 generator=generator)
         self.segments = nn.ModuleDict(segs)
+        # on a mesh, this rank's blocks of the dense leaves and their
+        # gather (`distributed.sharding.shard_params`); None: whole
+        self.placement = None
 
     def embed_tokens(self, tokens: torch.Tensor, positions) -> torch.Tensor:
         """Token embeddings, plus the learned position rows where
         configured: `positions` (an int tensor broadcastable to tokens, or
-        one int) clamped to the table, as the reference's decode does."""
+        one int) clamped to the table, as the reference's decode does.
+        Every forward starts here: it raises while the dense leaves are
+        this rank's blocks (`sharding.gathered` makes them whole)."""
+        if self.placement is not None:
+            self.placement.check()
         x = self.embed(tokens)
         if self.pos_embed is None:
             return x
@@ -226,9 +233,9 @@ def loss_fn(model: Transformer, batch: dict, *, train: bool = True):
 
     Under an ambient mesh with a ``data`` axis, a train-mode batch is this
     data rank's slice of the global batch: the denominator is the global
-    count of valid labels (summed over the data ranks), so the loss is
-    this rank's part of the global loss and the parts' gradients sum to
-    the global loss's."""
+    count of valid labels (summed over the batch axes, ``data`` or
+    ("pod", "data")), so the loss is this rank's part of the global loss
+    and the parts' gradients sum to the global loss's."""
     logits = forward(model, batch, train=train)
     labels = batch["labels"]
     valid = labels != IGNORE
@@ -237,7 +244,7 @@ def loss_fn(model: Transformer, batch: dict, *, train: bool = True):
     tok_ll = torch.gather(logp, -1, safe_labels[..., None])[..., 0]
     count = valid.sum()
     if train:
-        collectives.all_reduce_(count, context.axis_group("data"))
+        collectives.all_reduce_(count, context.batch_group())
     denom = torch.clamp(count, min=1)
     xent = -(tok_ll * valid).sum() / denom
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)

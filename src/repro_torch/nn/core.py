@@ -116,8 +116,9 @@ class BatchNorm(nn.Module):
     mesh with a ``data`` axis, a train-mode batch is this data rank's
     slice of the global batch, and the mean and biased variance are those
     of the global batch, as GSPMD computes the reference's: sums over the
-    data ranks, differentiable both ways (`collectives.sum_both`), so the
-    running stats stay equal on every rank.
+    batch axes (``data``, or ("pod", "data")), differentiable both ways
+    (`collectives.sum_both`), so the running stats stay equal on every
+    rank.
     """
 
     def __init__(self, dim: int, *, momentum: float = 0.99,
@@ -133,7 +134,7 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
-            group = context.axis_group("data")
+            group = context.batch_group()
             if group is None:
                 mean = x32.mean(dims)
                 var = ((x32 - mean) ** 2).mean(dims)

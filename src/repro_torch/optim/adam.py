@@ -83,20 +83,28 @@ def adam_init(params: dict[str, torch.Tensor]) -> dict:
 @torch.no_grad()
 def adam_update(params: dict[str, torch.Tensor],
                 grads: dict[str, torch.Tensor | None], opt_state: dict,
-                cfg: OptimConfig, *, sharded=(),
-                group=None) -> dict[str, torch.Tensor]:
+                cfg: OptimConfig, *, sharded=(), group=None,
+                blocks: dict | None = None) -> dict[str, torch.Tensor]:
     """One step over `params` (name -> tensor, updated in place) with
     `grads` (name -> tensor; None counts as zero, as a leaf the loss does
     not reach has a zero gradient in the reference).  The names in
     `sharded` are row shards of tables split over `group` (the mesh's
     ``model`` axis): the clip's global norm counts their rows once across
-    the group (`global_norm`).  Advances `opt_state` in place; returns the
-    stats {"grad_norm", "lr"}."""
+    the group (`global_norm`).  `blocks` ({name: index}) names the
+    parameters that are this rank's block `whole[index]` of a dense leaf
+    (`distributed.sharding.DenseBlocks`) while their gradient is whole:
+    the norm and the clip are taken on the whole gradients, alike on
+    every rank, and the block of each steps the block and its moments.
+    Advances `opt_state` in place; returns the stats {"grad_norm",
+    "lr"}."""
     step = opt_state["step"] + 1
+    blocks = blocks or {}
     grads = {k: (g if g is not None else torch.zeros_like(params[k]))
              for k, g in grads.items()}
     gnorm = global_norm([g for k, g in grads.items() if k not in sharded],
                         [grads[k] for k in sharded], group)
+    grads = {k: g[blocks[k]] if k in blocks and g.shape != params[k].shape
+             else g for k, g in grads.items()}
     scale = None
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),

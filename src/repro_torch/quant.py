@@ -17,6 +17,8 @@ The order of operations and of the random draws is the reference's
 for the same generator state.  Gathers dequantize in
 registers: the weight is multiplied by the row's scale and the 1-byte row
 is read as fp32 (`repro_torch.kernels.gather_interp.gather_interp_quant`).
+`int8_qdq` is the same int8 grid with one scale for a whole tensor, the
+gradient codec's (`repro_torch.optim.compression`).
 """
 
 from __future__ import annotations
@@ -127,6 +129,19 @@ def take_rows(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     if q.dtype == torch.float8_e4m3fn:
         return q.view(torch.uint8)[rows].view(torch.float8_e4m3fn).float()
     return q[rows].float()
+
+
+def int8_qdq(x: torch.Tensor, amax: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """Symmetric int8 quantize -> dequantize with one scale for the whole
+    tensor (the reference's `int8_qdq`): what survives an int8 wire
+    format, on the table storage's grid.  `amax` is the largest |x| the
+    scale is taken from (default `x`'s own; the gradient codec passes the
+    maximum over the ranks that hold the other parts of a split leaf)."""
+    amax = x.abs().max() if amax is None else amax
+    scale = torch.clamp(amax, min=_EPS) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q.float() * scale
 
 
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -344,7 +344,8 @@ TWO_RANK_CODE = textwrap.dedent("""
              j_found=j_found, coord=mesh.index("model"),
              table=sharded.get_parameter(key).detach().numpy(),
              mu=opt["mu"][key].numpy(),
-             embed=sharded.get_parameter("embed.embedding").detach().numpy())
+             embed=sharded.get_parameter("embed.embedding").detach().numpy(),
+             pos=sharded.get_parameter("pos_embed").detach().numpy())
     dist.destroy_process_group()
 """)
 
@@ -374,8 +375,9 @@ def test_tiered_mesh_run_checkpoints_once(two_ranks):
 def test_jax_checkpoint_restores_onto_a_mesh(two_ranks):
     """The JAX package's checkpoint of `lram-bert-medium` (smoke) onto a
     1 x 2 mesh of the port: rank i holds rows [i R, (i + 1) R) of the
-    table and its first moment, bit for bit, and the replicated weights
-    whole."""
+    table and its first moment, bit for bit, its block of the embedding
+    (the GSPMD rule (model, data): vocab rows over model) and the
+    replicated weights (the learned positions) whole."""
     j_tree, ranks = two_ranks
     table = np.asarray(j_tree["params"]["segments"]["seg1"]["memffn"]
                        ["lram"]["values"])
@@ -388,8 +390,12 @@ def test_jax_checkpoint_restores_onto_a_mesh(two_ranks):
         np.testing.assert_array_equal(r["table"],
                                       table[i * rows:(i + 1) * rows])
         np.testing.assert_array_equal(r["mu"], mu[i * rows:(i + 1) * rows])
+        embed = np.asarray(j_tree["params"]["embed"]["embedding"])
+        vocab = embed.shape[0] // 2
         np.testing.assert_array_equal(
-            r["embed"], np.asarray(j_tree["params"]["embed"]["embedding"]))
+            r["embed"], embed[i * vocab:(i + 1) * vocab])
+        np.testing.assert_array_equal(
+            r["pos"], np.asarray(j_tree["params"]["pos_embed"]))
 
 
 def test_ranks_that_restored_different_steps_raise(two_ranks):

@@ -243,7 +243,7 @@ def test_cli_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--compression", "int8"], ["--telemetry"], ["--grow-at", "2:17"],
+    ["--telemetry"], ["--grow-at", "2:17"],
     ["--use-mesh"], ["--metrics-dir", "x"], ["--profile-dir", "x"],
 ])
 def test_cli_refuses_what_is_not_ported(flag, capsys):
