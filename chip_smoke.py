@@ -72,9 +72,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
               resident): K2 + B5 on every range's lookups.
      All seven serve the same seed's weights, so (a), (c), (e) and (f)
      must give the dense path's first logits and (d) those of (b), to
-     1e-5;
-  5. a shorter serve of each path's warmed engine under torch.profiler:
-     kernel time by name and the device's busy share;
+     1e-5.  The dense path's decode tick is one CUDA graph (captured once
+     in warmup(): `graph_captures` 1, every tick replayed); the tiered
+     paths run eagerly.  Every tick's logits are checked finite, graph
+     replay or eager.  Then, each fatal:
+       graph against eager: the dense path's weights and trace through
+              an engine with the graph and one with `cuda_graph=False`
+              in this process: every request's tokens equal (and the CLI
+              run's), one capture, and the K2 / K1 launch counts of the
+              timed trace (reset after warm-up and capture) equal; decode
+              p50 / p99 and tokens/s of both;
+       (g)    `lram-tiered --placement pallas --spill-at-tick 8`: the
+              dense 2^20 x 64 fp32 table spilled to the arch's own
+              TieredSpec (32 of 128 shards of 8192 rows cached) between
+              decode ticks with requests in flight: one `spill` event
+              (its pause printed), 8 of 8 requests with the dense path's
+              tokens, K2 + K1 launched, the graph dropped at the swap,
+              the store's hit rate in the report;
+  5. a shorter serve of each path's warmed engine under torch.profiler
+     (the dense path twice: with the graph and eager): kernel time by
+     name and the device's busy share;
   6. train `lram-bert-medium` at full width through
      `repro_torch.launch.train.main` (`--placement pallas --batch 8 --seq
      256 --steps 20`: 2,048 tokens, n = 65,536 lookups a step), with every
@@ -82,7 +99,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      K2, K1 and the backward kernel `lookup_bwd` launched (the backward
      once a step), every loss and grad norm is finite and the mean loss of
      steps 16-20 is below that of steps 1-5.  Step-time median over steps
-     6-20, tokens/s, peak device memory; then one more step under
+     6-20, tokens/s, peak device memory (beside the bytes already
+     allocated when it was reset, as every training path prints it);
+     then one more step under
      torch.profiler (busy share, top kernels, and K1's device time in it
      beside its bound on that step's own indices: each distinct row they
      name read once);
@@ -143,6 +162,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the losses are finite and the mean of steps 6-10 is below that of
      steps 1-5.  Step-time median over steps 6-10, tokens/s, peak
      memory;
+ 6f. growth in training: phase 6 with `--grow-at 10:21 --telemetry`: the
+     table and Adam's mu / nu grow from 2^20 to 2^21 rows before step 10;
+     fails unless `{"grow": "2^21", "step": 10, ...}` is printed, K2, K1
+     and `lookup_bwd` launched (the backward once a step), steps 0-9 are
+     within rtol 1e-4 of phase 6's, the losses are finite and fall.
+     Step 10's loss beside phase 6's, the grow pause, the step-time
+     median over steps 12-20, peak memory, the utilisation lines and the
+     dead share of the appended bins;
   7. train `lram-tiered` (path (a)) and `lram-tiered-q8` (path (b)) at
      full width on their own tiered spec through `train.main` (`--batch 8
      --seq 64 --steps 20`: n = 16,384 lookups a step, the table in host
@@ -164,6 +191,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
      every shard it restored (payload and scales) equals the saved file;
      then `serve --ckpt-dir --warmup --json` restores step 6, serves 8 of 8
      requests through K2 + B4, from the trained table bit for bit;
+ 7d. grow, crash, resume and serve (tiered): `lram-tiered` at full width
+     (`--batch 8 --seq 64 --steps 6 --grow-at 2:21 --ckpt-every 2`), a
+     failure before step 5, the relaunch: `catch_up` grows before the
+     restore, which resumes from step 4 with the crashed run's step-4
+     loss bit for bit on the 536,870,912 B grown host tier; then `serve
+     --grow-to 21 --ckpt-dir --warmup --json` restores step 6 and serves
+     8 of 8 requests through K2 + K1; the saves' bytes and ms;
  7b. train the paper's PKM baseline `lram-bert-pkm` at full width (2^16 x
      512 table, 8 heads, top-32; `--batch 8 --seq 256 --steps 20`): the
      reference has no Pallas kernel there, so no kernel of the port may
@@ -1161,21 +1195,11 @@ def serve_path(name: str):
     """Serve one path at full width; returns (launch counts, report)."""
     argv, needs = PATHS[name]
     finite = []
-    decode_step = transformer.decode_step
-
-    def checked_decode(*args, **kw):
-        logits = decode_step(*args, **kw)
-        finite.append(torch.isfinite(logits).all())  # no host sync here
-        return logits
-
-    transformer.decode_step = checked_decode
     reset_counts()
     t0 = time.perf_counter()
-    try:
+    with checked_ticks(finite):
         report = serve.main(argv + SERVE_ARGS)
         torch.cuda.synchronize()
-    finally:
-        transformer.decode_step = decode_step
     serve_s = time.perf_counter() - t0
     launches = read_counts()
     args = serve.build_argparser().parse_args(argv + SERVE_ARGS)
@@ -1187,6 +1211,15 @@ def serve_path(name: str):
         check(launches[kernel] > 0,
               f"{name}: {kernel} never launched on the serve path")
     check(bool(torch.stack(finite).all()), f"{name}: non-finite logits")
+    # the dense path's tick is one CUDA graph, captured once in warmup();
+    # the tiered paths' lookups work on the host and run eagerly
+    graph = name == "dense"
+    check(report.cuda_graph == graph
+          and report.graph_captures == int(graph)
+          and report.graph_ticks == (len(report.step_s) if graph else 0),
+          f"{name}: cuda_graph {report.cuda_graph}, "
+          f"{report.graph_captures} captures, {report.graph_ticks} graph "
+          f"ticks of {len(report.step_s)}")
     for r in report.requests:
         check(np.isfinite(r.first_logits).all()
               and r.first_logits.shape == (vocab,),
@@ -1208,10 +1241,144 @@ def serve_path(name: str):
         "prefill_median_ms": 1e3 * float(np.median(report.prefill_s)),
         "decode_ticks": len(report.step_s), "wall_s": report.wall_s,
         "serve_s_incl_init": serve_s, "cache": cache,
+        "cuda_graph": report.cuda_graph,
+        "graph_captures": report.graph_captures,
         "overflow_share": cache["uncached"] / touched if touched else None,
         "launches": launches,
     }), flush=True)
     return launches, report
+
+
+@contextlib.contextmanager
+def checked_ticks(finite: list):
+    """Every decode tick's logits, graph replay or eager, checked finite
+    on the device (appended to `finite`; no host sync in the tick)."""
+    decode = ServeEngine._decode
+
+    def checked(engine, *args):
+        logits, next_tok = decode(engine, *args)
+        finite.append(torch.isfinite(logits).all())
+        return logits, next_tok
+
+    ServeEngine._decode = checked
+    try:
+        yield
+    finally:
+        ServeEngine._decode = decode
+
+
+def dense_engine_run(model, args, cuda_graph: bool):
+    """The dense path's trace (the serve CLI's for `args`) through one
+    engine of the given kind after its warm-up (and capture); launch
+    counts reset after them and read after the run.  Returns (report,
+    launches)."""
+    engine = ServeEngine(model, EngineConfig(
+        slots=args.batch, max_len=args.prompt_len + args.gen,
+        cuda_graph=cuda_graph))
+    engine.warmup()
+    trace = synthetic_trace(np.random.default_rng(args.seed), args.requests,
+                            vocab_size=model.cfg.vocab_size,
+                            max_prompt=args.prompt_len, max_gen=args.gen)
+    finite = []
+    reset_counts()
+    with checked_ticks(finite):
+        report = engine.run(trace)
+        _sync(model.embed.embedding.device)
+    launches = read_counts()
+    check(bool(torch.stack(finite).all()),
+          f"dense (cuda_graph={cuda_graph}): non-finite logits")
+    return report, launches
+
+
+def graph_vs_eager(dense_report):
+    """The dense path's decode tick as one CUDA graph against its eager
+    twin, in one process on the same weights and trace: every request's
+    tokens equal (and the CLI run's), one capture, and the K2 / K1 launch
+    counts of the timed trace (reset after warm-up and capture) equal."""
+    args = serve.build_argparser().parse_args(PATHS["dense"][0]
+                                              + SERVE_ARGS)
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, interp_impl=args.placement))
+    model = transformer.init(cfg, seed=args.seed).to(args.device)
+    graph, graph_launches = dense_engine_run(model, args, True)
+    eager, eager_launches = dense_engine_run(model, args, False)
+    del model
+    check(graph.cuda_graph and graph.graph_captures == 1
+          and graph.graph_ticks == len(graph.step_s),
+          f"graph run: cuda_graph {graph.cuda_graph}, "
+          f"{graph.graph_captures} captures")
+    check(not eager.cuda_graph and eager.graph_captures == 0,
+          "the eager twin captured a graph")
+    check(len(graph.requests) == len(eager.requests) == 8,
+          "graph vs eager: requests lost")
+    for a, b, c in zip(graph.requests, eager.requests,
+                       dense_report.requests):
+        check(a.tokens == b.tokens == c.tokens,
+              f"graph vs eager: request {a.id} tokens differ: {a.tokens} "
+              f"{b.tokens} (CLI {c.tokens})")
+    for kernel in ("lram_query", "gather_interp"):
+        check(graph_launches[kernel] == eager_launches[kernel] > 0,
+              f"graph vs eager: {kernel} launched {graph_launches[kernel]} "
+              f"and {eager_launches[kernel]} times")
+    out = {"graph_vs_eager": "dense lram-tiered --placement pallas"}
+    for name, r, launches in (("graph", graph, graph_launches),
+                              ("eager", eager, eager_launches)):
+        out[name] = {
+            "decode_p50_ms": r.p50_ms(), "decode_p99_ms": r.p99_ms(),
+            "tokens_per_sec": r.tokens_per_sec,
+            "decode_ticks": len(r.step_s), "graph_ticks": r.graph_ticks,
+            "graph_captures": r.graph_captures, "wall_s": r.wall_s,
+            "launches": {k: v for k, v in launches.items() if v}}
+    print(json.dumps(out), flush=True)
+    return graph_launches
+
+
+def spill_path(dense_report):
+    """Path (g): `serve --placement pallas --spill-at-tick 8` spills the
+    dense 2^20 x 64 fp32 table to the arch's own TieredSpec (32 of 128
+    shards of 8192 rows cached) between decode ticks with requests in
+    flight: one spill event, 8 of 8 requests, each with the dense path's
+    tokens (the payload moves exactly), K2 and K1 launched, the graph
+    dropped at the swap, the store's hit rate in the report.  Returns the
+    launch counts (reset just before, read just after)."""
+    argv = ["--arch", "lram-tiered", "--placement", "pallas",
+            "--spill-at-tick", "8", "--json"] + SERVE_ARGS
+    finite = []
+    with checked_ticks(finite):
+        report, _, out, launches = _cli(serve.main, argv)
+    check(bool(torch.stack(finite).all()), "spill: non-finite logits")
+    events = [json.loads(x)["lifecycle"] for x in out.splitlines()
+              if x.startswith('{"lifecycle"')]
+    check(len(events) == 1 and [e["event"] for e in events[0]] == ["spill"],
+          f"spill: lifecycle events {events}")
+    (spill,) = events[0]
+    check(len(report.requests) == 8,
+          f"spill: served {len(report.requests)} of 8 requests")
+    for a, b in zip(report.requests, dense_report.requests):
+        check(a.tokens == b.tokens,
+              f"spill: request {a.id} tokens {a.tokens} != the dense "
+              f"path's {b.tokens}")
+    for kernel in ("lram_query", "gather_interp"):
+        check(launches[kernel] > 0, f"spill: {kernel} never launched")
+    check(not report.cuda_graph and report.graph_captures == 1
+          and 0 < report.graph_ticks < len(report.step_s),
+          f"spill: the graph was not dropped at the swap: cuda_graph "
+          f"{report.cuda_graph}, {report.graph_captures} captures, "
+          f"{report.graph_ticks} of {len(report.step_s)} ticks replayed")
+    check(report.cache is not None and "hit_rate" in report.cache,
+          f"spill: no store stats in the report: {report.cache}")
+    print(json.dumps({
+        "serve": "g_dense_spill", "argv": argv, "spill": spill,
+        "pause_s": spill["pause_s"], "requests": len(report.requests),
+        "tokens_equal_dense": True, "cache": report.cache,
+        "decode_p50_ms": report.p50_ms(), "decode_p99_ms": report.p99_ms(),
+        "tokens_per_sec": report.tokens_per_sec,
+        "decode_ticks": len(report.step_s),
+        "graph_ticks": report.graph_ticks, "launches": launches,
+    }), flush=True)
+    return launches
 
 
 def same_first_logits(name: str, got, want, tol: float = 1e-5) -> float:
@@ -1221,11 +1388,12 @@ def same_first_logits(name: str, got, want, tol: float = 1e-5) -> float:
     return err
 
 
-def profile_path(name: str):
+def profile_path(name: str, cuda_graph: bool = True):
     """A shorter serve of the path's warmed engine under torch.profiler:
     kernel time by name and the device's busy share of the engine's wall
     time (profiling slows the host, so the share is a lower bound).  Only
-    the trace's replay is profiled: model build and warm-up run before."""
+    the trace's replay is profiled: model build, warm-up and the graph's
+    capture run before.  `cuda_graph=False`: the eager twin."""
     argv, _ = PATHS[name]
     args = serve.build_argparser().parse_args(argv + SERVE_ARGS)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
@@ -1238,7 +1406,8 @@ def profile_path(name: str):
             cfg.lram, tiered=dataclasses.replace(
                 cfg.lram.tiered, cache_slots=args.cache_slots)))
     model = transformer.init(cfg, seed=args.seed).to(args.device)
-    engine = ServeEngine(model, EngineConfig(slots=4, max_len=64 + 16))
+    engine = ServeEngine(model, EngineConfig(slots=4, max_len=64 + 16,
+                                             cuda_graph=cuda_graph))
     engine.warmup()
     trace = synthetic_trace(np.random.default_rng(0), 4,
                             vocab_size=cfg.vocab_size, max_prompt=64,
@@ -1255,7 +1424,8 @@ def profile_path(name: str):
             "tiered_gather_quant_kernel")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
-        "profile": name, "requests": 4, "max_gen": 16,
+        "profile": name, "cuda_graph": report.cuda_graph,
+        "requests": 4, "max_gen": 16,
         "wall_ms": 1e3 * report.wall_s, "kernel_ms": total_ms,
         "copy_ms": sum(copies.values()) / 1e3,
         "busy_share": total_ms / (1e3 * report.wall_s),
@@ -1305,6 +1475,7 @@ def train_path():
     """Train lram-bert-medium at full width; returns (launch counts, run).
     The launch counts are reset just before and read just after."""
     torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
     run = train.main(TRAIN_ARGS)
@@ -1337,6 +1508,7 @@ def train_path():
         "loss_mean_steps_1_5": first, "loss_mean_steps_16_20": last,
         "step_ms": step_ms, "step_ms_median_steps_6_20": median_ms,
         "tokens_per_sec": tokens / (median_ms / 1e3),
+        "allocated_before_bytes": allocated_before,
         "peak_memory_bytes": peak, "wall_s_incl_init_and_eval": wall_s,
         "final_eval_loss": run.final_eval_loss,
         "final_fact_recall": run.final_fact_recall, "launches": launches,
@@ -1484,6 +1656,7 @@ def tiered_train_path(name: str):
         return out
 
     torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
     train.bind_stores = bind_and_copy
     cls.writeback = timed_writeback
     cls.apply_writeback = kept_apply_writeback
@@ -1548,6 +1721,7 @@ def tiered_train_path(name: str):
         "loss_mean_steps_1_5": first, "loss_mean_last_5_steps": last,
         "step_ms": step_ms, "step_ms_median_steps_6_on": median_ms,
         "tokens_per_sec": tokens / (median_ms / 1e3),
+        "allocated_before_bytes": allocated_before,
         "peak_memory_bytes": peak, "wall_s_incl_init_and_eval": wall_s,
         "writeback_host_ms_median_6_on": steady(wb, "host_ms"),
         "writeback_wait_ms_median_6_on": steady(wb, "wait_ms"),
@@ -1902,6 +2076,7 @@ def pkm_train_path():
     the counts are reset just before and read just after, and must all be
     0."""
     torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
     run = train.main(PKM_ARGS)
@@ -1927,6 +2102,7 @@ def pkm_train_path():
         "loss_mean_steps_1_5": first, "loss_mean_steps_16_20": last,
         "step_ms": step_ms, "step_ms_median_steps_6_20": median_ms,
         "tokens_per_sec": tokens / (median_ms / 1e3),
+        "allocated_before_bytes": allocated_before,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "wall_s_incl_init_and_eval": wall_s,
         "final_eval_loss": run.final_eval_loss, "launches": launches,
@@ -1995,7 +2171,9 @@ def _cli(main, argv, *, crash: bool = False):
             try:
                 main(argv)
             except fault.SimulatedFailure as e:
-                result = e
+                # the traceback holds the crashed run's frames, and so its
+                # model, in a cycle through this frame: drop it
+                result = e.with_traceback(None)
             else:
                 fail(f"{argv}: no SimulatedFailure")
         else:
@@ -2005,7 +2183,7 @@ def _cli(main, argv, *, crash: bool = False):
     out = tee.kept.getvalue()
     steps = [json.loads(x) for x in out.splitlines()
              if x.startswith('{"step"')]
-    return result, steps, out, launches
+    return result, [x for x in steps if "loss" in x], out, launches
 
 
 def _history(managers) -> list[dict]:
@@ -2318,6 +2496,7 @@ def compression_path(kind: str) -> dict:
     steps 1-5.  Returns the launch counts."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
     argv = COMP_ARGS + ["--compression", kind]
     run, _, _, launches = _cli(train.main, argv)
     who = f"compression {kind}"
@@ -2342,10 +2521,143 @@ def compression_path(kind: str) -> dict:
         "loss_mean_steps_1_5": first, "loss_mean_steps_6_10": last,
         "step_ms": step_ms, "step_ms_median_steps_6_10": median_ms,
         "tokens_per_sec": tokens / (median_ms / 1e3),
+        "allocated_before_bytes": allocated_before,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches}), flush=True)
     del run
     return launches
+
+
+GROW_LOG2 = 21  # 6f and 7d grow the 2^20-row table to 2^21 rows
+GROW_ARGS = TRAIN_ARGS + ["--grow-at", f"10:{GROW_LOG2}", "--telemetry"]
+
+
+def grow_train_path(dense_records):
+    """Phase 6f: phase 6's training with `--grow-at 10:21 --telemetry`:
+    the 2^20-row table (and Adam's mu / nu) grows to 2^21 rows before
+    step 10.  Fails unless the growth is printed, K2, K1 and `lookup_bwd`
+    launched (the backward once a step), steps 0-9 are within rtol 1e-4
+    of phase 6's, the losses are finite and fall.  Returns the launch
+    counts (reset just before, read just after)."""
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    run, _, out, launches = _cli(train.main, GROW_ARGS)
+    peak = torch.cuda.max_memory_allocated()
+    grows = [json.loads(x) for x in out.splitlines()
+             if x.startswith('{"grow"')]
+    check(len(grows) == 1 and grows[0]["grow"] == f"2^{GROW_LOG2}"
+          and grows[0]["step"] == 10, f"grow: printed {grows}")
+    check(run.model.cfg.lram.num_locations == 2**GROW_LOG2
+          and all(t.shape[0] == 2**GROW_LOG2
+                  for k, t in run.opt_state["mu"].items()
+                  if k.endswith("lram.values")),
+          "grow: the table or its moments did not grow")
+    for kernel in ("lram_query", "gather_interp"):
+        check(launches[kernel] >= TRAIN_STEPS,
+              f"grow: {kernel} launched {launches[kernel]} times")
+    check(launches["lookup_bwd"] == TRAIN_STEPS,
+          f"grow: the backward kernel launched {launches['lookup_bwd']} "
+          f"times in {TRAIN_STEPS} steps")
+    losses = [r["loss"] for r in run.records]
+    want = [r["loss"] for r in dense_records]
+    check(len(losses) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses),
+          f"grow: losses {losses}")
+    err = [abs(a - b) / abs(b) for a, b in zip(losses[:10], want[:10])]
+    check(max(err) <= 1e-4,
+          f"grow: steps 0-9 {losses[:10]} against phase 6's {want[:10]}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"grow: the loss did not fall ({first} -> {last})")
+    tel = run.telemetry["seg1"]
+    counts = tel["counts"].cpu().numpy()
+    half = counts.size // 2
+    util = [json.loads(x) for x in out.splitlines()
+            if '"utilisation_report"' in x]
+    step_ms = [r["step_ms"] for r in run.records]
+    median_ms = float(np.median(step_ms[11:]))
+    tokens = run.dcfg.global_batch * run.dcfg.seq_len
+    print(json.dumps({
+        "train": f"lram-bert-medium grown to 2^{GROW_LOG2}",
+        "argv": GROW_ARGS,
+        "grow": grows[0], "grow_pause_s": grows[0]["pause_s"],
+        "losses": losses, "rel_err_steps_0_9": max(err),
+        "step_10_loss": losses[10], "phase_6_step_10_loss": want[10],
+        "step_10_rel_diff": abs(losses[10] - want[10]) / abs(want[10]),
+        "loss_mean_steps_1_5": first, "loss_mean_steps_16_20": last,
+        "step_ms": step_ms, "step_ms_median_steps_12_20": median_ms,
+        "tokens_per_sec": tokens / (median_ms / 1e3),
+        "allocated_before_bytes": allocated_before,
+        "peak_memory_bytes": peak,
+        "table_and_moments_bytes": 3 * 2**GROW_LOG2 * M * 4,
+        "utilisation": util,
+        "dead_share_appended_bins": float((counts[half:] == 0).mean()),
+        "dead_share_old_bins": float((counts[:half] == 0).mean()),
+        "launches": launches,
+    }), flush=True)
+    del run
+    return launches
+
+
+TIERED_GROW_ARGS = ["--arch", "lram-tiered", "--batch", "8", "--seq", "64",
+                    "--steps", "6", "--grow-at", f"2:{GROW_LOG2}",
+                    "--ckpt-every", "2", "--json"]
+
+
+def tiered_grow_resume_path(ckpt_dir):
+    """Phase 7d: lram-tiered at full width grows to 2^21 rows before step
+    2 (the host tier appends 128 shards), saves at steps 2 and 4, fails
+    before step 5 and is relaunched: `catch_up` grows before the restore,
+    which resumes from step 4 with the crashed run's step-4 loss bit for
+    bit.  Then `serve --grow-to 21 --ckpt-dir` serves the grown
+    checkpoint, 8 of 8 requests through K2 + K1.  Returns the three
+    runs' launch counts."""
+    argv = TIERED_GROW_ARGS + ["--ckpt-dir", ckpt_dir]
+    _, crashed, out, crash_launches = _cli(
+        train.main, argv + ["--simulate-failure-at", "5"], crash=True)
+    check(f'{{"grow": "2^{GROW_LOG2}", "step": 2' in out,
+          "tiered grow: no growth printed at step 2")
+    run, _, out, resume_launches = _cli(train.main, argv)
+    check("resumed from step 4\n" in out and run.start_step == 4,
+          "tiered grow: the relaunch did not resume from step 4")
+    check(run.records[0]["loss"] == crashed[4]["loss"],
+          f"tiered grow: step 4 loss {run.records[0]['loss']} != the "
+          f"crashed run's {crashed[4]['loss']}")
+    (store,) = run.stores
+    host_bytes = store._host.nbytes
+    check(store.num_rows == 2**GROW_LOG2
+          and host_bytes == 2**GROW_LOG2 * M * 4,
+          f"tiered grow: host tier {store.num_rows} rows, {host_bytes} B")
+    for name, launches in (("crashed", crash_launches),
+                           ("resumed", resume_launches)):
+        for kernel in ("lram_query", "gather_interp", "lookup_bwd_rows"):
+            check(launches[kernel] > 0, f"tiered grow: {kernel} never "
+                                        f"launched in the {name} run")
+    train_managers = list(RecordingManager.made)
+    serve_argv = ["--arch", "lram-tiered", "--grow-to", str(GROW_LOG2),
+                  "--ckpt-dir", ckpt_dir, "--json"] + SERVE_ARGS
+    report, _, out, serve_launches = _cli(serve.main, serve_argv)
+    check('{"restored_step": 6}' in out.splitlines(),
+          "tiered grow serve: did not restore step 6")
+    check(len(report.requests) == 8,
+          f"tiered grow serve: served {len(report.requests)} of 8")
+    for kernel in ("lram_query", "gather_interp"):
+        check(serve_launches[kernel] > 0,
+              f"tiered grow serve: {kernel} never launched")
+    print(json.dumps({
+        "resume": f"lram-tiered grown to 2^{GROW_LOG2}", "argv": argv,
+        "crashed_losses": [r["loss"] for r in crashed],
+        "resumed_losses": [r["loss"] for r in run.records],
+        "host_tier_bytes": host_bytes,
+        "checkpoints": _history(train_managers),
+        "serve_restore": _history(RecordingManager.made[-1:]),
+        "serve_tokens_per_sec": report.tokens_per_sec,
+        "serve_decode_p50_ms": report.p50_ms(), "serve_cache": report.cache,
+        "launches_crashed": crash_launches,
+        "launches_resumed": resume_launches,
+        "launches_serve": serve_launches,
+    }), flush=True)
+    del run
+    return crash_launches, resume_launches, serve_launches
 
 
 Q8_CKPT_ARGS = ["--arch", "lram-tiered-q8", "--batch", "8", "--seq", "64",
@@ -2418,6 +2730,7 @@ def checkpoint_dir():
         yield root
     finally:
         train.CheckpointManager, serve.CheckpointManager = patched
+        RecordingManager.made = []  # their stores' device caches go too
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2490,9 +2803,12 @@ def main() -> None:
             "(f) vs dense", reports["f_sharded_tiered_resident"],
             reports["dense"]),
     }}), flush=True)
+    launches["graph_vs_eager"] = graph_vs_eager(reports["dense"])
+    launches["g_dense_spill"] = spill_path(reports["dense"])
     del reports
     for name in PATHS:
         profile_path(name)
+    profile_path("dense", cuda_graph=False)
     launches["train"], run = train_path()
     profile_train_step(run)
     dense_records = run.records
@@ -2509,6 +2825,7 @@ def main() -> None:
     pipeline_phase()
     for kind in ("int8", "topk"):
         launches[f"compression_{kind}"] = compression_path(kind)
+    launches["grow_train"] = grow_train_path(dense_records)
     for name, (_, _, gather, _, _) in TIERED_TRAIN.items():
         launches[name], run = tiered_train_path(name)
         profile_train_step(run, f"train step {name}", (
@@ -2517,6 +2834,9 @@ def main() -> None:
     with checkpoint_dir() as ckpt:
         (launches["q8_ckpt_crashed"], launches["q8_ckpt_resumed"],
          launches["q8_ckpt_serve"]) = tiered_resume_path(ckpt)
+    with checkpoint_dir() as ckpt:
+        (launches["grow_ckpt_crashed"], launches["grow_ckpt_resumed"],
+         launches["grow_ckpt_serve"]) = tiered_grow_resume_path(ckpt)
     launches["pkm_train"], run = pkm_train_path()
     profile_train_step(run, "train step lram-bert-pkm", ours=())
     del run

@@ -61,6 +61,34 @@ def choose_torus(log2_locations: int) -> TorusSpec:
     return spec
 
 
+def grow_torus(spec: TorusSpec, factor: int) -> TorusSpec:
+    """The index-preserving enlargement of a torus: K_0 times `factor` (a
+    power of two), every other wrap length unchanged.  M_0 weighs no digit
+    of the flat index, so every old lattice point keeps its index and the
+    new points take [old_N, new_N): growth is an append
+    (`repro_torch.memctl.growth`)."""
+    if factor < 2 or factor & (factor - 1):
+        raise ValueError(f"growth factor must be a power of two >= 2, "
+                         f"got {factor}")
+    return TorusSpec((spec.K[0] * factor,) + spec.K[1:])
+
+
+def growth_parents(old_spec: TorusSpec, new_spec: TorusSpec,
+                   lo: int, hi: int) -> np.ndarray:
+    """The old-table parent row (int64) of each new row id in [lo, hi):
+    the new row's lattice point wrapped onto the old torus.  For
+    `grow_torus` enlargements this is ``j % old_N``."""
+    for ko, kn in zip(old_spec.K, new_spec.K):
+        if kn % ko:
+            raise ValueError(
+                f"new wrap lengths {new_spec.K} must be componentwise "
+                f"multiples of old {old_spec.K}"
+            )
+    pts = decode_index(np.arange(lo, hi, dtype=np.int64), new_spec)
+    return encode_points(torch.from_numpy(pts), old_spec).numpy() \
+        .astype(np.int64)
+
+
 def encode_points(x: torch.Tensor, spec: TorusSpec) -> torch.Tensor:
     """Map lattice points (..., 8) (any integer coords) to int32 flat
     indices, wrapping onto the torus first (floored mod K)."""

@@ -28,8 +28,11 @@ read: how the table is built (`build_table` from the init-time fp32 draw,
 
 Unsupported cells raise :class:`LookupPlanError` at resolve time.  The
 serve engine reads the plan's ``supports_prefetch`` flag to find the
-tiered stores it warms and prefetches; the trainer reads ``table_update``
-to find the stores whose write-back it binds.
+tiered stores it warms and prefetches, and ``supports_graph`` to decide
+whether its decode tick may run as one CUDA graph; the trainer reads
+``table_update`` to find the stores whose write-back it binds;
+`repro_torch.memctl` reads ``supports_growth``, ``row_stats`` and
+``build_empty`` and walks a model's tables with `map_memory_tables`.
 """
 
 from __future__ import annotations
@@ -106,6 +109,17 @@ class LookupPlan:
     mesh axis the table's rows are split over (None: every rank holds the
     whole table), which `repro_torch.distributed.sharding.shard_params`
     and the trainer read.
+
+    Lifecycle (`repro_torch.memctl`): ``supports_growth``, the table can
+    grow live (append-only K_0 torus growth; the row-sharded placement
+    cannot without a relaunch); ``row_stats``, the table's store counts
+    its accesses a shard (`row_stats()`); ``build_empty``, a zero table of
+    the plan's layout (store placements): a migration's target.
+
+    ``supports_graph`` (the port's own): the forward does no host work,
+    so the serve engine may capture its decode tick as one CUDA graph.
+    True for the dense ``pallas`` cells only; a store's lookup maps shards,
+    fills and counts on the host.
     """
 
     placement: str
@@ -120,6 +134,10 @@ class LookupPlan:
     table_update: str = "autodiff"  # autodiff | writeback | frozen
     requires_mesh: bool = False
     table_rows_axis: str | None = None
+    supports_growth: bool = False
+    row_stats: bool = False
+    build_empty: Callable[[], Any] | None = None
+    supports_graph: bool = False
 
     def __post_init__(self):
         if self.lookup is None:
@@ -287,7 +305,9 @@ def _dense_plan(storage: str, kernel: str) -> LookupPlan:
 
         return LookupPlan(*cell, query=query_fn(kernel),
                           build_table=lambda dense: nn.Parameter(dense),
-                          interp=interp, lookup=lookup_fn)
+                          interp=interp, lookup=lookup_fn,
+                          supports_growth=True,
+                          supports_graph=kernel == "pallas")
 
     gather = kernel_gather(kernel, "quant")
 
@@ -321,7 +341,8 @@ def _dense_plan(storage: str, kernel: str) -> LookupPlan:
         interp=interp_quant, lookup=lookup_quant,
         table_from_payload=lambda q, scale: quant.QuantizedTable.from_payload(
             q, scale, storage),
-        table_update="frozen",
+        table_update="frozen", supports_growth=True,
+        supports_graph=kernel == "pallas",
     )
 
 
@@ -346,6 +367,32 @@ def is_store(x) -> bool:
     from repro_torch.memstore import TieredValueStore
 
     return isinstance(x, (TieredValueStore, ShardedTieredStore))
+
+
+def map_memory_tables(tree, fn: Callable[[Any], Any]):
+    """Replace every memory layer's table with `fn(table)`, IN PLACE: on a
+    model, each LRAM layer's `values` (a `Parameter`, `QuantizedTable` or
+    store, visited whole); on a dict of tensors named as the model's
+    parameters (Adam's ``mu`` or ``nu``), each entry under an
+    ``lram.values`` name.  Returns `tree`.  The walker behind
+    `repro_torch.memctl`'s growth and migration."""
+    if isinstance(tree, dict):
+        for name in [k for k in tree if k.endswith("lram.values")]:
+            tree[name] = fn(tree[name])
+        return tree
+    from repro_torch.core.lram import LRAM
+
+    for layer in [m for m in tree.modules() if isinstance(m, LRAM)]:
+        set_table(layer, fn(layer.values))
+    return tree
+
+
+def set_table(layer, table) -> None:
+    """Make `table` an LRAM layer's `values`, whatever kind the old one
+    was (a `Parameter`'s slot takes no module, nor a module's a tensor)."""
+    if table is not layer.values:
+        del layer.values
+        layer.values = table
 
 
 def find_stores(model: nn.Module) -> list[tuple[str, Any]]:

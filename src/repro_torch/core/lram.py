@@ -81,6 +81,16 @@ class LRAMConfig:
     def num_params(self) -> int:
         return self.num_locations * self.m
 
+    @property
+    def table_bytes_per_entry(self) -> int:
+        """Storage bytes per table row: fp32 values, or the 1-byte payload
+        plus its per-row scale."""
+        from repro_torch import quant
+
+        if self.table_quant == "none":
+            return self.m * 4  # the port's tables are float32
+        return quant.bytes_per_entry(self.m, self.table_quant)
+
 
 # ---------------------------------------------------------------------------
 # The layer
@@ -185,7 +195,14 @@ def memffn_init(width: int, cfg: LRAMConfig, *,
 
 
 def memffn_apply(block: MemFFN, x: torch.Tensor, *, train: bool = False,
-                 interp_impl: str | None = None) -> torch.Tensor:
+                 interp_impl: str | None = None,
+                 return_access: bool = False):
+    """dense . LRAM . dense; with `return_access` also the LRAM's (idx,
+    w)."""
     h = block.wi(x)
-    h = lram_apply(block.lram, h, train=train, interp_impl=interp_impl)
+    h = lram_apply(block.lram, h, train=train, interp_impl=interp_impl,
+                   return_access=return_access)
+    if return_access:
+        h, access = h
+        return block.wo(h), access
     return block.wo(h)

@@ -8,6 +8,7 @@ Lipschitz and positively 1-homogeneous.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -33,9 +34,18 @@ def torus_map(x: torch.Tensor, K) -> tuple[torch.Tensor, torch.Tensor]:
     re_s = torch.where(safe, re, 1.0)
     im_s = torch.where(safe, im, 0.0)
     theta = torch.atan2(im_s, re_s)  # (-pi, pi]
-    Kt = torch.tensor(K, dtype=x.dtype, device=x.device)
-    q = torch.remainder(theta / _TWO_PI, 1.0) * Kt  # [0, K)
+    q = torch.remainder(theta / _TWO_PI, 1.0) \
+        * _wrap_lengths(tuple(K), x.dtype, x.device)  # [0, K)
     mag = torch.sqrt(torch.where(safe, mag_sq, 1.0))
     inv = torch.where(safe, 1.0 / mag, 1.0 / math.sqrt(_SAFE_EPS))
     scale = 1.0 / inv.sum(-1, keepdim=True)
     return q, scale
+
+
+@functools.lru_cache(maxsize=None)
+def _wrap_lengths(K: tuple, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """K as a tensor on `device`, made once: a host-to-device copy has no
+    place in a captured CUDA graph (`serving.engine`)."""
+    with torch.inference_mode(False):  # cached: usable under autograd too
+        return torch.tensor(K, dtype=dtype, device=device)

@@ -27,8 +27,8 @@ autograd over the reference's formulation, for CPU tables only.  fp32 tables tra
 rows); int8 / fp8 tables (`QuantizedTable` shards) are frozen.  The plan
 builds the whole table from the init-time draw, as every plan does;
 `repro_torch.distributed.sharding.shard_params` then keeps the rank's
-rows.  Growth is not ported (ROADMAP A10) and would need a relaunch here,
-as in the reference.
+rows.  The placement cannot grow live (``supports_growth`` is false):
+growth needs a relaunch here, as in the reference.
 
 `ShardedTieredStore` (the ``sharded-tiered`` placement) composes the row
 ranges with the tiered store: `num_ranges` `TieredValueStore`s, each
@@ -37,13 +37,17 @@ one process (as the reference's: ranges on separate hosts are its
 future, not its code).  Every rank of a mesh holds the whole store, as it
 holds a tiered one (`table_rows_axis` is None); the batch's indices are
 gathered over ``data`` first (C3).  Its checkpoint streams shards under
-global ids, so it is a tiered store's byte for byte.  Not ported: growth
-and row statistics (ROADMAP A10), overlays (A11), `mmap` backing and its
-directory a range (A8).
+global ids, so it is a tiered store's byte for byte.  It grows by whole
+ranges (`grow_rows`), counts accesses a shard in global shard order
+(`row_stats`), and its prefetches fill the ranges on a thread pool.  Not
+ported: overlays (ROADMAP A11), `mmap` backing and its directory a
+range (A8).
 """
 
 from __future__ import annotations
 
+import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable
 
 import numpy as np
@@ -205,8 +209,9 @@ class ShardedTieredStore(nn.Module):
     one: `gather` (serving and eval), `lookup_rows` / `writeback` (the
     differentiable route, `memstore.interp`), `apply_writeback`,
     `prefetch*` / `warm` / `flush` / stats for the engine and the
-    trainer, and the checkpoint's shard stream under global shard ids
-    (shard i lives in part i // shards a range).  An `nn.Module` whose
+    trainer, the checkpoint's shard stream under global shard ids
+    (shard i lives in part i // shards a range), and the lifecycle's
+    `row_stats` / `_read_rows_raw` / `grow_rows`.  An `nn.Module` whose
     parts are its children: `.to(device)` moves every part's cache.
     """
 
@@ -233,6 +238,7 @@ class ShardedTieredStore(nn.Module):
             TieredValueStore(rows_local, m, spec) for _ in range(num_ranges))
         self._shards_per_range = self.parts[0].num_shards
         self.num_shards = num_ranges * self._shards_per_range
+        self._pool: ThreadPoolExecutor | None = None  # prefetch fan-out
 
     @classmethod
     def from_dense(cls, values, spec: TieredSpec,
@@ -358,15 +364,40 @@ class ShardedTieredStore(nn.Module):
             part.apply_writeback(local, upd[sel])
 
     # ---------------------------------------------------- cache management
+    # The ranges' fills overlap on a small thread pool: each range owns
+    # its host shards, cache mirror and LRU order, under its own lock, and
+    # a fill touches only that host state.  The device copies stay on the
+    # calling thread (each part's next stacked sync, or here after the
+    # fills when asked), so stats and residency are the serial walk's.
+
+    def _fanout(self, calls: list) -> None:
+        """Run the calls, on the pool when there are several."""
+        if len(calls) <= 1:
+            for call in calls:
+                call()
+            return
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=min(8, self.num_ranges),
+                thread_name_prefix="memstore-prefetch")
+        for fut in [self._pool.submit(call) for call in calls]:
+            fut.result()
 
     def prefetch(self, idx, *, sync_device: bool = True) -> None:
         flat = np.asarray(idx).reshape(-1)
-        for part, _, local in self._route(flat):
-            part.prefetch(local, sync_device=sync_device)
+        routed = [(part, local) for part, _, local in self._route(flat)]
+        self._fanout([functools.partial(part.prefetch, local,
+                                        sync_device=False)
+                      for part, local in routed])
+        if sync_device:
+            for part, _ in routed:
+                part._sync_device()
 
     def prefetch_last(self, *, sync_device: bool = False) -> None:
-        for part in self.parts:
-            part.prefetch_last(sync_device=sync_device)
+        self._fanout([part.prefetch_last for part in self.parts])
+        if sync_device:
+            for part in self.parts:
+                part._sync_device()
 
     def warm(self, shards: Iterable[int] | None = None) -> None:
         """Fill the caches ahead of serving: every range's lowest shards,
@@ -402,6 +433,67 @@ class ShardedTieredStore(nn.Module):
         s = self.stats
         total = s["hits"] + s["misses"] + s["uncached"]
         return s["hits"] / total if total else 0.0
+
+    def row_stats(self) -> tuple[np.ndarray, int]:
+        """(looked-up elements a shard in global shard order, rows a
+        shard): the ranges are row-contiguous, so their counts
+        concatenated are the global shard axis."""
+        return (np.concatenate([p.shard_access for p in self.parts]),
+                self.shard_rows)
+
+    # ----------------------------------------------------------- lifecycle
+
+    def _read_rows_raw(self, rows: np.ndarray):
+        """(payload, scales or None) of global row ids in storage form,
+        read from the owning ranges (`TieredValueStore._read_rows_raw`)."""
+        flat = np.asarray(rows, np.int64).reshape(-1)
+        if flat.size and (flat.min() < 0 or flat.max() >= self.num_rows):
+            raise ValueError("row ids must index the table")
+        first = self.parts[0]
+        payload = np.empty((flat.size, self.m), first.storage_dtype)
+        scales = (np.empty(flat.size, np.float32) if self.quant != "none"
+                  else None)
+        for part, sel, local in self._route(flat):
+            p, sc = part._read_rows_raw(local)
+            payload[sel] = p
+            if scales is not None:
+                scales[sel] = sc
+        return payload, scales
+
+    def grow_rows(self, new_num_rows: int, parents: np.ndarray) -> None:
+        """Append rows [num_rows, new_num_rows) as new ranges, IN PLACE:
+        the old ranges keep their rows, host shards and caches; each new
+        range is a tiered store of `rows_local` rows filled from the
+        parent rows (payload and scale bit for bit), on the store's
+        device, with the live `writeback_lr`.  Global shard ids extend
+        contiguously, so the checkpoint stream stays a tiered store's."""
+        delta = new_num_rows - self.num_rows
+        if delta <= 0 or delta % self.rows_local:
+            raise ValueError(
+                f"new_num_rows={new_num_rows} must exceed {self.num_rows} "
+                f"by a multiple of the range size {self.rows_local}")
+        parents = np.asarray(parents, np.int64).reshape(-1)
+        if parents.size != delta:
+            raise ValueError(f"need {delta} parent rows, got {parents.size}")
+        if parents.min() < 0 or parents.max() >= self.num_rows:
+            raise ValueError("parent row ids must index the old table")
+        payload, scales = self._read_rows_raw(parents)
+        lr, device = self.writeback_lr, self.device
+        for k in range(delta // self.rows_local):
+            part = TieredValueStore(self.rows_local, self.m, self.spec)
+            lo, hi = k * self.rows_local, (k + 1) * self.rows_local
+            part._host[...] = payload[lo:hi].reshape(part._host.shape)
+            if scales is not None:
+                part._host_scale[...] = scales[lo:hi].reshape(
+                    part._host_scale.shape)
+            part.writeback_lr = lr
+            self.parts.append(part.to(device))
+        self.num_rows = new_num_rows
+        self.num_ranges = len(self.parts)
+        self.num_shards = self.num_ranges * self._shards_per_range
+        if self._pool is not None:  # re-sized to the new fan-out
+            self._pool.shutdown(wait=True)
+            self._pool = None
 
     def bytes_per_entry(self) -> int:
         return self.parts[0].bytes_per_entry()
@@ -468,4 +560,6 @@ def sharded_tiered_plan(cfg, storage: str, kernel: str,
         build_table=lambda dense: ShardedTieredStore.from_dense(
             dense, spec, num_ranges),
         table_from_payload=lambda q, scale: ShardedTieredStore.from_payload(
-            q, scale, spec, num_ranges))
+            q, scale, spec, num_ranges),
+        build_empty=lambda: ShardedTieredStore(cfg.num_locations, cfg.m,
+                                               spec, num_ranges))

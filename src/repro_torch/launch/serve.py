@@ -4,10 +4,16 @@
         --json                                          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lram-tiered-q8 \\
         --json --device cpu --smoke                     # plain versions
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch lram-tiered \\
+        --placement pallas --spill-at-tick 8 --warmup --json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch lram-tiered \\
+        --smoke --device cpu --rate 4 --fixed-len --json
 
 Builds the model from `--seed` (weights drawn on the CPU, then moved to
-`--device`), a mixed-length request trace (all requests queued at t=0),
-and replays it through `repro_torch.serving.ServeEngine`.  The device is
+`--device`), a request trace (mixed lengths, or every request at
+`--prompt-len` / `--gen` with `--fixed-len`; all queued at t=0, or
+Poisson arrivals at `--rate` requests a second, which the engine
+honours), and replays it through `repro_torch.serving.ServeEngine`.  The device is
 `cuda` unless `--device cpu` is given; with no card it raises rather
 than falling back.  `--warmup` runs every prefill bucket and one decode
 tick before the trace, so its timings exclude each shape's first call.
@@ -29,6 +35,18 @@ or the reference's trainer wrote) into the model before serving: its
 parameters and batchnorm stats, a tiered table streamed into the store in
 place; it prints `{"restored_step": N}`.  A mesh run's checkpoint holds
 the global arrays, so it serves as a one-process run's does.
+`--grow-to LOG2` grows the memory table to 2^LOG2 rows before that
+restore (`repro_torch.memctl.grow_model`): it serves a checkpoint of a
+`train --grow-at` run.
+
+The decode tick runs as one CUDA graph where the placement allows it
+(the dense `pallas` cells; `serving.engine`); the report's `cuda_graph`
+and `graph_captures` say so.  `--hbm-budget-mb` and `--spill-at-tick`
+build a `MemoryController` that spills a dense table to the tiered store
+between decode ticks with requests in flight (the arch's own
+`TieredSpec` where it has one), then prints `{"lifecycle": [events]}`.
+Refused, naming the ROADMAP item that ports them: `--tenants` and the
+`--overlay-*` flags (A11), `--metrics-dir` and `--profile-dir` (A13).
 """
 
 from __future__ import annotations
@@ -40,11 +58,24 @@ import json
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, memctl
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.launch import convert, resolve_device
 from repro_torch.models import transformer
 from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
+
+
+# flag -> (value that means "off", the ROADMAP item that ports it)
+_NOT_PORTED = {
+    "tenants": (0, "A11 (per-tenant overlays)"),
+    "overlay_rows": (0, "A11 (per-tenant overlays)"),
+    "overlay_write_lr": (0.1, "A11 (per-tenant overlays)"),
+    "overlay_ttl": (0, "A11 (per-tenant overlays)"),
+    "overlay_budget_kb": (0.0, "A11 (per-tenant overlays)"),
+    "overlay_dir": ("", "A11 (per-tenant overlays)"),
+    "metrics_dir": ("", "A13 (observability)"),
+    "profile_dir": ("", "A13 (observability)"),
+}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -61,6 +92,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="max generation budget per request")
     p.add_argument("--requests", type=int, default=None,
                    help="trace size (default: 2x --batch)")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="offered load in requests/sec (0 = all at t=0)")
+    p.add_argument("--fixed-len", action="store_true",
+                   help="pin every request to (--prompt-len, --gen) instead "
+                        "of the mixed-length trace")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--placement", default="",
                    choices=["", "reference", "pallas", "tiered", "sharded",
@@ -76,16 +112,38 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="restore params from this checkpoint dir before "
                         "serving (e.g. one written by repro_torch.launch."
                         "train)")
+    p.add_argument("--grow-to", type=int, default=0, metavar="LOG2",
+                   help="grow the memory table to 2^LOG2 locations before "
+                        "restoring (serve a --grow-at run's checkpoint)")
+    p.add_argument("--hbm-budget-mb", type=float, default=0.0,
+                   help="spill a dense memory table to the tiered store "
+                        "when its size exceeds this budget (between decode "
+                        "ticks)")
+    p.add_argument("--spill-at-tick", type=int, default=-1,
+                   help="spill dense->tiered at this decode tick")
     p.add_argument("--warmup", action="store_true",
                    help="run every prefill bucket and one decode tick "
                         "before the timed trace")
     p.add_argument("--json", action="store_true",
                    help="emit the machine-readable summary document")
+    # the reference's flags whose machinery is not ported: refused
+    p.add_argument("--tenants", type=int, default=0)
+    p.add_argument("--overlay-rows", type=int, default=0)
+    p.add_argument("--overlay-write-lr", type=float, default=0.1)
+    p.add_argument("--overlay-ttl", type=int, default=0)
+    p.add_argument("--overlay-budget-kb", type=float, default=0.0)
+    p.add_argument("--overlay-dir", default="")
+    p.add_argument("--metrics-dir", default="")
+    p.add_argument("--profile-dir", default="")
     return p
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    for flag, (off, item) in _NOT_PORTED.items():
+        if getattr(args, flag) != off:
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to "
+                             f"torch yet: ROADMAP {item}")
     device = resolve_device(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
@@ -104,7 +162,13 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
             cfg.lram, tiered=dataclasses.replace(
                 cfg.lram.tiered, cache_slots=args.cache_slots)))
-    model = transformer.init(cfg, seed=args.seed).to(device)
+    model = transformer.init(cfg, seed=args.seed)
+    if args.grow_to:
+        if cfg.lram is None:
+            raise SystemExit(f"--grow-to needs a memory arch; {cfg.name} "
+                             f"has no LRAM layer")
+        cfg = memctl.grow_model(model, 2**args.grow_to)
+    model = model.to(device)
     if args.ckpt_dir:
         step, restored = CheckpointManager(args.ckpt_dir).restore(
             convert.reference_tree(model, like=True))
@@ -112,21 +176,33 @@ def main(argv=None):
             raise SystemExit(f"no restorable checkpoint in {args.ckpt_dir}")
         convert.load_reference_tree(model, restored)
         print(json.dumps({"restored_step": step}), flush=True)
+    controller = None
+    if args.hbm_budget_mb > 0 or args.spill_at_tick >= 0:
+        controller = memctl.MemoryController(memctl.LifecyclePolicy(
+            hbm_budget_bytes=(int(args.hbm_budget_mb * 2**20)
+                              if args.hbm_budget_mb > 0 else None),
+            spill_at_tick=(args.spill_at_tick
+                           if args.spill_at_tick >= 0 else None),
+        ))
     trace = synthetic_trace(
         np.random.default_rng(args.seed),
         2 * args.batch if args.requests is None else args.requests,
         vocab_size=cfg.vocab_size,
         max_prompt=args.prompt_len,
         max_gen=args.gen,
+        rate=args.rate,
+        mixed=not args.fixed_len,
     )
     engine = ServeEngine(model, EngineConfig(
         slots=args.batch,
         max_len=args.prompt_len + args.gen,
         mode=args.mode,
-    ))
+    ), controller=controller)
     if args.warmup:
         engine.warmup()
     report = engine.run(trace)
+    if controller is not None and controller.events:
+        print(json.dumps({"lifecycle": controller.events}), flush=True)
     if args.json:
         print(json.dumps(report.summary(cfg.name)))
     else:
@@ -139,6 +215,8 @@ def main(argv=None):
             "decode_p50_ms": round(report.p50_ms(), 3),
             "decode_p99_ms": round(report.p99_ms(), 3),
             "cache": report.cache,
+            "cuda_graph": report.cuda_graph,
+            "graph_captures": report.graph_captures,
         }))
     return report
 

@@ -25,6 +25,9 @@
         --simulate-failure-at 9     # again without the last flag: resumes
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch lram-sharded-tiered --smoke --device cpu --json --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch lram-bert-medium --placement pallas --batch 8 --seq 256 \\
+        --steps 20 --grow-at 10:21 --telemetry --json
 
 config -> init (weights drawn on the CPU from `--seed`, then moved to
 `--device`) -> train step (MLM/CLM loss, backward, Adam with the paper's
@@ -98,8 +101,21 @@ alone would train from another step), and rank 0 prints `resumed from
 step N`.  On `--simulate-failure-at` every rank waits for rank 0's
 pending write at a barrier, then raises.
 
-Not ported yet, and refused with the ROADMAP item that ports them:
-telemetry, memory growth and observability.
+`--grow-at STEP:LOG2[,...]` grows the memory table to 2^LOG2 rows
+before the step STEP (`repro_torch.memctl`: the tables, dense tables'
+Adam moments, the write-back binding; the step and the compression
+residual are rebuilt) and prints `{"grow": "2^LOG2", "step": STEP,
+"pause_s": s}`; a relaunch applies the growths before the checkpoint's
+step first (`catch_up`), so the restore finds the grown shapes.  The
+row-sharded placement cannot grow and raises, as the reference does.
+`--telemetry` counts the rows every LRAM segment reads on the device
+(`memctl.telemetry_update` on the forward's indices) and prints the
+utilisation report beside the log lines (`{"step": s,
+"utilisation_report": rows}`); on a mesh the counts are summed over the
+batch axes first, so they are the one-process run's.
+
+Not ported yet, and refused with the ROADMAP item that ports it:
+observability (`--metrics-dir`, `--profile-dir`).
 """
 
 from __future__ import annotations
@@ -113,7 +129,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs, data, optim
+from repro_torch import configs, data, memctl, optim
 from repro_torch.checkpoint import CheckpointError, CheckpointManager
 from repro_torch.core import lookup
 from repro_torch.distributed import collectives, context, fault, sharding
@@ -124,8 +140,6 @@ from repro_torch.models import transformer
 
 # flag -> (value that means "off", the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "telemetry": (False, "A10 (memctl telemetry)"),
-    "grow_at": ("", "A10 (memctl growth)"),
     "metrics_dir": ("", "A13 (observability)"),
     "profile_dir": ("", "A13 (observability)"),
 }
@@ -143,6 +157,42 @@ def bind_stores(model: transformer.Transformer, lr: float) -> list:
         store.writeback_lr = lr
         store.warm()
     return stores
+
+
+def lram_segments(cfg) -> list[str]:
+    """The names of the LRAM memory segments (the telemetry's keys)."""
+    return [f"seg{si}" for si, seg in enumerate(transformer.layer_plan(cfg))
+            if seg[0] == "memory" and seg[2] == "lram"]
+
+
+def telemetry_rows_per_bin(num_locations: int, *,
+                           max_bins: int = 4096) -> int:
+    """Rows a bin, so that a segment's counters hold at most `max_bins`
+    bins (`num_locations` is a power of two: it divides)."""
+    rpb = 1
+    while num_locations // rpb > max_bins:
+        rpb *= 2
+    return rpb
+
+
+def init_telemetry(cfg, device=None) -> dict:
+    """One set of usage counters an LRAM segment (the carried `tel`)."""
+    n = cfg.lram.num_locations
+    rpb = telemetry_rows_per_bin(n)
+    return {name: memctl.telemetry_init(n, rows_per_bin=rpb, device=device)
+            for name in lram_segments(cfg)}
+
+
+def reported_telemetry(tel: dict) -> dict:
+    """`tel` as reported: on a mesh each rank counted its slice of the
+    batch, so counts and EMA (linear in the hits) are summed over the
+    batch axes into the one-process run's."""
+    group = context.batch_group()
+    if group is None:
+        return tel
+    return {name: {**t, **{k: collectives.all_reduce_(t[k].clone(), group)
+                           for k in ("counts", "ema")}}
+            for name, t in tel.items()}
 
 
 def batch_to(batch: dict, device) -> dict[str, torch.Tensor]:
@@ -173,7 +223,12 @@ def build_train_step(model: transformer.Transformer,
     feedback before Adam (`optim.compress_gradients`, as the reference's
     step does): a row-sharded table's gradient as its global array.  The
     residual mirrors the gradients (the dense ones whole) from the first
-    step on."""
+    step on.
+
+    `train_step(opt_state, batch, tel)` with a telemetry dict (from
+    `init_telemetry`) also runs the loss with `collect_access` and adds
+    each LRAM segment's indices to its counters, in place of the dict's
+    entries."""
     params = dict(model.named_parameters())
     shards = sharding.sharded_tables(model, mesh)
     blocks = sharding.dense_blocks(model)
@@ -182,11 +237,17 @@ def build_train_step(model: transformer.Transformer,
                    else None)
     comp = None  # the codec's state, made from the first step's gradients
 
-    def train_step(opt_state, batch):
+    def train_step(opt_state, batch, tel=None):
         nonlocal comp
         batch = sharding.batch_slice(mesh, batch)
         with sharding.gathered(model):
-            loss, metrics = transformer.loss_fn(model, batch, train=True)
+            if tel is None:
+                loss, metrics = transformer.loss_fn(model, batch, train=True)
+            else:
+                loss, metrics, accesses = transformer.loss_fn(
+                    model, batch, train=True, collect_access=True)
+                for name, (idx, _) in accesses.items():
+                    tel[name] = memctl.telemetry_update(tel[name], idx)
             loss.backward()
             grads = {k: p.grad if p.grad is not None
                      else torch.zeros_like(p) for k, p in params.items()}
@@ -243,8 +304,9 @@ def evaluate(model: transformer.Transformer, dcfg: data.DataConfig, *,
 class TrainRun:
     """What `main` leaves behind: the trained model, the optimizer state,
     the step function (for one more, profiled, step), the data config,
-    one record per step (from `start_step`, 0 or the step resumed from)
-    and the tiered stores it trained by write-back."""
+    one record per step (from `start_step`, 0 or the step resumed from),
+    the tiered stores it trained by write-back, the usage counters of
+    `--telemetry` (as reported) and the lifecycle events."""
 
     model: transformer.Transformer
     opt_state: dict
@@ -255,6 +317,8 @@ class TrainRun:
     final_fact_recall: float
     stores: list
     start_step: int = 0
+    telemetry: dict | None = None
+    lifecycle: list = dataclasses.field(default_factory=list)
 
 
 def same_step_on_every_rank(found: int | None) -> None:
@@ -305,9 +369,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--compression", default="none",
                    choices=["none", "int8", "topk"],
                    help="code the summed gradients (error feedback)")
+    p.add_argument("--grow-at", default="",
+                   help="grow the memory table at these steps: "
+                        "STEP:NEW_LOG2[,STEP:NEW_LOG2...]")
+    p.add_argument("--telemetry", action="store_true",
+                   help="count the memory rows read on the device and log "
+                        "the utilisation report beside the loss")
     # the reference's flags whose machinery is not ported: refused
-    p.add_argument("--telemetry", action="store_true")
-    p.add_argument("--grow-at", default="")
     p.add_argument("--metrics-dir", default="")
     p.add_argument("--profile-dir", default="")
     return p
@@ -342,6 +410,9 @@ def main(argv=None) -> TrainRun:
         plans = lookup.model_plans(cfg)
     except lookup.LookupPlanError as e:  # unported, or sharded without a mesh
         raise SystemExit(str(e)) from None
+    if (args.grow_at or args.telemetry) and cfg.lram is None:
+        raise SystemExit(f"--grow-at and --telemetry need a memory arch; "
+                         f"{cfg.name} has no LRAM layer")
     for plan in plans:
         if plan.table_update == "frozen":
             raise SystemExit(
@@ -362,15 +433,33 @@ def main(argv=None) -> TrainRun:
     stores = bind_stores(model, args.lr * args.memory_lr_mult)
     opt_state = optim.adam_init(dict(model.named_parameters()))
     step_fn = build_train_step(model, opt_cfg, mesh, args.compression)
+    controller = None
+    if args.grow_at:
+        controller = memctl.MemoryController(memctl.LifecyclePolicy(
+            grow_at=memctl.parse_grow_at(args.grow_at)))
+
+    def regrown():
+        """After a growth: the write-back binding, the step (and with it
+        the compression residual, which restarts at zero) anew."""
+        nonlocal stores, step_fn
+        stores = bind_stores(model, args.lr * args.memory_lr_mult)
+        step_fn = build_train_step(model, opt_cfg, mesh, args.compression)
 
     start_step, mgr = 0, None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, keep=3)
+        latest = mgr.latest_step()
+        # growths before the checkpoint's step come first, so the restore
+        # target has the grown shapes
+        if latest is not None and controller is not None \
+                and controller.catch_up(latest, model, opt_state):
+            regrown()
     # the split leaves (dense blocks, a row-sharded table's rows, their
     # moments): gathered on save, this rank's block kept on restore
     spread = convert.reference_sharding(model, opt_state)
     if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir, keep=3)
         found, tree = None, None
-        if mgr.latest_step() is not None:
+        if latest is not None:
             found, tree = mgr.restore(
                 convert.reference_tree(model, opt_state, like=True),
                 sharding=spread)
@@ -382,10 +471,24 @@ def main(argv=None) -> TrainRun:
             if main_rank:
                 print(f"resumed from step {start_step}", flush=True)
 
+    tel = init_telemetry(model.cfg, device) if args.telemetry else None
     monitor = fault.HeartbeatMonitor(num_hosts=mesh_lib.world_size())
     timer = fault.StepTimer()
     records, saved = [], start_step
     for step in range(start_step, args.steps):
+        if controller is not None \
+                and controller.on_train_step(step, model, opt_state):
+            regrown()
+            spread = convert.reference_sharding(model, opt_state)
+            if tel is not None:  # the appended bins start dead
+                tel = {name: memctl.grow_telemetry(
+                    t, model.cfg.lram.num_locations)
+                    for name, t in tel.items()}
+            ev = controller.events[-1]
+            if main_rank:
+                print(json.dumps({"grow": f"2^{ev['new_log2']}",
+                                  "step": step, "pause_s": ev["pause_s"]}),
+                      flush=True)
         if step == args.simulate_failure_at:
             if mgr:
                 mgr.wait()
@@ -395,7 +498,7 @@ def main(argv=None) -> TrainRun:
                 f"injected failure at step {step} (relaunch to resume)")
         t0 = time.perf_counter()
         batch = batch_to(data.get_batch(dcfg, step=step), device)
-        metrics = step_fn(opt_state, batch)
+        metrics = step_fn(opt_state, batch, tel)
         rec = {"step": step,
                **{k: float(metrics[k])  # the host sync ends the step
                   for k in ("loss", "xent", "grad_norm", "lr")}}
@@ -416,6 +519,16 @@ def main(argv=None) -> TrainRun:
                               "grad_norm": round(rec["grad_norm"], 3),
                               "sec": round(dt, 3)})
                   + (" STRAGGLER" if rec["straggler"] else ""))
+        if tel is not None and (step % args.log_every == 0
+                                or step == args.steps - 1):
+            # the dead / hot / cold shares beside the loss, a row set an
+            # LRAM segment (the counters stay on the device between)
+            for name, t in reported_telemetry(tel).items():
+                if main_rank:
+                    print(json.dumps({"step": step, "utilisation_report":
+                                      memctl.utilisation_report(
+                                          t, prefix=f"util_{name}")}),
+                          flush=True)
         if mgr and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
             mgr.save(step + 1, convert.reference_tree(model, opt_state),
                      blocking=False, sharding=spread)
@@ -451,7 +564,9 @@ def main(argv=None) -> TrainRun:
             or None,
         }), flush=True)
     return TrainRun(model, opt_state, step_fn, dcfg, records, eval_loss,
-                    recall, stores, start_step)
+                    recall, stores, start_step,
+                    None if tel is None else reported_telemetry(tel),
+                    controller.events if controller is not None else [])
 
 
 if __name__ == "__main__":

@@ -65,7 +65,8 @@ def tiered_plan(cfg, storage: str, kernel: str) -> lookup.LookupPlan:
         cell, TieredValueStore, "tiered",
         build_table=lambda dense: TieredValueStore.from_dense(dense, spec),
         table_from_payload=lambda q, scale: TieredValueStore.from_payload(
-            q, scale, spec))
+            q, scale, spec),
+        build_empty=lambda: TieredValueStore(cfg.num_locations, cfg.m, spec))
 
 
 def check_spec(cell, spec, rows: int) -> None:
@@ -85,12 +86,14 @@ def check_spec(cell, spec, rows: int) -> None:
 
 
 def store_plan(cell, store_type: type, impl: str, *, build_table,
-               table_from_payload) -> lookup.LookupPlan:
+               table_from_payload, build_empty) -> lookup.LookupPlan:
     """The plan of a placement whose table is a store of `store_type` (a
     `TieredValueStore` or a `ShardedTieredStore`): `tiered_interp` and the
     joined lookup over the store as a `RowSource`, trained by its
-    write-back, prefetched by the serve engine.  `impl` is the
-    `interp_impl` that builds such a table."""
+    write-back, prefetched by the serve engine, grown in place and
+    counted a shard (`repro_torch.memctl`).  `impl` is the `interp_impl`
+    that builds such a table; `build_empty` a zero store of the plan's
+    layout."""
     storage, kernel = cell[1], cell[2]
     query = lookup.query_fn(kernel)
 
@@ -124,4 +127,5 @@ def store_plan(cell, store_type: type, impl: str, *, build_table,
         interp=interp, lookup=lookup_fn,
         table_from_payload=None if storage == "fp32" else table_from_payload,
         supports_prefetch=True, table_update="writeback",
+        supports_growth=True, row_stats=True, build_empty=build_empty,
     )

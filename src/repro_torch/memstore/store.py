@@ -47,9 +47,17 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     kind) and refreshes a cached copy, `load_dense` replaces the table and
     empties the cache: what `repro_torch.checkpoint` streams.
 
+  * **Lifecycle** (`repro_torch.memctl`) — `shard_access` counts every
+    looked-up element a shard (`row_stats`, the store's telemetry);
+    `_read_rows_raw` reads rows in storage form from the host tier (dirty
+    slots flushed first) without touching residency or stats; `grow_rows`
+    appends host shards, each row a copy of its parent (payload and
+    scale bit for bit), and leaves the cache, its slots and LRU order
+    as they were.
+
 Every mutation of residency, LRU order, the cache mirror and `stats`
 takes the store's re-entrant lock.  Not ported yet: `mmap` backing and
-fills on a side stream (ROADMAP A8), `grow_rows` (A10).
+fills on a side stream (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -145,6 +153,8 @@ class TieredValueStore(nn.Module):
         # off) and the stochastic-rounding draws of an int8 requantization
         self.writeback_lr = 0.0
         self._wb_rng = np.random.default_rng(0)
+        # looked-up elements a shard (telemetry: `row_stats`)
+        self.shard_access = np.zeros(self.num_shards, np.int64)
         # guards residency, LRU order, the device tier and `stats`; reads of
         # a single stat stay lock-free
         self._lock = threading.RLock()
@@ -285,6 +295,8 @@ class TieredValueStore(nn.Module):
             self.stats["hits"] += int(resident_before.sum())
             self.stats["misses"] += int((~resident_before & mask).sum())
             self.stats["uncached"] += int((~mask).sum())
+            self.shard_access += np.bincount(shard,
+                                             minlength=self.num_shards)
         return shard, row, slot.astype(np.int64), mask
 
     def prefetch(self, idx, *, sync_device: bool = True) -> None:
@@ -618,10 +630,66 @@ class TieredValueStore(nn.Module):
                 self._dirty.discard(slot)
                 self._dev_stale.add(slot)
 
+    # ----------------------------------------------------------- lifecycle
+
+    def _read_rows_raw(self, rows: np.ndarray):
+        """(payload, scales or None) of global row ids in storage form (the
+        1-byte payload, fp8 as its uint8 bytes, and per-row scales; else
+        fp32 rows), read from the host tier after flushing the dirty slots.
+        Residency, LRU order and stats are untouched: the bulk read of
+        growth and migration, not a lookup."""
+        with self._lock:
+            self.flush()
+            shard, row = self._split(np.asarray(rows).reshape(-1))
+            payload = self._host[shard, row]
+            scales = (self._host_scale[shard, row] if self.quant != "none"
+                      else None)
+        return payload, scales
+
+    def grow_rows(self, new_num_rows: int, parents: np.ndarray) -> None:
+        """Append rows [num_rows, new_num_rows), each a copy of its old
+        row `parents[j - num_rows]` (payload and scale bit for bit), IN
+        PLACE.  Growth is append-only (`indexing.grow_torus` keeps every
+        old index), so the cache, the shard -> slot map of old shards, LRU
+        order and dirty flags stay valid and nothing goes to the device;
+        the appended shards compete for the same slots."""
+        delta = new_num_rows - self.num_rows
+        if delta <= 0 or delta % self.shard_rows:
+            raise ValueError(
+                f"new_num_rows={new_num_rows} must exceed {self.num_rows} "
+                f"by a multiple of shard_rows={self.shard_rows}")
+        parents = np.asarray(parents, np.int64).reshape(-1)
+        if parents.size != delta:
+            raise ValueError(f"need {delta} parent rows, got {parents.size}")
+        if parents.min() < 0 or parents.max() >= self.num_rows:
+            raise ValueError("parent row ids must index the old table")
+        with self._lock:
+            payload, scales = self._read_rows_raw(parents)
+            new_shards = delta // self.shard_rows
+            self._host = np.concatenate([self._host, payload.reshape(
+                new_shards, self.shard_rows, self.m)])
+            if scales is not None:
+                self._host_scale = np.concatenate([
+                    self._host_scale,
+                    scales.reshape(new_shards, self.shard_rows)])
+            self.num_rows = new_num_rows
+            self.num_shards += new_shards
+            self._shard_slot = np.concatenate([
+                self._shard_slot, np.full(new_shards, -1, np.int32)])
+            self.shard_access = np.concatenate([
+                self.shard_access, np.zeros(new_shards, np.int64)])
+            self.last_access = None  # old ids stay valid, but re-prime
+
+    def row_stats(self) -> tuple[np.ndarray, int]:
+        """(looked-up elements a shard, rows a shard): the store's side of
+        `repro_torch.memctl.telemetry`, one bin a host shard."""
+        return self.shard_access.copy(), self.shard_rows
+
     # --------------------------------------------------------------- stats
 
     def reset_stats(self) -> None:
         with self._lock:
+            self.shard_access[:] = 0
             self.stats = {
                 "lookups": 0, "hits": 0, "misses": 0, "uncached": 0,
                 "fills": 0, "evictions": 0, "writebacks": 0,

@@ -87,11 +87,20 @@ class _Block(nn.Module):
     def ffn(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         raise NotImplementedError
 
-    def full(self, x, positions, *, causal: bool, train: bool = False):
-        """Full-sequence layer. Returns (x, (k, v))."""
+    def ffn_access(self, x: torch.Tensor, train: bool):
+        """(ffn(x), the memory read's (idx, w) or None)."""
+        return self.ffn(x, train), None
+
+    def full(self, x, positions, *, causal: bool, train: bool = False,
+             collect_access: bool = False):
+        """Full-sequence layer. Returns (x, (k, v)), and with
+        `collect_access` the memory read's (idx, w) (None without one)."""
         h, kv = attention.attn_apply(self.attn, self.attn_norm(x),
                                      positions=positions, causal=causal)
         x = x + h
+        if collect_access:
+            h, access = self.ffn_access(x, train)
+            return x + h, kv, access
         return x + self.ffn(x, train), kv
 
     def decode(self, x, pos, k_cache, v_cache):
@@ -134,6 +143,12 @@ class MemoryLayer(_Block):
             return lram_mod.memffn_apply(self.memffn, self.ffn_norm(x),
                                          train=train)
         return pkm_mod.pkm_apply(self.pkm, self.ffn_norm(x), train=train)
+
+    def ffn_access(self, x: torch.Tensor, train: bool):
+        if self.kind == "lram":
+            return lram_mod.memffn_apply(self.memffn, self.ffn_norm(x),
+                                         train=train, return_access=True)
+        return self.ffn(x, train), None
 
 
 class Transformer(nn.Module):
@@ -207,36 +222,53 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=tokens.device).expand(b, s)
 
 
-def forward(model: Transformer, batch: dict, *,
-            train: bool = False) -> torch.Tensor:
+def forward(model: Transformer, batch: dict, *, train: bool = False,
+            collect_access: bool = False):
     """Full-sequence forward: batch["tokens"] (B, S) -> logits (B, S, V).
-    In train mode the memory layers' batchnorm stats update in place."""
+    In train mode the memory layers' batchnorm stats update in place.
+    With `collect_access` returns (logits, {segment: (idx, w)}), one
+    entry an LRAM memory segment, named as the reference's (the telemetry
+    train step counts `idx`)."""
     tokens = batch["tokens"]
     causal = model.cfg.objective == "clm"
     positions = _positions(tokens)
     x = model.embed_tokens(tokens, positions)
-    for seg in model.segments.values():
+    accesses = {}
+    for name, seg in model.segments.items():
         for layer in (seg if isinstance(seg, nn.ModuleList) else (seg,)):
-            x, _ = layer.full(x, positions, causal=causal, train=train)
-    return model.logits(x)
+            if collect_access:
+                x, _, access = layer.full(x, positions, causal=causal,
+                                          train=train, collect_access=True)
+                if access is not None:
+                    accesses[name] = access
+            else:
+                x, _ = layer.full(x, positions, causal=causal, train=train)
+    logits = model.logits(x)
+    return (logits, accesses) if collect_access else logits
 
 
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
 
-def loss_fn(model: Transformer, batch: dict, *, train: bool = True):
+def loss_fn(model: Transformer, batch: dict, *, train: bool = True,
+            collect_access: bool = False):
     """(loss, metrics): the mean cross-entropy over the positions whose
     label is not `IGNORE` (denominator at least 1), plus the router aux
     term (zero for the dense family).  In train mode the forward runs the
-    batchnorm on batch statistics and updates its running stats.
+    batchnorm on batch statistics and updates its running stats.  With
+    `collect_access` the forward's memory accesses {segment: (idx, w)}
+    come third.
 
     Under an ambient mesh with a ``data`` axis, a train-mode batch is this
     data rank's slice of the global batch: the denominator is the global
     count of valid labels (summed over the batch axes, ``data`` or
     ("pod", "data")), so the loss is this rank's part of the global loss
     and the parts' gradients sum to the global loss's."""
-    logits = forward(model, batch, train=train)
+    logits = forward(model, batch, train=train,
+                     collect_access=collect_access)
+    if collect_access:
+        logits, accesses = logits
     labels = batch["labels"]
     valid = labels != IGNORE
     safe_labels = torch.where(valid, labels, 0).long()
@@ -249,7 +281,8 @@ def loss_fn(model: Transformer, batch: dict, *, train: bool = True):
     xent = -(tok_ll * valid).sum() / denom
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     loss = xent + model.cfg.router_aux_weight * aux
-    return loss, {"xent": xent, "aux": aux, "ntokens": denom}
+    metrics = {"xent": xent, "aux": aux, "ntokens": denom}
+    return (loss, metrics, accesses) if collect_access else (loss, metrics)
 
 
 # ---------------------------------------------------------------------------

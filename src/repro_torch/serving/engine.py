@@ -21,6 +21,25 @@ when every slot is free (gang admission).  The KV cache is updated IN
 PLACE (decode writes its row, admission copies into the slot); the
 reference donates and replaces the cache instead.
 
+**The decode tick as one CUDA graph** (the port's form of the reference's
+one jitted decode step): on a card, in `continuous` mode, with
+`EngineConfig.cuda_graph` and every lookup plan `supports_graph` (the
+dense ``pallas`` cells: no host work in the forward), `decode_step` and
+the argmax are captured once, after torch's warm-up iterations on a side
+stream, over static token and position buffers the tick fills by
+`copy_`; each tick replays it.  The capture happens in `warmup()` or on
+the first tick after a (re)binding; `swap_model` drops it.  A capture
+that fails fails the run.  Under a graph a wrapper's launch counter
+moves at capture only: the counts a capture made are taken back and
+added again on every replay, so the counters still count launches.
+Tiered placements run eagerly (their lookups map shards on the host).
+
+**Lifecycle**: a `controller` (`repro_torch.memctl.MemoryController`)
+runs between decode ticks (`on_tick`); it may migrate the model's tables
+and call `swap_model`, which re-binds the stores and the graph while the
+slots and the KV cache carry every request in flight.  `ticks` counts
+decode ticks since construction (the policy's clock).
+
 Tiered memory: when the model's lookup plan `supports_prefetch`, the
 engine collects the model's tiered stores (a `ShardedTieredStore` as one:
 its warm and prefetch reach every range), warms them and resets their
@@ -28,24 +47,35 @@ stats at the start of `run`, attributes each prefill's and each tick's
 hit / miss / uncached deltas to the requests in flight, and calls
 `prefetch_last()` after every tick.  Prefill lookups count every position
 of the padded bucket, as the reference's traced path does.  Not ported
-yet: per-tenant overlays, the memory controller and the observability
-spans.
+yet: per-tenant overlays (ROADMAP A11) and the observability spans
+(A13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import lookup
 from repro_torch.models import transformer
 from repro_torch.serving.requests import Request, RequestQueue
 
 _STAT_KEYS = ("hits", "misses", "uncached")
+_GRAPH_WARMUP = 3  # eager ticks on a side stream before a capture
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device):
+    """The one side stream of a device for every warm-up and capture: each
+    new stream gets a cuBLAS workspace of its own (32 MiB on an H100) that
+    stays allocated for the life of the process."""
+    return torch.cuda.Stream(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +85,8 @@ class EngineConfig:
     slots: int = 4
     max_len: int = 64           # per-slot cache length (prompt + generation)
     mode: str = "continuous"    # continuous | static (gang admission)
+    cuda_graph: bool = True     # decode tick as one CUDA graph, where the
+    #                             plans allow it (False: the eager twin)
 
     def __post_init__(self):
         if self.slots < 1:
@@ -127,6 +159,9 @@ class EngineReport:
     prefill_s: list[float]
     requests: list[FinishedRequest]
     cache: dict[str, Any] | None = None   # tiered-store stats
+    cuda_graph: bool = False    # the last binding's ticks replay a graph
+    graph_captures: int = 0     # captures since the engine was built
+    graph_ticks: int = 0        # ticks of this run replayed from a graph
 
     @property
     def tokens_per_sec(self) -> float:
@@ -168,6 +203,9 @@ class EngineReport:
             "tokens_per_sec": round(self.tokens_per_sec, 2),
             "generated_tokens": self.generated_tokens,
             "cache": self.cache,
+            "cuda_graph": self.cuda_graph,
+            "graph_captures": self.graph_captures,
+            "graph_ticks": self.graph_ticks,
             "requests": [r.summary() for r in self.requests],
         }
 
@@ -176,30 +214,97 @@ class ServeEngine:
     """Slot-pool serving engine (see the module docstring)."""
 
     def __init__(self, model: transformer.Transformer,
-                 engine_cfg: EngineConfig):
+                 engine_cfg: EngineConfig, *, controller=None):
         cfg = model.cfg
         if cfg.objective != "clm":
             raise ValueError("serving requires a causal-LM arch")
-        self.model = model.eval()
-        self.cfg = cfg
         self.engine_cfg = engine_cfg
-        self.device = model.embed.embedding.device
+        self.controller = controller
+        self.ticks = 0  # decode ticks since construction (policy clock)
+        self.graph_captures = 0
+        device, B = model.embed.embedding.device, engine_cfg.slots
         self._axes = transformer.cache_batch_axes(cfg, engine_cfg.max_len)
-        self.cache = transformer.init_cache(
-            cfg, engine_cfg.slots, engine_cfg.max_len, self.device
-        )
+        self.cache = transformer.init_cache(cfg, B, engine_cfg.max_len,
+                                            device)
+        # the decode graph's static inputs, filled by copy_ each tick
+        self._tok = torch.zeros((B, 1), dtype=torch.long, device=device)
+        self._pos = torch.zeros((B,), dtype=torch.long, device=device)
+        self.swap_model(model)
+
+    def swap_model(self, model: transformer.Transformer) -> None:
+        """(Re)bind the engine to `model` (after a live migration, its own
+        model with new tables and config): the stores it prefetches and
+        the decode graph, dropped here and captured again on the next
+        tick where the new plans allow it.  The slots and the KV cache
+        are untouched (their shapes depend on the engine config alone),
+        so requests in flight resume on the next tick."""
+        self.model = model.eval()
+        self.cfg = model.cfg
+        self.device = model.embed.embedding.device
+        plans = lookup.model_plans(self.cfg)
         # prefetch handles come from the plan's capability flag
-        self.stores = (
-            lookup.find_stores(model)
-            if any(p.supports_prefetch for p in lookup.model_plans(cfg))
-            else []
-        )
+        self.stores = (lookup.find_stores(model)
+                       if any(p.supports_prefetch for p in plans) else [])
+        self._graph = None
+        self.use_graph = (self.engine_cfg.cuda_graph
+                          and self.device.type == "cuda"
+                          and self.engine_cfg.mode == "continuous"
+                          and all(p.supports_graph for p in plans))
+
+    def _capture(self) -> None:
+        """Capture `decode_step` and the argmax over the static buffers as
+        one CUDA graph (the buffers hold this tick's inputs, or zeros: the
+        warm-up ticks write each slot's KV row at its own position, as the
+        tick itself then does)."""
+        stream = torch.cuda.current_stream(self.device)
+        side = _capture_stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            for _ in range(_GRAPH_WARMUP):
+                transformer.decode_step(self.model, self._tok, self._pos,
+                                        self.cache)
+        stream.wait_stream(side)
+        counters = kernels.launch_counters()
+        before = {name: fn.launches for name, fn in counters.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            logits = transformer.decode_step(self.model, self._tok,
+                                             self._pos, self.cache)
+            next_tok = torch.argmax(logits[:, -1], dim=-1)
+        # what the capture counted was recorded, not launched: take it
+        # back, and add it on every replay
+        self._graph_launches = {}
+        for name, fn in counters.items():
+            if fn.launches != before[name]:
+                self._graph_launches[fn] = fn.launches - before[name]
+                fn.launches = before[name]
+        self._graph, self._logits, self._next = graph, logits, next_tok
+        self.graph_captures += 1
+
+    def _decode(self, tok_buf: np.ndarray, pos_buf: np.ndarray):
+        """One decode tick over the pool: (logits (B, 1, V) on the device,
+        next tokens (B,) on the host), replayed from the graph where the
+        binding allows it, else eager."""
+        if not self.use_graph:
+            logits = transformer.decode_step(
+                self.model, torch.from_numpy(tok_buf).to(self.device),
+                torch.from_numpy(pos_buf).to(self.device), self.cache)
+            return logits, torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        self._tok.copy_(torch.from_numpy(tok_buf))
+        self._pos.copy_(torch.from_numpy(pos_buf))
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        for fn, n in self._graph_launches.items():
+            fn.launches += n
+        return self._logits, self._next.cpu().numpy()
 
     @torch.inference_mode()
     def warmup(self) -> None:
         """Prefill once at every prompt bucket and run one decode tick, so
         the first call of each shape (library kernel choice, allocator
-        growth) falls outside a timed `run`.  The cache rows it writes are
+        growth) falls outside a timed `run`, and capture the decode graph
+        where the binding uses one.  The cache rows it writes are
         overwritten by the next admission into each slot."""
         cap = self.engine_cfg.max_len
         for bucket in sorted({_bucket(s, cap) for s in range(1, cap)}):
@@ -212,6 +317,10 @@ class ServeEngine:
             torch.zeros((B,), dtype=torch.long, device=self.device),
             self.cache,
         )
+        if self.use_graph and self._graph is None:
+            self._tok.zero_()
+            self._pos.zero_()
+            self._capture()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -309,6 +418,7 @@ class ServeEngine:
         prefill_s: list[float] = []
         finished: list[FinishedRequest] = []
         generated = 0
+        graph_ticks = 0
         t0 = time.perf_counter()
 
         while True:
@@ -346,12 +456,10 @@ class ServeEngine:
 
             # -- one fixed-shape decode tick over the whole pool
             t_step = time.perf_counter()
-            logits = transformer.decode_step(
-                self.model, torch.from_numpy(tok_buf).to(self.device),
-                torch.from_numpy(pos_buf).to(self.device), self.cache,
-            )
-            next_tok = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            graph_ticks += self.use_graph
+            _, next_tok = self._decode(tok_buf, pos_buf)
             step_s.append(time.perf_counter() - t_step)
+            self.ticks += 1
 
             if self.stores:
                 prev_stats = self._attribute([slots[b] for b in active],
@@ -361,6 +469,12 @@ class ServeEngine:
                 # the copies go up with the next lookup's stacked sync
                 for _, store in self.stores:
                     store.prefetch_last()
+
+            # the lifecycle hook: the controller may swap the model between
+            # ticks (spill a dense table to the tiered store); the slots in
+            # flight ride through untouched
+            if self.controller is not None and self.controller.on_tick(self):
+                prev_stats = self._store_stats()
 
             now = time.perf_counter() - t0
             for b in active:
@@ -384,6 +498,9 @@ class ServeEngine:
             prefill_s=prefill_s,
             requests=finished,
             cache=self._cache_summary(),
+            cuda_graph=self.use_graph,
+            graph_captures=self.graph_captures,
+            graph_ticks=graph_ticks,
         )
 
 

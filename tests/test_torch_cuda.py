@@ -987,3 +987,43 @@ def test_backward_without_scatter_layouts_on_card(cuda_device, m, top_k,
                     assert not got[~ok].any()
                     if base == num:
                         assert not ok.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["lram-tiered", "lram-tiered-q8"])
+def test_decode_graph_matches_eager_on_card(cuda_device, arch):
+    """The dense pallas cells' decode tick as one CUDA graph (smoke
+    config): one capture, every request's tokens those of the eager twin
+    and the K2 / gather launch counts of the trace equal (a replay adds
+    what the capture recorded).  A tiered placement runs eagerly."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
+
+    cfg = configs.get_smoke_config(arch)
+    dense = dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, interp_impl="pallas"))
+    gather = (gather_interp.gather_interp if cfg.lram.table_quant == "none"
+              else gather_interp.gather_interp_quant)
+    runs = []
+    for c, graph in ((dense, True), (dense, False), (cfg, True)):
+        model = transformer.init(c, seed=0).to(cuda_device)
+        engine = ServeEngine(model, EngineConfig(slots=2, max_len=16,
+                                                 cuda_graph=graph))
+        engine.warmup()
+        before = (e8_lookup.lram_query.launches, gather.launches)
+        report = engine.run(synthetic_trace(
+            np.random.default_rng(1), 4, vocab_size=c.vocab_size,
+            max_prompt=8, max_gen=8))
+        torch.cuda.synchronize()
+        runs.append((report, e8_lookup.lram_query.launches - before[0],
+                     gather.launches - before[1]))
+    (g, g_k2, g_k1), (e, e_k2, e_k1), (t, _, _) = runs
+    assert g.cuda_graph and g.graph_captures == 1
+    assert g.graph_ticks == len(g.step_s) > 0
+    assert not e.cuda_graph and e.graph_captures == 0
+    assert not t.cuda_graph and t.graph_captures == 0  # host work: eager
+    assert [r.tokens for r in g.requests] == [r.tokens for r in e.requests]
+    assert g_k2 == e_k2 > 0 and g_k1 == e_k1 > 0

@@ -1,6 +1,8 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import neither
-JAX, nor the JAX package, nor `ml_dtypes` (the card's machine lacks it),
-and import no triton or CUDA build at import."""
+"""The port stands alone: `repro_torch` (its `memctl` lifecycle package
+included) and `chip_smoke.py` import neither JAX, nor the JAX package,
+nor `ml_dtypes` (the card's machine lacks it), and import no triton or
+CUDA build at import; a CPU serve with a live spill and a training run
+with growth and telemetry load none of them either."""
 
 import json
 import os
@@ -29,6 +31,11 @@ def _port_files():
 def test_port_files_have_no_forbidden_imports():
     files = _port_files()
     assert len(files) > 20
+    # the lifecycle package is the port's own copy (no numpy-only module
+    # of the JAX package either)
+    assert {f.name for f in files if f.parent.name == "memctl"} == {
+        "__init__.py", "telemetry.py", "growth.py", "migrate.py",
+        "controller.py"}
     bad = {str(f.relative_to(REPO)): m.group(0).strip()
            for f in files for m in [FORBIDDEN.search(f.read_text())] if m}
     assert not bad, bad
@@ -58,10 +65,14 @@ for args in (["--placement", "pallas"], [], ["--arch", "lram-tiered-q8"]):
                              "--prompt-len", "4", "--gen", "2",
                              "--requests", "1"])
     served += len(rep.requests)
+rep = serve.main(["--placement", "pallas", "--spill-at-tick", "1",
+                  "--smoke", "--device", "cpu", "--batch", "1",
+                  "--prompt-len", "4", "--gen", "3", "--requests", "1"])
+served += len(rep.requests)
 from repro_torch.launch import train
 run = train.main(["--arch", "lram-bert-medium", "--smoke", "--device", "cpu",
                   "--placement", "pallas", "--steps", "2", "--batch", "2",
-                  "--seq", "8"])
+                  "--seq", "8", "--grow-at", "1:17", "--telemetry"])
 bad = sorted(n for n in sys.modules if n.split(".")[0]
              in ("jax", "jaxlib", "repro", "triton", "ml_dtypes"))
 print(json.dumps({"bad": bad, "requests": served,
@@ -72,4 +83,4 @@ print(json.dumps({"bad": bad, "requests": served,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"bad": [], "requests": 3, "train_steps": 2}
+    assert out == {"bad": [], "requests": 4, "train_steps": 2}

@@ -251,7 +251,41 @@ def test_cli_refuses_what_is_not_ported(flag, capsys):
     `--use-mesh` is ported: outside a launch of several ranks it trains on
     one process without a mesh, as the reference does on one device, and
     gives the run without the flag (the 4-rank run is
-    tests/test_torch_mesh_train.py)."""
+    tests/test_torch_mesh_train.py).  `--telemetry` and `--grow-at` are
+    ported (`repro_torch.memctl`): at smoke size they train, printing the
+    utilisation report a logged step, or growing the table to 2^17 rows
+    before step 2 (`tests/test_torch_memctl.py` holds both against the
+    JAX trainer)."""
+    argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "3",
+            "--batch", "2", "--seq", "16", "--placement", "pallas"]
+    if flag == ["--telemetry"]:
+        run = train.main(argv + flag + ["--log-every", "1"])
+        lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+                 if x.startswith('{"step"')]
+        util = [x for x in lines if "utilisation_report" in x]
+        assert [x["step"] for x in util] == [0, 1, 2]
+        names = [row[0] for row in util[-1]["utilisation_report"]]
+        assert names == ["util_seg1_dead_frac", "util_seg1_hot10_mass",
+                         "util_seg1_cold_frac"]
+        counts = run.telemetry["seg1"]["counts"]
+        # 3 steps of 2 x 16 tokens, 4 heads of top-32 each
+        assert int(counts.sum()) == 3 * 2 * 16 * 4 * 32
+        assert int(run.telemetry["seg1"]["steps"]) == 3
+        return
+    if flag == ["--grow-at", "2:17"]:
+        run = train.main(argv + flag)
+        out = capsys.readouterr().out.splitlines()
+        grows = [json.loads(x) for x in out if x.startswith('{"grow"')]
+        assert [(g["grow"], g["step"]) for g in grows] == [("2^17", 2)]
+        assert grows[0]["pause_s"] >= 0
+        assert run.model.cfg.lram.num_locations == 2**17
+        key = "segments.seg1.memffn.lram.values"
+        assert run.model.get_parameter(key).shape[0] == 2**17
+        assert run.opt_state["mu"][key].shape[0] == 2**17
+        assert len(run.records) == 3 and all(
+            np.isfinite(r["loss"]) for r in run.records)
+        assert [e["event"] for e in run.lifecycle] == ["grow"]
+        return
     if flag == ["--use-mesh"]:
         argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
                 "2", "--batch", "2", "--seq", "16", "--placement", "pallas",
