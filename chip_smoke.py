@@ -50,8 +50,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
        `F.embedding_bag` with the clamped rows and masked weights), int8
        and e4m3 shards, and the range backward (fp32 with scatter,
        1-byte without; each with dq and with dw);
+       K2 and K1 at path (h)'s n: 384, 768, 960 and 1,024 (a decode tick
+       of 4 slots x 96, 192, 240 and 256 memory heads) and 16,384 (a
+       64-token yi-9b prompt) as above, and
+       1,966,080 in one call (danube's 8,192-token prompt x 240 heads),
+       held against the plain versions on its last 65,536 queries;
   4. serve at full width through `repro_torch.launch.serve.main --warmup`
-     (every prefill bucket and one decode tick first; then 8 requests, 4
+     (the trace's prefill buckets and one decode tick first; then 8 requests, 4
      slots, prompts <= 64, generation <= 32, all queued at t=0).  Each
      path is driven with every launch count set to 0 just before it and
      read just after, and fails unless its kernels launched, 8 of 8
@@ -92,6 +97,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
   5. a shorter serve of each path's warmed engine under torch.profiler
      (the dense path twice: with the graph and eager): kernel time by
      name and the device's busy share;
+ 5h. path (h), the dense public decoders at full width in bfloat16, each
+     `configs.with_lram(get_config(arch), 20)` (the memory FFN at layer
+     num_layers // 2, a 2^20 x 64 fp32 table, `pallas`), weights drawn
+     on the card from seed 0, served through `ServeEngine` (warm-up over
+     the trace's prompt lengths, the decode tick one CUDA graph), each
+     model freed before the next: h1 yi-9b, h2 qwen2-1.5b, h3
+     starcoder2-3b on the serve paths' trace; h4 h2o-danube-3-4b (window
+     4,096) on 8 requests of exactly 8,192 prompt tokens and 32 new
+     ones (a chunked prefill, a 4,096-slot ring that wraps).  Each
+     prints decode p50 / p99, tokens/s, the median prefill, the peak
+     memory, K2 / K1 launches and the memory reads' n, and one replayed
+     tick's profiled busy share; each fails unless K2 and K1 launched
+     (counts reset just before, read just after), 8 of 8 requests
+     finished with finite logits, the kernels agree with their plain
+     versions on the queries the path itself gave them (the last eager
+     memory read at each n, warm-up and run: K2 bit for bit, K1 rtol
+     2e-5 / atol 1e-6), and every request's first logits match a
+     prefill of its prompt, padded as the engine pads it, with the
+     kernels' plain versions on the card to the bfloat16 tolerance of
+     the CPU tests (2^-8 x (layers + 1) x the largest logit).  h1 also
+     serves eagerly: tokens and launch counts equal the graph's, and
+     its real decode ticks' reads are held as above.  h4 also holds one prompt's
+     chunked prefill against `attn_impl="dense"`, and request 0's last
+     decode tick (past the window) against a full forward of its prompt
+     and generated tokens, both to that tolerance;
   6. train `lram-bert-medium` at full width through
      `repro_torch.launch.train.main` (`--placement pallas --batch 8 --seq
      256 --steps 20`: 2,048 tokens, n = 65,536 lookups a step), with every
@@ -212,7 +242,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      from the same seed's weights and batches, per-step losses and
      gradient norms to rtol 1e-4, and lram-bert-pkm's smoke config and
      lram-bert-medium's with `--compression int8` and `topk` the same
-     way;
+     way; serve the four public archs' smoke configs with the memory
+     FFN (2^16 rows, `pallas`) on the card and on the CPU from the same
+     weights, in float32 (first logits to rtol / atol 1e-5) and in
+     bfloat16 (to the tolerance above);
   9. last lines: the card again, the `kernels` JSON line, and
      {"ok": true, "device": {...}}.
 
@@ -258,7 +291,7 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.distributed.sharded_lram import (  # noqa: E402
     ShardedTieredStore)
 from repro_torch.memstore import TieredValueStore  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import attention, transformer  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EngineConfig, ServeEngine, synthetic_trace)
 
@@ -271,6 +304,12 @@ SHAPES = (128, 2048, 65536)  # decode tick (4 slots x 32 heads), 64-token
 ROWS_SHAPES = (128, 2048, 16384, 65536)  # + the tiered train step's n
 RANGE_SHAPES = (128, 2048, 32768)  # + one data rank's n on the mesh step
 RANGE_ROWS = 2**19  # one rank's shard of the 2^20-row table, model 2
+# path (h)'s memory reads: a decode tick of 4 slots x 96 / 192 / 240 / 256
+# heads (qwen2-1.5b, starcoder2-3b, danube, yi-9b), a 64-token yi-9b prompt
+# (64 x 256); danube's 8,192-token prompt x 240 heads
+H_SHAPES = (384, 768, 960, 1024, 16384)
+H_BIG_N = 8192 * 240
+PLAIN_SLICE = 65536  # the plain versions' share of the H_BIG_N call
 TOP_K = 32
 LOG2_LOCATIONS = 20
 M = 64
@@ -824,7 +863,70 @@ def kernel_phase(device):
                         "clustered")
     for n in RANGE_SHAPES:
         range_rows(rows, n, spec, values, tables, wrap, gen)
+    h_kernel_rows(rows, spec, values, wrap, gen)
     return rows
+
+
+def h_kernel_rows(rows, spec, values, wrap, gen):
+    """K2 and K1 at path (h)'s shapes: its decode tick and yi-9b prompt
+    (`k2_row`, `k1_dense_row`), and danube's prefill in one call
+    (`big_rows`)."""
+    for n in H_SHAPES:
+        q = torch.rand(n, 8, generator=gen, device=values.device) * wrap
+        idx, w = k2_row(rows, n, q, spec, values)
+        k1_dense_row(rows, n, values, idx, w, "uniform")
+    big_rows(rows, H_BIG_N, spec, values, wrap, gen)
+
+
+def big_rows(rows, n, spec, values, wrap, gen):
+    """K2 and K1 in one call of n = 1,966,080 queries (danube's 8,192-token
+    prefill x 240 memory heads: past every 32-bit count of the old
+    shapes' n x k), held against their plain versions on the last
+    PLAIN_SLICE queries of the full call's inputs and outputs (K2 bit for
+    bit; K1 rtol 2e-5, atol 1e-6), and timed whole; the plain versions
+    are timed on the slice (`plain_slice_ms`), the library yardstick
+    (`F.embedding_bag`) whole."""
+    q = torch.rand(n, 8, generator=gen, device=values.device) * wrap
+    k2 = lambda: e8_lookup.lram_query(q, spec, TOP_K)  # noqa: E731
+    idx, w = k2()
+    tail = slice(n - PLAIN_SLICE, n)
+    idx_p, w_p = e8_lookup.lram_query_plain(q[tail], spec, TOP_K)
+    torch.cuda.synchronize()
+    check(torch.equal(idx[tail], idx_p) and torch.equal(w[tail], w_p),
+          f"K2 differs from its plain version at n={n} (last "
+          f"{PLAIN_SLICE} queries)")
+    b2 = bound_ms(n * 8 * 4 + n * TOP_K * 8,
+                  n * 232 * (23 + math.log2(TOP_K)))
+    dev, _, seen = device_split(k2, "lram_query_kernel")
+    rows["lram_query"].append({
+        "n": n, "max_abs_err": 0.0, "w_bit_equal": True,
+        "checked_queries": PLAIN_SLICE, "ms": time_ms(k2),
+        "device_ms": dev, **seen, "plain_ms": None,
+        "plain_slice_ms": time_ms(lambda: e8_lookup.lram_query_plain(
+            q[tail], spec, TOP_K)),
+        "bound_ms": b2[0], "bound_by": b2[1], "library_ms": None})
+    k1 = lambda: gather_interp.gather_interp(values, idx, w)  # noqa: E731
+    out = k1()
+    want = gather_interp.gather_interp_plain(values, idx[tail], w[tail])
+    torch.cuda.synchronize()
+    err = (out[tail] - want).abs().max().item()
+    check(torch.allclose(out[tail], want, rtol=2e-5, atol=1e-6),
+          f"K1 differs from its plain version by {err} at n={n}")
+    idx64 = idx.long()
+    library = lambda: F.embedding_bag(  # noqa: E731
+        idx64, values, per_sample_weights=w, mode="sum")
+    check(torch.allclose(library()[tail], want, rtol=1e-5, atol=1e-5),
+          f"K1: the library yardstick disagrees at n={n}")
+    distinct = torch.unique(idx).numel()
+    b1 = gather_bound(distinct, 4 * M, n)
+    dev, _, seen = device_split(k1, "gather_interp_kernel")
+    rows["gather_interp"].append({
+        "n": n, "max_abs_err": err, "checked_queries": PLAIN_SLICE,
+        "ms": time_ms(k1), "device_ms": dev, **seen, "plain_ms": None,
+        "plain_slice_ms": time_ms(lambda: gather_interp.gather_interp_plain(
+            values, idx[tail], w[tail])),
+        "bound_ms": b1[0], "bound_by": b1[1], "library_ms": time_ms(library),
+        "route": "dense", "queries": "uniform", "distinct_rows": distinct})
 
 
 def tiered_rows(rows, n, cache, caches, slot_table, gid, w, slots):
@@ -1275,10 +1377,10 @@ def dense_engine_run(model, args, cuda_graph: bool):
     engine = ServeEngine(model, EngineConfig(
         slots=args.batch, max_len=args.prompt_len + args.gen,
         cuda_graph=cuda_graph))
-    engine.warmup()
     trace = synthetic_trace(np.random.default_rng(args.seed), args.requests,
                             vocab_size=model.cfg.vocab_size,
                             max_prompt=args.prompt_len, max_gen=args.gen)
+    engine.warmup([r.prompt_len for r in trace])
     finite = []
     reset_counts()
     with checked_ticks(finite):
@@ -1408,10 +1510,10 @@ def profile_path(name: str, cuda_graph: bool = True):
     model = transformer.init(cfg, seed=args.seed).to(args.device)
     engine = ServeEngine(model, EngineConfig(slots=4, max_len=64 + 16,
                                              cuda_graph=cuda_graph))
-    engine.warmup()
     trace = synthetic_trace(np.random.default_rng(0), 4,
                             vocab_size=cfg.vocab_size, max_prompt=64,
                             max_gen=16)
+    engine.warmup([r.prompt_len for r in trace])
     report, per_kernel, _ = profile(lambda: engine.run(trace))
     del engine, model
     kernels = {k: v for k, v in per_kernel.items()
@@ -2759,6 +2861,426 @@ def train_parity(arch: str, extra=()) -> None:
     print(json.dumps(out), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# path (h): the dense public decoders in bfloat16 with the memory FFN
+# ---------------------------------------------------------------------------
+
+# path -> (arch, trace arguments); the model is `with_lram(get_config(arch),
+# 20)` on the `pallas` placement, drawn on the card from --seed 0
+H_PATHS = {
+    "h1_yi_9b": ("yi-9b", SERVE_ARGS),
+    "h2_qwen2_1_5b": ("qwen2-1.5b", SERVE_ARGS),
+    "h3_starcoder2_3b": ("starcoder2-3b", SERVE_ARGS),
+    "h4_danube3_4b": ("h2o-danube-3-4b", [
+        "--batch", "4", "--prompt-len", "8192", "--gen", "32",
+        "--requests", "8", "--seed", "0", "--fixed-len"]),
+}
+PLAIN_CHUNK = 131072  # queries a plain memory read takes at once
+
+
+def bf16_tol(cfg, ref: torch.Tensor) -> float:
+    """The bfloat16 tolerance of the CPU tests (tests/test_torch_archs.py):
+    2^-8 times (layers + 1) times the largest reference logit; float32
+    logits to 1e-5."""
+    if cfg.dtype == "float32":
+        return 1e-5
+    return 2.0**-8 * (cfg.num_layers + 1) * float(ref.float().abs().max())
+
+
+def h_config(arch: str, dtype: str | None = None, smoke: bool = False,
+             log2: int = LOG2_LOCATIONS):
+    """`with_lram(arch)` on the dense `pallas` placement (the kernels)."""
+    get = configs.get_smoke_config if smoke else configs.get_config
+    cfg = get(arch) if dtype is None else get(arch, dtype=dtype)
+    cfg = configs.with_lram(cfg, log2)
+    return dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, interp_impl="pallas"))
+
+
+@contextlib.contextmanager
+def plain_memory_reads():
+    """The dense `pallas` plan's memory read through the kernels' plain
+    versions, on the same tensors (the card's): K2's `lram_query_plain`
+    and K1's `gather_interp_plain`, a slice of PLAIN_CHUNK queries at a
+    time (the plain top-k holds 232 candidates a query).  The port's
+    `reference` placement refuses a table on the card, so that no run
+    there skips the kernels unseen; this is its function on the card."""
+    real = ops.lram_lookup
+
+    def plain(values, q, spec, top_k, return_access=False):
+        flat = q.reshape(-1, 8)
+        parts = [e8_lookup.lram_query_plain(flat[i:i + PLAIN_CHUNK], spec,
+                                            top_k)
+                 for i in range(0, flat.shape[0], PLAIN_CHUNK)]
+        idx = torch.cat([p[0] for p in parts])
+        w = torch.cat([p[1] for p in parts])
+        out = torch.cat([gather_interp.gather_interp_plain(
+            values, idx[i:i + PLAIN_CHUNK], w[i:i + PLAIN_CHUNK])
+            for i in range(0, idx.shape[0], PLAIN_CHUNK)])
+        lead = q.shape[:-1]
+        out = out.reshape(*lead, -1)
+        idx, w = idx.reshape(*lead, top_k), w.reshape(*lead, top_k)
+        return (out, (idx, w)) if return_access else out
+
+    ops.lram_lookup = plain
+    try:
+        yield
+    finally:
+        ops.lram_lookup = real
+
+
+@contextlib.contextmanager
+def recorded_reads(reads: dict):
+    """Record the memory reads the dense `pallas` plan makes, by n (its
+    K2 and K1 calls share it): the last eager call's table, spec and
+    copies of its queries and of the kernels' indices, weights and
+    output.  A call made while a CUDA graph is captured records its n
+    alone (its tensors hold nothing yet); a replay makes no call."""
+    real = ops.lram_lookup
+
+    def recording(values, q, spec, top_k=TOP_K, return_access=False):
+        out, (idx, w) = real(values, q, spec, top_k, return_access=True)
+        n = q.numel() // 8
+        if torch.cuda.is_available() \
+                and torch.cuda.is_current_stream_capturing():
+            reads.setdefault(n, None)
+        else:
+            reads[n] = (values, spec, q.detach().reshape(n, 8).clone(),
+                        idx.reshape(n, top_k).clone(),
+                        w.reshape(n, top_k).clone(),
+                        out.detach().reshape(n, -1).clone())
+        return (out, (idx, w)) if return_access else out
+
+    ops.lram_lookup = recording
+    try:
+        yield
+    finally:
+        ops.lram_lookup = real
+
+
+def check_reads(name: str, reads: dict) -> dict:
+    """Hold every recorded memory read against the kernels' plain versions
+    on its own inputs, PLAIN_CHUNK queries at a time: K2's indices and
+    weights bit for bit, K1's output to rtol 2e-5 / atol 1e-6 (the kernel
+    phase's bounds).  Returns K1's largest error by n."""
+    errs = {}
+    for n, rec in sorted(reads.items()):
+        check(rec is not None, f"{name}: no eager memory read at n={n}")
+        values, spec, q, idx, w, out = rec
+        values, top_k, err = values.detach(), idx.shape[1], 0.0
+        for i in range(0, n, PLAIN_CHUNK):
+            part = slice(i, i + PLAIN_CHUNK)
+            idx_p, w_p = e8_lookup.lram_query_plain(q[part], spec, top_k)
+            check(torch.equal(idx[part], idx_p)
+                  and torch.equal(w[part], w_p),
+                  f"{name}: K2 differs from its plain version on the "
+                  f"path's queries at n={n} (rows {i}+)")
+            want = gather_interp.gather_interp_plain(values, idx[part],
+                                                     w[part])
+            err = max(err, (out[part] - want).abs().max().item())
+            check(torch.allclose(out[part], want, rtol=2e-5, atol=1e-6),
+                  f"{name}: K1 differs from its plain version by {err} on "
+                  f"the path's queries at n={n}")
+        errs[n] = err
+    return errs
+
+
+@contextlib.contextmanager
+def attn_impl(model, impl: str):
+    """Every attention layer of `model` on `attn_impl=impl` (the same
+    weights), restored afterwards."""
+    layers = [m for m in model.modules()
+              if isinstance(m, attention.Attention)]
+    old = [m.cfg for m in layers]
+    for m in layers:
+        m.cfg = dataclasses.replace(m.cfg, attn_impl=impl)
+    try:
+        yield
+    finally:
+        for m, cfg in zip(layers, old):
+            m.cfg = cfg
+
+
+@contextlib.contextmanager
+def recorded_ticks(ticks: list, from_pos: int):
+    """Each decode tick's (positions, tokens fed, logits) once a slot
+    reaches `from_pos`, on the host."""
+    decode = ServeEngine._decode
+
+    def recording(engine, tok_buf, pos_buf):
+        logits, next_tok = decode(engine, tok_buf, pos_buf)
+        if pos_buf.max() >= from_pos:
+            ticks.append((pos_buf.copy(), tok_buf.copy(),
+                          logits[:, -1].float().cpu()))
+        return logits, next_tok
+
+    ServeEngine._decode = recording
+    try:
+        yield
+    finally:
+        ServeEngine._decode = decode
+
+
+def h_engine_run(model, args, trace, cuda_graph: bool = True):
+    """The trace through a warmed engine (warm-up over the trace's prompt
+    lengths, then the capture), launch counts reset after the warm-up and
+    read after the run.  Returns (report, launches, the memory reads by n
+    (`recorded_reads`, warm-up and capture included), warm-up s, the
+    engine)."""
+    engine = ServeEngine(model, EngineConfig(
+        slots=args.batch, max_len=args.prompt_len + args.gen,
+        cuda_graph=cuda_graph))
+    finite, reads = [], {}
+    with recorded_reads(reads):
+        t0 = time.perf_counter()
+        engine.warmup([r.prompt_len for r in trace])
+        warm_s = time.perf_counter() - t0
+        reset_counts()
+        with checked_ticks(finite):
+            report = engine.run(trace)
+            _sync(engine.device)
+    launches = read_counts()
+    check(bool(torch.stack(finite).all()),
+          f"{model.cfg.name}: non-finite logits")
+    return report, launches, reads, warm_s, engine
+
+
+def tick_busy_share(engine, args, ticks: int = 10) -> dict:
+    """The decode tick's busy share: its kernels' device time (torch.
+    profiler over `ticks` ticks) over its wall time (the same ticks timed
+    without the profiler; each tick ends in the host's read of the next
+    tokens).  Graph replays where the engine holds a graph."""
+    b = args.batch
+    tok = np.zeros((b, 1), np.int64)
+    pos = np.full((b,), args.prompt_len, np.int64)
+    engine._decode(tok, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        engine._decode(tok, pos)
+    wall_ms = 1e3 * (time.perf_counter() - t0) / ticks
+    _, per_kernel, _ = profile(
+        lambda: [engine._decode(tok, pos) for _ in range(ticks)])
+    kernels = {k: v for k, v in per_kernel.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    busy_ms = sum(kernels.values()) / 1e3 / ticks
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"tick_kernel_ms": busy_ms, "tick_wall_ms": wall_ms,
+            "tick_busy_share": busy_ms / wall_ms,
+            "tick_top_kernels_ms": [[k[:80], v / 1e3 / ticks]
+                                    for k, v in top]}
+
+
+def h_path(name: str, device: str = "cuda", smoke: bool = False,
+           trace_args=None):
+    """Path (h): one public arch at full width (bfloat16, its memory FFN
+    at layer num_layers // 2 on a 2^20 x 64 fp32 table, `pallas`), weights
+    drawn on the card, served through `ServeEngine` over the path's
+    trace.  Fails unless K2 and K1 launched (counts reset just before the
+    timed run, read just after), 8 of 8 requests finished with finite
+    logits, and every request's first logits match a prefill of its
+    prompt with the kernels' plain versions (`plain_memory_reads`) on the
+    same weights within `bf16_tol`.  h1 also runs eagerly: tokens and
+    launch counts equal the graph's.  h4 also holds its chunked prefill
+    against `attn_impl="dense"`, and request 0's last decode tick (past
+    the window: the ring has wrapped) against a full forward of its
+    prompt and generated tokens.  Returns the launch counts.  `device`,
+    `smoke` (the smoke config in bfloat16, a 2^16-row table) and
+    `trace_args` rehearse it on the CPU."""
+    arch, default_args = H_PATHS[name]
+    trace_args = default_args if trace_args is None else trace_args
+    args = serve.build_argparser().parse_args(["--arch", arch]
+                                              + trace_args)
+    cfg = (h_config(arch, "bfloat16", smoke=True, log2=16) if smoke
+           else h_config(arch))
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init(cfg, seed=args.seed, device=device).eval()
+    _sync(torch.device(device))
+    init_s = time.perf_counter() - t0
+    trace = synthetic_trace(np.random.default_rng(args.seed), args.requests,
+                            vocab_size=cfg.vocab_size,
+                            max_prompt=args.prompt_len, max_gen=args.gen,
+                            mixed=not args.fixed_len)
+    last_pos = args.prompt_len + args.gen - 2  # request 0's last tick
+    ticks = []
+    with recorded_ticks(ticks, last_pos):
+        report, launches, reads, warm_s, engine = h_engine_run(
+            model, args, trace)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    check(len(report.requests) == args.requests,
+          f"{name}: served {len(report.requests)} of {args.requests} "
+          f"requests")
+    if on_card:  # the plain versions run on the CPU
+        for kernel in ("lram_query", "gather_interp"):
+            check(launches[kernel] > 0, f"{name}: {kernel} never launched")
+    check(report.cuda_graph == on_card
+          and report.graph_captures == int(on_card)
+          and report.graph_ticks == on_card * len(report.step_s),
+          f"{name}: cuda_graph {report.cuda_graph}, "
+          f"{report.graph_captures} captures")
+    out = {"serve": name, "arch": arch, "config": cfg.name,
+           "argv": trace_args, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "memory_heads": cfg.lram.heads, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in model.parameters()),
+           "init_s": init_s, "warmup_s": warm_s,
+           "requests": len(report.requests),
+           "generated_tokens": report.generated_tokens,
+           "decode_p50_ms": report.p50_ms(), "decode_p99_ms": report.p99_ms(),
+           "tokens_per_sec": report.tokens_per_sec,
+           "prefill_median_ms": 1e3 * float(np.median(report.prefill_s)),
+           "decode_ticks": len(report.step_s), "wall_s": report.wall_s,
+           "peak_memory_bytes": peak, "launches": launches,
+           "memory_read_n": sorted(reads),
+           # the copies `recorded_reads` held, inside the peak
+           "recorded_read_bytes": sum(
+               sum(t.numel() * t.element_size() for t in rec[2:])
+               for rec in reads.values() if rec is not None)}
+    if on_card:
+        out.update(tick_busy_share(engine, args))
+    out["k1_vs_plain_on_path_reads_max_abs_err"] = check_reads(name, reads)
+    del reads
+
+    # the kernels against their plain versions, request by request, on
+    # the tokens the engine prefilled (padded to `prefill_len`)
+    errs = []
+    with torch.inference_mode():
+        for req, done in zip(trace, report.requests):
+            s = req.prompt_len
+            toks = np.zeros((1, engine.prefill_len(s)), np.int64)
+            toks[0, :s] = req.prompt
+            with plain_memory_reads():
+                reset_counts()
+                logits, _ = transformer.prefill(
+                    model, torch.from_numpy(toks).to(device),
+                    engine.engine_cfg.max_len)
+                check(not any(read_counts().values()),
+                      f"{name}: a kernel launched in the plain prefill")
+            want = logits[0, s - 1].float()
+            got = torch.from_numpy(done.first_logits).to(want.device)
+            err = float((got - want).abs().max())
+            check(err <= bf16_tol(cfg, want),
+                  f"{name}: request {req.id}'s first logits differ from "
+                  f"the plain memory read's by {err}")
+            errs.append(err)
+            del logits
+    out["kernel_vs_plain_first_logits_max_abs_err"] = max(errs)
+    out["bf16_tol_of_first"] = bf16_tol(cfg, want)
+
+    if name == "h1_yi_9b":  # the decode tick with and without its graph
+        del engine
+        eager, eager_launches, reads, _, engine = h_engine_run(
+            model, args, trace, cuda_graph=False)
+        out["eager_k1_vs_plain_on_path_reads_max_abs_err"] = check_reads(
+            f"{name} eager", reads)
+        del reads
+        check(not eager.cuda_graph and eager.graph_captures == 0,
+              f"{name}: the eager twin captured a graph")
+        check(len(eager.requests) == len(report.requests),
+              f"{name}: graph vs eager: requests lost")
+        for a, b in zip(report.requests, eager.requests):
+            check(a.tokens == b.tokens,
+                  f"{name}: graph vs eager: request {a.id} tokens differ")
+        for kernel in ("lram_query", "gather_interp"):
+            check(eager_launches[kernel] == launches[kernel],
+                  f"{name}: graph vs eager: {kernel} launched "
+                  f"{launches[kernel]} and {eager_launches[kernel]} times")
+        out["eager"] = {"decode_p50_ms": eager.p50_ms(),
+                        "decode_p99_ms": eager.p99_ms(),
+                        "tokens_per_sec": eager.tokens_per_sec,
+                        "launches": {k: v for k, v in eager_launches.items()
+                                     if v}}
+
+    if name == "h4_danube3_4b":
+        with torch.inference_mode():
+            # the chunked prefill of one prompt against the dense path
+            toks = torch.from_numpy(trace[0].prompt[None]).long().to(
+                device)
+            chunked = transformer.forward(model, {"tokens": toks})
+            with attn_impl(model, "dense"):
+                dense = transformer.forward(model, {"tokens": toks})
+            err = float((chunked.float() - dense.float()).abs().max())
+            check(err <= bf16_tol(cfg, dense),
+                  f"{name}: the chunked prefill differs from the dense "
+                  f"one by {err}")
+            out["chunked_vs_dense_prefill_max_abs_err"] = err
+            out["chunked_vs_dense_bf16_tol"] = bf16_tol(cfg, dense)
+            del chunked, dense
+            # request 0's last tick (slot 0, first wave) against a full
+            # forward of its prompt and the tokens it was fed
+            first = report.requests[0]
+            tick = next(t for t in ticks if t[0][0] == last_pos)
+            check(int(tick[1][0, 0]) == first.tokens[-2],
+                  f"{name}: slot 0's last tick fed {int(tick[1][0, 0])}, "
+                  f"not request 0's token {first.tokens[-2]}")
+            seq = torch.from_numpy(np.concatenate(
+                [trace[0].prompt, first.tokens[:-1]])[None]).long().to(
+                    device)
+            full = transformer.forward(model, {"tokens": seq})[0, -1]
+            err = float((tick[2][0].to(full.device)
+                         - full.float()).abs().max())
+            check(err <= bf16_tol(cfg, full),
+                  f"{name}: the last decode tick differs from the full "
+                  f"forward by {err}")
+            out["last_tick_vs_forward_max_abs_err"] = err
+            out["last_tick_position"] = last_pos
+            out["ring_slots"] = transformer.cache_shapes(
+                cfg, 1, args.prompt_len + args.gen)["seg0"]["k"][0][2]
+            del full
+    print(json.dumps(out), flush=True)
+    del engine, model, report
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def arch_parity_phase(devices=("cuda", "cpu")):
+    """Phase 8 for the public archs: each smoke config with its memory
+    FFN (2^16 rows, `pallas`) served on the card and on the CPU from the
+    same seed's weights (drawn on the CPU), in float32 and in bfloat16:
+    every request's first logits to 1e-5 / to `bf16_tol`."""
+    out = {}
+    for arch in configs.ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = h_config(arch, dtype, smoke=True, log2=16)
+            model = transformer.init(cfg, seed=1).eval()
+            reports = {}
+            for device in devices:
+                trace = synthetic_trace(np.random.default_rng(1), 3,
+                                        vocab_size=cfg.vocab_size,
+                                        max_prompt=12, max_gen=4)
+                reports[device] = ServeEngine(model.to(device), EngineConfig(
+                    slots=2, max_len=16)).run(trace)
+            gpu, cpu = (reports[d] for d in devices)
+            check(len(gpu.requests) == len(cpu.requests) == 3,
+                  f"{arch} {dtype}: requests lost")
+            err = max(float(np.abs(a.first_logits - b.first_logits).max())
+                      for a, b in zip(gpu.requests, cpu.requests))
+            tol = max(bf16_tol(cfg, torch.from_numpy(b.first_logits))
+                      for b in cpu.requests)
+            # float32: rtol and atol 1e-5, as the CPU tests hold the archs
+            ok = all(np.allclose(a.first_logits, b.first_logits, rtol=tol,
+                                 atol=tol) if dtype == "float32" else
+                     float(np.abs(a.first_logits - b.first_logits).max())
+                     <= bf16_tol(cfg, torch.from_numpy(b.first_logits))
+                     for a, b in zip(gpu.requests, cpu.requests))
+            check(ok, f"{arch} {dtype} smoke: card vs CPU first logits "
+                  f"differ by {err} (tolerance {tol})")
+            out[f"{arch}/{dtype}"] = {
+                "card_vs_cpu_first_logits_max_abs_err": err,
+                "tolerance": tol,
+                "greedy_tokens_equal": all(
+                    a.tokens == b.tokens
+                    for a, b in zip(gpu.requests, cpu.requests))}
+    print(json.dumps({"parity": "public archs, smoke, with_lram", **out}),
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2809,6 +3331,8 @@ def main() -> None:
     for name in PATHS:
         profile_path(name)
     profile_path("dense", cuda_graph=False)
+    for name in H_PATHS:
+        launches[name] = h_path(name)
     launches["train"], run = train_path()
     profile_train_step(run)
     dense_records = run.records
@@ -2841,6 +3365,7 @@ def main() -> None:
     profile_train_step(run, "train step lram-bert-pkm", ours=())
     del run
     parity_phase()
+    arch_parity_phase()
     train_parity("lram-bert-medium", ["--placement", "pallas"])
     for kind in ("int8", "topk"):
         train_parity("lram-bert-medium", ["--placement", "pallas",

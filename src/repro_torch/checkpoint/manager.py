@@ -54,7 +54,10 @@ Guarantees:
 
 fp8 payloads are e4m3 bytes: written as numpy's `<V1` (the descr the
 reference's `ml_dtypes.float8_e4m3fn` arrays get), read back from `V1` as
-uint8 bytes, so neither side needs `ml_dtypes`.  Every save and restore
+uint8 bytes, so neither side needs `ml_dtypes`.  bfloat16 leaves (the
+public archs' weights) are their twin: 2-byte bits written as `<V2` (the
+descr of the reference's `ml_dtypes.bfloat16` arrays, manifest dtype
+"bfloat16"), read back from `V2` as uint16 bits.  Every save and restore
 appends its timings to `history`.
 """
 
@@ -77,6 +80,10 @@ from repro_torch.distributed import sharding as mesh_blocks
 
 _MANIFEST = "manifest.json"
 _FP8 = "float8_e4m3fn"
+_BF16 = "bfloat16"
+# dtypes numpy lacks: the void descr the reference's ml_dtypes arrays are
+# written with, and the unsigned type their raw bits are held in
+_RAW = {_FP8: ("<V1", np.uint8), _BF16: ("<V2", np.uint16)}
 
 
 def _mangle(path: str) -> str:
@@ -115,11 +122,14 @@ def _rebuild(like, leaves):
 
 
 def _host_copy(leaf) -> tuple[np.ndarray, str]:
-    """(a host copy of the leaf, its dtype's name); fp8 as uint8 bytes."""
+    """(a host copy of the leaf, its dtype's name); fp8 as uint8 bytes,
+    bfloat16 as uint16 bits."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.float8_e4m3fn:
             return t.view(torch.uint8).numpy(), _FP8
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), _BF16
         arr = t.numpy()
     else:
         arr = np.array(leaf, copy=True)
@@ -130,22 +140,25 @@ def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).tobytes())
 
 
-def _save(path: str, arr: np.ndarray, fp8: bool = False) -> None:
-    """np.save, or for e4m3 bytes the reference's file: descr `<V1`."""
-    if not fp8:
+def _save(path: str, arr: np.ndarray, dtype: str = "") -> None:
+    """np.save, or for e4m3 bytes and bfloat16 bits (`dtype` names them)
+    the reference's file: descr `<V1` / `<V2`."""
+    if dtype not in _RAW:
         np.save(path, arr)
         return
     with open(path, "wb") as f:
         np.lib.format.write_array_header_1_0(f, {
-            "descr": "<V1", "fortran_order": False, "shape": arr.shape})
+            "descr": _RAW[dtype][0], "fortran_order": False,
+            "shape": arr.shape})
         f.write(np.ascontiguousarray(arr).tobytes())
 
 
 def _load(path: str) -> np.ndarray:
-    """np.load; a `V1` array (e4m3 written by either package) as uint8."""
+    """np.load; a `V1` array (e4m3 written by either package) as uint8, a
+    `V2` one (bfloat16) as uint16 bits."""
     arr = np.load(path)
-    if arr.dtype.kind == "V" and arr.dtype.itemsize == 1:
-        arr = arr.view(np.uint8)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize in (1, 2):
+        arr = arr.view(np.uint8 if arr.dtype.itemsize == 1 else np.uint16)
     return arr
 
 
@@ -313,7 +326,7 @@ class CheckpointManager:
         manifest = {"step": step, "leaves": {}}
         for name, arr, dtype in host_items:
             fn = _mangle(name)
-            _save(os.path.join(tmp, fn), arr, dtype == _FP8)
+            _save(os.path.join(tmp, fn), arr, dtype)
             manifest["leaves"][name] = {
                 "file": fn, "shape": list(arr.shape), "dtype": dtype,
                 "crc32": _crc(arr),
@@ -334,7 +347,7 @@ class CheckpointManager:
             for i in range(store.num_shards):  # streamed, one at a time
                 arr = store.shard_host(i)
                 _save(os.path.join(tmp, sub, f"shard_{i:06d}.npy"), arr,
-                      store.quant == "fp8")
+                      _FP8 if store.quant == "fp8" else "")
                 crcs.append(_crc(arr))
                 if quantized:  # per-row fp32 scales ride beside it
                     s = store.shard_scale_host(i)
@@ -499,13 +512,15 @@ class CheckpointManager:
 
 def _numpy_dtype(dtype) -> np.dtype | None:
     """The numpy dtype a restored leaf takes for a proto's dtype (None:
-    keep the file's; an fp8 proto keeps its uint8 bytes)."""
+    keep the file's; an fp8 proto keeps its uint8 bytes, a bfloat16 one
+    its uint16 bits)."""
     if dtype is None:
         return None
     if isinstance(dtype, torch.dtype):
-        if dtype == torch.float8_e4m3fn:
-            return np.dtype(np.uint8)
-        return np.dtype(str(dtype).removeprefix("torch."))
+        name = str(dtype).removeprefix("torch.")
+        if name in (_FP8, _BF16):
+            return np.dtype(_RAW[name][1])
+        return np.dtype(name)
     return np.dtype(dtype)
 
 

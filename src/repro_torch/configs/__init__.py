@@ -1,17 +1,35 @@
 """Architecture registry of the port: `get_config(name)` /
-`get_smoke_config(name)`, as in `repro.configs`.  Only the archs whose
-families are ported are registered (the paper's `lram-bert-*` models and
-the tiered serving archs, `lram-sharded-tiered` among them); the rest
-raise KeyError naming the reference's list."""
+`get_smoke_config(name)` and `with_lram(cfg)`, as in `repro.configs`.
+
+Registered: the dense public archs (`ARCHS`: yi-9b, qwen2-1.5b,
+starcoder2-3b, h2o-danube-3-4b; full configs in bfloat16, smoke configs
+in float32), the paper's `lram-bert-*` models and the tiered serving
+archs (`lram-sharded-tiered` among them).  The reference's other public
+archs (MoE, SSM, hybrid, enc-dec, VLM families) raise KeyError naming
+ROADMAP A14; any other name raises KeyError listing the ported ones.
+`with_lram(cfg)` inserts the paper's memory FFN into any registered
+arch, as the reference's does.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
+from repro_torch.core import lram as lram_mod
 from repro_torch.models.config import ModelConfig
 
+ARCHS = ("yi-9b", "qwen2-1.5b", "starcoder2-3b", "h2o-danube-3-4b")
+
+# the reference's public archs whose families are not ported yet
+NOT_PORTED = ("zamba2-2.7b", "phi3.5-moe-42b-a6.6b", "mixtral-8x7b",
+              "mamba2-1.3b", "whisper-small", "qwen2-vl-72b")
+
 _MODULES = {
+    "yi-9b": "yi_9b",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "starcoder2-3b": "starcoder2_3b",
+    "h2o-danube-3-4b": "h2o_danube3_4b",
     "lram-bert-baseline": "lram_bert",
     "lram-bert-pkm": "lram_bert",
     "lram-bert-small": "lram_bert",
@@ -24,6 +42,9 @@ _MODULES = {
 
 
 def _module(name: str):
+    if name in NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not ported to torch yet: its "
+                       f"family is ROADMAP A14")
     if name not in _MODULES:
         raise KeyError(f"arch {name!r} is not ported to torch yet; ported: "
                        f"{sorted(_MODULES)} (see ROADMAP queue A)")
@@ -45,3 +66,21 @@ def get_config(name: str, **overrides) -> ModelConfig:
 def get_smoke_config(name: str, **overrides) -> ModelConfig:
     cfg = _build(name, "smoke_config")
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def with_lram(cfg: ModelConfig, log2_locations: int = 20,
+              layer: int | None = None) -> ModelConfig:
+    """Insert the paper's memory-augmented FFN at one layer of any arch
+    (default the middle one), with a batchnorm query, as the reference's
+    `with_lram`: heads = d_model // 16, a float32 table of
+    2^log2_locations rows of 64.  Its placement is the config's default
+    (`reference`); a server sets `pallas` for the kernels."""
+    layer = cfg.num_layers // 2 if layer is None else layer
+    return dataclasses.replace(
+        cfg,
+        name=f"{cfg.name}+lram{log2_locations}",
+        lram_layers=(layer,),
+        lram=lram_mod.memffn_config(
+            cfg.d_model, log2_locations, query_norm="batch"
+        ),
+    )

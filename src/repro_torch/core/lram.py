@@ -12,7 +12,11 @@ dense(4w -> w) that replaces a transformer FFN (paper §3.1).
 The table and the two memory-read steps come from the resolved lookup
 plan (`repro_torch.core.lookup`): an fp32 `Parameter`, a `QuantizedTable`,
 a `TieredValueStore`, a `ShardedTieredStore` or this rank's row shard of
-the table.  Not ported
+the table.  The table is float32 whatever the model's dtype; the query
+norm's and the two dense layers' leaves take the model's dtype (bfloat16
+in the public archs), the query is cast to float32 before `torus_map`
+and the read is cast back to the input's dtype, as the reference does.
+Not ported
 yet, and listed in ROADMAP: the per-tenant overlay hook of the
 reference's `lram_apply`.
 """
@@ -102,7 +106,8 @@ class LRAM(nn.Module):
     runs it."""
 
     def __init__(self, cfg: LRAMConfig, *,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         plan = lookup.resolve(cfg)  # unsupported cells fail at build time
         self.cfg = cfg
@@ -112,17 +117,19 @@ class LRAM(nn.Module):
             generator,
         ))
         if cfg.query_norm == "batch":
-            self.qnorm = tnn.BatchNorm(2 * lattice.DIM)
+            self.qnorm = tnn.BatchNorm(2 * lattice.DIM, dtype=dtype)
         elif cfg.query_norm == "rms":
-            self.qnorm = tnn.RMSNorm(2 * lattice.DIM)
+            self.qnorm = tnn.RMSNorm(2 * lattice.DIM, dtype=dtype)
         else:
             self.qnorm = None
 
 
 def lram_init(cfg: LRAMConfig, *,
-              generator: torch.Generator | None = None) -> LRAM:
-    """The layer with freshly drawn values (batchnorm stats in buffers)."""
-    return LRAM(cfg, generator=generator)
+              generator: torch.Generator | None = None,
+              dtype: torch.dtype = torch.float32) -> LRAM:
+    """The layer with freshly drawn values (batchnorm stats in buffers);
+    `dtype` is the query norm's."""
+    return LRAM(cfg, generator=generator, dtype=dtype)
 
 
 def lram_apply(layer: LRAM, x: torch.Tensor, *, train: bool = False,
@@ -180,18 +187,22 @@ class MemFFN(nn.Module):
     """The memory FFN's weights; `memffn_apply` runs it."""
 
     def __init__(self, width: int, cfg: LRAMConfig, *,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.in_dim != width or cfg.out_dim != 4 * width:
             raise ValueError("cfg does not match the paper block shape")
-        self.lram = LRAM(cfg, generator=generator)
-        self.wi = tnn.Dense(width, width, generator=generator)
-        self.wo = tnn.Dense(4 * width, width, generator=generator)
+        self.lram = LRAM(cfg, generator=generator, dtype=dtype)
+        self.wi = tnn.Dense(width, width, generator=generator, dtype=dtype)
+        self.wo = tnn.Dense(4 * width, width, generator=generator,
+                            dtype=dtype)
 
 
 def memffn_init(width: int, cfg: LRAMConfig, *,
-                generator: torch.Generator | None = None) -> MemFFN:
-    return MemFFN(width, cfg, generator=generator)
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype = torch.float32) -> MemFFN:
+    """The block with `dtype` leaves (the table float32)."""
+    return MemFFN(width, cfg, generator=generator, dtype=dtype)
 
 
 def memffn_apply(block: MemFFN, x: torch.Tensor, *, train: bool = False,

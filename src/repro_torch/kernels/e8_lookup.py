@@ -61,17 +61,20 @@ def lram_query(q: torch.Tensor, spec: indexing.TorusSpec,
                top_k: int = lattice.DEFAULT_TOP_K):
     """(idx, w) = top-k lattice memory slots + kernel weights for q (..., 8).
 
-    q must be float32; on CUDA it is flattened to a contiguous (n, 8).
+    q must be float32 on either device (any other dtype raises: the
+    memory layer casts its query before `torus_map`, and nothing here
+    casts silently); on CUDA it is flattened to a contiguous (n, 8).
     On a CUDA tensor w carries no gradient, so it raises when grad mode is
     on and q requires grad: `ops.lram_lookup` is the differentiable
-    lookup (its backward takes dq analytically).
+    lookup (its backward takes dq analytically).  Every offset of the
+    kernel is 64-bit and its grid is capped (a grid-stride loop), so n is
+    bounded by int32 alone.
     """
+    if q.dtype != torch.float32:
+        raise TypeError(f"lram_query takes float32 queries, got {q.dtype}")
     if not q.is_cuda:
         return lram_query_plain(q, spec, top_k)
     _build.refuse_grad("lram_query", q)
-    if q.dtype != torch.float32:
-        raise TypeError(f"lram_query kernel takes float32 queries, got "
-                        f"{q.dtype}")
     if q.shape[-1] != lattice.DIM:
         raise ValueError(f"queries must be (..., 8), got {tuple(q.shape)}")
     if not 1 <= top_k <= lattice.NUM_CANDIDATES:

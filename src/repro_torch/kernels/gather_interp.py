@@ -85,16 +85,19 @@ def gather_interp(values: torch.Tensor, idx: torch.Tensor,
     """sum_k w[..., k] * values[idx[..., k]] -> (..., m) float32.
 
     values (N, m) float32, contiguous; idx (..., k) int32 in [0, N);
-    w (..., k) float32.  On a CUDA tensor the output carries no gradient,
-    so it raises when grad mode is on and values or w require grad:
-    `gather_interp_vjp` is the differentiable form.
+    w (..., k) float32 on either device (another dtype of values or w
+    raises, never cast).  On a CUDA tensor the output carries no
+    gradient, so it raises when grad mode is on and values or w require
+    grad: `gather_interp_vjp` is the differentiable form.  Its offsets
+    are 64-bit and its grid is capped (a grid-stride loop), so n * k and
+    n * m may pass 2^31.
     """
+    if values.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"gather_interp takes a float32 table and weights, "
+                        f"got {values.dtype} and {w.dtype}")
     if not values.is_cuda:
         return gather_interp_plain(values, idx, w)
     _build.refuse_grad("gather_interp", values, w)
-    if values.dtype != torch.float32:
-        raise TypeError(f"gather_interp kernel takes float32 tables, got "
-                        f"{values.dtype}")
     idx2, w2, lead = flat_gather_args(values, idx, w, "gather_interp")
     n, top_k, m, out = gather_output(values, idx2)
     if n:

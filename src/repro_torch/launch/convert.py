@@ -40,6 +40,11 @@ read from a `QuantizedTable` or, shard by shard, from a tiered store's
 `shard_host` / `shard_scale_host`.  Each table is rebuilt in the layer's
 own plan (`Parameter`, `QuantizedTable` or `TieredValueStore`); a payload
 is carried bit for bit, never dequantized and requantized.
+
+A bfloat16 leaf of the reference arrives as an `ml_dtypes.bfloat16`
+array (numpy's `V2` void type once written to disk); without importing
+`ml_dtypes`, its 2-byte raw bits are taken into `torch.bfloat16`
+through `int16`, never rounded (`tensor_from_numpy`).
 """
 
 from __future__ import annotations
@@ -59,6 +64,21 @@ _MEMORY_MODULE = {"lram": "memffn", "pkm": "pkm"}
 # a QuantizedTable's buffers, in the order of the reference's pytree children
 _QUANT_CHILDREN = ("q", "scale")
 _STATS = ("mean", "var")  # batchnorm running stats: the model state
+
+
+def is_bfloat16(arr: np.ndarray) -> bool:
+    """An array of bfloat16 values: `ml_dtypes.bfloat16`, or the 2-byte
+    void type a bfloat16 `.npy` file loads as without `ml_dtypes`."""
+    dt = arr.dtype
+    return dt.name == "bfloat16" or (dt.kind == "V" and dt.itemsize == 2)
+
+
+def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor copy of `arr`, a bfloat16 array by its raw bits."""
+    if is_bfloat16(arr):
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -94,8 +114,7 @@ def state_dict_from_jax(params, state, cfg: ModelConfig
             module = _MEMORY_MODULE[seg[2]]
             for key, arr in _flatten(state.get(name, {})).items():
                 flat[f"segments.{name}.{module}.{key}"] = arr
-    return {k: torch.from_numpy(np.array(v, copy=True))
-            for k, v in flat.items()}
+    return {k: tensor_from_numpy(v) for k, v in flat.items()}
 
 
 def reference_path(key: str, cfg: ModelConfig) -> tuple[str, int | None]:
@@ -206,7 +225,10 @@ def reference_tree(model: transformer.Transformer, opt_state=None, *,
 
 def _as_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """A restored leaf as a CPU tensor of `like`'s dtype (an fp8 payload
-    arrives as its uint8 bytes)."""
+    arrives as its uint8 bytes, a bfloat16 leaf as its uint16 bits)."""
+    if like.dtype == torch.bfloat16:
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if like.dtype == torch.float8_e4m3fn:
         return t.view(torch.float8_e4m3fn)

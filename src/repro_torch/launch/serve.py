@@ -8,6 +8,8 @@
         --placement pallas --spill-at-tick 8 --warmup --json
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lram-tiered \\
         --smoke --device cpu --rate 4 --fixed-len --json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --smoke --device cpu --json                     # a public arch
 
 Builds the model from `--seed` (weights drawn on the CPU, then moved to
 `--device`), a request trace (mixed lengths, or every request at
@@ -15,8 +17,16 @@ Builds the model from `--seed` (weights drawn on the CPU, then moved to
 Poisson arrivals at `--rate` requests a second, which the engine
 honours), and replays it through `repro_torch.serving.ServeEngine`.  The device is
 `cuda` unless `--device cpu` is given; with no card it raises rather
-than falling back.  `--warmup` runs every prefill bucket and one decode
-tick before the trace, so its timings exclude each shape's first call.
+than falling back.  `--warmup` prefills once at every length the
+trace's prompts are prefilled at (their buckets; a sliding-window arch's
+exact lengths) and runs one decode tick before the trace, so its timings
+exclude each shape's first call.
+
+`--arch` takes the dense public archs (`yi-9b`, `qwen2-1.5b`,
+`starcoder2-3b`, `h2o-danube-3-4b`; full configs in bfloat16, `--smoke`
+in float32) as the reference's CLI does: they have no memory layer, so
+`--placement` and the memory flags are refused for them.  The
+reference's other public archs raise, naming ROADMAP A14.
 
 `lram-tiered` and `lram-tiered-q8` serve on their own placement, `tiered`:
 the table lives in host RAM, a device cache holds the hot shards, and the
@@ -199,7 +209,7 @@ def main(argv=None):
         mode=args.mode,
     ), controller=controller)
     if args.warmup:
-        engine.warmup()
+        engine.warmup([r.prompt_len for r in trace])
     report = engine.run(trace)
     if controller is not None and controller.events:
         print(json.dumps({"lifecycle": controller.events}), flush=True)

@@ -115,7 +115,9 @@ utilisation report beside the log lines (`{"step": s,
 batch axes first, so they are the one-process run's.
 
 Not ported yet, and refused with the ROADMAP item that ports it:
-observability (`--metrics-dir`, `--profile-dir`).
+observability (`--metrics-dir`, `--profile-dir`), and a bfloat16 config
+(the public archs' full configs: A14 part 2; their float32 `--smoke`
+configs train).
 """
 
 from __future__ import annotations
@@ -400,6 +402,10 @@ def main(argv=None) -> TrainRun:
     main_rank = mesh is None or dist.get_rank() == 0
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if cfg.dtype != "float32":
+        raise SystemExit(f"{cfg.name} is {cfg.dtype}: training is not "
+                         f"ported for it yet: ROADMAP A14 part 2 (training "
+                         f"the public archs in bfloat16)")
     if args.placement:
         if cfg.lram is None:
             raise SystemExit(f"--placement needs a memory arch; {cfg.name} "

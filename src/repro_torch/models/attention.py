@@ -1,9 +1,24 @@
-"""Attention: GQA with split-half RoPE, full-sequence and per-slot decode
-(torch counterpart of `repro.models.attention`).
+"""Attention: GQA with split-half RoPE, sliding window, full-sequence,
+chunked and per-slot decode (torch counterpart of
+`repro.models.attention`).
 
-Plain torch matmul + softmax in float32, masked with -1e30 as the
-reference does.  The reference's sliding-window, M-RoPE and chunked
-(flash-style) paths are not ported yet and raise.
+Three paths, as the reference's:
+
+  * dense    — materialises the (S, T) scores; short sequences.
+  * chunked  — the streaming softmax over query and KV chunks (running
+               max, denominator and accumulator carried across KV
+               chunks): peak activation O(chunk^2), not O(S^2).  Taken
+               when `attn_impl == "chunked"`, or `auto` with S above
+               `attn_chunk`, whenever S is a multiple of the chunk.
+  * decode   — one query per slot against the cache; a sliding-window
+               model's cache is a ring of `window` slots (position p in
+               slot p % window).
+
+Plain torch matmuls and softmax in float32 whatever the activation dtype,
+masked with -1e30 as the reference does (no fused attention call: the
+reference computes attention outside any Pallas kernel).  The decode's
+attend runs in the cache's dtype, as the reference's.  M-RoPE is not
+ported yet and raises (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -21,14 +36,9 @@ _NEG_INF = -1e30
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.attention == "swa":
-        raise NotImplementedError("sliding-window attention is not yet "
-                                  "ported to torch")
     if cfg.pos_scheme == "mrope":
-        raise NotImplementedError("M-RoPE is not yet ported to torch")
-    if cfg.attn_impl == "chunked":
-        raise NotImplementedError("chunked attention is not yet ported to "
-                                  "torch")
+        raise NotImplementedError("M-RoPE is not yet ported to torch: "
+                                  "ROADMAP A14")
 
 
 # ---------------------------------------------------------------------------
@@ -75,34 +85,92 @@ def _attend(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bkgst,btkd->bskgd", w, v.to(w.dtype))
 
 
-def _band_mask(s: int, t: int, *, causal: bool,
-               device=None) -> torch.Tensor:
-    """(S, T) validity mask; query i sits at absolute position i."""
-    qi = torch.arange(s, device=device)[:, None]
-    kj = torch.arange(t, device=device)[None, :]
+def _valid(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+           window: int | None) -> torch.Tensor:
+    """Key k_pos is visible to query q_pos (broadcast)."""
+    ok = torch.ones(torch.broadcast_shapes(q_pos.shape, k_pos.shape),
+                    dtype=torch.bool, device=q_pos.device)
     if causal:
-        return kj <= qi
-    return torch.ones((s, t), dtype=torch.bool, device=device)
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    return ok
+
+
+def _band_mask(s: int, t: int, *, causal: bool, window: int | None = None,
+               q_offset: int = 0, device=None) -> torch.Tensor:
+    """(S, T) validity mask; query i sits at absolute position
+    q_offset + i."""
+    qi = torch.arange(s, device=device)[:, None] + q_offset
+    kj = torch.arange(t, device=device)[None, :]
+    return _valid(qi, kj, causal=causal, window=window)
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool) -> torch.Tensor:
+                    causal: bool, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: (B,S,H,D), k/v: (B,T,Kh,D) -> (B,S,H,D)."""
     b, s, h, d = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, s, kh, h // kh, d) * (d**-0.5)
     scores = _scores(qg, k)
-    mask = _band_mask(s, k.shape[1], causal=causal, device=q.device)
+    mask = _band_mask(s, k.shape[1], causal=causal, window=window,
+                      q_offset=q_offset, device=q.device)
     scores = torch.where(mask, scores, _NEG_INF)
     w = torch.softmax(scores, dim=-1)
     return _attend(w, v).reshape(b, s, h, d).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: int | None = None,
+                      q_chunk: int = 2048,
+                      kv_chunk: int = 2048) -> torch.Tensor:
+    """Flash-style streaming-softmax attention, O(chunk^2) peak memory:
+    over query chunks, and inside over KV chunks carrying (running max,
+    denominator, weighted accumulator), in the reference's order and
+    arithmetic.  q: (B,S,H,D), k/v: (B,T,Kh,D) -> (B,S,H,D)."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    if s % q_chunk or t % kv_chunk:
+        raise ValueError(f"chunked attention needs S={s} and T={t} to be "
+                         f"multiples of the chunks ({q_chunk}, {kv_chunk})")
+    g = h // kh
+    qg = q.reshape(b, s, kh, g, d) * (d**-0.5)
+    pos_q = torch.arange(q_chunk, device=q.device)[:, None]
+    pos_k = torch.arange(kv_chunk, device=q.device)[None, :]
+    outs = []
+    for qi in range(s // q_chunk):
+        q_blk = qg[:, qi * q_chunk:(qi + 1) * q_chunk].float()
+        m = torch.full((b, kh, g, q_chunk), _NEG_INF, device=q.device)
+        l_sum = torch.zeros((b, kh, g, q_chunk), device=q.device)
+        acc = torch.zeros((b, kh, g, q_chunk, d), device=q.device)
+        for kj in range(t // kv_chunk):
+            ks = slice(kj * kv_chunk, (kj + 1) * kv_chunk)
+            scores = torch.einsum("bskgd,btkd->bkgst", q_blk,
+                                  k[:, ks].float())  # (B,Kh,G,qc,kc)
+            ok = _valid(qi * q_chunk + pos_q, kj * kv_chunk + pos_k,
+                        causal=causal, window=window)
+            scores = torch.where(ok, scores, _NEG_INF)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l_sum = l_sum * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p, v[:, ks].float())
+            m = m_new
+        outs.append(acc / torch.clamp(l_sum, min=1e-30)[..., None])
+    out = torch.stack(outs, dim=1)  # (B, nq, Kh, G, qc, D)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, s, h, d)
+    return out.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      cache_len: torch.Tensor) -> torch.Tensor:
     """Single-token decode. q: (B,1,H,D); caches (B,T,Kh,D); cache_len
-    (B,) valid entries per slot."""
+    (B,) valid entries per slot.  A ring cache (sliding window) has
+    every slot valid once full; its positions are unordered, which the
+    softmax does not see."""
     b, _, h, d = q.shape
     t, kh = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, 1, kh, h // kh, d) * (d**-0.5)
@@ -126,13 +194,11 @@ class Attention(nn.Module):
         h, khd, d, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_model, \
             cfg.head_dim
         self.cfg = cfg
-        self.wq = tnn.Dense(d, h * hd, use_bias=cfg.qkv_bias,
-                            generator=generator)
-        self.wk = tnn.Dense(d, khd * hd, use_bias=cfg.qkv_bias,
-                            generator=generator)
-        self.wv = tnn.Dense(d, khd * hd, use_bias=cfg.qkv_bias,
-                            generator=generator)
-        self.wo = tnn.Dense(h * hd, d, use_bias=False, generator=generator)
+        kw = {"generator": generator, "dtype": cfg.torch_dtype}
+        self.wq = tnn.Dense(d, h * hd, use_bias=cfg.qkv_bias, **kw)
+        self.wk = tnn.Dense(d, khd * hd, use_bias=cfg.qkv_bias, **kw)
+        self.wv = tnn.Dense(d, khd * hd, use_bias=cfg.qkv_bias, **kw)
+        self.wo = tnn.Dense(h * hd, d, use_bias=False, **kw)
 
 
 def _project_qkv(attn: Attention, x: torch.Tensor, positions: torch.Tensor):
@@ -154,11 +220,15 @@ def attn_apply(attn: Attention, x: torch.Tensor, *,
     cfg = attn.cfg
     b, s, _ = x.shape
     q, k, v = _project_qkv(attn, x, positions)
-    if cfg.attn_impl == "auto" and s > cfg.attn_chunk \
-            and s % cfg.attn_chunk == 0:
-        raise NotImplementedError("chunked attention is not yet ported to "
-                                  "torch")
-    out = dense_attention(q, k, v, causal=causal)
+    window = cfg.window if cfg.attention == "swa" else None
+    use_chunked = cfg.attn_impl == "chunked" or (
+        cfg.attn_impl == "auto" and s > cfg.attn_chunk)
+    if use_chunked and s % cfg.attn_chunk == 0:
+        out = chunked_attention(q, k, v, causal=causal, window=window,
+                                q_chunk=cfg.attn_chunk,
+                                kv_chunk=cfg.attn_chunk)
+    else:
+        out = dense_attention(q, k, v, causal=causal, window=window)
     y = attn.wo(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
     return y, (k, v)
 
@@ -169,8 +239,11 @@ def attn_decode(attn: Attention, x: torch.Tensor, *, pos,
 
     `pos` is the absolute token position per slot, an int vector (B,), or
     one int for the whole batch.  The new K/V row is written into the
-    caches IN PLACE at min(pos, T-1) before attending (the reference
-    returns updated copies instead).  Returns y.
+    caches IN PLACE before attending (the reference returns updated
+    copies instead): at min(pos, T-1), or for a sliding window into the
+    ring's slot pos % T, after which min(pos + 1, T) slots are valid.
+    Every index is computed on the device from `pos`, so the step can be
+    captured in a CUDA graph.  Returns y.
     """
     b = x.shape[0]
     t = k_cache.shape[1]
@@ -178,7 +251,10 @@ def attn_decode(attn: Attention, x: torch.Tensor, *, pos,
         pos = torch.full((b,), int(pos), dtype=torch.long, device=x.device)
     pos = pos.to(torch.long)
     q, k, v = _project_qkv(attn, x, pos[:, None])
-    slot = torch.clamp(pos, max=t - 1)
+    if attn.cfg.attention == "swa":
+        slot = torch.remainder(pos, t)
+    else:
+        slot = torch.clamp(pos, max=t - 1)
     rows = torch.arange(b, device=x.device)
     k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)

@@ -3,7 +3,8 @@
 One frozen dataclass describes every family of the reference, with the
 same fields and defaults, so configs carry over letter for letter.  The
 port builds the dense family only so far; the other families' fields are
-kept so every config of the reference can be expressed.
+kept so every config of the reference can be expressed.  `dtype` is
+live for the dense family: "float32" or "bfloat16" (`torch_dtype`).
 """
 
 from __future__ import annotations
@@ -11,8 +12,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from repro_torch.core.lram import LRAMConfig
 from repro_torch.core.pkm import PKMConfig
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +95,15 @@ class ModelConfig:
             assert self.pkm is not None
 
     # ---- derived -----------------------------------------------------------
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The dtype of the weights, activations and KV cache."""
+        if self.dtype not in DTYPES:
+            raise NotImplementedError(
+                f"dtype {self.dtype!r} is not ported to torch; ported: "
+                f"{sorted(DTYPES)}")
+        return DTYPES[self.dtype]
 
     @property
     def q_per_kv(self) -> int:

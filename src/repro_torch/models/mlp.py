@@ -1,5 +1,6 @@
 """Dense feed-forward blocks: SwiGLU and GELU (torch counterpart of
-`repro.models.mlp`)."""
+`repro.models.mlp`).  Leaves and activations in the model's dtype; the
+activation function runs in float32 and casts back, as the reference's."""
 
 from __future__ import annotations
 
@@ -17,15 +18,14 @@ class MLP(nn.Module):
         super().__init__()
         d, f = cfg.d_model, d_ff or cfg.d_ff
         self.act = cfg.act
+        kw = {"use_bias": cfg.mlp_bias, "generator": generator,
+              "dtype": cfg.torch_dtype}
         if cfg.act == "swiglu":
-            self.wi_gate = tnn.Dense(d, f, use_bias=cfg.mlp_bias,
-                                     generator=generator)
-            self.wi_up = tnn.Dense(d, f, use_bias=cfg.mlp_bias,
-                                   generator=generator)
+            self.wi_gate = tnn.Dense(d, f, **kw)
+            self.wi_up = tnn.Dense(d, f, **kw)
         else:
-            self.wi = tnn.Dense(d, f, use_bias=cfg.mlp_bias,
-                                generator=generator)
-        self.wo = tnn.Dense(f, d, use_bias=cfg.mlp_bias, generator=generator)
+            self.wi = tnn.Dense(d, f, **kw)
+        self.wo = tnn.Dense(f, d, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.act == "swiglu":

@@ -15,11 +15,18 @@ The KV cache keeps the reference's layout (a run's cache stacks a leading
 layer axis) and is updated IN PLACE by decode and by `write_cache_slot`.
 A ("memory", i, "pkm") layer's FFN is the product-key memory baseline
 (`repro_torch.core.pkm`), applied to the normed residual with no dense
-around it.  Other families (MoE, SSM, hybrid, enc-dec, VLM) are not
-ported yet and raise.
+around it.  Weights, activations and the KV cache take `cfg.dtype`
+(float32 or bfloat16; a memory table stays float32).  A sliding-window
+model's cache holds `min(window, max_len)` positions per layer as a ring
+(position p in slot p % window): a prefill longer than the window keeps
+its last `window` positions, permuted into their ring slots.  Other
+families (MoE, SSM, hybrid, enc-dec, VLM) are not ported yet and raise,
+naming ROADMAP A14.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -59,11 +66,15 @@ def layer_plan(cfg: ModelConfig) -> list[tuple]:
 
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.num_experts > 0:
+        family = "moe" if cfg.num_experts > 0 else cfg.family
         raise NotImplementedError(
-            f"the {cfg.family} family is not yet ported to torch")
+            f"the {family} family is not yet ported to torch: ROADMAP A14")
     if cfg.pos_scheme not in ("rope", "learned", "none"):
         raise NotImplementedError(
-            f"pos_scheme {cfg.pos_scheme!r} is not yet ported to torch")
+            f"pos_scheme {cfg.pos_scheme!r} is not yet ported to torch: "
+            f"ROADMAP A14")
+    if cfg.pkm_layers and cfg.dtype != "float32":
+        raise NotImplementedError("the PKM layer runs float32 models only")
 
 
 # ---------------------------------------------------------------------------
@@ -71,8 +82,8 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _norm(cfg: ModelConfig) -> nn.Module:
-    return tnn.LayerNorm(cfg.d_model) if cfg.norm == "layer" \
-        else tnn.RMSNorm(cfg.d_model)
+    norm = tnn.LayerNorm if cfg.norm == "layer" else tnn.RMSNorm
+    return norm(cfg.d_model, dtype=cfg.torch_dtype)
 
 
 class _Block(nn.Module):
@@ -133,7 +144,8 @@ class MemoryLayer(_Block):
         self.kind = kind
         if kind == "lram":
             self.memffn = lram_mod.memffn_init(cfg.d_model, cfg.lram,
-                                               generator=generator)
+                                               generator=generator,
+                                               dtype=cfg.torch_dtype)
         else:
             self.pkm = pkm_mod.pkm_init(cfg.d_model, cfg.pkm,
                                         generator=generator)
@@ -159,18 +171,18 @@ class Transformer(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         _check_ported(cfg)
-        if cfg.dtype != "float32":
-            raise NotImplementedError("the port runs float32 models only")
         self.cfg = cfg
+        dtype = cfg.torch_dtype
         self.embed = tnn.Embedding(cfg.vocab_size, cfg.d_model,
-                                   generator=generator)
+                                   generator=generator, dtype=dtype)
         self.pos_embed = None if cfg.pos_scheme != "learned" else \
             nn.Parameter(tnn.truncated_normal_(
-                torch.empty(cfg.max_seq, cfg.d_model), 0.02, generator))
+                torch.empty(cfg.max_seq, cfg.d_model, dtype=dtype), 0.02,
+                generator))
         self.final_norm = _norm(cfg)
         self.lm_head = None if cfg.tie_embeddings else tnn.Dense(
-            cfg.d_model, cfg.vocab_size, use_bias=False, generator=generator
-        )
+            cfg.d_model, cfg.vocab_size, use_bias=False, generator=generator,
+            dtype=dtype)
         segs = {}
         for si, seg in enumerate(layer_plan(cfg)):
             if seg[0] == "run":
@@ -207,10 +219,22 @@ class Transformer(nn.Module):
         return self.lm_head(x)
 
 
-def init(cfg: ModelConfig, *, seed: int = 0) -> Transformer:
-    """A model with weights drawn on the CPU from `seed`, so the same seed
-    gives the same weights whatever device the model is moved to."""
-    return Transformer(cfg, generator=torch.Generator().manual_seed(seed))
+def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
+    """A model with weights drawn from `seed`, leaf by leaf.
+
+    Without `device` (or on "cpu") the weights are drawn on the CPU, so
+    the same seed gives the same weights whatever device the model is
+    moved to.  With a CUDA `device` every leaf is drawn there, from a
+    generator on that device: a full-width model never passes through
+    host memory, and only its largest leaf is ever held in float32 at
+    once.  A seed drawn on "cuda" gives other weights than the same seed
+    on the CPU."""
+    device = torch.device("cpu" if device is None else device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    place = (contextlib.nullcontext() if device.type == "cpu"
+             else torch.device(device))
+    with place:
+        return Transformer(cfg, generator=generator)
 
 
 # ---------------------------------------------------------------------------
@@ -289,11 +313,19 @@ def loss_fn(model: Transformer, batch: dict, *, train: bool = True,
 # KV-cache serving: cache construction, prefill, decode
 # ---------------------------------------------------------------------------
 
+def _attn_cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Positions a layer's cache holds: the ring of a sliding window."""
+    if cfg.attention == "swa":
+        return min(cfg.window, max_len)
+    return max_len
+
+
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     """Nested dict of (shape, dtype), the reference's layout: a run's
     leaves stack a leading layer axis."""
-    dtype = getattr(torch, cfg.dtype)
-    kvd = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    dtype = cfg.torch_dtype
+    kvd = (batch, _attn_cache_len(cfg, max_len), cfg.num_kv_heads,
+           cfg.head_dim)
     shapes = {}
     for si, seg in enumerate(layer_plan(cfg)):
         lead = (seg[1],) if seg[0] == "run" else ()
@@ -343,20 +375,38 @@ def _layers_with_cache(model: Transformer, cache):
             yield seg, c["k"], c["v"]
 
 
+def ring_fill_order(s: int, t_cache: int, device=None) -> torch.Tensor:
+    """The prompt positions a ring of `t_cache` slots keeps after a
+    prefill of `s` > `t_cache` positions, in slot order: the last
+    `t_cache` positions hit each slot p % t_cache exactly once (the
+    reference's `_fill_kv_cache` permutation)."""
+    keep = torch.arange(s - t_cache, s, device=device)
+    return keep[torch.argsort(keep % t_cache)]
+
+
 def prefill(model: Transformer, tokens: torch.Tensor, max_len: int):
     """Run the prompt (B, S), building the decode cache. Returns
-    (logits (B, S, V), cache) with positions >= S left zero."""
+    (logits (B, S, V), cache).  A full-attention cache holds position p
+    at p (positions >= S left zero); a sliding window's ring holds the
+    last min(S, window) positions, each in slot p % window."""
     cfg = model.cfg
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len={max_len}")
     cache = init_cache(cfg, b, max_len, tokens.device)
+    t_cache = _attn_cache_len(cfg, max_len)
+    keep = (ring_fill_order(s, t_cache, tokens.device)
+            if cfg.attention == "swa" and s > t_cache else None)
     positions = _positions(tokens)
     x = model.embed_tokens(tokens, positions)
     for layer, kc, vc in _layers_with_cache(model, cache):
         x, (k, v) = layer.full(x, positions, causal=True)
-        kc[:, :s] = k
-        vc[:, :s] = v
+        if keep is None:
+            kc[:, :s] = k
+            vc[:, :s] = v
+        else:
+            kc.copy_(k[:, keep])
+            vc.copy_(v[:, keep])
     return model.logits(x), cache
 
 

@@ -6,6 +6,13 @@ onto a module's `state_dict` key for key: a dense kernel is stored
 (in, out) and applied as `x @ kernel`; batchnorm keeps its running
 `mean`/`var` as buffers.  Inits draw from an explicit `torch.Generator`
 (the numbers differ from `jax.random`'s; tests convert weights instead).
+
+Every leaf takes a `dtype` (float32 or bfloat16), with the reference's
+casts: an init draws in float32 and casts to the leaf's dtype, a dense
+layer applies its leaves cast to the activation's dtype, and the norms
+compute in float32 and cast back.  Batchnorm's running stats stay
+float32.  Leaves are made on the ambient default device (`with
+torch.device(...)`), so a model can be drawn leaf by leaf on the card.
 """
 
 from __future__ import annotations
@@ -26,7 +33,11 @@ _HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
 @torch.no_grad()
 def truncated_normal_(t: torch.Tensor, stddev: float,
                       generator: torch.Generator | None) -> torch.Tensor:
-    """Fill `t` with stddev * N(0, 1) truncated to [-2, 2] (inverse CDF)."""
+    """Fill `t` with stddev * N(0, 1) truncated to [-2, 2] (inverse CDF),
+    drawn in float32 and cast to `t`'s dtype."""
+    if t.dtype != torch.float32:
+        return t.copy_(truncated_normal_(
+            torch.empty(t.shape, device=t.device), stddev, generator))
     t.uniform_(2 * _LO - 1, 2 * _HI - 1, generator=generator)
     t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(stddev)
     return t
@@ -43,13 +54,15 @@ class Dense(nn.Module):
     """y = x @ kernel (+ bias), kernel stored (in, out) as in the reference."""
 
     def __init__(self, in_dim: int, out_dim: int, *, use_bias: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(
-            fan_in_init_(torch.empty(in_dim, out_dim), generator)
+            fan_in_init_(torch.empty(in_dim, out_dim, dtype=dtype),
+                         generator)
         )
-        self.bias = (nn.Parameter(torch.zeros(out_dim)) if use_bias
-                     else None)
+        self.bias = (nn.Parameter(torch.zeros(out_dim, dtype=dtype))
+                     if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.kernel.to(x.dtype)
@@ -60,11 +73,11 @@ class Dense(nn.Module):
 
 class Embedding(nn.Module):
     def __init__(self, vocab: int, dim: int, *,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.embedding = nn.Parameter(
-            truncated_normal_(torch.empty(vocab, dim), 1.0, generator)
-        )
+        self.embedding = nn.Parameter(truncated_normal_(
+            torch.empty(vocab, dim, dtype=dtype), 1.0, generator))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embedding[tokens]
@@ -87,19 +100,19 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim))
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(x, self.scale)
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layernorm(x, self.scale, self.bias)
@@ -122,11 +135,11 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, dim: int, *, momentum: float = 0.99,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.momentum, self.eps = momentum, eps
-        self.scale = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 

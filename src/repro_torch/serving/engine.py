@@ -9,7 +9,10 @@ tick over the whole pool:
     up to a power-of-two bucket as the reference does, and its sub-cache
     copied into a free slot.  Padded positions are harmless: decode writes
     its KV row at the current position before attending, and the mask only
-    exposes positions <= the slot's depth.
+    exposes positions <= the slot's depth.  A sliding-window model
+    prefills at the prompt's exact length instead, as the reference's:
+    its ring keeps the last `window` positions of what was prefilled, all
+    valid once the ring is full, so pad rows there could not be masked.
   * **step** — one `transformer.decode_step` with a per-slot position
     vector; free slots ride along (token 0 at a frozen position) and their
     outputs are dropped.  Greedy argmax picks the next token.
@@ -251,6 +254,13 @@ class ServeEngine:
                           and self.engine_cfg.mode == "continuous"
                           and all(p.supports_graph for p in plans))
 
+    def prefill_len(self, prompt_len: int) -> int:
+        """The length a prompt is prefilled at: its power-of-two bucket,
+        or its exact length for a sliding-window model."""
+        if self.cfg.attention == "swa":
+            return prompt_len
+        return _bucket(prompt_len, self.engine_cfg.max_len)
+
     def _capture(self) -> None:
         """Capture `decode_step` and the argmax over the static buffers as
         one CUDA graph (the buffers hold this tick's inputs, or zeros: the
@@ -300,16 +310,18 @@ class ServeEngine:
         return self._logits, self._next.cpu().numpy()
 
     @torch.inference_mode()
-    def warmup(self) -> None:
-        """Prefill once at every prompt bucket and run one decode tick, so
-        the first call of each shape (library kernel choice, allocator
-        growth) falls outside a timed `run`, and capture the decode graph
-        where the binding uses one.  The cache rows it writes are
-        overwritten by the next admission into each slot."""
+    def warmup(self, prompt_lens) -> None:
+        """Prefill once at every length the prompts of `prompt_lens` (a
+        trace's prompt lengths) are prefilled at (`prefill_len`: their
+        buckets, or a sliding window's exact lengths) and run one decode
+        tick, so the first call of each shape (library kernel choice,
+        allocator growth) falls outside a timed `run`, and capture the
+        decode graph where the binding uses one.  The cache rows it
+        writes are overwritten by the next admission into each slot."""
         cap = self.engine_cfg.max_len
-        for bucket in sorted({_bucket(s, cap) for s in range(1, cap)}):
+        for n in sorted({self.prefill_len(s) for s in prompt_lens}):
             transformer.prefill(self.model, torch.zeros(
-                (1, bucket), dtype=torch.long, device=self.device), cap)
+                (1, n), dtype=torch.long, device=self.device), cap)
         B = self.engine_cfg.slots
         transformer.decode_step(
             self.model, torch.zeros((B, 1), dtype=torch.long,
@@ -325,22 +337,21 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     def _admit(self, req: Request, now: float) -> tuple[_Slot, Any]:
-        """Prefill one request at batch=1 (bucketed prompt)."""
+        """Prefill one request at batch=1 (at `prefill_len`)."""
         s = req.prompt_len
         if self.engine_cfg.max_len - s < 1:
             raise ValueError(
                 f"request {req.id}: prompt ({s}) leaves no room to "
                 f"generate within max_len={self.engine_cfg.max_len}"
             )
-        bucket = _bucket(s, self.engine_cfg.max_len)
-        tokens = np.zeros((1, bucket), np.int64)
+        tokens = np.zeros((1, self.prefill_len(s)), np.int64)
         tokens[0, :s] = req.prompt
         t0 = time.perf_counter()
         logits, sub_cache = transformer.prefill(
             self.model, torch.from_numpy(tokens).to(self.device),
             self.engine_cfg.max_len,
         )
-        first_logits = logits[0, s - 1].cpu().numpy()
+        first_logits = logits[0, s - 1].float().cpu().numpy()
         prefill_s = time.perf_counter() - t0
         return _Slot(
             request=req, pos=s, generated=[int(np.argmax(first_logits))],

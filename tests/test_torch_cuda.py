@@ -1012,11 +1012,12 @@ def test_decode_graph_matches_eager_on_card(cuda_device, arch):
         model = transformer.init(c, seed=0).to(cuda_device)
         engine = ServeEngine(model, EngineConfig(slots=2, max_len=16,
                                                  cuda_graph=graph))
-        engine.warmup()
+        trace = synthetic_trace(np.random.default_rng(1), 4,
+                                vocab_size=c.vocab_size, max_prompt=8,
+                                max_gen=8)
+        engine.warmup([r.prompt_len for r in trace])
         before = (e8_lookup.lram_query.launches, gather.launches)
-        report = engine.run(synthetic_trace(
-            np.random.default_rng(1), 4, vocab_size=c.vocab_size,
-            max_prompt=8, max_gen=8))
+        report = engine.run(trace)
         torch.cuda.synchronize()
         runs.append((report, e8_lookup.lram_query.launches - before[0],
                      gather.launches - before[1]))

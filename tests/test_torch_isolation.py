@@ -1,8 +1,10 @@
 """The port stands alone: `repro_torch` (its `memctl` lifecycle package
 included) and `chip_smoke.py` import neither JAX, nor the JAX package,
 nor `ml_dtypes` (the card's machine lacks it), and import no triton or
-CUDA build at import; a CPU serve with a live spill and a training run
-with growth and telemetry load none of them either."""
+CUDA build at import; a CPU serve with a live spill, serves of the dense
+public archs (one with the memory FFN, one in bfloat16, the sliding
+window's ring) and a training run with growth and telemetry load none of
+them either."""
 
 import json
 import os
@@ -36,6 +38,10 @@ def test_port_files_have_no_forbidden_imports():
     assert {f.name for f in files if f.parent.name == "memctl"} == {
         "__init__.py", "telemetry.py", "growth.py", "migrate.py",
         "controller.py"}
+    # and so are the dense public archs' configs
+    assert {f.name for f in files if f.parent.name == "configs"} >= {
+        "yi_9b.py", "qwen2_1_5b.py", "starcoder2_3b.py",
+        "h2o_danube3_4b.py"}
     bad = {str(f.relative_to(REPO)): m.group(0).strip()
            for f in files for m in [FORBIDDEN.search(f.read_text())] if m}
     assert not bad, bad
@@ -69,6 +75,24 @@ rep = serve.main(["--placement", "pallas", "--spill-at-tick", "1",
                   "--smoke", "--device", "cpu", "--batch", "1",
                   "--prompt-len", "4", "--gen", "3", "--requests", "1"])
 served += len(rep.requests)
+import dataclasses, numpy as np
+from repro_torch import configs
+from repro_torch.models import transformer
+from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
+for arch in configs.ARCHS:
+    rep = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--batch", "1", "--prompt-len", "10", "--gen", "2",
+                      "--requests", "1", "--warmup"])
+    served += len(rep.requests)
+cfg = configs.with_lram(configs.get_smoke_config(
+    "h2o-danube-3-4b", dtype="bfloat16"), 16)
+cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
+    cfg.lram, interp_impl="pallas"))
+rep = ServeEngine(transformer.init(cfg), EngineConfig(slots=1, max_len=14)
+                  ).run(synthetic_trace(np.random.default_rng(0), 1,
+                                        vocab_size=256, max_prompt=11,
+                                        max_gen=3))
+served += len(rep.requests)
 from repro_torch.launch import train
 run = train.main(["--arch", "lram-bert-medium", "--smoke", "--device", "cpu",
                   "--placement", "pallas", "--steps", "2", "--batch", "2",
@@ -83,4 +107,4 @@ print(json.dumps({"bad": bad, "requests": served,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"bad": [], "requests": 4, "train_steps": 2}
+    assert out == {"bad": [], "requests": 9, "train_steps": 2}

@@ -186,8 +186,8 @@ def test_engine_warmup_leaves_tokens_unchanged(pair):
     reports = []
     for warm in (False, True):
         engine = ServeEngine(model, EngineConfig(slots=2, max_len=15))
-        if warm:
-            engine.warmup()
+        if warm:  # every length a prompt of the trace can have
+            engine.warmup(range(1, 10))
         reports.append(engine.run(
             synthetic_trace(np.random.default_rng(4), 5, **kw)))
     cold, warm = reports
