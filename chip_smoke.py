@@ -94,6 +94,42 @@ Phases, each fatal on failure (exit code != 0, no result line):
               (its pause printed), 8 of 8 requests with the dense path's
               tokens, K2 + K1 launched, the graph dropped at the swap,
               the store's hit rate in the report;
+       (i)    per-tenant overlays: `lram-tiered --placement pallas
+              --tenants 4 --overlay-rows 8 --overlay-dir` (every request
+              a tenant of 4, 8 overlay rows a slot, the decode tick one
+              CUDA graph over the packs): K2 + K1, 8 of 8, finite, one
+              capture and every tick replayed, tenants parked at the end;
+              its relaunch prints `restored_overlays` equal to the files
+              parked; with `--overlay-ttl 4 --overlay-budget-kb 64` (the
+              controller's lifecycle) every request's tokens equal the
+              run without it, at least one event, every event a spill,
+              the spills the events; then in this process on one model
+              of the same weights: the trace through the graph engine
+              and an eager twin (`cuda_graph=False`): tokens equal (and
+              the CLI's), the tenants' rows equal (ids, payloads within
+              1e-6), K2 / K1 launch counts equal; the same graph engine
+              serving the dense path's trace without tenants: the dense
+              path's tokens and first logits bit for bit, still one
+              capture; decode p50 / p99, tokens/s and the host ms a tick
+              spends in the overlays' write-back and pack refresh, beside
+              the dense path's numbers;
+       (i-g)  (i)'s weights and trace with a live spill to the tiered
+              store at tick 8 (`LifecyclePolicy(spill_at_tick=8)`): one
+              spill, the graph dropped at the swap, every token (i)'s,
+              the tenants' rows (i)'s within 1e-6, K2 + K1;
+       (j)    `lram-tiered-q8` on its own TieredSpec with
+              `backing="mmap"` in a fresh temporary directory, and the
+              same config in RAM, in turns, each without and then with 4
+              tenants: the files `values_1048576x64.npy` and
+              `scales_1048576x64.npy` (N * m and N * 4 bytes past their
+              `.npy` headers), K2 + B4, both first logits path (b)'s bit
+              for bit, int8 overlays, the tenants' tokens equal across
+              the backings; the stores' host fill ms a lookup of each;
+       (k)    `lram-sharded-tiered` backed by memmaps under a temporary
+              directory: `range_000` ... `range_003`, one file each, K2 +
+              K1 on the ranges' overflow routes, path (e)'s tokens and
+              first logits bit for bit; every temporary directory is
+              removed;
   5. a shorter serve of each path's warmed engine under torch.profiler
      (the dense path twice: with the graph and eager): kernel time by
      name and the device's busy share;
@@ -267,6 +303,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -278,7 +315,7 @@ import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 # fails here, printing nothing, when the checkout around the script is missing
-from repro_torch import configs, data, quant  # noqa: E402
+from repro_torch import configs, data, memctl, quant  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.checkpoint.manager import _load, _tree_items  # noqa: E402
 from repro_torch.core import indexing, lattice, lookup  # noqa: E402
@@ -1293,6 +1330,49 @@ def no_scatter_rows(rows, n, spec, values, tables, wrap, gen,
                 library=library, library_tol=(1e-4, 1e-5)))
 
 
+def serve_config(args):
+    """The model config the serve CLI builds for `args` (its placement and
+    cache-slot overrides)."""
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    lram = cfg.lram
+    if args.placement:
+        lram = dataclasses.replace(lram, interp_impl=args.placement)
+    if args.cache_slots:
+        lram = dataclasses.replace(lram, tiered=dataclasses.replace(
+            lram.tiered, cache_slots=args.cache_slots))
+    return dataclasses.replace(cfg, lram=lram)
+
+
+def serve_trace(args, vocab: int, tenants: int = 0):
+    """The serve CLI's trace for `args` (a tenant of `tenants` each)."""
+    return synthetic_trace(np.random.default_rng(args.seed), args.requests,
+                           vocab_size=vocab, max_prompt=args.prompt_len,
+                           max_gen=args.gen, tenants=tenants)
+
+
+def engine_run(name, model, args, trace, *, cuda_graph=True, rows=0,
+               controller=None):
+    """`trace` through a new engine over `model` (the CLI's shape, `rows`
+    overlay rows a slot) after its warm-up; launch counts reset after the
+    warm-up and read after the run; every tick's logits checked finite.
+    Returns (engine, report, launches)."""
+    engine = ServeEngine(model, EngineConfig(
+        slots=args.batch, max_len=args.prompt_len + args.gen,
+        cuda_graph=cuda_graph, overlay_rows=rows), controller=controller)
+    engine.warmup([r.prompt_len for r in trace])
+    finite = []
+    reset_counts()
+    with checked_ticks(finite):
+        report = engine.run(trace)
+        _sync(engine.device)
+    launches = read_counts()
+    check(bool(torch.stack(finite).all()), f"{name}: non-finite logits")
+    check(len(report.requests) == len(trace),
+          f"{name}: served {len(report.requests)} of {len(trace)} requests")
+    return engine, report, launches
+
+
 def serve_path(name: str):
     """Serve one path at full width; returns (launch counts, report)."""
     argv, needs = PATHS[name]
@@ -1305,8 +1385,7 @@ def serve_path(name: str):
     serve_s = time.perf_counter() - t0
     launches = read_counts()
     args = serve.build_argparser().parse_args(argv + SERVE_ARGS)
-    vocab = (configs.get_smoke_config(args.arch) if args.smoke
-             else configs.get_config(args.arch)).vocab_size
+    vocab = serve_config(args).vocab_size
     check(len(report.requests) == 8,
           f"{name}: served {len(report.requests)} of 8 requests")
     for kernel in needs:
@@ -1369,29 +1448,6 @@ def checked_ticks(finite: list):
         ServeEngine._decode = decode
 
 
-def dense_engine_run(model, args, cuda_graph: bool):
-    """The dense path's trace (the serve CLI's for `args`) through one
-    engine of the given kind after its warm-up (and capture); launch
-    counts reset after them and read after the run.  Returns (report,
-    launches)."""
-    engine = ServeEngine(model, EngineConfig(
-        slots=args.batch, max_len=args.prompt_len + args.gen,
-        cuda_graph=cuda_graph))
-    trace = synthetic_trace(np.random.default_rng(args.seed), args.requests,
-                            vocab_size=model.cfg.vocab_size,
-                            max_prompt=args.prompt_len, max_gen=args.gen)
-    engine.warmup([r.prompt_len for r in trace])
-    finite = []
-    reset_counts()
-    with checked_ticks(finite):
-        report = engine.run(trace)
-        _sync(model.embed.embedding.device)
-    launches = read_counts()
-    check(bool(torch.stack(finite).all()),
-          f"dense (cuda_graph={cuda_graph}): non-finite logits")
-    return report, launches
-
-
 def graph_vs_eager(dense_report):
     """The dense path's decode tick as one CUDA graph against its eager
     twin, in one process on the same weights and trace: every request's
@@ -1399,13 +1455,13 @@ def graph_vs_eager(dense_report):
     counts of the timed trace (reset after warm-up and capture) equal."""
     args = serve.build_argparser().parse_args(PATHS["dense"][0]
                                               + SERVE_ARGS)
-    cfg = (configs.get_smoke_config(args.arch) if args.smoke
-           else configs.get_config(args.arch))
-    cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
-        cfg.lram, interp_impl=args.placement))
-    model = transformer.init(cfg, seed=args.seed).to(args.device)
-    graph, graph_launches = dense_engine_run(model, args, True)
-    eager, eager_launches = dense_engine_run(model, args, False)
+    model = transformer.init(serve_config(args), seed=args.seed).to(
+        args.device)
+    trace = serve_trace(args, model.cfg.vocab_size)
+    _, graph, graph_launches = engine_run("dense (graph)", model, args,
+                                          trace)
+    _, eager, eager_launches = engine_run("dense (eager)", model, args,
+                                          trace, cuda_graph=False)
     del model
     check(graph.cuda_graph and graph.graph_captures == 1
           and graph.graph_ticks == len(graph.step_s),
@@ -1483,6 +1539,362 @@ def spill_path(dense_report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# paths (i), (i-g), (j), (k): per-tenant overlays and the mmap backing
+# ---------------------------------------------------------------------------
+
+TENANTS = 4
+TENANT_ARGS = ["--tenants", str(TENANTS), "--overlay-rows", "8"]
+LIFECYCLE_ARGS = ["--overlay-ttl", "4", "--overlay-budget-kb", "64"]
+
+
+def with_mmap(cfg, backing_dir: str):
+    """`cfg` with its TieredSpec backed by memmaps under `backing_dir`."""
+    return dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, tiered=dataclasses.replace(
+            cfg.lram.tiered, backing="mmap", backing_dir=backing_dir)))
+
+
+def same_overlays(name: str, a, b, tol: float = 1e-6) -> float:
+    """Two managers' tenants hold the same rows in the same order, their
+    payloads within `tol`; returns the largest difference."""
+    check(set(a.overlays) == set(b.overlays),
+          f"{name}: tenants {sorted(a.overlays)} != {sorted(b.overlays)}")
+    err = 0.0
+    for tid, ov in a.overlays.items():
+        twin = b.overlays[tid]
+        for layer in range(ov.num_layers):
+            check(ov.packed_rows(layer) == twin.packed_rows(layer),
+                  f"{name}: tenant {tid} layer {layer}: other rows")
+            for r in ov.packed_rows(layer):
+                err = max(err, float(np.abs(ov.read(layer, r)
+                                            - twin.read(layer, r)).max()))
+    check(err <= tol, f"{name}: overlay payloads differ by {err}")
+    return err
+
+
+def tick_numbers(report) -> dict:
+    """Decode p50 / p99, tokens/s and the host ms a tick spends in the
+    overlays' write-back and pack refresh (median, p99, share of tick +
+    write-back)."""
+    out = {"decode_p50_ms": report.p50_ms(), "decode_p99_ms": report.p99_ms(),
+           "tokens_per_sec": report.tokens_per_sec,
+           "decode_ticks": len(report.step_s), "wall_s": report.wall_s}
+    if report.overlay_s:
+        ov = 1e3 * np.asarray(report.overlay_s)
+        tick = 1e3 * np.asarray(report.step_s)
+        out.update({
+            "overlay_writeback_ms_p50": float(np.median(ov)),
+            "overlay_writeback_ms_p99": float(np.percentile(ov, 99)),
+            "host_share_of_tick": float(ov.sum() / (ov.sum() + tick.sum())),
+            "overlay": report.overlay})
+    return out
+
+
+def tenant_path(dense_report):
+    """Path (i): `lram-tiered --placement pallas --tenants 4 --overlay-rows
+    8`, the decode tick one CUDA graph over the overlay packs, then its
+    relaunch, twins and lifecycle, and (i-g) its live spill.  Returns the
+    launch counts of each run (reset just before, read just after)."""
+    argv = PATHS["dense"][0] + TENANT_ARGS + SERVE_ARGS
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_overlays_") as d:
+        finite = []
+        flags = argv + ["--overlay-dir", os.path.join(d, "parked"),
+                        "--json"]
+        with checked_ticks(finite):
+            cli, _, out, launches["i_tenants"] = _cli(serve.main, flags)
+        check(bool(torch.stack(finite).all()), "(i): non-finite logits")
+        check(len(cli.requests) == 8,
+              f"(i): served {len(cli.requests)} of 8 requests")
+        for kernel in ("lram_query", "gather_interp"):
+            check(launches["i_tenants"][kernel] > 0,
+                  f"(i): {kernel} never launched")
+        check(cli.cuda_graph and cli.graph_captures == 1
+              and cli.graph_ticks == len(cli.step_s),
+              f"(i): cuda_graph {cli.cuda_graph}, {cli.graph_captures} "
+              f"captures, {cli.graph_ticks} of {len(cli.step_s)} replayed")
+        check(0 < cli.overlay["tenants"] <= TENANTS
+              and cli.overlay["writebacks"] > 0,
+              f"(i): overlay summary {cli.overlay}")
+        check(all(np.isfinite(r.first_logits).all() for r in cli.requests),
+              "(i): non-finite prefill logits")
+        check('"restored_overlays"' not in out,
+              "(i): restored overlays from an empty directory")
+        parked = sorted(os.listdir(os.path.join(d, "parked")))
+        # the relaunch restores what the run parked
+        relaunch, _, out, launches["i_relaunch"] = _cli(serve.main, flags)
+        restored = [json.loads(x)["restored_overlays"]
+                    for x in out.splitlines()
+                    if x.startswith('{"restored_overlays"')]
+        check(len(parked) > 0 and restored == [len(parked)],
+              f"(i) relaunch: restored {restored} of {parked}")
+        check(len(relaunch.requests) == 8, "(i) relaunch: requests lost")
+        # the lifecycle through the controller: TTL and byte budget
+        flags = argv + LIFECYCLE_ARGS + ["--overlay-dir",
+                                         os.path.join(d, "spills"), "--json"]
+        life, _, out, launches["i_lifecycle"] = _cli(serve.main, flags)
+        events = [e for x in out.splitlines()
+                  if x.startswith('{"lifecycle"')
+                  for e in json.loads(x)["lifecycle"]]
+        check(len(events) > 0
+              and all(e["event"].startswith("overlay_")
+                      and e["action"] == "spill" for e in events)
+              and life.overlay["spills"] == len(events),
+              f"(i) lifecycle: events {events}, spills "
+              f"{life.overlay['spills']}")
+        for a, b in zip(life.requests, cli.requests):
+            check(a.tokens == b.tokens,
+                  f"(i) lifecycle: request {a.id} tokens differ")
+
+    # the twins, on one model's weights (the CLI's: the same seed)
+    args = serve.build_argparser().parse_args(argv)
+    cfg = serve_config(args)
+    model = transformer.init(cfg, seed=args.seed).to(args.device)
+    trace = serve_trace(args, cfg.vocab_size, TENANTS)
+    g_engine, g, launches["i_graph"] = engine_run(
+        "(i) graph", model, args, trace, rows=8)
+    e_engine, e, launches["i_eager"] = engine_run(
+        "(i) eager", model, args, trace, cuda_graph=False, rows=8)
+    check(g.cuda_graph and g.graph_captures == 1
+          and g.graph_ticks == len(g.step_s),
+          f"(i) graph: cuda_graph {g.cuda_graph}, {g.graph_captures} "
+          f"captures")
+    check(not e.cuda_graph and e.graph_captures == 0,
+          "(i) eager: the eager twin captured a graph")
+    for a, b, c in zip(g.requests, e.requests, cli.requests):
+        check(a.tokens == b.tokens == c.tokens,
+              f"(i) graph vs eager: request {a.id} tokens differ")
+    overlay_err = same_overlays("(i) graph vs eager", g_engine.overlays,
+                                e_engine.overlays)
+    for kernel in ("lram_query", "gather_interp"):
+        check(launches["i_graph"][kernel] == launches["i_eager"][kernel] > 0,
+              f"(i) graph vs eager: {kernel} launched differently")
+    del e_engine
+    # the same engine, no tenants: the dense path's trace and numbers
+    reset_counts()
+    anon = g_engine.run(serve_trace(args, cfg.vocab_size))
+    _sync(g_engine.device)
+    launches["i_anonymous"] = read_counts()
+    check(g_engine.graph_captures == 1 and anon.graph_captures == 1,
+          f"(i): {g_engine.graph_captures} captures after the second trace")
+    for a, b in zip(anon.requests, dense_report.requests):
+        check(a.tokens == b.tokens
+              and np.array_equal(a.first_logits, b.first_logits),
+              f"(i) empty packs: request {a.id} differs from the dense "
+              f"path")
+    g_overlays = g_engine.overlays  # the tenants' rows after (i)
+    del g_engine
+    # (i-g): the same weights spilled to the tiered store at tick 8
+    ctl = memctl.MemoryController(memctl.LifecyclePolicy(spill_at_tick=8))
+    s_engine, spill, launches["ig_tenants_spill"] = engine_run(
+        "(i-g)", model, args, trace, rows=8, controller=ctl)
+    check([ev["event"] for ev in ctl.events] == ["spill"],
+          f"(i-g): lifecycle events {ctl.events}")
+    check(not spill.cuda_graph and spill.graph_captures == 1
+          and 0 < spill.graph_ticks < len(spill.step_s),
+          f"(i-g): the graph was not dropped at the swap: "
+          f"{spill.graph_captures} captures, {spill.graph_ticks} of "
+          f"{len(spill.step_s)} replayed")
+    for a, b in zip(spill.requests, g.requests):
+        check(a.tokens == b.tokens,
+              f"(i-g): request {a.id} tokens differ from (i)'s")
+    spill_err = same_overlays("(i-g) vs (i)", s_engine.overlays,
+                              g_overlays)
+    for kernel in ("lram_query", "gather_interp"):
+        check(launches["ig_tenants_spill"][kernel] > 0,
+              f"(i-g): {kernel} never launched")
+    check(spill.cache is not None, "(i-g): no store stats after the swap")
+    print(json.dumps({
+        "serve": "i_tenants", "argv": argv,
+        "tenants": TENANTS, "overlay_rows": 8,
+        "cli": tick_numbers(cli), "graph": tick_numbers(g),
+        "eager": tick_numbers(e), "anonymous_overlay_engine":
+            tick_numbers(anon),
+        "dense_without_tenants": tick_numbers(dense_report),
+        "graph_captures": g.graph_captures,
+        "overlays_graph_vs_eager_max_abs_err": overlay_err,
+        "parked_tenants": len(parked), "restored_overlays": restored[0],
+        "lifecycle_args": LIFECYCLE_ARGS, "lifecycle_events": len(events),
+        "lifecycle_spills": life.overlay["spills"],
+        "launches": launches["i_tenants"],
+    }), flush=True)
+    print(json.dumps({
+        "serve": "ig_tenants_spill", "spill": ctl.events[0],
+        "tokens_equal_i": True, "overlays_vs_i_max_abs_err": spill_err,
+        "graph_ticks": spill.graph_ticks, "cache": spill.cache,
+        **tick_numbers(spill), "launches": launches["ig_tenants_spill"],
+    }), flush=True)
+    del s_engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def timed_fills(acc: dict):
+    """Host seconds the tiered stores spend filling (shards into the
+    cache mirror, `_ensure_resident`, and the copy to the device,
+    `_sync_device`), and their lookups, added to `acc`.  The ranges of a
+    sharded-tiered store prefetch on a thread pool: their seconds add up
+    over threads."""
+    names = ("_ensure_resident", "_sync_device")
+    saved = {n: getattr(TieredValueStore, n) for n in names}
+    saved_map = TieredValueStore._map
+    acc.setdefault("fill_s", 0.0)
+    acc.setdefault("lookups", 0)
+    lock, local = threading.Lock(), threading.local()
+
+    def timed(fn):
+        def run(self, *a, **kw):
+            outer = not getattr(local, "depth", 0)
+            local.depth = getattr(local, "depth", 0) + 1
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                local.depth -= 1
+                if outer:
+                    with lock:
+                        acc["fill_s"] += time.perf_counter() - t0
+        return run
+
+    def counted(self, *a, **kw):
+        with lock:
+            acc["lookups"] += 1
+        return saved_map(self, *a, **kw)
+
+    for n in names:
+        setattr(TieredValueStore, n, timed(saved[n]))
+    TieredValueStore._map = counted
+    try:
+        yield acc
+    finally:
+        for n in names:
+            setattr(TieredValueStore, n, saved[n])
+        TieredValueStore._map = saved_map
+
+
+def _fill_ms(acc: dict) -> float:
+    return 1e3 * acc["fill_s"] / max(acc["lookups"], 1)
+
+
+def _host_files(store) -> list[str]:
+    """The files of a store's memmapped host tier (every range's)."""
+    parts = getattr(store, "parts", [store])
+    return [a.filename for p in parts
+            for a in (p._host, p._host_scale) if a is not None]
+
+
+def mmap_path(b_report):
+    """Path (j): `lram-tiered-q8` on its own TieredSpec backed by memmaps
+    in a fresh temporary directory, served with and without tenants,
+    against the same config backed by RAM in turns.  Returns the launch
+    counts of each run."""
+    args = serve.build_argparser().parse_args(PATHS["b_tiered_q8"][0]
+                                              + SERVE_ARGS)
+    cfg = serve_config(args)
+    launches, runs, fills = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mmap_") as d:
+        for backing in ("ram", "mmap"):
+            c = with_mmap(cfg, d) if backing == "mmap" else cfg
+            model = transformer.init(c, seed=args.seed).to(args.device)
+            (_, store), = lookup.find_stores(model)
+            if backing == "mmap":
+                n, m = store.num_rows, store.m
+                files = {os.path.basename(f): os.path.getsize(f)
+                         for f in _host_files(store)}
+                want = {f"values_{n}x{m}.npy": (store._host.offset + n * m),
+                        f"scales_{n}x{m}.npy": (store._host_scale.offset
+                                                + n * 4)}
+                check(files == want and sorted(os.listdir(d)) == sorted(want),
+                      f"(j): host files {files}, expected {want}")
+                headers = {k: v - (n * m if k.startswith("values") else n * 4)
+                           for k, v in files.items()}
+            for tenants in (0, TENANTS):
+                name = f"j_{backing}" + ("_tenants" if tenants else "")
+                fills[name] = {}
+                with timed_fills(fills[name]):
+                    engine, runs[name], launches[name] = engine_run(
+                        name, model, args,
+                        serve_trace(args, cfg.vocab_size, tenants),
+                        rows=8 if tenants else 0)
+                for kernel in ("lram_query", "gather_interp_quant"):
+                    check(launches[name][kernel] > 0,
+                          f"{name}: {kernel} never launched")
+                if tenants:
+                    check(engine.overlays.storage == "int8" and all(
+                        q.dtype == np.int8 and s is not None
+                        for ov in engine.overlays.overlays.values()
+                        for od in ov.rows for q, s in od.values()),
+                        f"{name}: the overlays are not int8")
+                    check(runs[name].overlay["writebacks"] > 0,
+                          f"{name}: no write-back")
+                del engine
+            del model, store
+            torch.cuda.empty_cache()
+    for a, b, c in zip(runs["j_mmap"].requests, runs["j_ram"].requests,
+                       b_report.requests):
+        check(np.array_equal(a.first_logits, c.first_logits)
+              and np.array_equal(b.first_logits, c.first_logits)
+              and a.tokens == b.tokens == c.tokens,
+              f"(j): request {a.id}: memmap, RAM and path (b) differ")
+    for a, b in zip(runs["j_mmap_tenants"].requests,
+                    runs["j_ram_tenants"].requests):
+        check(a.tokens == b.tokens,
+              f"(j) tenants: request {a.id} tokens differ from the RAM "
+              f"store's")
+    print(json.dumps({
+        "serve": "j_mmap", "arch": args.arch, "files_bytes": files,
+        "npy_header_bytes": headers,
+        "first_logits_equal_b": True, "tenant_tokens_equal_ram": True,
+        **{name: {**tick_numbers(r), "cache": r.cache,
+                  "fill_ms_per_lookup": _fill_ms(fills[name]),
+                  "lookups": fills[name]["lookups"]}
+           for name, r in runs.items()},
+        "launches": launches,
+    }), flush=True)
+    return launches
+
+
+def sharded_mmap_path(e_report):
+    """Path (k): `lram-sharded-tiered` backed by memmaps under a directory,
+    one `range_{r:03d}` a range; the first logits of path (e).  Returns
+    the launch counts."""
+    args = serve.build_argparser().parse_args(PATHS["e_sharded_tiered"][0]
+                                              + SERVE_ARGS)
+    cfg = serve_config(args)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mmap_") as d:
+        model = transformer.init(with_mmap(cfg, d), seed=args.seed).to(
+            args.device)
+        (_, store), = lookup.find_stores(model)
+        ranges = sorted(os.listdir(d))
+        want = [f"range_{r:03d}" for r in range(store.num_ranges)]
+        layout = {r: sorted(os.listdir(os.path.join(d, r))) for r in ranges}
+        check(ranges == want and len(want) == ST_RANGES and all(
+            v == [f"values_{store.rows_local}x{store.m}.npy"]
+            for v in layout.values()),
+            f"(k): range directories {layout}")
+        fills = {}
+        with timed_fills(fills):
+            _, report, launches = engine_run(
+                "(k)", model, args, serve_trace(args, cfg.vocab_size))
+        del model, store
+    for kernel in ("lram_query", "gather_interp"):
+        check(launches[kernel] > 0, f"(k): {kernel} never launched")
+    for a, b in zip(report.requests, e_report.requests):
+        check(np.array_equal(a.first_logits, b.first_logits)
+              and a.tokens == b.tokens,
+              f"(k): request {a.id} differs from path (e)")
+    print(json.dumps({
+        "serve": "k_sharded_mmap", "arch": args.arch, "ranges": layout,
+        "first_logits_equal_e": True, **tick_numbers(report),
+        "cache": report.cache, "fill_ms_per_lookup": _fill_ms(fills),
+        "lookups": fills["lookups"], "launches": launches,
+    }), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def same_first_logits(name: str, got, want, tol: float = 1e-5) -> float:
     err = max(float(np.abs(a.first_logits - b.first_logits).max())
               for a, b in zip(got.requests, want.requests))
@@ -1498,15 +1910,7 @@ def profile_path(name: str, cuda_graph: bool = True):
     capture run before.  `cuda_graph=False`: the eager twin."""
     argv, _ = PATHS[name]
     args = serve.build_argparser().parse_args(argv + SERVE_ARGS)
-    cfg = (configs.get_smoke_config(args.arch) if args.smoke
-           else configs.get_config(args.arch))
-    if args.placement:
-        cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
-            cfg.lram, interp_impl=args.placement))
-    if args.cache_slots:
-        cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
-            cfg.lram, tiered=dataclasses.replace(
-                cfg.lram.tiered, cache_slots=args.cache_slots)))
+    cfg = serve_config(args)
     model = transformer.init(cfg, seed=args.seed).to(args.device)
     engine = ServeEngine(model, EngineConfig(slots=4, max_len=64 + 16,
                                              cuda_graph=cuda_graph))
@@ -3327,6 +3731,10 @@ def main() -> None:
     }}), flush=True)
     launches["graph_vs_eager"] = graph_vs_eager(reports["dense"])
     launches["g_dense_spill"] = spill_path(reports["dense"])
+    launches.update(tenant_path(reports["dense"]))
+    launches.update(mmap_path(reports["b_tiered_q8"]))
+    launches["k_sharded_mmap"] = sharded_mmap_path(
+        reports["e_sharded_tiered"])
     del reports
     for name in PATHS:
         profile_path(name)

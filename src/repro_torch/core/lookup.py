@@ -28,8 +28,10 @@ read: how the table is built (`build_table` from the init-time fp32 draw,
 
 Unsupported cells raise :class:`LookupPlanError` at resolve time.  The
 serve engine reads the plan's ``supports_prefetch`` flag to find the
-tiered stores it warms and prefetches, and ``supports_graph`` to decide
-whether its decode tick may run as one CUDA graph; the trainer reads
+tiered stores it warms and prefetches, ``supports_graph`` to decide
+whether its decode tick may run as one CUDA graph, and
+``supports_overlay`` whether it may serve per-tenant overlays (their base
+rows read by `read_rows_fp32`); the trainer reads
 ``table_update`` to find the stores whose write-back it binds;
 `repro_torch.memctl` reads ``supports_growth``, ``row_stats`` and
 ``build_empty`` and walks a model's tables with `map_memory_tables`.
@@ -42,6 +44,7 @@ import functools
 import importlib
 from typing import Any, Callable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -120,6 +123,15 @@ class LookupPlan:
     so the serve engine may capture its decode tick as one CUDA graph.
     True for the dense ``pallas`` cells only; a store's lookup maps shards,
     fills and counts on the host.
+
+    ``supports_overlay``: the serve engine may add a per-tenant
+    copy-on-write row overlay to this plan's lookup
+    (`repro_torch.serving.overlay`): the overlay rows are kept in the
+    table's storage kind and resolved on the host into per-slot delta
+    packs (`repro_torch.core.overlay`), which needs host-readable base
+    rows (`read_rows_fp32`).  Set on the dense, tiered and sharded-tiered
+    placements, as the reference sets it; not on ``sharded`` (its rows
+    live in device shards).
     """
 
     placement: str
@@ -138,6 +150,7 @@ class LookupPlan:
     row_stats: bool = False
     build_empty: Callable[[], Any] | None = None
     supports_graph: bool = False
+    supports_overlay: bool = False
 
     def __post_init__(self):
         if self.lookup is None:
@@ -307,7 +320,8 @@ def _dense_plan(storage: str, kernel: str) -> LookupPlan:
                           build_table=lambda dense: nn.Parameter(dense),
                           interp=interp, lookup=lookup_fn,
                           supports_growth=True,
-                          supports_graph=kernel == "pallas")
+                          supports_graph=kernel == "pallas",
+                          supports_overlay=True)
 
     gather = kernel_gather(kernel, "quant")
 
@@ -342,8 +356,38 @@ def _dense_plan(storage: str, kernel: str) -> LookupPlan:
         table_from_payload=lambda q, scale: quant.QuantizedTable.from_payload(
             q, scale, storage),
         table_update="frozen", supports_growth=True,
-        supports_graph=kernel == "pallas",
+        supports_graph=kernel == "pallas", supports_overlay=True,
     )
+
+
+def read_rows_fp32(table, rows) -> np.ndarray:
+    """Host fp32 rows of any table form (a dense tensor, a
+    `QuantizedTable`, a tiered or sharded-tiered store) at arbitrary row
+    ids, the storage's rounding applied: the base rows the per-tenant
+    overlays (`repro_torch.serving.overlay`) are diffed against, so a plan
+    sets ``supports_overlay`` only for table kinds handled here.  A device
+    table is copied to the host whole; a store reads its host tier."""
+    from repro_torch import quant
+
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    if is_store(table):
+        payload, scales = table._read_rows_raw(rows)
+        if scales is None:
+            return np.asarray(payload, np.float32)
+        return quant.dequantize_rows_np(payload, scales)
+    if isinstance(table, quant.QuantizedTable):
+        q, scale = host_quantized(table)
+        return quant.dequantize_rows_np(q[rows], scale[rows])
+    return table.detach().float().cpu().numpy()[rows]
+
+
+def host_quantized(table) -> tuple[np.ndarray, np.ndarray]:
+    """A `QuantizedTable`'s (payload, scales) on the host, the payload in
+    the host form (int8, or e4m3 as its uint8 bytes)."""
+    q = table.q.detach()
+    if q.dtype == torch.float8_e4m3fn:
+        q = q.view(torch.uint8)
+    return q.cpu().numpy(), table.scale.detach().float().cpu().numpy()
 
 
 def merged_tiered_spec(cfg, storage: str, kernel: str):

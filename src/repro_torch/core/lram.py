@@ -16,9 +16,11 @@ the table.  The table is float32 whatever the model's dtype; the query
 norm's and the two dense layers' leaves take the model's dtype (bfloat16
 in the public archs), the query is cast to float32 before `torus_map`
 and the read is cast back to the input's dtype, as the reference does.
-Not ported
-yet, and listed in ROADMAP: the per-tenant overlay hook of the
-reference's `lram_apply`.
+Between the gather and the scale `lram_apply` consults the per-tenant
+overlay context (`repro_torch.core.overlay`), as the reference's does:
+inside the serve engine's `activate` block it adds the tenant's row
+deltas and records the access after the scale; outside one nothing
+extra runs.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch import nn as tnn
-from repro_torch.core import indexing, lattice, lookup, torus
+from repro_torch.core import indexing, lattice, lookup, overlay, torus
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,7 +165,14 @@ def lram_apply(layer: LRAM, x: torch.Tensor, *, train: bool = False,
     q, scale = torus.torus_map(xh.float(), spec.K)
     out, idx, w = plan.lookup(layer.values, q.contiguous(), spec,
                               cfg.top_k)
+    # the serve engine's per-tenant overlay: the rows a tenant rewrote
+    # corrected before the scale, the access recorded after it
+    octx = overlay.current()
+    if octx is not None:
+        out = octx.apply(idx, w, out)
     out = out * scale  # (..., heads, m)
+    if octx is not None:
+        octx.record(idx, w, out)
     y = out.reshape(*lead, cfg.out_dim).to(x.dtype)
     if return_access:
         return y, (idx, w)

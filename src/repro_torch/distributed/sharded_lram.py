@@ -39,14 +39,19 @@ holds a tiered one (`table_rows_axis` is None); the batch's indices are
 gathered over ``data`` first (C3).  Its checkpoint streams shards under
 global ids, so it is a tiered store's byte for byte.  It grows by whole
 ranges (`grow_rows`), counts accesses a shard in global shard order
-(`row_stats`), and its prefetches fill the ranges on a thread pool.  Not
-ported: overlays (ROADMAP A11), `mmap` backing and its directory a
-range (A8).
+(`row_stats`), and its prefetches fill the ranges on a thread pool.
+With `mmap` backing and a `backing_dir`, each range keeps its files in
+a directory of its own, ``range_{r:03d}`` (the file names encode only
+rows x m, alike across ranges).  Its base rows are host-readable, so
+per-tenant overlays compose with it (``supports_overlay``); the
+row-sharded ``sharded`` plan's rows live in device shards and do not.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable
 
@@ -235,10 +240,20 @@ class ShardedTieredStore(nn.Module):
         self.quant = spec.quant
         self.shard_rows = spec.shard_rows
         self.parts = nn.ModuleList(
-            TieredValueStore(rows_local, m, spec) for _ in range(num_ranges))
+            TieredValueStore(rows_local, m, self._part_spec(spec, r))
+            for r in range(num_ranges))
         self._shards_per_range = self.parts[0].num_shards
         self.num_shards = num_ranges * self._shards_per_range
         self._pool: ThreadPoolExecutor | None = None  # prefetch fan-out
+
+    @staticmethod
+    def _part_spec(spec: TieredSpec, r: int) -> TieredSpec:
+        """Range r's spec: an mmap backing with a directory gets the
+        subdirectory ``range_{r:03d}``."""
+        if spec.backing == "mmap" and spec.backing_dir is not None:
+            return dataclasses.replace(spec, backing_dir=os.path.join(
+                spec.backing_dir, f"range_{r:03d}"))
+        return spec
 
     @classmethod
     def from_dense(cls, values, spec: TieredSpec,
@@ -480,7 +495,9 @@ class ShardedTieredStore(nn.Module):
         payload, scales = self._read_rows_raw(parents)
         lr, device = self.writeback_lr, self.device
         for k in range(delta // self.rows_local):
-            part = TieredValueStore(self.rows_local, self.m, self.spec)
+            part = TieredValueStore(
+                self.rows_local, self.m,
+                self._part_spec(self.spec, self.num_ranges + k))
             lo, hi = k * self.rows_local, (k + 1) * self.rows_local
             part._host[...] = payload[lo:hi].reshape(part._host.shape)
             if scales is not None:

@@ -10,6 +10,8 @@
         --smoke --device cpu --rate 4 --fixed-len --json
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --smoke --device cpu --json                     # a public arch
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch lram-tiered \\
+        --smoke --device cpu --tenants 4 --overlay-dir /tmp/ov --json
 
 Builds the model from `--seed` (weights drawn on the CPU, then moved to
 `--device`), a request trace (mixed lengths, or every request at
@@ -55,8 +57,20 @@ and `graph_captures` say so.  `--hbm-budget-mb` and `--spill-at-tick`
 build a `MemoryController` that spills a dense table to the tiered store
 between decode ticks with requests in flight (the arch's own
 `TieredSpec` where it has one), then prints `{"lifecycle": [events]}`.
-Refused, naming the ROADMAP item that ports them: `--tenants` and the
-`--overlay-*` flags (A11), `--metrics-dir` and `--profile-dir` (A13).
+
+Per-tenant memory overlays, as the reference's flags: `--tenants N`
+gives each request of the trace a tenant of a pool of N, and the engine
+serves each through its copy-on-write overlay of the table
+(`--overlay-rows`, 8 a layer by default when `--tenants` > 0; the decode
+tick writes back at `--overlay-write-lr`).  `--overlay-ttl` and
+`--overlay-budget-kb` add the controller's overlay lifecycle (idle
+tenants expire, the least recently used spill beyond the budget), and
+`--overlay-dir` (default `<--ckpt-dir>/overlays` with a checkpoint) is
+where overlays spill, where they are restored from at the start (it
+prints `{"restored_overlays": n}`) and saved to at the end.  The report's
+`overlay` carries the manager's summary.
+Refused, naming the ROADMAP item that ports them: `--metrics-dir` and
+`--profile-dir` (A13).
 """
 
 from __future__ import annotations
@@ -64,6 +78,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
@@ -77,12 +92,6 @@ from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
 
 # flag -> (value that means "off", the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "tenants": (0, "A11 (per-tenant overlays)"),
-    "overlay_rows": (0, "A11 (per-tenant overlays)"),
-    "overlay_write_lr": (0.1, "A11 (per-tenant overlays)"),
-    "overlay_ttl": (0, "A11 (per-tenant overlays)"),
-    "overlay_budget_kb": (0.0, "A11 (per-tenant overlays)"),
-    "overlay_dir": ("", "A11 (per-tenant overlays)"),
     "metrics_dir": ("", "A13 (observability)"),
     "profile_dir": ("", "A13 (observability)"),
 }
@@ -134,15 +143,30 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true",
                    help="run every prefill bucket and one decode tick "
                         "before the timed trace")
+    p.add_argument("--tenants", type=int, default=0,
+                   help="give each request of the trace a tenant of a pool "
+                        "of this size (per-tenant memory overlays; 0 = "
+                        "anonymous trace)")
+    p.add_argument("--overlay-rows", type=int, default=0,
+                   help="per-tenant overlay capacity in rows a memory "
+                        "layer (0 = off; 8 when --tenants > 0)")
+    p.add_argument("--overlay-write-lr", type=float, default=0.1,
+                   help="the decode tick's Hebbian write-back rate into "
+                        "the tenant's overlay")
+    p.add_argument("--overlay-ttl", type=int, default=0,
+                   help="expire a detached tenant's overlay after this "
+                        "many idle decode ticks (0 = never)")
+    p.add_argument("--overlay-budget-kb", type=float, default=0.0,
+                   help="the overlays' byte budget; least recently used "
+                        "detached tenants are offloaded beyond it (0 = "
+                        "unlimited)")
+    p.add_argument("--overlay-dir", default="",
+                   help="keep tenant overlays here (spills, and a restore "
+                        "at the start and a save at the end); default "
+                        "<--ckpt-dir>/overlays with a checkpoint dir")
     p.add_argument("--json", action="store_true",
                    help="emit the machine-readable summary document")
     # the reference's flags whose machinery is not ported: refused
-    p.add_argument("--tenants", type=int, default=0)
-    p.add_argument("--overlay-rows", type=int, default=0)
-    p.add_argument("--overlay-write-lr", type=float, default=0.1)
-    p.add_argument("--overlay-ttl", type=int, default=0)
-    p.add_argument("--overlay-budget-kb", type=float, default=0.0)
-    p.add_argument("--overlay-dir", default="")
     p.add_argument("--metrics-dir", default="")
     p.add_argument("--profile-dir", default="")
     return p
@@ -186,13 +210,25 @@ def main(argv=None):
             raise SystemExit(f"no restorable checkpoint in {args.ckpt_dir}")
         convert.load_reference_tree(model, restored)
         print(json.dumps({"restored_step": step}), flush=True)
+    overlay_rows = args.overlay_rows
+    if overlay_rows == 0 and args.tenants > 0:
+        overlay_rows = 8
+    overlay_dir = args.overlay_dir
+    if not overlay_dir and args.ckpt_dir and overlay_rows > 0:
+        overlay_dir = os.path.join(args.ckpt_dir, "overlays")
     controller = None
-    if args.hbm_budget_mb > 0 or args.spill_at_tick >= 0:
+    if (args.hbm_budget_mb > 0 or args.spill_at_tick >= 0
+            or args.overlay_ttl > 0 or args.overlay_budget_kb > 0):
         controller = memctl.MemoryController(memctl.LifecyclePolicy(
             hbm_budget_bytes=(int(args.hbm_budget_mb * 2**20)
                               if args.hbm_budget_mb > 0 else None),
             spill_at_tick=(args.spill_at_tick
                            if args.spill_at_tick >= 0 else None),
+            tenant_ttl_ticks=(args.overlay_ttl
+                              if args.overlay_ttl > 0 else None),
+            tenant_budget_bytes=(int(args.overlay_budget_kb * 1024)
+                                 if args.overlay_budget_kb > 0 else None),
+            overlay_spill_dir=overlay_dir or None,
         ))
     trace = synthetic_trace(
         np.random.default_rng(args.seed),
@@ -202,15 +238,25 @@ def main(argv=None):
         max_gen=args.gen,
         rate=args.rate,
         mixed=not args.fixed_len,
+        tenants=args.tenants,
     )
     engine = ServeEngine(model, EngineConfig(
         slots=args.batch,
         max_len=args.prompt_len + args.gen,
         mode=args.mode,
+        overlay_rows=overlay_rows,
+        overlay_write_lr=args.overlay_write_lr,
     ), controller=controller)
+    if engine.overlays is not None and overlay_dir:
+        engine.overlays.spill_dir = overlay_dir
+        restored = engine.overlays.load_all(overlay_dir)
+        if restored:
+            print(json.dumps({"restored_overlays": restored}), flush=True)
     if args.warmup:
         engine.warmup([r.prompt_len for r in trace])
     report = engine.run(trace)
+    if engine.overlays is not None and overlay_dir:
+        engine.overlays.save_all(overlay_dir)
     if controller is not None and controller.events:
         print(json.dumps({"lifecycle": controller.events}), flush=True)
     if args.json:
@@ -227,6 +273,9 @@ def main(argv=None):
             "cache": report.cache,
             "cuda_graph": report.cuda_graph,
             "graph_captures": report.graph_captures,
+            **({"overlay": {k: report.overlay[k] for k in (
+                "tenants", "hit_rate", "bytes_per_tenant", "writebacks")}}
+               if report.overlay else {}),
         }))
     return report
 

@@ -15,10 +15,16 @@ mechanics.  Two call sites drive it:
   `hbm_budget_bytes` (or at the tick `spill_at_tick`, for tests and
   demos) it migrates the table to the tiered placement and calls
   `ServeEngine.swap_model`: the slots and the KV cache carry every
-  request in flight across the move.
+  request in flight across the move.  On the same tick it enforces the
+  per-tenant overlays' TTL and byte budget against the engine's
+  `OverlayManager` (`_overlay_tick`): detached tenants idle past
+  `tenant_ttl_ticks` expire, and beyond `tenant_budget_bytes` the least
+  recently used detached tenants are offloaded, spilled to
+  `overlay_spill_dir` (restored on their next attach) or dropped without
+  one; each offload is an ``overlay_expire`` / ``overlay_spill`` event.
 
-Not ported: the per-tenant overlay fields (ROADMAP A11) raise when set;
-the reference's `obs` spans and gauges (A13) are left out.
+The reference's `obs` spans, gauges and events (ROADMAP A13) are left
+out.
 """
 
 from __future__ import annotations
@@ -65,18 +71,14 @@ class LifecyclePolicy:
     hbm_budget_bytes: int | None = None        # serve: spill dense beyond
     spill_at_tick: int | None = None           # serve: deterministic spill
     spill_tiered: Any = None                   # TieredSpec for the spill
-    # the reference's per-tenant overlay lifecycle: not ported
+    # per-tenant overlays (repro_torch.serving.overlay), enforced on the
+    # same tick: detached tenants idle `tenant_ttl_ticks` expire; beyond
+    # `tenant_budget_bytes` of overlays the least recently used detached
+    # tenants are offloaded, to `overlay_spill_dir` (.npz, restored on
+    # the next attach) or dropped without one
     tenant_ttl_ticks: int | None = None
     tenant_budget_bytes: int | None = None
     overlay_spill_dir: str | None = None
-
-    def __post_init__(self):
-        for name in ("tenant_ttl_ticks", "tenant_budget_bytes",
-                     "overlay_spill_dir"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"LifecyclePolicy.{name}: per-tenant overlays are not "
-                    f"ported to torch yet: ROADMAP A11")
 
 
 def _default_spill_spec(num_locations: int):
@@ -150,10 +152,27 @@ class MemoryController:
                 and self._table_device_bytes(engine.cfg)
                 > pol.hbm_budget_bytes)
 
+    def _overlay_tick(self, engine) -> None:
+        """Enforce the overlays' TTL and byte budget against the engine's
+        `OverlayManager` (attached tenants are never touched); the events
+        join `events`."""
+        pol = self.policy
+        if pol.tenant_ttl_ticks is None and pol.tenant_budget_bytes is None:
+            return
+        manager = getattr(engine, "overlays", None)
+        if manager is None:
+            return
+        self.events.extend(manager.enforce(
+            tick=engine.ticks, ttl_ticks=pol.tenant_ttl_ticks,
+            budget_bytes=pol.tenant_budget_bytes,
+            spill_dir=pol.overlay_spill_dir))
+
     def on_tick(self, engine) -> bool:
-        """Between decode ticks: spill a dense table that outgrew its
-        budget (or whose tick came) to the tiered store.  True when the
-        engine's model was swapped (its store-stat baseline is stale)."""
+        """Between decode ticks: enforce the overlays' lifecycle, and
+        spill a dense table that outgrew its budget (or whose tick came)
+        to the tiered store.  True when the engine's model was swapped
+        (its store-stat baseline is stale)."""
+        self._overlay_tick(engine)
         if self._spilled or engine.cfg.lram is None:
             return False
         if self.policy.hbm_budget_bytes is None \

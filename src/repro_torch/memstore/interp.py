@@ -70,14 +70,8 @@ def tiered_plan(cfg, storage: str, kernel: str) -> lookup.LookupPlan:
 
 
 def check_spec(cell, spec, rows: int) -> None:
-    """Raise for a spec the port cannot build: a backing other than RAM,
-    or a store of `rows` rows (the table, or one row range of it) not a
-    multiple of the shard size."""
-    if spec.backing != "ram":
-        raise lookup.LookupPlanError(
-            *cell, f"backing={spec.backing!r} is not ported to torch yet: "
-            f"ROADMAP A8 (tiered store, mmap backing)",
-        )
+    """Raise for a spec the port cannot build: a store of `rows` rows (the
+    table, or one row range of it) not a multiple of the shard size."""
     if rows % spec.shard_rows:
         raise lookup.LookupPlanError(
             *cell, f"a store of {rows} rows is not divisible by "
@@ -91,7 +85,8 @@ def store_plan(cell, store_type: type, impl: str, *, build_table,
     `TieredValueStore` or a `ShardedTieredStore`): `tiered_interp` and the
     joined lookup over the store as a `RowSource`, trained by its
     write-back, prefetched by the serve engine, grown in place and
-    counted a shard (`repro_torch.memctl`).  `impl` is the `interp_impl`
+    counted a shard (`repro_torch.memctl`), its base rows host-readable
+    for per-tenant overlays.  `impl` is the `interp_impl`
     that builds such a table; `build_empty` a zero store of the plan's
     layout."""
     storage, kernel = cell[1], cell[2]
@@ -128,4 +123,5 @@ def store_plan(cell, store_type: type, impl: str, *, build_table,
         table_from_payload=None if storage == "fp32" else table_from_payload,
         supports_prefetch=True, table_update="writeback",
         supports_growth=True, row_stats=True, build_empty=build_empty,
+        supports_overlay=True,
     )

@@ -6,9 +6,15 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     global row id  r  ->  shard  r >> log2(shard_rows)
                           row    r &  (shard_rows - 1)
 
-  * **Host tier** — one `(num_shards, shard_rows, m)` numpy array in host
-    RAM: fp32, or a 1-byte payload (int8, or e4m3 bytes as uint8) plus
-    `(num_shards, shard_rows)` fp32 scales for a quantized store.
+  * **Host tier** — one `(num_shards, shard_rows, m)` numpy array: fp32,
+    or a 1-byte payload (int8, or e4m3 bytes as uint8) plus
+    `(num_shards, shard_rows)` fp32 scales for a quantized store.  In host
+    RAM (`backing="ram"`), or a memory-mapped ``.npy`` file on disk
+    (`backing="mmap"`: ``values_{N}x{m}.npy`` and ``scales_{N}x{m}.npy``
+    under `TieredSpec.backing_dir`, or a fresh ``memstore_*`` temporary
+    directory) for a table larger than host memory.  Everything that
+    reads or writes the host tier indexes the array, so a memmap serves
+    it unchanged.
   * **Device tier** — `cache_slots` shard-sized slots on the store's device
     (`.to(device)` moves it; the host tier stays on the host), their host
     mirror `cache_np` (the slots' current contents, which the write-back
@@ -52,18 +58,20 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     `_read_rows_raw` reads rows in storage form from the host tier (dirty
     slots flushed first) without touching residency or stats; `grow_rows`
     appends host shards, each row a copy of its parent (payload and
-    scale bit for bit), and leaves the cache, its slots and LRU order
-    as they were.
+    scale bit for bit; a memmap tier moves to a fresh file of the new
+    shape), and leaves the cache, its slots and LRU order as they were.
 
 Every mutation of residency, LRU order, the cache mirror and `stats`
-takes the store's re-entrant lock.  Not ported yet: `mmap` backing and
-fills on a side stream (ROADMAP A8).
+takes the store's re-entrant lock.  Fills are issued on the current
+stream; a side stream for them is a performance item (ROADMAP).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
+import tempfile
 import threading
 from typing import Iterable
 
@@ -84,7 +92,8 @@ class TieredSpec:
 
     shard_rows: int = 2048      # rows per shard (power of two)
     cache_slots: int = 32       # device-resident shards
-    backing: str = "ram"        # ram | mmap (mmap is not ported yet)
+    backing: str = "ram"        # ram | mmap
+    backing_dir: str | None = None  # mmap only; default: a temporary dir
     use_pallas: bool = False    # the CUDA kernels (plain on CPU) vs the
     #                             reference cell (plain, CPU only)
     quant: str = "none"         # none | int8 | fp8: 1-byte rows + row scales
@@ -126,10 +135,7 @@ class TieredValueStore(nn.Module):
         self.cache_slots = min(spec.cache_slots, self.num_shards)
         self._log2R = self.shard_rows.bit_length() - 1
 
-        shape = (self.num_shards, self.shard_rows, m)
-        self._host = np.zeros(shape, self.storage_dtype)
-        self._host_scale = (np.zeros(shape[:-1], np.float32) if quantized
-                            else None)
+        self._host, self._host_scale = self._alloc_host()
         # the cache's host mirror: what each slot holds now (fills copy the
         # host shard in, the write-back updates it, syncs upload from it)
         cshape = (self.cache_slots, self.shard_rows, m)
@@ -161,6 +167,26 @@ class TieredValueStore(nn.Module):
         self.reset_stats()
 
     # ------------------------------------------------------------ builders
+
+    def _alloc_host(self):
+        """(payload, scales or None) of the host tier at the current
+        shape: zeros in RAM, or zero-filled memmaps of fresh ``.npy``
+        files (the names encode the table's rows and width)."""
+        shape = (self.num_shards, self.shard_rows, self.m)
+        quantized = self.quant != "none"
+        if self.spec.backing == "ram":
+            return (np.zeros(shape, self.storage_dtype),
+                    np.zeros(shape[:-1], np.float32) if quantized else None)
+        d = self.spec.backing_dir or tempfile.mkdtemp(prefix="memstore_")
+        os.makedirs(d, exist_ok=True)
+        tag = f"{self.num_rows}x{self.m}"
+        values = np.lib.format.open_memmap(
+            os.path.join(d, f"values_{tag}.npy"), mode="w+",
+            dtype=self.storage_dtype, shape=shape)
+        scales = (np.lib.format.open_memmap(
+            os.path.join(d, f"scales_{tag}.npy"), mode="w+",
+            dtype=np.float32, shape=shape[:-1]) if quantized else None)
+        return values, scales
 
     @classmethod
     def from_dense(cls, values, spec: TieredSpec) -> "TieredValueStore":
@@ -666,14 +692,20 @@ class TieredValueStore(nn.Module):
         with self._lock:
             payload, scales = self._read_rows_raw(parents)
             new_shards = delta // self.shard_rows
-            self._host = np.concatenate([self._host, payload.reshape(
-                new_shards, self.shard_rows, self.m)])
+            payload = payload.reshape(new_shards, self.shard_rows, self.m)
             if scales is not None:
-                self._host_scale = np.concatenate([
-                    self._host_scale,
-                    scales.reshape(new_shards, self.shard_rows)])
+                scales = scales.reshape(new_shards, self.shard_rows)
+            old, old_scale = self._host, self._host_scale
             self.num_rows = new_num_rows
             self.num_shards += new_shards
+            # a host tier of the new shape (a memmap: a fresh file, its
+            # name has the rows), the old rows then the new
+            self._host, self._host_scale = self._alloc_host()
+            self._host[:len(old)] = old
+            self._host[len(old):] = payload
+            if scales is not None:
+                self._host_scale[:len(old)] = old_scale
+                self._host_scale[len(old):] = scales
             self._shard_slot = np.concatenate([
                 self._shard_slot, np.full(new_shards, -1, np.int32)])
             self.shard_access = np.concatenate([

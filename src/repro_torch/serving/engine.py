@@ -49,13 +49,29 @@ its warm and prefetch reach every range), warms them and resets their
 stats at the start of `run`, attributes each prefill's and each tick's
 hit / miss / uncached deltas to the requests in flight, and calls
 `prefetch_last()` after every tick.  Prefill lookups count every position
-of the padded bucket, as the reference's traced path does.  Not ported
-yet: per-tenant overlays (ROADMAP A11) and the observability spans
-(A13).
+of the padded bucket, as the reference's traced path does.
+
+**Per-tenant overlays** (`EngineConfig.overlay_rows` > 0, a plan that
+`supports_overlay`): an `OverlayManager` (`repro_torch.serving.overlay`)
+binds each request's tenant to its slot before the prefill (which reads
+the slot's pack slice) and releases it at retirement; every decode tick
+runs under `repro_torch.core.overlay.activate(..., collect=True)`, and
+after it the tick's (idx, w, y) are written back into each active
+slot's tenant on the host and the packs refresh.  Under the CUDA graph
+the packs and the recorded accesses are static device buffers: the packs
+are copied in before every replay, outside the capture, and the accesses
+read back after it, so attaching, detaching and writing back never
+capture again (`graph_captures` stays 1).  A tick under overlays that
+cannot be captured fails the run, as any capture does.  The base rows
+the deltas diff against are read through `lookup.read_rows_fp32` for a
+store and from a host copy of a device table taken once a binding;
+`swap_model` binds the reader again.  Not ported yet: the observability
+spans (ROADMAP A13).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -64,9 +80,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import kernels
-from repro_torch.core import lookup
+from repro_torch import kernels, quant
+from repro_torch.core import lookup, overlay
+from repro_torch.core.lram import LRAM
 from repro_torch.models import transformer
+from repro_torch.serving.overlay import OverlayManager
 from repro_torch.serving.requests import Request, RequestQueue
 
 _STAT_KEYS = ("hits", "misses", "uncached")
@@ -90,12 +108,18 @@ class EngineConfig:
     mode: str = "continuous"    # continuous | static (gang admission)
     cuda_graph: bool = True     # decode tick as one CUDA graph, where the
     #                             plans allow it (False: the eager twin)
+    # per-tenant memory overlays (repro_torch.serving.overlay): rows a slot
+    # a memory layer; 0 turns the subsystem off
+    overlay_rows: int = 0
+    overlay_write_lr: float = 0.1   # the decode tick's Hebbian write rate
 
     def __post_init__(self):
         if self.slots < 1:
             raise ValueError("need at least one slot")
         if self.mode not in ("continuous", "static"):
             raise ValueError(f"unknown mode {self.mode!r}")
+        if self.overlay_rows < 0:
+            raise ValueError("overlay_rows must be >= 0")
 
 
 @dataclasses.dataclass
@@ -165,6 +189,9 @@ class EngineReport:
     cuda_graph: bool = False    # the last binding's ticks replay a graph
     graph_captures: int = 0     # captures since the engine was built
     graph_ticks: int = 0        # ticks of this run replayed from a graph
+    overlay: dict[str, Any] | None = None   # OverlayManager.summary()
+    overlay_s: list[float] = dataclasses.field(default_factory=list)
+    #                             a tick's host write-back into the overlays
 
     @property
     def tokens_per_sec(self) -> float:
@@ -183,7 +210,7 @@ class EngineReport:
         us_per_tok = (1e6 * self.wall_s / self.generated_tokens
                       if self.generated_tokens else 0.0)
         hit = (f"hit={self.cache['hit_rate']}" if self.cache else "dense")
-        return [
+        rows = [
             [f"{prefix}_prefill", round(med_prefill, 3),
              f"n={len(self.prefill_s)}"],
             [f"{prefix}_decode_step", round(med_step, 3),
@@ -192,6 +219,15 @@ class EngineReport:
              f"tokens_per_sec={self.tokens_per_sec:.1f} "
              f"requests={len(self.requests)} mode={self.mode}"],
         ]
+        if self.overlay:
+            o = self.overlay
+            rows.append([
+                f"{prefix}_overlay", 0.0,
+                f"tenants={o['tenants']} hit_rate={o['hit_rate']} "
+                f"bytes_per_tenant={o['bytes_per_tenant']} "
+                f"writebacks={o['writebacks']}",
+            ])
+        return rows
 
     def summary(self, arch: str) -> dict[str, Any]:
         """The `--json` summary document."""
@@ -209,6 +245,9 @@ class EngineReport:
             "cuda_graph": self.cuda_graph,
             "graph_captures": self.graph_captures,
             "graph_ticks": self.graph_ticks,
+            "overlay": self.overlay,
+            "overlay_writeback_ms": [round(1e3 * s, 3)
+                                     for s in self.overlay_s],
             "requests": [r.summary() for r in self.requests],
         }
 
@@ -232,6 +271,25 @@ class ServeEngine:
         # the decode graph's static inputs, filled by copy_ each tick
         self._tok = torch.zeros((B, 1), dtype=torch.long, device=device)
         self._pos = torch.zeros((B,), dtype=torch.long, device=device)
+        # per-tenant overlays, checked against the plan's capability flag
+        self.overlays: OverlayManager | None = None
+        self._packs = None  # the packs on the device: the graph's inputs
+        self._access = None  # the last tick's (idx, w, y) on the host
+        if engine_cfg.overlay_rows > 0:
+            plans = lookup.model_plans(cfg)
+            if not plans:
+                raise ValueError(f"overlay_rows needs a memory arch; "
+                                 f"{cfg.name} has no LRAM layer")
+            if not plans[0].supports_overlay:
+                raise ValueError(f"lookup plan {plans[0].cell} does not "
+                                 f"support per-tenant overlays")
+            self.overlays = OverlayManager(
+                num_layers=len(cfg.lram_layers), m=cfg.lram.m,
+                storage=plans[0].storage, slots=B,
+                rows=engine_cfg.overlay_rows,
+                write_lr=engine_cfg.overlay_write_lr)
+            self._packs = (torch.from_numpy(self.overlays.ids).to(device),
+                           torch.from_numpy(self.overlays.deltas).to(device))
         self.swap_model(model)
 
     def swap_model(self, model: transformer.Transformer) -> None:
@@ -253,6 +311,35 @@ class ServeEngine:
                           and self.device.type == "cuda"
                           and self.engine_cfg.mode == "continuous"
                           and all(p.supports_graph for p in plans))
+        if self.overlays is not None:
+            self._bind_overlay_reader()
+
+    def _bind_overlay_reader(self) -> None:
+        """Point the overlay manager at the model's base tables now (on
+        every binding, so a live migration keeps the deltas against
+        wherever the rows live): a store is read through its host tier,
+        a device table from a host copy taken once a binding."""
+        tables = [m.values for m in self.model.modules()
+                  if isinstance(m, LRAM)]
+        host: dict[int, Any] = {}
+
+        def read(layer: int, rows) -> np.ndarray:
+            table = tables[layer]
+            rows = np.asarray(rows, np.int64).reshape(-1)
+            if lookup.is_store(table):
+                return lookup.read_rows_fp32(table, rows)
+            cached = host.get(layer)
+            if cached is None:
+                cached = host[layer] = (
+                    lookup.host_quantized(table)
+                    if isinstance(table, quant.QuantizedTable)
+                    else table.detach().float().cpu().numpy())
+            if isinstance(cached, tuple):
+                return quant.dequantize_rows_np(cached[0][rows],
+                                                cached[1][rows])
+            return cached[rows]
+
+        self.overlays.set_base_reader(read)
 
     def prefill_len(self, prompt_len: int) -> int:
         """The length a prompt is prefilled at: its power-of-two bucket,
@@ -261,25 +348,43 @@ class ServeEngine:
             return prompt_len
         return _bucket(prompt_len, self.engine_cfg.max_len)
 
+    def _step(self, tok: torch.Tensor, pos: torch.Tensor, packs):
+        """`decode_step` over the pool: (logits, the stacked (idx, w, y)
+        of every memory layer under the overlay packs, or None without
+        them)."""
+        if packs is None:
+            return transformer.decode_step(self.model, tok, pos,
+                                           self.cache), None
+        with overlay.activate(*packs, collect=True) as octx:
+            logits = transformer.decode_step(self.model, tok, pos,
+                                             self.cache)
+            return logits, octx.stacked()
+
+    def _upload_packs(self) -> None:
+        """Copy the manager's packs into their device buffers, which the
+        model reads (the decode graph among them; outside any capture)."""
+        for dev, host in zip(self._packs, (self.overlays.ids,
+                                           self.overlays.deltas)):
+            dev.copy_(torch.from_numpy(host))
+
     def _capture(self) -> None:
-        """Capture `decode_step` and the argmax over the static buffers as
-        one CUDA graph (the buffers hold this tick's inputs, or zeros: the
-        warm-up ticks write each slot's KV row at its own position, as the
-        tick itself then does)."""
+        """Capture `decode_step` (under the overlay packs' device buffers,
+        where the engine has overlays) and the argmax over the static
+        buffers as one CUDA graph (the buffers hold this tick's inputs, or
+        zeros: the warm-up ticks write each slot's KV row at its own
+        position, as the tick itself then does)."""
         stream = torch.cuda.current_stream(self.device)
         side = _capture_stream(self.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
             for _ in range(_GRAPH_WARMUP):
-                transformer.decode_step(self.model, self._tok, self._pos,
-                                        self.cache)
+                self._step(self._tok, self._pos, self._packs)
         stream.wait_stream(side)
         counters = kernels.launch_counters()
         before = {name: fn.launches for name, fn in counters.items()}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
-            logits = transformer.decode_step(self.model, self._tok,
-                                             self._pos, self.cache)
+            logits, access = self._step(self._tok, self._pos, self._packs)
             next_tok = torch.argmax(logits[:, -1], dim=-1)
         # what the capture counted was recorded, not launched: take it
         # back, and add it on every replay
@@ -289,25 +394,34 @@ class ServeEngine:
                 self._graph_launches[fn] = fn.launches - before[name]
                 fn.launches = before[name]
         self._graph, self._logits, self._next = graph, logits, next_tok
+        self._graph_access = access
         self.graph_captures += 1
 
     def _decode(self, tok_buf: np.ndarray, pos_buf: np.ndarray):
         """One decode tick over the pool: (logits (B, 1, V) on the device,
         next tokens (B,) on the host), replayed from the graph where the
-        binding allows it, else eager."""
+        binding allows it, else eager.  Under overlays the tick's (idx, w,
+        y) land in `_access`, on the host."""
+        if self.overlays is not None:
+            self._upload_packs()
         if not self.use_graph:
-            logits = transformer.decode_step(
-                self.model, torch.from_numpy(tok_buf).to(self.device),
-                torch.from_numpy(pos_buf).to(self.device), self.cache)
-            return logits, torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
-        self._tok.copy_(torch.from_numpy(tok_buf))
-        self._pos.copy_(torch.from_numpy(pos_buf))
-        if self._graph is None:
-            self._capture()
-        self._graph.replay()
-        for fn, n in self._graph_launches.items():
-            fn.launches += n
-        return self._logits, self._next.cpu().numpy()
+            logits, access = self._step(
+                torch.from_numpy(tok_buf).to(self.device),
+                torch.from_numpy(pos_buf).to(self.device), self._packs)
+            next_tok = torch.argmax(logits[:, -1], dim=-1)
+        else:
+            self._tok.copy_(torch.from_numpy(tok_buf))
+            self._pos.copy_(torch.from_numpy(pos_buf))
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            for fn, n in self._graph_launches.items():
+                fn.launches += n
+            logits, next_tok, access = (self._logits, self._next,
+                                        self._graph_access)
+        if access is not None:
+            self._access = tuple(a.cpu().numpy() for a in access)
+        return logits, next_tok.cpu().numpy()
 
     @torch.inference_mode()
     def warmup(self, prompt_lens) -> None:
@@ -323,21 +437,23 @@ class ServeEngine:
             transformer.prefill(self.model, torch.zeros(
                 (1, n), dtype=torch.long, device=self.device), cap)
         B = self.engine_cfg.slots
-        transformer.decode_step(
-            self.model, torch.zeros((B, 1), dtype=torch.long,
-                                    device=self.device),
-            torch.zeros((B,), dtype=torch.long, device=self.device),
-            self.cache,
-        )
+        self._step(torch.zeros((B, 1), dtype=torch.long, device=self.device),
+                   torch.zeros((B,), dtype=torch.long, device=self.device),
+                   self._packs)
         if self.use_graph and self._graph is None:
             self._tok.zero_()
             self._pos.zero_()
+            if self.overlays is not None:
+                self._upload_packs()
             self._capture()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _admit(self, req: Request, now: float) -> tuple[_Slot, Any]:
-        """Prefill one request at batch=1 (at `prefill_len`)."""
+    def _admit(self, req: Request, now: float,
+               slot: int) -> tuple[_Slot, Any]:
+        """Prefill one request at batch=1 (at `prefill_len`) for `slot`;
+        under overlays the request's tenant is attached to the slot first,
+        so the prompt reads through the tenant's rows already."""
         s = req.prompt_len
         if self.engine_cfg.max_len - s < 1:
             raise ValueError(
@@ -347,10 +463,17 @@ class ServeEngine:
         tokens = np.zeros((1, self.prefill_len(s)), np.int64)
         tokens[0, :s] = req.prompt
         t0 = time.perf_counter()
-        logits, sub_cache = transformer.prefill(
-            self.model, torch.from_numpy(tokens).to(self.device),
-            self.engine_cfg.max_len,
-        )
+        ctx = contextlib.nullcontext()
+        if self.overlays is not None:
+            self.overlays.attach(slot, req.tenant_id, tick=self.ticks)
+            self._upload_packs()
+            ctx = overlay.activate(*(p[:, slot:slot + 1]
+                                     for p in self._packs))
+        with ctx:
+            logits, sub_cache = transformer.prefill(
+                self.model, torch.from_numpy(tokens).to(self.device),
+                self.engine_cfg.max_len,
+            )
         first_logits = logits[0, s - 1].float().cpu().numpy()
         prefill_s = time.perf_counter() - t0
         return _Slot(
@@ -428,6 +551,7 @@ class ServeEngine:
         step_s: list[float] = []
         prefill_s: list[float] = []
         finished: list[FinishedRequest] = []
+        overlay_s: list[float] = []
         generated = 0
         graph_ticks = 0
         t0 = time.perf_counter()
@@ -442,7 +566,7 @@ class ServeEngine:
                     req = queue.pop_ready(now)
                     if req is None:
                         break
-                    slot, sub_cache = self._admit(req, now)
+                    slot, sub_cache = self._admit(req, now, b)
                     transformer.write_cache_slot(self.cache, sub_cache, b,
                                                  self._axes)
                     prefill_s.append(slot.prefill_s)
@@ -452,6 +576,8 @@ class ServeEngine:
                     now = time.perf_counter() - t0
                     if self._done(slot):  # 1-token budget: no decode steps
                         finished.append(self._finish(slot, now))
+                        if self.overlays is not None:
+                            self.overlays.detach(b)
                         continue
                     slots[b] = slot
                     tok_buf[b, 0] = slot.generated[-1]
@@ -471,6 +597,17 @@ class ServeEngine:
             _, next_tok = self._decode(tok_buf, pos_buf)
             step_s.append(time.perf_counter() - t_step)
             self.ticks += 1
+
+            # the decode tick's write-back: this tick's lattice accesses
+            # folded into each active slot's tenant (the packs refresh on
+            # the host and reach the device with the next tick)
+            if self.overlays is not None:
+                t_ov = time.perf_counter()
+                idx_a, w_a, y_a = self._access
+                for b in active:
+                    self.overlays.writeback(b, idx_a[:, b, 0], w_a[:, b, 0],
+                                            y_a[:, b, 0], tick=self.ticks)
+                overlay_s.append(time.perf_counter() - t_ov)
 
             if self.stores:
                 prev_stats = self._attribute([slots[b] for b in active],
@@ -499,6 +636,8 @@ class ServeEngine:
                 if self._done(sl):
                     finished.append(self._finish(sl, now))
                     slots[b] = None
+                    if self.overlays is not None:
+                        self.overlays.detach(b)  # retiring frees the slot
 
         finished.sort(key=lambda r: r.id)
         return EngineReport(
@@ -512,6 +651,9 @@ class ServeEngine:
             cuda_graph=self.use_graph,
             graph_captures=self.graph_captures,
             graph_ticks=graph_ticks,
+            overlay=(self.overlays.summary()
+                     if self.overlays is not None else None),
+            overlay_s=overlay_s,
         )
 
 

@@ -31,6 +31,7 @@ import torch
 
 from repro import configs as j_configs
 from repro.checkpoint import CheckpointManager as JCheckpointManager
+from repro.launch import serve as j_serve
 from repro.models import transformer as j_tf
 from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import ServeEngine as JServeEngine
@@ -319,9 +320,12 @@ def test_serve_cli_refusals():
                     "--placement", "pallas"])
     with pytest.raises(KeyError, match="A14"):
         serve.main(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A11"):
-        serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
-                    "--tenants", "2"])
+    # tenants need a memory layer: the reference's own error, by both CLIs
+    argv = ["--arch", "qwen2-1.5b", "--smoke", "--tenants", "2"]
+    with pytest.raises(ValueError, match="overlay_rows needs a memory arch"):
+        j_serve.main(argv)
+    with pytest.raises(ValueError, match="overlay_rows needs a memory arch"):
+        serve.main(argv + ["--device", "cpu"])
 
 
 def test_train_cli_refuses_bfloat16_and_trains_smoke():

@@ -1028,3 +1028,79 @@ def test_decode_graph_matches_eager_on_card(cuda_device, arch):
     assert not t.cuda_graph and t.graph_captures == 0  # host work: eager
     assert [r.tokens for r in g.requests] == [r.tokens for r in e.requests]
     assert g_k2 == e_k2 > 0 and g_k1 == e_k1 > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["lram-tiered", "lram-tiered-q8"])
+def test_overlay_decode_graph_matches_eager_on_card(cuda_device, arch):
+    """Per-tenant overlays under the decode graph (smoke config, dense
+    pallas cell, 2 tenants): one capture across the whole multi-tenant
+    trace (attach, write-back and detach only refresh the packs), every
+    request's tokens and each tenant's overlay rows those of the eager
+    twin (ids equal, payloads to 1e-6), and an anonymous trace through the
+    overlay engine gives the overlay-free engine's tokens and first
+    logits bit for bit."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
+
+    cfg = configs.get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, interp_impl="pallas"))
+    model = transformer.init(cfg, seed=0).to(cuda_device)
+
+    def run(graph, tenants, rows=4):
+        engine = ServeEngine(model, EngineConfig(
+            slots=2, max_len=16, cuda_graph=graph, overlay_rows=rows))
+        trace = synthetic_trace(np.random.default_rng(1), 6,
+                                vocab_size=cfg.vocab_size, max_prompt=8,
+                                max_gen=8, tenants=tenants)
+        engine.warmup([r.prompt_len for r in trace])
+        report = engine.run(trace)
+        torch.cuda.synchronize()
+        return engine, report
+
+    (ge, g), (ee, e) = run(True, 2), run(False, 2)
+    assert g.cuda_graph and g.graph_captures == 1
+    assert g.graph_ticks == len(g.step_s) > 0
+    assert not e.cuda_graph and e.graph_captures == 0
+    assert [r.tokens for r in g.requests] == [r.tokens for r in e.requests]
+    assert g.overlay["writebacks"] == e.overlay["writebacks"] > 0
+    for tid, ov in ge.overlays.overlays.items():
+        twin = ee.overlays.overlays[tid]
+        for layer in range(ov.num_layers):
+            assert ov.packed_rows(layer) == twin.packed_rows(layer)
+            for r in ov.packed_rows(layer):
+                np.testing.assert_allclose(ov.read(layer, r),
+                                           twin.read(layer, r), atol=1e-6)
+    (_, anon), (_, plain) = run(True, 0), run(True, 0, rows=0)
+    for a, b in zip(anon.requests, plain.requests):
+        assert a.tokens == b.tokens
+        np.testing.assert_array_equal(a.first_logits, b.first_logits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "int8", "fp8"])
+def test_mmap_store_gathers_match_ram_on_card(cuda_device, kind, tmp_path):
+    """An mmap-backed store on the card against its RAM twin: the same
+    gathers bit for bit (B5 / B6 resident, K1 / B4 on the overflow
+    route), the same fills."""
+    rng = np.random.default_rng(5)
+    dense = rng.normal(size=(8192, 64)).astype(np.float32)
+    spec = TieredSpec(shard_rows=512, cache_slots=4, use_pallas=True,
+                      quant=kind)
+    ram = TieredValueStore.from_dense(dense, spec).to(cuda_device)
+    mm = TieredValueStore.from_dense(dense, TieredSpec(
+        shard_rows=512, cache_slots=4, use_pallas=True, quant=kind,
+        backing="mmap", backing_dir=str(tmp_path))).to(cuda_device)
+    assert isinstance(mm._host, np.memmap)
+    for span in (2048, 8192):  # resident shards, then overflow rows
+        idx = torch.from_numpy(rng.integers(0, span, (128, 32)).astype(
+            np.int32)).to(cuda_device)
+        w = torch.from_numpy(rng.random((128, 32)).astype(
+            np.float32)).to(cuda_device)
+        torch.testing.assert_close(mm.gather(idx, w), ram.gather(idx, w),
+                                   rtol=0, atol=0)
+    assert mm.stats == ram.stats

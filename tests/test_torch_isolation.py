@@ -1,10 +1,11 @@
 """The port stands alone: `repro_torch` (its `memctl` lifecycle package
-included) and `chip_smoke.py` import neither JAX, nor the JAX package,
-nor `ml_dtypes` (the card's machine lacks it), and import no triton or
-CUDA build at import; a CPU serve with a live spill, serves of the dense
-public archs (one with the memory FFN, one in bfloat16, the sliding
-window's ring) and a training run with growth and telemetry load none of
-them either."""
+and its overlay modules included) and `chip_smoke.py` import neither
+JAX, nor the JAX package, nor `ml_dtypes` (the card's machine lacks it),
+and import no triton or CUDA build at import; a CPU serve with a live
+spill, multi-tenant serves with the overlay lifecycle, a serve from an
+mmap-backed table, serves of the dense public archs (one with the memory
+FFN, one in bfloat16, the sliding window's ring) and a training run with
+growth and telemetry load none of them either."""
 
 import json
 import os
@@ -38,6 +39,10 @@ def test_port_files_have_no_forbidden_imports():
     assert {f.name for f in files if f.parent.name == "memctl"} == {
         "__init__.py", "telemetry.py", "growth.py", "migrate.py",
         "controller.py"}
+    # and so are the per-tenant overlays
+    assert {str(f.relative_to(PORT)) for f in files
+            if f.name == "overlay.py"} == {"core/overlay.py",
+                                           "serving/overlay.py"}
     # and so are the dense public archs' configs
     assert {f.name for f in files if f.parent.name == "configs"} >= {
         "yi_9b.py", "qwen2_1_5b.py", "starcoder2_3b.py",
@@ -75,10 +80,27 @@ rep = serve.main(["--placement", "pallas", "--spill-at-tick", "1",
                   "--smoke", "--device", "cpu", "--batch", "1",
                   "--prompt-len", "4", "--gen", "3", "--requests", "1"])
 served += len(rep.requests)
-import dataclasses, numpy as np
+for args in (["--tenants", "2"], ["--arch", "lram-tiered-q8", "--tenants",
+                                  "2", "--overlay-ttl", "1"]):
+    rep = serve.main(args + ["--smoke", "--device", "cpu", "--batch", "1",
+                             "--prompt-len", "4", "--gen", "3",
+                             "--requests", "1"])
+    served += len(rep.requests)
+import dataclasses, numpy as np, tempfile
 from repro_torch import configs
 from repro_torch.models import transformer
 from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
+cfg = configs.get_smoke_config("lram-tiered")
+with tempfile.TemporaryDirectory() as d:
+    cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, tiered=dataclasses.replace(cfg.lram.tiered,
+                                             backing="mmap",
+                                             backing_dir=d)))
+    rep = ServeEngine(transformer.init(cfg), EngineConfig(
+        slots=1, max_len=8, overlay_rows=4)).run(synthetic_trace(
+            np.random.default_rng(0), 1, vocab_size=256, max_prompt=4,
+            max_gen=3, tenants=1))
+    served += len(rep.requests)
 for arch in configs.ARCHS:
     rep = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                       "--batch", "1", "--prompt-len", "10", "--gen", "2",
@@ -107,4 +129,4 @@ print(json.dumps({"bad": bad, "requests": served,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"bad": [], "requests": 9, "train_steps": 2}
+    assert out == {"bad": [], "requests": 12, "train_steps": 2}

@@ -16,7 +16,6 @@ from repro.kernels import gather_interp as j_gather
 from repro_torch.core import indexing, lattice, lookup
 from repro_torch.core.lram import LRAMConfig
 from repro_torch.kernels import e8_lookup, gather_interp, tiered_gather
-from repro_torch.memstore import TieredSpec
 
 SPEC, J_SPEC = indexing.choose_torus(16), j_indexing.choose_torus(16)
 
@@ -78,7 +77,6 @@ def test_lram_query_interpolates_lattice_points():
 
 
 @pytest.mark.parametrize("cell,item", [
-    (dict(interp_impl="tiered", tiered=TieredSpec(backing="mmap")), "A8"),
     (dict(interp_impl="sharded"), "needs an ambient mesh"),
 ])
 def test_unported_cells_raise(cell, item):

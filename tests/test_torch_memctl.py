@@ -635,14 +635,6 @@ def test_controller_hbm_budget_trigger():
         assert ctl._spill_due(eng) is due
 
 
-@pytest.mark.parametrize("field,value", [
-    ("tenant_ttl_ticks", 3), ("tenant_budget_bytes", 1024),
-    ("overlay_spill_dir", "x")])
-def test_policy_overlay_fields_name_a11(field, value):
-    with pytest.raises(NotImplementedError, match="A11"):
-        memctl.LifecyclePolicy(**{field: value})
-
-
 def test_engine_live_spill_preserves_generation():
     """The serve-tick spill (dense -> tiered mid-trace) changes no token:
     the port's engine on converted weights gives the no-spill run's

@@ -67,9 +67,6 @@ def test_engine_honours_arrivals(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--tenants", "2"], "A11"), (["--overlay-rows", "8"], "A11"),
-    (["--overlay-write-lr", "0.5"], "A11"), (["--overlay-ttl", "3"], "A11"),
-    (["--overlay-budget-kb", "4"], "A11"), (["--overlay-dir", "x"], "A11"),
     (["--metrics-dir", "x"], "A13"), (["--profile-dir", "x"], "A13"),
 ])
 def test_unported_flags_exit_naming_their_item(flag, item):

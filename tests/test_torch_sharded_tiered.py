@@ -277,7 +277,6 @@ def test_config_resolves_to_the_reference_cell(smoke):
     (dict(model_shards=3), "not divisible"),
     (dict(model_shards=4, tiered=TieredSpec(shard_rows=32768,
                                             cache_slots=1)), "shard_rows"),
-    (dict(tiered=TieredSpec(backing="mmap")), "A8"),
 ])
 def test_indivisible_ranges_and_unported_backing_raise(kw, match):
     with pytest.raises(lookup.LookupPlanError, match=match):
