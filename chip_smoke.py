@@ -130,6 +130,34 @@ Phases, each fatal on failure (exit code != 0, no result line):
               K1 on the ranges' overflow routes, path (e)'s tokens and
               first logits bit for bit; every temporary directory is
               removed;
+       (l)    obs armed (`--metrics-dir`, `--profile-dir` in temporary
+              directories; every line of metrics.jsonl and metrics.prom
+              validated, the summary's `metrics` the snapshot, one
+              `serve.run` span, one `serve.decode_tick` span and
+              `serve.decode_step_s` sample a tick, `serve.tokens` +
+              `serve.admitted` = the generated tokens): (l1) the dense
+              path served with obs off, on, on, off in turns (tick p50 /
+              p99, tokens/s), then profiled, then without `--warmup`
+              off and profiled (the capture inside the profiled
+              `serve.run`): every armed run has the tokens and launch
+              counts of obs off and one capture, each profile is one
+              torch.profiler trace whose kernel events name
+              `lram_query_kernel` and `gather_interp_kernel` (its bytes
+              and the span counts printed); (l2) path (b) and (l3) path
+              (e) armed: the `memstore.*` deltas on the tick and prefill
+              spans equal the summary's cache stats, their fill bytes
+              their fills' slots, and `memstore.prefetch_queue_depth` is
+              (e)'s 4 ranges; (l4) (i-g) through the CLI (`--tenants 4
+              --spill-at-tick 8`) off and armed: equal tokens and
+              launches, one `memctl.spill` span and event,
+              `memctl.table_device_bytes` the tiered caches' bytes,
+              `serve.overlay_writebacks` the active slots summed over the
+              ticks; (l5) `train --grow-at 6:21 --telemetry` 12 steps
+              off, armed, off: equal launch counts, the first loss bit
+              for bit and every loss within rtol 1e-4 (bit for bit if
+              the two runs off are), one `train.step` span a step, one
+              `memctl.grow` span and event, `memctl.num_locations` 2^21,
+              the `train.util_*` gauges the last utilisation report's;
   5. a shorter serve of each path's warmed engine under torch.profiler
      (the dense path twice: with the graph and eager): kernel time by
      name and the device's busy share;
@@ -282,8 +310,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      FFN (2^16 rows, `pallas`) on the card and on the CPU from the same
      weights, in float32 (first logits to rtol / atol 1e-5) and in
      bfloat16 (to the tolerance above);
-  9. last lines: the card again, the `kernels` JSON line, and
-     {"ok": true, "device": {...}}.
+  9. last lines: the script's seconds, the card again, the `kernels` JSON
+     line, and {"ok": true, "device": {...}}.
 
 It imports nothing of JAX, of the JAX package or of ml_dtypes.
 """
@@ -315,7 +343,7 @@ import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 # fails here, printing nothing, when the checkout around the script is missing
-from repro_torch import configs, data, memctl, quant  # noqa: E402
+from repro_torch import configs, data, memctl, obs, quant  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.checkpoint.manager import _load, _tree_items  # noqa: E402
 from repro_torch.core import indexing, lattice, lookup  # noqa: E402
@@ -1892,6 +1920,347 @@ def sharded_mmap_path(e_report):
         "lookups": fills["lookups"], "launches": launches,
     }), flush=True)
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# path (l): obs armed at full width (--metrics-dir, --profile-dir)
+# ---------------------------------------------------------------------------
+
+OBS_TRAIN_ARGS = ["--arch", "lram-bert-medium", "--placement", "pallas",
+                  "--batch", "8", "--seq", "256", "--steps", "12",
+                  "--grow-at", "6:21", "--telemetry", "--json"]
+K1_SYMBOL = "gather_interp_kernel"  # K1's kernel in a profile
+
+
+def _trace_summary(path: str) -> dict:
+    """A torch.profiler Chrome trace's bytes, event count and the names
+    of its CUDA kernel events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {"bytes": os.path.getsize(path), "events": len(events),
+            "kernels": sorted({e["name"] for e in events
+                               if e.get("cat") == "kernel"})}
+
+
+def armed_cli(main, argv, *, profile: bool = False):
+    """`main(argv)` (`_cli`: launch counts reset just before, read just
+    after) with `--metrics-dir` (and `--profile-dir`) in a fresh temporary
+    directory, obs disarmed after it.  Every line of metrics.jsonl is
+    validated as it is read (`obs.read_jsonl`), and so is metrics.prom.
+    Returns (result, step records, output, launches, events, the last
+    metrics snapshot, {profile file: `_trace_summary`})."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as d:
+        metrics, prof = os.path.join(d, "metrics"), os.path.join(d, "prof")
+        flags = ["--metrics-dir", metrics] + (
+            ["--profile-dir", prof] if profile else [])
+        try:
+            result, records, out, launches = _cli(main, argv + flags)
+        finally:
+            obs.disable()
+        events = obs.read_jsonl(os.path.join(metrics, obs.JSONL_NAME))
+        with open(os.path.join(metrics, obs.PROM_NAME)) as f:
+            obs.export.validate_prometheus_text(f.read())
+        traces = ({name: _trace_summary(os.path.join(prof, name))
+                   for name in os.listdir(prof)} if profile else {})
+    snaps = [e["metrics"] for e in events if e["kind"] == "metrics"]
+    check(len(snaps) == 1, f"{argv}: {len(snaps)} metrics snapshots")
+    return result, records, out, launches, events, snaps[0], traces
+
+
+def _value(snap: dict, name: str) -> float:
+    """A counter's or gauge's value (0 when never set)."""
+    return snap[name]["value"] if name in snap else 0.0
+
+
+def _spans(events, name: str) -> list[dict]:
+    return [e for e in events if e["kind"] == "span" and e["name"] == name]
+
+
+def _serve_numbers(report) -> dict:
+    return {"decode_p50_ms": report.p50_ms(),
+            "decode_p99_ms": report.p99_ms(),
+            "tokens_per_sec": report.tokens_per_sec,
+            "decode_ticks": len(report.step_s),
+            "graph_captures": report.graph_captures}
+
+
+def _check_serve_obs(name, report, out, events, snap, graph: bool) -> dict:
+    """What every armed serve holds: the summary's `metrics` is the
+    snapshot; `serve.tokens` (decode ticks' tokens) plus `serve.admitted`
+    (each prefill's first token) is `generated_tokens`; 8 admitted and
+    retired; one `serve.decode_tick` span a tick, each `serve.decode_step_s`
+    sample one of them, all under the one `serve.run` span."""
+    summary = json.loads(out.splitlines()[-1])
+    obs.validate_metrics_doc(summary["metrics"])
+    check(summary["metrics"]["metrics"] == snap,
+          f"{name}: the summary's metrics are not the snapshot")
+    check(_value(snap, "serve.tokens") + _value(snap, "serve.admitted")
+          == report.generated_tokens,
+          f"{name}: serve.tokens {_value(snap, 'serve.tokens')} + "
+          f"admitted against {report.generated_tokens} generated")
+    check(_value(snap, "serve.admitted") == _value(snap, "serve.retired")
+          == len(report.requests) == 8,
+          f"{name}: admitted / retired {_value(snap, 'serve.admitted')} / "
+          f"{_value(snap, 'serve.retired')}")
+    runs = _spans(events, "serve.run")
+    check(len(runs) == 1, f"{name}: {len(runs)} serve.run spans")
+    run = runs[0]
+    ticks = _spans(events, "serve.decode_tick")
+    check(len(ticks) == snap["serve.decode_step_s"]["count"]
+          == len(report.step_s) and all(t["parent"] == run["id"]
+                                        for t in ticks),
+          f"{name}: {len(ticks)} tick spans, "
+          f"{snap['serve.decode_step_s']['count']} tick samples, "
+          f"{len(report.step_s)} ticks")
+    check(report.graph_captures == int(graph),
+          f"{name}: {report.graph_captures} captures")
+    return {"spans": sum(e["kind"] == "span" for e in events),
+            "events": len(events), "serve_run_s": run["dur_s"]}
+
+
+def obs_dense_path() -> dict:
+    """Path (l1): the dense decode graph (`lram-tiered --placement
+    pallas`) served with obs off and armed in turns (off, on, on, off),
+    then once with `--profile-dir`, then without `--warmup` (the capture
+    inside the profiled `serve.run`) off and profiled.  Each armed run
+    has the tokens and launch counts of the run without obs and one
+    capture; each profile is one trace whose kernel events name K2 and
+    K1.  Returns {run: launch counts}."""
+    argv = PATHS["dense"][0] + SERVE_ARGS + ["--json"]
+    cold = [a for a in argv if a != "--warmup"]
+    runs, numbers, launches = {}, {}, {}
+    for label, args, mode in (("off", argv, None), ("on", argv, "metrics"),
+                              ("on_2", argv, "metrics"), ("off_2", argv, None),
+                              ("profiled", argv, "profile"),
+                              ("cold_off", cold, None),
+                              ("cold_profiled", cold, "profile")):
+        finite = []
+        with checked_ticks(finite):
+            if mode is None:
+                report, _, out, counts = _cli(serve.main, args)
+                extra = {}
+            else:
+                report, _, out, counts, events, snap, traces = armed_cli(
+                    serve.main, args, profile=mode == "profile")
+                extra = _check_serve_obs(f"(l1) {label}", report, out,
+                                         events, snap, graph=True)
+                if mode == "profile":
+                    check(len(traces) == 1,
+                          f"(l1) {label}: profile files {sorted(traces)}")
+                    (trace,) = traces.values()
+                    for kernel in ("lram_query_kernel", K1_SYMBOL):
+                        check(any(kernel in k for k in trace["kernels"]),
+                              f"(l1) {label}: no {kernel} event in the "
+                              f"profile: {trace['kernels'][:20]}")
+                    extra.update(trace_bytes=trace["bytes"],
+                                 trace_events=trace["events"],
+                                 trace_kernel_names=len(trace["kernels"]))
+        check(bool(torch.stack(finite).all()),
+              f"(l1) {label}: non-finite logits")
+        check(len(report.requests) == 8 and report.graph_captures == 1,
+              f"(l1) {label}: served {len(report.requests)} of 8, "
+              f"{report.graph_captures} captures")
+        if mode is not None:
+            twin = runs["cold_off" if label.startswith("cold") else "off"]
+            for a, b in zip(report.requests, twin[0].requests):
+                check(a.tokens == b.tokens,
+                      f"(l1) {label}: request {a.id} tokens differ from "
+                      f"obs off")
+            check(counts == twin[1], f"(l1) {label}: launches {counts} "
+                                     f"against obs off {twin[1]}")
+        runs[label] = (report, counts)
+        launches[f"l1_{label}"] = counts
+        numbers[label] = {**_serve_numbers(report), **extra}
+    print(json.dumps({"serve": "l1_obs_dense", "argv": argv,
+                      "runs": numbers}), flush=True)
+    return launches
+
+
+def _slot_bytes(args) -> int:
+    """Bytes of one cache slot of the path's tiered store (payload and
+    scales)."""
+    lram = serve_config(args).lram
+    quantized = lram.table_quant != "none"
+    return lram.tiered.shard_rows * (lram.m * (1 if quantized else 4)
+                                     + (4 if quantized else 0))
+
+
+def obs_store_path(name: str) -> dict:
+    """Paths (l2) (`lram-tiered-q8`) and (l3) (`lram-sharded-tiered`)
+    armed: the `memstore.*` deltas on the `serve.decode_tick` and
+    `serve.prefill` spans add up to the summary's cache stats (hits,
+    misses, uncached, fills, evictions: the run's, from the reset at its
+    start), their fill bytes to their fills' slots; the counters' totals
+    exceed them by what the warm-up and the run's warm fill did before
+    any span; a sharded store's fan-outs set
+    `memstore.prefetch_queue_depth` to its ranges.  Returns the launch
+    counts."""
+    argv = PATHS[name][0] + SERVE_ARGS + ["--json"]
+    report, _, out, launches, events, snap, _ = armed_cli(serve.main, argv)
+    label = f"(l) {name}"
+    spans = _check_serve_obs(label, report, out, events, snap, graph=False)
+    cache = report.cache
+    keys = ("hits", "misses", "uncached", "fills", "evictions", "fill_bytes")
+    inside = {k: sum(s["metrics"].get(f"memstore.{k}", 0.0)
+                     for s in events if s["kind"] == "span"
+                     and s["name"] in ("serve.decode_tick", "serve.prefill"))
+              for k in keys}
+    totals = {k: _value(snap, f"memstore.{k}") for k in keys}
+    for k in keys[:5]:
+        check(inside[k] == cache[k],
+              f"{label}: {k} on the spans {inside[k]} against the "
+              f"summary's {cache[k]}")
+        check(totals[k] >= inside[k], f"{label}: {k} total {totals[k]}")
+    check(cache["hits"] + cache["misses"] + cache["uncached"] > 0,
+          f"{label}: no lookup counted")
+    args = serve.build_argparser().parse_args(argv)
+    check(inside["fill_bytes"] == inside["fills"] * _slot_bytes(args),
+          f"{label}: {inside['fill_bytes']} fill bytes for "
+          f"{inside['fills']} fills")
+    depth = snap.get("memstore.prefetch_queue_depth")
+    ranges = serve_config(args).lram.model_shards or 0
+    check((depth is not None and depth["value"] == ranges)
+          if ranges else depth is None,
+          f"{label}: memstore.prefetch_queue_depth {depth}")
+    print(json.dumps({
+        "serve": f"l_obs_{name}", "argv": argv, "cache": cache,
+        "on_spans": inside, "totals": totals,
+        "outside_spans": {k: totals[k] - inside[k] for k in keys},
+        "prefetch_queue_depth": depth, **spans,
+        **_serve_numbers(report), "launches": launches}), flush=True)
+    return launches
+
+
+def obs_tenant_spill_path() -> dict:
+    """Path (l4): (i-g) through the CLI (`--placement pallas --tenants 4
+    --spill-at-tick 8`) without and with `--metrics-dir`: the same
+    tokens; one `memctl.spill` span and event; `memctl.table_device_bytes`
+    at the tiered caches' bytes; `serve.overlay_writebacks` the active
+    slots summed over the ticks.  Returns the launch counts."""
+    argv = (PATHS["dense"][0] + TENANT_ARGS + SERVE_ARGS
+            + ["--spill-at-tick", "8", "--json"])
+    plain, _, _, off = _cli(serve.main, argv)
+    report, _, out, on, events, snap, _ = armed_cli(serve.main, argv)
+    spans = _check_serve_obs("(l4)", report, out, events, snap, graph=True)
+    for a, b in zip(report.requests, plain.requests):
+        check(a.tokens == b.tokens,
+              f"(l4): request {a.id} tokens differ from obs off")
+    check(on == off, f"(l4): launches {on} against obs off {off}")
+    spills = [e for e in events if e.get("name") == "memctl.spill"]
+    check(sorted(e["kind"] for e in spills) == ["event", "span"],
+          f"(l4): memctl.spill records {spills}")
+    lram = serve_config(serve.build_argparser().parse_args(argv)).lram
+    caches = lram.tiered.cache_slots * lram.tiered.shard_rows * lram.m * 4
+    check(_value(snap, "memctl.table_device_bytes") == caches,
+          f"(l4): memctl.table_device_bytes "
+          f"{_value(snap, 'memctl.table_device_bytes')} against {caches}")
+    active = sum(s["attrs"]["active"]
+                 for s in _spans(events, "serve.decode_tick"))
+    check(_value(snap, "serve.overlay_writebacks") == active > 0,
+          f"(l4): serve.overlay_writebacks "
+          f"{_value(snap, 'serve.overlay_writebacks')} against {active}")
+    print(json.dumps({
+        "serve": "l4_obs_tenants_spill", "argv": argv,
+        "spill": [e for e in spills if e["kind"] == "event"][0]["attrs"],
+        "memctl_table_device_bytes": caches,
+        "overlay_writebacks": active, **spans,
+        "off": _serve_numbers(plain), "on": _serve_numbers(report),
+        "launches": on}), flush=True)
+    return {"l4_off": off, "l4_on": on}
+
+
+def obs_train_path() -> dict:
+    """Path (l5): `train --grow-at 6:21 --telemetry` 12 steps without obs,
+    with `--metrics-dir`, and without again: the same launch counts; the
+    first step's loss and grad norm bit for bit and every step's within
+    rtol 1e-6 of the run without obs (a step's reported loss on the card
+    may differ in its last bit, about 1e-7 of it, from run to run, obs or
+    not; whether the runs agree bit for bit is printed); one `train.step`
+    span a step,
+    one `memctl.grow` span and event, `memctl.num_locations` the grown
+    size, and the `train.util_*` gauges the last utilisation report's.
+    Returns the launch counts."""
+    off, _, _, off_launches = _cli(train.main, OBS_TRAIN_ARGS)
+    run, _, out, on_launches, events, snap, _ = armed_cli(train.main,
+                                                          OBS_TRAIN_ARGS)
+    off2, _, _, off2_launches = _cli(train.main, OBS_TRAIN_ARGS)
+    runs = (("off", off), ("on", run), ("off_2", off2))
+    losses = {k: [r["loss"] for r in r_.records] for k, r_ in runs}
+    norms = {k: [r["grad_norm"] for r in r_.records] for k, r_ in runs}
+    steps = len(losses["off"])
+    check(on_launches == off_launches == off2_launches,
+          f"(l5): launches {on_launches}, {off_launches}, {off2_launches}")
+
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) if b else abs(a - b)
+                   for a, b in zip(got, want))
+
+    for what, vals in (("losses", losses), ("grad norms", norms)):
+        check(vals["on"][0] == vals["off"][0]
+              and rel(vals["on"], vals["off"]) <= 1e-6,
+              f"(l5): {what} with obs {vals['on']} against without "
+              f"{vals['off']}")
+    step_spans = _spans(events, "train.step")
+    check([s["attrs"]["step"] for s in step_spans] == list(range(steps)),
+          f"(l5): train.step spans {[s['attrs'] for s in step_spans]}")
+    grows = [e for e in events if e.get("name") == "memctl.grow"]
+    check(sorted(e["kind"] for e in grows) == ["event", "span"],
+          f"(l5): memctl.grow records {grows}")
+    log2 = int(OBS_TRAIN_ARGS[OBS_TRAIN_ARGS.index("--grow-at")
+                              + 1].split(":")[1])
+    check(_value(snap, "memctl.num_locations") == 2**log2,
+          f"(l5): memctl.num_locations "
+          f"{_value(snap, 'memctl.num_locations')}")
+    reports = [json.loads(x)["utilisation_report"] for x in out.splitlines()
+               if '"utilisation_report"' in x]
+    for row, gauge in zip(reports[-1], ("dead_frac", "hot_mass",
+                                        "cold_frac")):
+        check(_value(snap, f"train.util_{gauge}") == float(row[2].split()[0]),
+              f"(l5): train.util_{gauge} {_value(snap, f'train.util_{gauge}')}"
+              f" against the last report's {row}")
+    step_s = [s["dur_s"] for s in step_spans]
+    print(json.dumps({
+        "train": "l5_obs_grow", "argv": OBS_TRAIN_ARGS, "losses": losses,
+        "grad_norms": norms,
+        "steps_bit_equal_on_vs_off": [a == b for a, b in zip(
+            losses["on"], losses["off"])],
+        "steps_bit_equal_off_vs_off_2": [a == b for a, b in zip(
+            losses["off_2"], losses["off"])],
+        "steps_grad_norm_bit_equal_on_vs_off": [a == b for a, b in zip(
+            norms["on"], norms["off"])],
+        "max_rel_diff_on_vs_off": {"loss": rel(losses["on"], losses["off"]),
+                                   "grad_norm": rel(norms["on"],
+                                                    norms["off"])},
+        "max_rel_diff_off_vs_off_2": {
+            "loss": rel(losses["off_2"], losses["off"]),
+            "grad_norm": rel(norms["off_2"], norms["off"])},
+        "final_eval_loss": {"off": off.final_eval_loss,
+                            "on": run.final_eval_loss,
+                            "off_2": off2.final_eval_loss},
+        "train_step_span_s_median_steps_7_11": float(np.median(step_s[7:])),
+        "step_ms_median_on": float(np.median(
+            [r["step_ms"] for r in run.records[7:]])),
+        "step_ms_median_off": float(np.median(
+            [r["step_ms"] for r in off.records[7:]])),
+        "spans": sum(e["kind"] == "span" for e in events),
+        "grow_event": [e for e in grows if e["kind"] == "event"][0]["attrs"],
+        "launches": on_launches}), flush=True)
+    del off, run, off2
+    return {"l5_off": off_launches, "l5_on": on_launches,
+            "l5_off_2": off2_launches}
+
+
+def obs_path() -> dict:
+    """Path (l), every part; prints its seconds.  Returns the launch
+    counts of each run."""
+    t0 = time.perf_counter()
+    launches = obs_dense_path()
+    launches["l2_tiered_q8"] = obs_store_path("b_tiered_q8")
+    launches["l3_sharded_tiered"] = obs_store_path("e_sharded_tiered")
+    launches.update(obs_tenant_spill_path())
+    launches.update(obs_train_path())
+    print(json.dumps({"path_l_s": time.perf_counter() - t0}), flush=True)
     return launches
 
 
@@ -3686,6 +4055,7 @@ def arch_parity_phase(devices=("cuda", "cpu")):
 
 
 def main() -> None:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3736,6 +4106,7 @@ def main() -> None:
     launches["k_sharded_mmap"] = sharded_mmap_path(
         reports["e_sharded_tiered"])
     del reports
+    launches.update(obs_path())
     for name in PATHS:
         profile_path(name)
     profile_path("dense", cuda_graph=False)
@@ -3786,6 +4157,8 @@ def main() -> None:
           "the port pulled in JAX, the JAX package or ml_dtypes")
 
     kernels = kernels_line(rows, launches)
+    print(json.dumps({"chip_smoke_s": time.perf_counter() - started}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

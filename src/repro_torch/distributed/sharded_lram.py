@@ -59,6 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.core import lookup
 from repro_torch.distributed import collectives
 from repro_torch.kernels import e8_lookup, ops, sharded_gather
@@ -387,6 +388,7 @@ class ShardedTieredStore(nn.Module):
 
     def _fanout(self, calls: list) -> None:
         """Run the calls, on the pool when there are several."""
+        obs.gauge("memstore.prefetch_queue_depth").set(len(calls))
         if len(calls) <= 1:
             for call in calls:
                 call()

@@ -69,8 +69,16 @@ tenants expire, the least recently used spill beyond the budget), and
 where overlays spill, where they are restored from at the start (it
 prints `{"restored_overlays": n}`) and saved to at the end.  The report's
 `overlay` carries the manager's summary.
-Refused, naming the ROADMAP item that ports them: `--metrics-dir` and
-`--profile-dir` (A13).
+
+`--metrics-dir DIR` arms `repro_torch.obs` before the model is built:
+the engine's, the stores' and the controller's spans and lifecycle
+events go to `DIR/metrics.jsonl` as they happen, and at the end one
+snapshot of the registry is appended there and the Prometheus textfile
+`DIR/metrics.prom` written (the reference's schema and files); the
+`--json` summary's `metrics` carries the registry.  `--profile-dir DIR`
+writes a `torch.profiler` trace of the `serve.run` span into DIR (a
+Chrome / Perfetto JSON trace, not the reference's XLA trace); it needs
+`--metrics-dir`, and exits without it (the reference ignores it then).
 """
 
 from __future__ import annotations
@@ -83,18 +91,11 @@ import os
 import numpy as np
 import torch
 
-from repro_torch import configs, memctl
+from repro_torch import configs, memctl, obs
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.launch import convert, resolve_device
+from repro_torch.launch import arm_obs, convert, resolve_device
 from repro_torch.models import transformer
 from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
-
-
-# flag -> (value that means "off", the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "metrics_dir": ("", "A13 (observability)"),
-    "profile_dir": ("", "A13 (observability)"),
-}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -164,20 +165,21 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="keep tenant overlays here (spills, and a restore "
                         "at the start and a save at the end); default "
                         "<--ckpt-dir>/overlays with a checkpoint dir")
+    p.add_argument("--metrics-dir", default="",
+                   help="arm the observability layer (repro_torch.obs): "
+                        "spans stream to <dir>/metrics.jsonl, a Prometheus "
+                        "textfile snapshot lands at <dir>/metrics.prom")
+    p.add_argument("--profile-dir", default="",
+                   help="torch.profiler capture dir for the serve.run span "
+                        "(needs --metrics-dir)")
     p.add_argument("--json", action="store_true",
                    help="emit the machine-readable summary document")
-    # the reference's flags whose machinery is not ported: refused
-    p.add_argument("--metrics-dir", default="")
-    p.add_argument("--profile-dir", default="")
     return p
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    for flag, (off, item) in _NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to "
-                             f"torch yet: ROADMAP {item}")
+    arm_obs(args)
     device = resolve_device(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
@@ -259,6 +261,8 @@ def main(argv=None):
         engine.overlays.save_all(overlay_dir)
     if controller is not None and controller.events:
         print(json.dumps({"lifecycle": controller.events}), flush=True)
+    if args.metrics_dir:
+        obs.flush()
     if args.json:
         print(json.dumps(report.summary(cfg.name)))
     else:

@@ -114,10 +114,23 @@ utilisation report beside the log lines (`{"step": s,
 "utilisation_report": rows}`); on a mesh the counts are summed over the
 batch axes first, so they are the one-process run's.
 
-Not ported yet, and refused with the ROADMAP item that ports it:
-observability (`--metrics-dir`, `--profile-dir`), and a bfloat16 config
-(the public archs' full configs: A14 part 2; their float32 `--smoke`
-configs train).
+`--metrics-dir DIR` arms `repro_torch.obs` as the serve CLI's does
+(`DIR/metrics.jsonl`, `DIR/metrics.prom` at the end): every step is a
+`train.step` span around the step and the host read of its loss that
+ends it (so its `dur_s` is the step's time on the device, not the time
+to issue it), a growth a `memctl.grow` span and event, a tiered store's
+lookups and write-backs its `memstore.*` counters, and each `--telemetry`
+report sets the gauges `train.util_dead_frac`, `train.util_hot_mass` and
+`train.util_cold_frac` (the last segment's, as the reference's).
+`--profile-dir` needs `--metrics-dir`; no span of the trainer is marked
+for the profiler, as in the reference.  On a mesh only rank 0 arms obs
+(its files, its spans and counters): the other ranks stay off.  The
+reference's one JAX process sees every device, so it has one registry;
+here each rank is a process with its own.
+
+Not ported yet, and refused with the ROADMAP item that ports it: a
+bfloat16 config (the public archs' full configs: A14 part 2; their
+float32 `--smoke` configs train).
 """
 
 from __future__ import annotations
@@ -131,20 +144,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs, data, memctl, optim
+from repro_torch import configs, data, memctl, obs, optim
 from repro_torch.checkpoint import CheckpointError, CheckpointManager
 from repro_torch.core import lookup
 from repro_torch.distributed import collectives, context, fault, sharding
 from repro_torch.launch import convert
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch import resolve_device
+from repro_torch.launch import arm_obs, resolve_device
 from repro_torch.models import transformer
-
-# flag -> (value that means "off", the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "metrics_dir": ("", "A13 (observability)"),
-    "profile_dir": ("", "A13 (observability)"),
-}
 
 
 def bind_stores(model: transformer.Transformer, lr: float) -> list:
@@ -377,22 +384,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--telemetry", action="store_true",
                    help="count the memory rows read on the device and log "
                         "the utilisation report beside the loss")
-    # the reference's flags whose machinery is not ported: refused
-    p.add_argument("--metrics-dir", default="")
-    p.add_argument("--profile-dir", default="")
+    p.add_argument("--metrics-dir", default="",
+                   help="arm the observability layer (repro_torch.obs): "
+                        "spans stream to <dir>/metrics.jsonl, a Prometheus "
+                        "textfile snapshot lands at <dir>/metrics.prom")
+    p.add_argument("--profile-dir", default="",
+                   help="torch.profiler capture dir for marked spans "
+                        "(needs --metrics-dir)")
     return p
-
-
-def _refuse_unported(args) -> None:
-    for flag, (off, item) in _NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to "
-                             f"torch yet: ROADMAP {item}")
 
 
 def main(argv=None) -> TrainRun:
     args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
     mesh = None
     if args.use_mesh and mesh_lib.world_size() > 1:
         mesh, device = mesh_lib.init_mesh(args.device,
@@ -400,6 +403,7 @@ def main(argv=None) -> TrainRun:
     else:
         device = resolve_device(args.device)
     main_rank = mesh is None or dist.get_rank() == 0
+    arm_obs(args, arm=main_rank)  # on a mesh the other ranks stay off
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     if cfg.dtype != "float32":
@@ -504,10 +508,11 @@ def main(argv=None) -> TrainRun:
                 f"injected failure at step {step} (relaunch to resume)")
         t0 = time.perf_counter()
         batch = batch_to(data.get_batch(dcfg, step=step), device)
-        metrics = step_fn(opt_state, batch, tel)
-        rec = {"step": step,
-               **{k: float(metrics[k])  # the host sync ends the step
-                  for k in ("loss", "xent", "grad_norm", "lr")}}
+        with obs.span("train.step", step=step):
+            metrics = step_fn(opt_state, batch, tel)
+            rec = {"step": step,
+                   **{k: float(metrics[k])  # the host sync ends the step
+                      for k in ("loss", "xent", "grad_norm", "lr")}}
         dt = time.perf_counter() - t0
         rec["step_ms"] = 1e3 * dt
         timer.record(dt)
@@ -535,6 +540,11 @@ def main(argv=None) -> TrainRun:
                                       memctl.utilisation_report(
                                           t, prefix=f"util_{name}")}),
                           flush=True)
+                if obs.enabled():
+                    s = memctl.utilisation_summary(t)
+                    obs.gauge("train.util_dead_frac").set(s["dead_frac"])
+                    obs.gauge("train.util_hot_mass").set(s["hot_mass"])
+                    obs.gauge("train.util_cold_frac").set(s["cold_frac"])
         if mgr and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
             mgr.save(step + 1, convert.reference_tree(model, opt_state),
                      blocking=False, sharding=spread)
@@ -556,6 +566,8 @@ def main(argv=None) -> TrainRun:
     if main_rank:
         print(json.dumps({"final_eval_loss": round(eval_loss, 4),
                           "final_fact_recall": round(recall, 4)}))
+    if args.metrics_dir and main_rank:
+        obs.flush()
     if args.json and main_rank:
         steady = [r["step_ms"] for r in records[5:]] or \
             [r["step_ms"] for r in records]

@@ -23,8 +23,14 @@ mechanics.  Two call sites drive it:
   `overlay_spill_dir` (restored on their next attach) or dropped without
   one; each offload is an ``overlay_expire`` / ``overlay_spill`` event.
 
-The reference's `obs` spans, gauges and events (ROADMAP A13) are left
-out.
+Observability (`repro_torch.obs`, the reference's names): a growth is a
+`memctl.grow` span and event and sets the gauge `memctl.num_locations`;
+a spill is a `memctl.spill` span and event, with the gauge
+`memctl.table_device_bytes` before (the dense table) and after (the
+tiered caches); each overlay event is a `memctl.overlay` event; with obs
+armed every tick refreshes the gauges `memctl.util_dead_frac`,
+`util_hot_mass` and `util_cold_frac` from the engine's store (which reads
+its per-shard counts).
 """
 
 from __future__ import annotations
@@ -33,8 +39,9 @@ import dataclasses
 import time
 from typing import Any
 
+from repro_torch import obs
 from repro_torch.core import lookup
-from repro_torch.memctl import growth, migrate
+from repro_torch.memctl import growth, migrate, telemetry
 
 
 def parse_grow_at(arg: str) -> tuple[tuple[int, int], ...]:
@@ -108,12 +115,17 @@ class MemoryController:
 
     def _apply_growth(self, model, opt_state, step: int,
                       new_log2: int) -> None:
+        obs.gauge("memctl.num_locations").set(model.cfg.lram.num_locations)
         t0 = time.perf_counter()
-        growth.grow_model(model, 2**new_log2, opt_state=opt_state)
+        with obs.span("memctl.grow", step=step, new_log2=new_log2):
+            growth.grow_model(model, 2**new_log2, opt_state=opt_state)
         pause_s = round(time.perf_counter() - t0, 4)
         self._grown.add((step, new_log2))
         self.events.append({"event": "grow", "step": step,
                             "new_log2": new_log2, "pause_s": pause_s})
+        obs.gauge("memctl.num_locations").set(2**new_log2)
+        obs.emit_event("memctl.grow", step=step, new_log2=new_log2,
+                       pause_s=pause_s)
 
     def _fire(self, due, model, opt_state) -> bool:
         changed = False
@@ -162,10 +174,29 @@ class MemoryController:
         manager = getattr(engine, "overlays", None)
         if manager is None:
             return
-        self.events.extend(manager.enforce(
+        new_events = manager.enforce(
             tick=engine.ticks, ttl_ticks=pol.tenant_ttl_ticks,
             budget_bytes=pol.tenant_budget_bytes,
-            spill_dir=pol.overlay_spill_dir))
+            spill_dir=pol.overlay_spill_dir)
+        self.events.extend(new_events)
+        for ev in new_events:
+            obs.emit_event("memctl.overlay", **{
+                k: (v if isinstance(v, (int, float, str, bool)) else str(v))
+                for k, v in ev.items()})
+
+    def _utilisation_gauges(self, engine) -> None:
+        """The `memctl.util_*` gauges from the engine's first store's own
+        per-shard counts; only with obs armed (the summary reads and
+        sorts the counts on the host)."""
+        if not obs.enabled():
+            return
+        for _, store in getattr(engine, "stores", []):
+            s = telemetry.utilisation_summary(
+                telemetry.store_telemetry(store))
+            obs.gauge("memctl.util_dead_frac").set(s["dead_frac"])
+            obs.gauge("memctl.util_hot_mass").set(s["hot_mass"])
+            obs.gauge("memctl.util_cold_frac").set(s["cold_frac"])
+            break  # one memory table a model
 
     def on_tick(self, engine) -> bool:
         """Between decode ticks: enforce the overlays' lifecycle, and
@@ -173,6 +204,7 @@ class MemoryController:
         to the tiered store.  True when the engine's model was swapped
         (its store-stat baseline is stale)."""
         self._overlay_tick(engine)
+        self._utilisation_gauges(engine)
         if self._spilled or engine.cfg.lram is None:
             return False
         if self.policy.hbm_budget_bytes is None \
@@ -190,14 +222,23 @@ class MemoryController:
         spec = (self.policy.spill_tiered or lram.tiered
                 or _default_spill_spec(lram.num_locations))
         dst = dataclasses.replace(lram, interp_impl="tiered", tiered=spec)
+        obs.gauge("memctl.table_device_bytes").set(
+            self._table_device_bytes(engine.cfg))
         t0 = time.perf_counter()
-        migrate.migrate_model(engine.model, dst)
-        engine.swap_model(engine.model)
-        for _, store in engine.stores:
-            store.warm()
+        with obs.span("memctl.spill", tick=engine.ticks):
+            migrate.migrate_model(engine.model, dst)
+            engine.swap_model(engine.model)
+            for _, store in engine.stores:
+                store.warm()
         pause_s = round(time.perf_counter() - t0, 4)
+        # after the spill the device holds the tiered caches, not the table
+        obs.gauge("memctl.table_device_bytes").set(sum(
+            store.cache_np.nbytes
+            for _, store in engine.stores if hasattr(store, "cache_np")))
         self._spilled = True
         self.events.append({"event": "spill", "tick": engine.ticks,
                             "placement": "dense->tiered",
                             "pause_s": pause_s})
+        obs.emit_event("memctl.spill", tick=engine.ticks,
+                       placement="dense->tiered", pause_s=pause_s)
         return True

@@ -61,6 +61,13 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     scale bit for bit; a memmap tier moves to a fresh file of the new
     shape), and leaves the cache, its slots and LRU order as they were.
 
+Observability (`repro_torch.obs`, the reference's points): `_map` adds
+its hits, misses and uncached elements to the `memstore.*` counters,
+`_ensure_resident` its fills and evictions (and the `memstore.fill_s`
+histogram), `_sync_device` its bytes (`memstore.fill_bytes`, the
+`memstore.device_sync_s` histogram: the host's time to issue the copy),
+`apply_writeback` one `memstore.writebacks`.
+
 Every mutation of residency, LRU order, the cache mirror and `stats`
 takes the store's re-entrant lock.  Fills are issued on the current
 stream; a side stream for them is a performance item (ROADMAP).
@@ -73,6 +80,7 @@ import dataclasses
 import os
 import tempfile
 import threading
+import time
 from typing import Iterable
 
 import numpy as np
@@ -80,7 +88,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from repro_torch import quant
+from repro_torch import obs, quant
 from repro_torch.core import lookup
 from repro_torch.distributed import collectives, context
 from repro_torch.kernels import tiered_gather
@@ -279,6 +287,8 @@ class TieredValueStore(nn.Module):
         A fill copies the host shard into the cache mirror; the slot goes
         stale on the device until the next `_sync_device`."""
         pinned = set(int(s) for s in shards)
+        t0 = time.perf_counter()
+        fills = evictions = 0
         with self._lock:
             for s in sorted(pinned):
                 if self._shard_slot[s] >= 0:  # hit: touch
@@ -296,6 +306,7 @@ class TieredValueStore(nn.Module):
                     self._writeback_slot(slot)
                     self._shard_slot[victim] = -1
                     self.stats["evictions"] += 1
+                    evictions += 1
                 self.cache_np[slot] = self._host[s]
                 if self.quant != "none":
                     self.cache_scale_np[slot] = self._host_scale[s]
@@ -305,6 +316,13 @@ class TieredValueStore(nn.Module):
                 self._lru.move_to_end(s)
                 self._dev_stale.add(slot)
                 self.stats["fills"] += 1
+                fills += 1
+        if fills:
+            obs.counter("memstore.fills").inc(fills)
+            obs.histogram("memstore.fill_s").observe(
+                time.perf_counter() - t0)
+        if evictions:
+            obs.counter("memstore.evictions").inc(evictions)
 
     def _map(self, flat_idx: np.ndarray):
         """(shard, row, slot, resident mask) for flat global row ids,
@@ -315,14 +333,20 @@ class TieredValueStore(nn.Module):
         self._ensure_resident(np.unique(shard))
         slot = self._shard_slot[shard]
         mask = slot >= 0
+        hits = int(resident_before.sum())
+        misses = int((~resident_before & mask).sum())
+        uncached = int((~mask).sum())
         with self._lock:
             self.last_access = flat_idx  # feeds prefetch_last()
             self.stats["lookups"] += 1
-            self.stats["hits"] += int(resident_before.sum())
-            self.stats["misses"] += int((~resident_before & mask).sum())
-            self.stats["uncached"] += int((~mask).sum())
+            self.stats["hits"] += hits
+            self.stats["misses"] += misses
+            self.stats["uncached"] += uncached
             self.shard_access += np.bincount(shard,
                                              minlength=self.num_shards)
+        obs.counter("memstore.hits").inc(hits)
+        obs.counter("memstore.misses").inc(misses)
+        obs.counter("memstore.uncached").inc(uncached)
         return shard, row, slot.astype(np.int64), mask
 
     def prefetch(self, idx, *, sync_device: bool = True) -> None:
@@ -372,6 +396,7 @@ class TieredValueStore(nn.Module):
     def _sync_device(self) -> None:
         """Copy every stale slot host -> device in one stacked copy (the
         whole cache on the first sync after a move)."""
+        t0 = time.perf_counter()
         with self._lock:
             full = self._cache_dev is None
             if not full and not self._dev_stale:
@@ -399,8 +424,13 @@ class TieredValueStore(nn.Module):
                 if sdev is not None:
                     self._scale_dev.view(-1, R).index_copy_(0, at, sdev)
             self._dev_stale.clear()
-            self.stats["fill_bytes"] += block.nbytes + (
-                sblock.nbytes if sblock is not None else 0)
+            synced = block.nbytes + (sblock.nbytes if sblock is not None
+                                     else 0)
+            self.stats["fill_bytes"] += synced
+        obs.counter("memstore.fill_bytes").inc(synced)
+        # the host's time to issue the copies (asynchronous on a card)
+        obs.histogram("memstore.device_sync_s").observe(
+            time.perf_counter() - t0)
 
     # ------------------------------------------------------------- lookups
 
@@ -544,6 +574,7 @@ class TieredValueStore(nn.Module):
                     inv = ~mask
                     np.add.at(self._host, (shard[inv], row[inv]), upd[inv])
             self.stats["writebacks"] += 1
+        obs.counter("memstore.writebacks").inc()
 
     def _apply_writeback_quant(self, flat: np.ndarray,
                                upd: np.ndarray) -> None:

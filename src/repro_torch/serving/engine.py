@@ -65,8 +65,21 @@ capture again (`graph_captures` stays 1).  A tick under overlays that
 cannot be captured fails the run, as any capture does.  The base rows
 the deltas diff against are read through `lookup.read_rows_fp32` for a
 store and from a host copy of a device table taken once a binding;
-`swap_model` binds the reader again.  Not ported yet: the observability
-spans (ROADMAP A13).
+`swap_model` binds the reader again.
+
+**Observability** (`repro_torch.obs`, the reference's points and names):
+`run` is one `serve.run` span (profiled under `--profile-dir`), each
+admission a `serve.admit` span holding its `serve.prefill`, each tick a
+`serve.decode_tick` span around `_decode` and its tokens' read-back (the
+overlays' write-back after it is outside), each retirement a
+`serve.retire` span; the counters `serve.tokens`, `serve.admitted`,
+`serve.retired` and `serve.overlay_writebacks`, the histograms
+`serve.prefill_s`, `serve.decode_step_s` and `serve.request_latency_s`.
+The stores' `memstore.*` counters land on the span that caused them.
+Under the decode graph a tick's span wraps the replay on the host: no
+obs call runs inside a capture, so one capture serves obs on and off and
+the launch counters count the same launches.  The summary's `metrics`
+is `obs.metrics_doc()`.
 """
 
 from __future__ import annotations
@@ -80,7 +93,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import kernels, quant
+from repro_torch import kernels, obs, quant
 from repro_torch.core import lookup, overlay
 from repro_torch.core.lram import LRAM
 from repro_torch.models import transformer
@@ -234,6 +247,7 @@ class EngineReport:
         return {
             "arch": arch,
             "mode": self.mode,
+            "metrics": obs.metrics_doc(),
             "rows": self.rows(),
             "per_step_ms": [round(1e3 * s, 3) for s in self.step_s],
             "decode_median_ms": round(1e3 * _percentile(self.step_s, 50), 2),
@@ -460,22 +474,27 @@ class ServeEngine:
                 f"request {req.id}: prompt ({s}) leaves no room to "
                 f"generate within max_len={self.engine_cfg.max_len}"
             )
-        tokens = np.zeros((1, self.prefill_len(s)), np.int64)
+        bucket = self.prefill_len(s)
+        tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :s] = req.prompt
         t0 = time.perf_counter()
-        ctx = contextlib.nullcontext()
-        if self.overlays is not None:
-            self.overlays.attach(slot, req.tenant_id, tick=self.ticks)
-            self._upload_packs()
-            ctx = overlay.activate(*(p[:, slot:slot + 1]
-                                     for p in self._packs))
-        with ctx:
-            logits, sub_cache = transformer.prefill(
-                self.model, torch.from_numpy(tokens).to(self.device),
-                self.engine_cfg.max_len,
-            )
-        first_logits = logits[0, s - 1].float().cpu().numpy()
+        with obs.span("serve.prefill", request=req.id, prompt_len=s,
+                      bucket=bucket):
+            ctx = contextlib.nullcontext()
+            if self.overlays is not None:
+                self.overlays.attach(slot, req.tenant_id, tick=self.ticks)
+                self._upload_packs()
+                ctx = overlay.activate(*(p[:, slot:slot + 1]
+                                         for p in self._packs))
+            with ctx:
+                logits, sub_cache = transformer.prefill(
+                    self.model, torch.from_numpy(tokens).to(self.device),
+                    self.engine_cfg.max_len,
+                )
+            first_logits = logits[0, s - 1].float().cpu().numpy()
         prefill_s = time.perf_counter() - t0
+        obs.counter("serve.admitted").inc()
+        obs.histogram("serve.prefill_s").observe(prefill_s)
         return _Slot(
             request=req, pos=s, generated=[int(np.argmax(first_logits))],
             admit_s=now, prefill_s=prefill_s, first_logits=first_logits,
@@ -514,6 +533,8 @@ class ServeEngine:
 
     def _finish(self, slot: _Slot, now: float) -> FinishedRequest:
         total = sum(slot.stats.values())
+        obs.counter("serve.retired").inc()
+        obs.histogram("serve.request_latency_s").observe(now - slot.admit_s)
         if not self.stores:
             hit_rate = None
         else:
@@ -537,7 +558,14 @@ class ServeEngine:
 
     @torch.inference_mode()
     def run(self, requests: list[Request]) -> EngineReport:
-        """Replay a request trace to completion and report."""
+        """Replay a request trace to completion and report, under one
+        `serve.run` span (a `torch.profiler` trace where `--profile-dir`
+        armed the tracer)."""
+        with obs.span("serve.run", profile=True,
+                      mode=self.engine_cfg.mode, requests=len(requests)):
+            return self._run(requests)
+
+    def _run(self, requests: list[Request]) -> EngineReport:
         B = self.engine_cfg.slots
         static = self.engine_cfg.mode == "static"
         queue = RequestQueue(requests)
@@ -566,9 +594,11 @@ class ServeEngine:
                     req = queue.pop_ready(now)
                     if req is None:
                         break
-                    slot, sub_cache = self._admit(req, now, b)
-                    transformer.write_cache_slot(self.cache, sub_cache, b,
-                                                 self._axes)
+                    with obs.span("serve.admit", request=req.id, slot=b,
+                                  tick=self.ticks):
+                        slot, sub_cache = self._admit(req, now, b)
+                        transformer.write_cache_slot(self.cache, sub_cache,
+                                                     b, self._axes)
                     prefill_s.append(slot.prefill_s)
                     generated += 1  # the first token comes from the prefill
                     # the prefill's stat deltas belong to this request
@@ -592,10 +622,17 @@ class ServeEngine:
                 continue
 
             # -- one fixed-shape decode tick over the whole pool
-            t_step = time.perf_counter()
             graph_ticks += self.use_graph
-            _, next_tok = self._decode(tok_buf, pos_buf)
-            step_s.append(time.perf_counter() - t_step)
+            with obs.span("serve.decode_tick", tick=self.ticks,
+                          active=len(active)):
+                # timed inside the span: its exit writes the tick's event,
+                # which is the exporter's cost, not the tick's
+                t_step = time.perf_counter()
+                _, next_tok = self._decode(tok_buf, pos_buf)
+                dt_step = time.perf_counter() - t_step
+            step_s.append(dt_step)
+            obs.histogram("serve.decode_step_s").observe(dt_step)
+            obs.counter("serve.tokens").inc(len(active))
             self.ticks += 1
 
             # the decode tick's write-back: this tick's lattice accesses
@@ -608,6 +645,7 @@ class ServeEngine:
                     self.overlays.writeback(b, idx_a[:, b, 0], w_a[:, b, 0],
                                             y_a[:, b, 0], tick=self.ticks)
                 overlay_s.append(time.perf_counter() - t_ov)
+                obs.counter("serve.overlay_writebacks").inc(len(active))
 
             if self.stores:
                 prev_stats = self._attribute([slots[b] for b in active],
@@ -634,10 +672,12 @@ class ServeEngine:
                 tok_buf[b, 0] = int(next_tok[b])
                 pos_buf[b] = sl.pos
                 if self._done(sl):
-                    finished.append(self._finish(sl, now))
-                    slots[b] = None
-                    if self.overlays is not None:
-                        self.overlays.detach(b)  # retiring frees the slot
+                    with obs.span("serve.retire", request=sl.request.id,
+                                  slot=b, tick=self.ticks):
+                        finished.append(self._finish(sl, now))
+                        slots[b] = None
+                        if self.overlays is not None:
+                            self.overlays.detach(b)  # retiring frees it
 
         finished.sort(key=lambda r: r.id)
         return EngineReport(

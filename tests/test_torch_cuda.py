@@ -1104,3 +1104,56 @@ def test_mmap_store_gathers_match_ram_on_card(cuda_device, kind, tmp_path):
         torch.testing.assert_close(mm.gather(idx, w), ram.gather(idx, w),
                                    rtol=0, atol=0)
     assert mm.stats == ram.stats
+
+
+@pytest.mark.cuda
+def test_obs_on_the_card_is_free_and_profiles_the_kernels(cuda_device,
+                                                           tmp_path):
+    """The dense pallas cell (smoke config) under the decode graph, served
+    with obs off and then armed with a profile directory, the capture
+    inside the profiled `serve.run` (no warm-up): one capture each, the
+    same tokens and K2 / K1 launch counts, one `serve.decode_tick` span a
+    tick, and the torch.profiler trace holds CUDA kernel events of K2 and
+    K1 (its CUDA activities)."""
+    import dataclasses
+    import json
+    import os
+
+    from repro_torch import configs, obs
+    from repro_torch.models import transformer
+    from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
+
+    cfg = configs.get_smoke_config("lram-tiered")
+    cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, interp_impl="pallas"))
+    runs = []
+    try:
+        for armed in (False, True):
+            if armed:
+                obs.configure(metrics_dir=str(tmp_path / "m"),
+                              profile_dir=str(tmp_path / "p"))
+            model = transformer.init(cfg, seed=0).to(cuda_device)
+            engine = ServeEngine(model, EngineConfig(slots=2, max_len=16))
+            trace = synthetic_trace(np.random.default_rng(1), 4,
+                                    vocab_size=cfg.vocab_size, max_prompt=8,
+                                    max_gen=8)
+            before = (e8_lookup.lram_query.launches,
+                      gather_interp.gather_interp.launches)
+            report = engine.run(trace)
+            torch.cuda.synchronize()
+            runs.append((report, e8_lookup.lram_query.launches - before[0],
+                         gather_interp.gather_interp.launches - before[1]))
+        ticks = [s for s in obs.tracer().finished
+                 if s.name == "serve.decode_tick"]
+    finally:
+        obs.disable()
+    (off, k2, k1), (on, k2_on, k1_on) = runs
+    assert off.graph_captures == on.graph_captures == 1
+    assert [r.tokens for r in on.requests] == [r.tokens for r in off.requests]
+    assert (k2_on, k1_on) == (k2, k1) and k2 > 0 and k1 > 0
+    assert len(ticks) == len(on.step_s)
+    (name,) = os.listdir(tmp_path / "p")
+    events = json.loads((tmp_path / "p" / name).read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("lram_query" in k for k in kernels), sorted(kernels)[:20]
+    assert any("gather" in k for k in kernels), sorted(kernels)[:20]

@@ -4,8 +4,9 @@ JAX, nor the JAX package, nor `ml_dtypes` (the card's machine lacks it),
 and import no triton or CUDA build at import; a CPU serve with a live
 spill, multi-tenant serves with the overlay lifecycle, a serve from an
 mmap-backed table, serves of the dense public archs (one with the memory
-FFN, one in bfloat16, the sliding window's ring) and a training run with
-growth and telemetry load none of them either."""
+FFN, one in bfloat16, the sliding window's ring), a training run with
+growth and telemetry, and a serve and a training run with obs armed
+(`--metrics-dir`, `--profile-dir`) load none of them either."""
 
 import json
 import os
@@ -43,6 +44,9 @@ def test_port_files_have_no_forbidden_imports():
     assert {str(f.relative_to(PORT)) for f in files
             if f.name == "overlay.py"} == {"core/overlay.py",
                                            "serving/overlay.py"}
+    # and so is the observability package
+    assert {f.name for f in files if f.parent.name == "obs"} == {
+        "__init__.py", "registry.py", "trace.py", "export.py"}
     # and so are the dense public archs' configs
     assert {f.name for f in files if f.parent.name == "configs"} >= {
         "yi_9b.py", "qwen2_1_5b.py", "starcoder2_3b.py",
@@ -130,3 +134,35 @@ print(json.dumps({"bad": bad, "requests": served,
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"bad": [], "requests": 12, "train_steps": 2}
+
+
+def test_cpu_serve_and_train_with_obs_leave_no_jax_modules(tmp_path):
+    """A CPU serve with `--metrics-dir --profile-dir` (torch.profiler) and
+    a CPU training run with `--metrics-dir --telemetry` write their files
+    and load none of jax, the JAX package, ml_dtypes or triton."""
+    code = f"""
+import json, os, sys
+from repro_torch.launch import serve, train
+rep = serve.main(["--smoke", "--device", "cpu", "--batch", "1",
+                  "--prompt-len", "4", "--gen", "2", "--requests", "1",
+                  "--metrics-dir", {str(tmp_path / "serve")!r},
+                  "--profile-dir", {str(tmp_path / "prof")!r}])
+run = train.main(["--arch", "lram-bert-medium", "--smoke", "--device",
+                  "cpu", "--placement", "pallas", "--steps", "2",
+                  "--batch", "2", "--seq", "8", "--telemetry",
+                  "--metrics-dir", {str(tmp_path / "train")!r}])
+bad = sorted(n for n in sys.modules if n.split(".")[0]
+             in ("jax", "jaxlib", "repro", "triton", "ml_dtypes"))
+print(json.dumps({{"bad": bad, "requests": len(rep.requests),
+                  "train_steps": len(run.records)}}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"bad": [], "requests": 1, "train_steps": 2}
+    for sub in ("serve", "train"):
+        assert sorted(os.listdir(tmp_path / sub)) == ["metrics.jsonl",
+                                                      "metrics.prom"]
+    assert len(os.listdir(tmp_path / "prof")) == 1

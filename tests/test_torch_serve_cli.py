@@ -1,7 +1,6 @@
 """The port's serve CLI (`repro_torch.launch.serve`) beside the reference's
 (`repro.launch.serve`): `--rate` / `--fixed-len` traces, arrivals
-honoured by the engine, the flags of later ROADMAP items refused by name,
-the lifecycle flags (`--spill-at-tick`, `--hbm-budget-mb`, `--grow-to`
+honoured by the engine, the lifecycle flags (`--spill-at-tick`, `--hbm-budget-mb`, `--grow-to`
 with `--ckpt-dir`) and the report's graph fields."""
 
 import json
@@ -64,14 +63,6 @@ def test_engine_honours_arrivals(monkeypatch):
     assert len(report.requests) == 4
     for r in report.requests:
         assert r.admit_s >= arrival[r.id]
-
-
-@pytest.mark.parametrize("flag,item", [
-    (["--metrics-dir", "x"], "A13"), (["--profile-dir", "x"], "A13"),
-])
-def test_unported_flags_exit_naming_their_item(flag, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        serve.main(SMOKE + flag)
 
 
 @pytest.mark.parametrize("flag", [["--spill-at-tick", "2"],

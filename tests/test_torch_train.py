@@ -243,19 +243,18 @@ def test_cli_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--telemetry"], ["--grow-at", "2:17"],
-    ["--use-mesh"], ["--metrics-dir", "x"], ["--profile-dir", "x"],
+    ["--telemetry"], ["--grow-at", "2:17"], ["--use-mesh"],
 ])
 def test_cli_refuses_what_is_not_ported(flag, capsys):
-    """Each option that is not ported exits naming its ROADMAP item.
-    `--use-mesh` is ported: outside a launch of several ranks it trains on
-    one process without a mesh, as the reference does on one device, and
-    gives the run without the flag (the 4-rank run is
-    tests/test_torch_mesh_train.py).  `--telemetry` and `--grow-at` are
-    ported (`repro_torch.memctl`): at smoke size they train, printing the
-    utilisation report a logged step, or growing the table to 2^17 rows
-    before step 2 (`tests/test_torch_memctl.py` holds both against the
-    JAX trainer)."""
+    """The options that were once refused, each now ported.  `--use-mesh`:
+    outside a launch of several ranks it trains on one process without a
+    mesh, as the reference does on one device, and gives the run without
+    the flag (the 4-rank run is tests/test_torch_mesh_train.py).
+    `--telemetry` and `--grow-at` (`repro_torch.memctl`): at smoke size
+    they train, printing the utilisation report a logged step, or growing
+    the table to 2^17 rows before step 2 (`tests/test_torch_memctl.py`
+    holds both against the JAX trainer).  `--metrics-dir` and
+    `--profile-dir` are `tests/test_torch_obs.py`'s."""
     argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "3",
             "--batch", "2", "--seq", "16", "--placement", "pallas"]
     if flag == ["--telemetry"]:
@@ -296,10 +295,6 @@ def test_cli_refuses_what_is_not_ported(flag, capsys):
         plain = train.main(argv)
         assert [r["loss"] for r in run.records] == \
             [r["loss"] for r in plain.records]
-        return
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                    "--steps", "1", *flag])
 
 
 def test_cli_refuses_sharded_without_a_mesh():
