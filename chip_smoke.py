@@ -55,6 +55,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
        64-token yi-9b prompt) as above, and
        1,966,080 in one call (danube's 8,192-token prompt x 240 heads),
        held against the plain versions on its last 65,536 queries;
+       the bf16-table instances (path (m)), each with a launch count of
+       its own, on the table rounded to bf16: K1's `gather_interp_bf16`
+       at n = 128, 2,048, 65,536 and 1,966,080, bit for bit the fp32
+       instance's output on the same values widened (its device time
+       beside) and within rtol 2e-5 / atol 1e-6 of the plain version;
+       the backward's `lookup_bwd_bf16` (dq and dw) at 128 / 2,048 /
+       65,536 and the range instances `sharded_gather_bf16` (bit for bit
+       the fp32 one on the widened shard) and `lookup_bwd_range_bf16`
+       at 128 / 2,048 / 32,768 on the lower half: dvalues fp32 to atol
+       1e-5 and, rounded once to bf16, within one bf16 ulp or (a sum
+       that cancels) 1e-3 of the largest magnitude; no library
+       yardstick (`F.embedding_bag` sums a bf16 table in bf16);
   4. serve at full width through `repro_torch.launch.serve.main --warmup`
      (the trace's prefill buckets and one decode tick first; then 8 requests, 4
      slots, prompts <= 64, generation <= 32, all queued at t=0).  Each
@@ -158,6 +170,33 @@ Phases, each fatal on failure (exit code != 0, no result line):
               the two runs off are), one `train.step` span a step, one
               `memctl.grow` span and event, `memctl.num_locations` 2^21,
               the `train.util_*` gauges the last utilisation report's;
+       (m)    bfloat16 memory tables (`LRAMConfig.table_dtype`, put in
+              with `dataclasses.replace`; the CLIs build it from
+              `configs.get_config` under `bf16_tables()`, having no
+              flag, as the reference's): (m1) the dense `pallas` path's
+              model with a bf16 table under the decode graph and its fp32
+              twin (the same weights, the table widened): tokens equal,
+              first logits bit for bit, K1's bf16 instance alone
+              launched, the table 134,217,728 B against 268,435,456;
+              tick p50 / p99, tokens/s, peak memory; (m2) (a) and (c)
+              and (m3) (e) through the serve CLI, every store's host
+              tier bf16 (2-byte rows) under its fp32 cache: (m1)'s
+              tokens, first logits within 1e-5, the fp32 gathers
+              launched, fill bytes and fill ms a lookup beside phase
+              4's; (m4) `lram-bert-medium --placement pallas` 20 steps
+              (K1 and the backward's bf16 instances, the backward once a
+              step; the loss falls; step 1's backward held against the
+              plain version: dvalues to atol 1e-5 and rounded as above,
+              dq / dw rtol 1e-4; step ms and peak memory printed beside
+              phase 6's after it); (m5) `lram-tiered` 10 steps on a bf16
+              host tier (a write-back a step, the loss falls, the tier
+              changes only on touched rows); (m6) 4 gloo ranks (data 2 x
+              model 2) on the `sharded` placement with a bf16 table: 2
+              eval forwards and a train forward and backward on the
+              whole batch, the logits within 1e-5 of the dense bf16
+              twin's and each rank's bf16 shard of d values the twin's
+              rows within one ulp (as above); the bf16 range instances
+              launched on every rank;
   5. a shorter serve of each path's warmed engine under torch.profiler
      (the dense path twice: with the graph and eager): kernel time by
      name and the device's busy share;
@@ -347,6 +386,7 @@ from repro_torch import configs, data, memctl, obs, quant  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.checkpoint.manager import _load, _tree_items  # noqa: E402
 from repro_torch.core import indexing, lattice, lookup  # noqa: E402
+from repro_torch.core.lram import LRAM  # noqa: E402
 from repro_torch.distributed import (  # noqa: E402
     collectives, context, fault, pipeline, sharding)
 from repro_torch.kernels import (  # noqa: E402
@@ -424,12 +464,40 @@ KERNELS = {
                          "src/repro/distributed/sharded_lram.py:62 (the "
                          "autodiff of its shard-local gathers: "
                          "src/repro/kernels/gather_interp.py:206, :165)"),
+    # the bf16-table instances (path (m)), each with its own count
+    "gather_interp_bf16": (gather_interp.gather_interp_bf16,
+                           f"{CSRC}/gather_interp.cu",
+                           "src/repro/kernels/gather_interp.py:73 (a bf16 "
+                           "table: row_ref[...].astype(out_ref.dtype), "
+                           ":40)"),
+    "lookup_bwd_bf16": (ops.lookup_bwd_bf16, f"{CSRC}/lookup_bwd.cu",
+                        "src/repro/kernels/ops.py:51 (backward :78, "
+                        "dvalues.astype(values.dtype) :98); "
+                        "src/repro/kernels/gather_interp.py:189 (backward "
+                        ":206, :217) on bf16 rows"),
+    "sharded_gather_bf16": (sharded_gather.sharded_gather_bf16,
+                            f"{CSRC}/sharded_gather.cu",
+                            "src/repro/distributed/sharded_lram.py:62 (a "
+                            "bf16 shard, .astype(w_l.dtype) :105: "
+                            "src/repro/kernels/gather_interp.py:73)"),
+    "lookup_bwd_range_bf16": (ops.lookup_bwd_range_bf16,
+                              f"{CSRC}/lookup_bwd.cu",
+                              "src/repro/distributed/sharded_lram.py:62 "
+                              "(the autodiff of its bf16 shard gather: "
+                              "src/repro/kernels/gather_interp.py:206, "
+                              ":217)"),
 }
+# why the bf16 instances have no library yardstick
+BF16_NO_LIBRARY = ("none: F.embedding_bag over a bf16 table takes bf16 "
+                   "per-sample weights and sums in bf16, another function "
+                   "than an fp32 sum of widened rows")
 # the shape of the kernels line's headline numbers: the serving decode tick
 # (n = 128), or a train step's n for the backward kernel's instances
 HEAD_N = {"lookup_bwd": 65536, "lookup_bwd_rows": 16384,
           "lookup_bwd_quant": 16384, "sharded_gather": 32768,
-          "sharded_gather_quant": 32768, "lookup_bwd_range": 32768}
+          "sharded_gather_quant": 32768, "lookup_bwd_range": 32768,
+          "lookup_bwd_bf16": 65536, "sharded_gather_bf16": 32768,
+          "lookup_bwd_range_bf16": 32768}
 
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "64", "--gen", "32",
               "--requests", "8", "--seed", "0", "--warmup"]
@@ -601,7 +669,8 @@ def _kernel_of(symbol: str) -> tuple[str, str]:
             args = rest.split("EEv")[0] + "E"
             payload = ("f32" if args.startswith("If") else "i8"
                        if args.startswith("Ia") else "e4m3"
-                       if args.startswith("I13__nv_fp8_e4m3") else "")
+                       if args.startswith("I13__nv_fp8_e4m3") else "bf16"
+                       if args.startswith("I13__nv_bfloat16") else "")
             return name, ",".join([payload]
                                   + re.findall(r"L[bi](\d+)E", args))
     return symbol, ""
@@ -731,11 +800,36 @@ def measure(name, n, fn, plain, tol, *, device_kernel, bound, extra=None,
             "library_ms": lib_ms, **(extra or {})}
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of two fp32 tensors rounded to bf16, in bf16
+    ulps (the sign-magnitude words mapped to a monotone scale)."""
+    def scale(t):
+        x = t.to(torch.bfloat16).view(torch.int16).int()
+        return torch.where(x < 0, -32768 - x, x)
+    return (scale(a) - scale(b)).abs()
+
+
+def bf16_rounding_agrees(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Two fp32 gradients rounded once to bf16: each element within one
+    bf16 ulp, or, where an fp32 sum cancels, within 1e-3 of the largest
+    magnitude (the fp32 atol regime).  Returns the counts."""
+    ulps = bf16_ulps(got, want)
+    near = (got.to(torch.bfloat16).float()
+            - want.to(torch.bfloat16).float()).abs() \
+        <= 1e-3 * want.abs().max()
+    return {"ok": bool(((ulps <= 1) | near).all()),
+            "max_ulps": int(ulps.max()),
+            "beyond_1_ulp": int((ulps > 1).sum()), "elements": ulps.numel()}
+
+
 def backward_rows(n, spec, values, q, idx, w, gen):
     """The backward kernel at one n, both scatter instances (dq, dw: the
     body and the scatter's pipeline), against `lookup_bwd_plain`: dvalues
     to atol 1e-5 (a row's sum runs in placement order, which atomics set),
-    dq / dw to rtol 1e-4 / atol 1e-5."""
+    dq / dw to rtol 1e-4 / atol 1e-5.  On a bf16 table (its own instances)
+    also dvalues rounded once to bf16 (`bf16_rounding_agrees`); no library
+    yardstick there (`BF16_NO_LIBRARY`)."""
+    bf16 = values.dtype == torch.bfloat16
     g = torch.randn(n, M, generator=gen, device=values.device)
     distinct = torch.unique(idx).numel()
     rows = []
@@ -750,10 +844,17 @@ def backward_rows(n, spec, values, q, idx, w, gen):
         err_small = (small - small_p).abs().max().item()
         check(torch.allclose(dv, dv_p, rtol=0, atol=1e-5)
               and torch.allclose(small, small_p, rtol=1e-4, atol=1e-5),
-              f"lookup_bwd ({stage}) differs from its plain version at "
-              f"n={n}: dvalues {err_dv}, {stage} {err_small}")
+              f"lookup_bwd ({stage}, {values.dtype}) differs from its plain "
+              f"version at n={n}: dvalues {err_dv}, {stage} {err_small}")
+        notes = {}
+        if bf16:
+            rounded = bf16_rounding_agrees(dv, dv_p)
+            check(rounded["ok"], f"lookup_bwd ({stage}, bf16): dvalues "
+                                 f"rounded to bf16 differ: {rounded}")
+            notes = {"dvalues_bf16": rounded,
+                     "library_note": BF16_NO_LIBRARY}
         lib_ms = None
-        if stage == "dw":  # one PyTorch call computing dvalues and dw
+        if stage == "dw" and not bf16:  # one PyTorch call: dvalues and dw
             vals = values.detach().requires_grad_()
             ww = w.detach().requires_grad_()
             bag = F.embedding_bag(idx.long(), vals, per_sample_weights=ww,
@@ -770,13 +871,14 @@ def backward_rows(n, spec, values, q, idx, w, gen):
         # g, idx + w, q; the output (dq or dw)
         small = (4 * n * M + 8 * n * TOP_K
                  + (64 * n if stage == "dq" else 4 * n * TOP_K))
-        fill = values.numel() * 4  # the dense dvalues, written once
+        fill = values.numel() * 4  # the dense fp32 dvalues, written once
         ops_n = 4 * n * TOP_K * M + (n * TOP_K * 40 if stage == "dq" else 0)
         # the function (the call): each distinct row read once, dvalues
         # written once (the kernels write it whole)
-        b, by = bound_ms(distinct * 4 * M + fill + small, ops_n)
+        b, by = bound_ms(distinct * values.element_size() * M + fill + small,
+                         ops_n)
         dev, rest, seen = device_split(fn, "lookup_bwd")
-        rows.append({
+        rows.append({**notes,
             "n": n, "stage": stage, "max_abs_err": max(err_dv, err_small),
             "dvalues_max_abs_err": err_dv, f"{stage}_max_abs_err": err_small,
             "ms": time_ms(fn), "device_ms": dev, **seen,
@@ -849,6 +951,10 @@ def kernel_phase(device):
     gen = torch.Generator(device=device).manual_seed(0)
     values = torch.randn(spec.num_locations, M, generator=gen,
                          device=device)
+    # the table rounded to bf16, and those values widened to fp32: the bf16
+    # instances' inputs and their fp32 twins
+    values_bf16 = values.to(torch.bfloat16)
+    values_wide = values_bf16.float()
     wrap = torch.tensor(spec.K, dtype=torch.float32, device=device)
     host_values = values.cpu().numpy()
     tables = {}   # payload -> (q, scale) of the full table
@@ -884,7 +990,10 @@ def kernel_phase(device):
 
         distinct = torch.unique(idx).numel()
         k1_dense_row(rows, n, values, idx, w, "uniform")
+        k1_bf16_row(rows, n, values_bf16, values_wide, idx, w)
         rows["lookup_bwd"] += backward_rows(n, spec, values, q, idx, w, gen)
+        rows["lookup_bwd_bf16"] += backward_rows(n, spec, values_bf16, q,
+                                                 idx, w, gen)
         for kind in PAYLOADS:
             tq, ts = tables[kind]
             b4 = measure(
@@ -927,23 +1036,24 @@ def kernel_phase(device):
         no_scatter_rows(rows, n, spec, values, tables, wrap, gen,
                         "clustered")
     for n in RANGE_SHAPES:
-        range_rows(rows, n, spec, values, tables, wrap, gen)
-    h_kernel_rows(rows, spec, values, wrap, gen)
+        range_rows(rows, n, spec, values, tables, wrap, gen, values_bf16)
+    h_kernel_rows(rows, spec, values, wrap, gen, values_bf16, values_wide)
     return rows
 
 
-def h_kernel_rows(rows, spec, values, wrap, gen):
+def h_kernel_rows(rows, spec, values, wrap, gen, values_bf16, values_wide):
     """K2 and K1 at path (h)'s shapes: its decode tick and yi-9b prompt
     (`k2_row`, `k1_dense_row`), and danube's prefill in one call
-    (`big_rows`)."""
+    (`big_rows`, K1's bf16 instance there too)."""
     for n in H_SHAPES:
         q = torch.rand(n, 8, generator=gen, device=values.device) * wrap
         idx, w = k2_row(rows, n, q, spec, values)
         k1_dense_row(rows, n, values, idx, w, "uniform")
-    big_rows(rows, H_BIG_N, spec, values, wrap, gen)
+    big_rows(rows, H_BIG_N, spec, values, wrap, gen, values_bf16,
+             values_wide)
 
 
-def big_rows(rows, n, spec, values, wrap, gen):
+def big_rows(rows, n, spec, values, wrap, gen, values_bf16, values_wide):
     """K2 and K1 in one call of n = 1,966,080 queries (danube's 8,192-token
     prefill x 240 memory heads: past every 32-bit count of the old
     shapes' n x k), held against their plain versions on the last
@@ -992,6 +1102,28 @@ def big_rows(rows, n, spec, values, wrap, gen):
             values, idx[tail], w[tail])),
         "bound_ms": b1[0], "bound_by": b1[1], "library_ms": time_ms(library),
         "route": "dense", "queries": "uniform", "distinct_rows": distinct})
+    # K1's bf16 instance on the same call: the fp32 instance's output on
+    # the widened table bit for bit, the plain version on the last queries
+    k1b = lambda: gather_interp.gather_interp(  # noqa: E731
+        values_bf16, idx, w)
+    out = k1b()
+    same = torch.equal(out, gather_interp.gather_interp(values_wide, idx, w))
+    want = gather_interp.gather_interp_plain(values_bf16, idx[tail], w[tail])
+    torch.cuda.synchronize()
+    err = (out[tail] - want).abs().max().item()
+    check(same and torch.allclose(out[tail], want, rtol=2e-5, atol=1e-6),
+          f"K1 (bf16) at n={n}: bit-equal to the fp32 instance {same}, "
+          f"{err} from its plain version")
+    b1 = gather_bound(distinct, 2 * M, n)
+    dev, _, seen = device_split(k1b, "gather_interp_kernel")
+    rows["gather_interp_bf16"].append({
+        "n": n, "max_abs_err": err, "checked_queries": PLAIN_SLICE,
+        "bit_equal_fp32_instance": same, "ms": time_ms(k1b),
+        "device_ms": dev, **seen, "plain_ms": None,
+        "plain_slice_ms": time_ms(lambda: gather_interp.gather_interp_plain(
+            values_bf16, idx[tail], w[tail])),
+        "bound_ms": b1[0], "bound_by": b1[1], "library_ms": None,
+        "library_note": BF16_NO_LIBRARY, "distinct_rows": distinct})
 
 
 def tiered_rows(rows, n, cache, caches, slot_table, gid, w, slots):
@@ -1070,7 +1202,34 @@ def k1_dense_row(rows, n, values, idx, w, queries):
                                         mode="sum")))
 
 
-def range_rows(rows, n, spec, values, tables, wrap, gen):
+def k1_bf16_row(rows, n, values_bf16, values_wide, idx, w):
+    """K1's bf16 instance on the table rounded to bf16: its output equal
+    bit for bit to the fp32 instance's on the same values widened (the
+    same adds in the same order), within rtol 2e-5 / atol 1e-6 of its
+    plain version; the fp32 instance's device time on the widened table
+    beside it (the same rows at twice the bytes).  No library yardstick
+    (`BF16_NO_LIBRARY`)."""
+    fn = lambda: gather_interp.gather_interp(  # noqa: E731
+        values_bf16, idx, w)
+    wide = lambda: gather_interp.gather_interp(  # noqa: E731
+        values_wide, idx, w)
+    same = torch.equal(fn(), wide())
+    check(same, f"K1 (bf16) at n={n}: not bit-equal to the fp32 instance "
+                f"on the widened table")
+    distinct = torch.unique(idx).numel()
+    rows["gather_interp_bf16"].append(measure(
+        "K1 (bf16)", n, fn,
+        lambda: gather_interp.gather_interp_plain(values_bf16, idx, w),
+        (2e-5, 1e-6), device_kernel="gather_interp_kernel",
+        bound=gather_bound(distinct, 2 * M, n),
+        extra={"route": "dense", "queries": "uniform",
+               "distinct_rows": distinct, "bit_equal_fp32_instance": same,
+               "fp32_instance_device_ms": device_ms(
+                   wide, "gather_interp_kernel"),
+               "library_note": BF16_NO_LIBRARY}))
+
+
+def range_rows(rows, n, spec, values, tables, wrap, gen, values_bf16):
     """Row 9's kernels at one n, on both halves of the table split over a
     2-way model axis (shards of 2^19 rows at base 0 and 2^19) with K2's
     indices (K2 itself where the serving shapes do not hold n): the range
@@ -1123,6 +1282,27 @@ def range_rows(rows, n, spec, values, tables, wrap, gen):
                 rows["lookup_bwd_range"].append(range_backward_row(
                     n, stage, payload, table, scale, base, spec, q, idx, w,
                     g, rel, ok, where))
+        if base:  # the bf16 instances on the lower half alone
+            continue
+        shard_b = values_bf16[base:base + RANGE_ROWS]
+        fn = lambda: sharded_gather.sharded_gather(  # noqa: E731
+            shard_b, idx, w, base)
+        same = torch.equal(fn(), sharded_gather.sharded_gather(
+            shard_b.float(), idx, w, base))
+        check(same, f"range gather (bf16) at n={n}: not bit-equal to the "
+                    f"fp32 instance on the widened shard")
+        rows["sharded_gather_bf16"].append(measure(
+            "range gather (bf16)", n, fn,
+            lambda: sharded_gather.sharded_gather_plain(shard_b, idx, w,
+                                                        base),
+            (2e-5, 1e-6), device_kernel="sharded_gather_kernel",
+            bound=gather_bound(distinct, 2 * M, n),
+            extra={**where, "bit_equal_fp32_instance": same,
+                   "library_note": BF16_NO_LIBRARY}))
+        for stage in ("dq", "dw"):
+            rows["lookup_bwd_range_bf16"].append(range_backward_row(
+                n, stage, "bf16", shard_b, None, base, spec, q, idx, w, g,
+                rel, ok, where))
 
 
 def range_backward_row(n, stage, payload, table, scale, base, spec, q, idx,
@@ -1146,8 +1326,14 @@ def range_backward_row(n, stage, payload, table, scale, base, spec, q, idx,
           f"lookup_bwd_range ({payload}, {stage}) differs from its plain "
           f"version at n={n}, base={base}: dvalues {err_dv}, {stage} "
           f"{err_small}")
+    notes = {}
+    if table.dtype == torch.bfloat16:
+        rounded = bf16_rounding_agrees(dv, dv_p)
+        check(rounded["ok"], f"lookup_bwd_range (bf16, {stage}): dvalues "
+                             f"rounded to bf16 differ: {rounded}")
+        notes = {"dvalues_bf16": rounded, "library_note": BF16_NO_LIBRARY}
     lib_ms = None
-    if scale is None and stage == "dw":
+    if table.dtype == torch.float32 and stage == "dw":
         # one PyTorch call: the backward of embedding_bag over the shard
         # with the clamped rows and masked weights (its dw, times the mask,
         # is the partial dw)
@@ -1164,7 +1350,7 @@ def range_backward_row(n, stage, payload, table, scale, base, spec, q, idx,
         lib_ms = time_ms(lib)
         del vals, wm, bag, l_dv, l_dw
     distinct = where["distinct_rows"]
-    row_bytes = 4 * M if scale is None else M + 4
+    row_bytes = table.element_size() * M if scale is None else M + 4
     fill = table.shape[0] * 4 * M if scale is None else 0
     small_bytes = (4 * n * M + 8 * n * TOP_K
                    + (64 * n if stage == "dq" else 4 * n * TOP_K))
@@ -1173,7 +1359,7 @@ def range_backward_row(n, stage, payload, table, scale, base, spec, q, idx,
         + (terms * 40 if stage == "dq" else 0)
     b, by = bound_ms(distinct * row_bytes + fill + small_bytes, ops_n)
     dev, rest, seen = device_split(fn, "lookup_bwd")
-    out = {"n": n, "stage": stage, "payload": payload,
+    out = {**notes, "n": n, "stage": stage, "payload": payload,
            "max_abs_err": max(err_dv, err_small),
            "dvalues_max_abs_err": err_dv if dv is not None else None,
            f"{stage}_max_abs_err": err_small, "ms": time_ms(fn),
@@ -1404,10 +1590,10 @@ def engine_run(name, model, args, trace, *, cuda_graph=True, rows=0,
 def serve_path(name: str):
     """Serve one path at full width; returns (launch counts, report)."""
     argv, needs = PATHS[name]
-    finite = []
+    finite, fills = [], {}
     reset_counts()
     t0 = time.perf_counter()
-    with checked_ticks(finite):
+    with timed_fills(fills), checked_ticks(finite):
         report = serve.main(argv + SERVE_ARGS)
         torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -1441,8 +1627,11 @@ def serve_path(name: str):
                   f"{name}: the whole table should be resident: {cache}")
     touched = (cache["hits"] + cache["misses"] + cache["uncached"]
                if cache else 0)
+    FILL_MS[name] = {"fill_bytes": fills["fill_bytes"],
+                     "fill_ms_per_lookup": _fill_ms(fills)
+                     if fills["lookups"] else None}
     print(json.dumps({
-        "serve": name, "argv": argv,
+        "serve": name, "argv": argv, **FILL_MS[name],
         "requests": len(report.requests),
         "generated_tokens": report.generated_tokens,
         "tokens_per_sec": report.tokens_per_sec,
@@ -1762,13 +1951,14 @@ def tenant_path(dense_report):
 def timed_fills(acc: dict):
     """Host seconds the tiered stores spend filling (shards into the
     cache mirror, `_ensure_resident`, and the copy to the device,
-    `_sync_device`), and their lookups, added to `acc`.  The ranges of a
-    sharded-tiered store prefetch on a thread pool: their seconds add up
-    over threads."""
+    `_sync_device`), the bytes those copies move (`fill_bytes`), and their
+    lookups, added to `acc`.  The ranges of a sharded-tiered store
+    prefetch on a thread pool: their seconds add up over threads."""
     names = ("_ensure_resident", "_sync_device")
     saved = {n: getattr(TieredValueStore, n) for n in names}
     saved_map = TieredValueStore._map
     acc.setdefault("fill_s", 0.0)
+    acc.setdefault("fill_bytes", 0)
     acc.setdefault("lookups", 0)
     lock, local = threading.Lock(), threading.local()
 
@@ -1776,7 +1966,7 @@ def timed_fills(acc: dict):
         def run(self, *a, **kw):
             outer = not getattr(local, "depth", 0)
             local.depth = getattr(local, "depth", 0) + 1
-            t0 = time.perf_counter()
+            t0, b0 = time.perf_counter(), self.stats["fill_bytes"]
             try:
                 return fn(self, *a, **kw)
             finally:
@@ -1784,6 +1974,7 @@ def timed_fills(acc: dict):
                 if outer:
                     with lock:
                         acc["fill_s"] += time.perf_counter() - t0
+                        acc["fill_bytes"] += self.stats["fill_bytes"] - b0
         return run
 
     def counted(self, *a, **kw):
@@ -2264,6 +2455,353 @@ def obs_path() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# path (m): bfloat16 memory tables
+# ---------------------------------------------------------------------------
+
+BF16 = "bfloat16"
+BF16_TABLE_BYTES = 2**LOG2_LOCATIONS * M * 2  # 134,217,728 (fp32: twice)
+# serve path -> (its phase-4 twin, the gather that must launch)
+BF16_SERVE = {
+    "m2a_tiered_bf16": ("a_tiered", "gather_interp"),
+    "m2c_tiered_resident_bf16": ("c_tiered_resident", "tiered_gather"),
+    "m3e_sharded_tiered_bf16": ("e_sharded_tiered", "gather_interp"),
+}
+BF16_TIERED_TRAIN = ("lram-tiered", TieredValueStore, "gather_interp",
+                     "lookup_bwd_rows", 10)
+M6_ARGS = ["--arch", "lram-bert-medium", "--placement", "sharded",
+           "--batch", "8", "--seq", "256"]
+FILL_MS: dict = {}  # phase 4's serve paths: fill bytes and host ms a lookup
+PHASE6: dict = {}   # phase 6's step-time median and peak memory
+PATH_M: dict = {}   # (m4)'s, beside them at the end
+
+
+def bf16_config(cfg):
+    """`cfg` with its memory table in bfloat16."""
+    return dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, table_dtype=BF16))
+
+
+@contextlib.contextmanager
+def bf16_tables():
+    """`configs.get_config` (and `get_smoke_config`) with every memory
+    table in bfloat16, so the CLIs build the replaced config (the
+    reference's CLIs have no flag for the table's dtype either)."""
+    get, smoke = configs.get_config, configs.get_smoke_config
+    configs.get_config = lambda name, **kw: bf16_config(get(name, **kw))
+    configs.get_smoke_config = lambda name, **kw: bf16_config(
+        smoke(name, **kw))
+    try:
+        yield
+    finally:
+        configs.get_config, configs.get_smoke_config = get, smoke
+
+
+def memory_tables(model) -> list:
+    return [m.values for m in model.modules() if isinstance(m, LRAM)]
+
+
+def m1_dense_graph():
+    """(m1) The dense `pallas` placement with a bf16 table under the decode
+    graph, and its fp32 twin (the same weights, the table widened): every
+    request's tokens equal and first logits bit for bit (K1's bf16
+    instance adds the widened rows in the fp32 instance's order), the
+    table half the bytes; tick p50 / p99, tokens/s and peak memory of
+    both.  Returns (the bf16 run's launch counts, its report)."""
+    args = serve.build_argparser().parse_args(PATHS["dense"][0]
+                                              + SERVE_ARGS)
+    cfg = serve_config(args)
+    trace = serve_trace(args, cfg.vocab_size)
+    out, reports, launches, weights = {}, {}, {}, None
+    for dtype in (BF16, "float32"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if dtype == BF16:
+            model = transformer.init(bf16_config(cfg), seed=args.seed)
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        else:  # copy_ widens the bf16 table exactly
+            model = transformer.init(cfg, seed=args.seed)
+            model.load_state_dict(weights)
+            weights = None
+        model = model.to(args.device)
+        (table,) = memory_tables(model)
+        engine, report, launches[dtype] = engine_run(
+            f"(m1) {dtype} table", model, args, trace)
+        check(report.cuda_graph and report.graph_captures == 1
+              and report.graph_ticks == len(report.step_s),
+              f"(m1) {dtype}: the tick did not run as one captured graph")
+        reports[dtype] = report
+        out[dtype] = {**tick_numbers(report),
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                      "table_dtype": str(table.dtype),
+                      "table_bytes": table.numel() * table.element_size(),
+                      "launches": {k: v for k, v in launches[dtype].items()
+                                   if v}}
+        del engine, model, table
+    bf = launches[BF16]
+    check(bf["gather_interp_bf16"] > 0 and bf["lram_query"] > 0
+          and bf["gather_interp"] == 0,
+          f"(m1): K2 and K1's bf16 instance (alone) must launch: {bf}")
+    check(out[BF16]["table_bytes"] == BF16_TABLE_BYTES
+          and out["float32"]["table_bytes"] == 2 * BF16_TABLE_BYTES,
+          f"(m1): table bytes {out[BF16]['table_bytes']} and "
+          f"{out['float32']['table_bytes']}")
+    for a, b in zip(reports[BF16].requests, reports["float32"].requests):
+        check(a.tokens == b.tokens, f"(m1): request {a.id}'s tokens differ "
+                                    f"from the fp32 twin's")
+        check(np.array_equal(a.first_logits, b.first_logits),
+              f"(m1): request {a.id}'s first logits differ from the fp32 "
+              f"twin's by {np.abs(a.first_logits - b.first_logits).max()}")
+    print(json.dumps({"path": "m1 dense bf16 table, decode graph",
+                      "tokens_equal_fp32_twin": True,
+                      "first_logits_bit_equal_fp32_twin": True, **out}),
+          flush=True)
+    return bf, reports[BF16]
+
+
+def bf16_serve_path(name: str, m1_report) -> dict:
+    """(m2) / (m3) A tiered path of phase 4 through the serve CLI with a
+    bf16 table: every store's host tier bf16 (2-byte rows) under its fp32
+    cache, the path's gather launched (fp32, on the cache) and no bf16
+    one, 8 of 8 requests with (m1)'s tokens and its first logits within
+    1e-5; fill bytes and the fills' host ms a lookup beside phase 4's."""
+    twin, gather = BF16_SERVE[name]
+    argv = PATHS[twin][0]
+    built, acc, finite = [], {}, []
+    fill_host = TieredValueStore._fill_host
+
+    def recorded_fill(self, values):
+        built.append((str(self.dtype), self.bytes_per_entry()))
+        return fill_host(self, values)
+
+    TieredValueStore._fill_host = recorded_fill
+    try:
+        with bf16_tables(), timed_fills(acc), checked_ticks(finite):
+            reset_counts()
+            report = serve.main(argv + SERVE_ARGS)
+            torch.cuda.synchronize()
+            launches = read_counts()
+    finally:
+        TieredValueStore._fill_host = fill_host
+    check(built and all(b == ("torch.bfloat16", 2 * M) for b in built),
+          f"({name}): the stores' host tiers are {built}, not bf16")
+    check(len(report.requests) == 8 and bool(torch.stack(finite).all()),
+          f"({name}): {len(report.requests)} of 8 requests, or non-finite")
+    check(launches["lram_query"] > 0 and launches[gather] > 0
+          and launches["gather_interp_bf16"] == 0,
+          f"({name}): K2 and {gather} must launch (the cache is fp32): "
+          f"{launches}")
+    for a, b in zip(report.requests, m1_report.requests):
+        check(a.tokens == b.tokens, f"({name}): request {a.id}'s tokens "
+                                    f"differ from (m1)'s")
+    err = same_first_logits(f"({name}) vs (m1)", report, m1_report)
+    print(json.dumps({
+        "path": name, "argv": argv, "host_tiers": built,
+        "first_logits_max_abs_err_vs_m1": err,
+        **tick_numbers(report), "cache": report.cache,
+        "fill_bytes": acc["fill_bytes"],
+        "fill_ms_per_lookup": _fill_ms(acc), "fill_lookups": acc["lookups"],
+        "phase4_fp32": {twin: FILL_MS[twin]},
+        "launches": {k: v for k, v in launches.items() if v}}), flush=True)
+    return launches
+
+
+def m4_train_path() -> dict:
+    """(m4) `lram-bert-medium --placement pallas` with a bf16 table, 20
+    steps at phase 6's `--batch 8 --seq 256`, through `train.main` on the
+    replaced config: K2, K1's bf16 instance and the backward's
+    (`lookup_bwd_bf16`, once a step) launched, no fp32 one; the loss
+    finite and falling; step 1's backward inputs kept and its dvalues,
+    dq (and, the dw instance on them, dw) held against the plain version
+    on the card: dvalues to atol 1e-5 in fp32 and once rounded to bf16
+    (`bf16_rounding_agrees`), dq / dw to rtol 1e-4 / atol 1e-5.  Step ms
+    and peak memory beside phase 6's at the end of the script."""
+    step1, bwd = {}, ops.lookup_bwd
+
+    def kept(values, idx, w, g, q=None, spec=None):
+        if not step1:  # host copies (Adam steps the table in place; the
+            # run's peak memory stays its own)
+            step1.update(values=values.detach().cpu(), idx=idx.cpu(),
+                         w=w.cpu(), g=g.cpu(), q=q.detach().cpu(),
+                         spec=spec)
+        return bwd(values, idx, w, g, q, spec)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    ops.lookup_bwd = kept
+    try:
+        with bf16_tables():
+            reset_counts()
+            run = train.main(TRAIN_ARGS)
+            torch.cuda.synchronize()
+            launches = read_counts()
+    finally:
+        ops.lookup_bwd = bwd
+    peak = torch.cuda.max_memory_allocated()
+    (table,) = memory_tables(run.model)
+    check(table.dtype == torch.bfloat16, f"(m4): a {table.dtype} table")
+    check(launches["gather_interp_bf16"] >= TRAIN_STEPS
+          and launches["lookup_bwd_bf16"] == TRAIN_STEPS
+          and launches["gather_interp"] == launches["lookup_bwd"] == 0,
+          f"(m4): K1 and the backward must launch their bf16 instances "
+          f"(the backward once a step): {launches}")
+    losses = [r["loss"] for r in run.records]
+    norms = [r["grad_norm"] for r in run.records]
+    check(len(losses) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses + norms)
+          and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"(m4): steps missing, non-finite or the loss did not fall: "
+          f"{losses}")
+    c = {k: v.to(table.device) if isinstance(v, torch.Tensor) else v
+         for k, v in step1.items()}
+    dv, dq = ops.lookup_bwd(c["values"], c["idx"], c["w"], c["g"],
+                            q=c["q"], spec=c["spec"])
+    dv_p, dq_p = ops.lookup_bwd_plain(c["values"], c["idx"], c["w"], c["g"],
+                                      c["q"], c["spec"])
+    _, dw = ops.lookup_bwd(c["values"], c["idx"], c["w"], c["g"])
+    _, dw_p = ops.lookup_bwd_plain(c["values"], c["idx"], c["w"], c["g"])
+    torch.cuda.synchronize()
+    errs = {"dvalues": (dv - dv_p).abs().max().item(),
+            "dq": (dq - dq_p).abs().max().item(),
+            "dw": (dw - dw_p).abs().max().item()}
+    rounded = bf16_rounding_agrees(dv, dv_p)
+    check(torch.allclose(dv, dv_p, rtol=0, atol=1e-5) and rounded["ok"]
+          and torch.allclose(dq, dq_p, rtol=1e-4, atol=1e-5)
+          and torch.allclose(dw, dw_p, rtol=1e-4, atol=1e-5),
+          f"(m4): step 1's backward differs from its plain version: "
+          f"{errs}, rounded {rounded}")
+    step_ms = [r["step_ms"] for r in run.records]
+    tokens = run.dcfg.global_batch * run.dcfg.seq_len
+    median_ms = float(np.median(step_ms[5:]))
+    PATH_M["m4"] = {"step_ms_median_steps_6_20": median_ms,
+                    "peak_memory_bytes": peak}
+    print(json.dumps({
+        "train": "m4 lram-bert-medium, bf16 table", "argv": TRAIN_ARGS,
+        "n_step1": int(c["idx"].numel() // TOP_K), "losses": losses,
+        "grad_norms": norms, "step1_max_abs_err": errs,
+        "step1_dvalues_bf16": rounded, "step_ms": step_ms,
+        "step_ms_median_steps_6_20": median_ms,
+        "tokens_per_sec": tokens / (median_ms / 1e3),
+        "allocated_before_bytes": allocated_before,
+        "peak_memory_bytes": peak,
+        "table_bytes": table.numel() * table.element_size(),
+        "launches": {k: v for k, v in launches.items() if v}}), flush=True)
+    del run, table, step1, c
+    torch.cuda.empty_cache()
+    return launches
+
+
+def m6_rank(rank: int, port: int, results, argv, device_name) -> None:
+    """One rank of (m6): a data 2 x model 2 mesh (6b's), `lram-bert-
+    medium`'s bf16 table row-sharded over model (2^19 rows a rank), every
+    rank on the whole batch.  The dense `pallas` twin first (the same seed's
+    weights, its table whole): its eval logits and the rows of its table
+    gradient this rank holds; then the sharded model: 2 eval forwards and
+    one train forward and backward (the dense blocks gathered), launch
+    counts reset just before and read just after."""
+    _rank_env(rank, port)
+    mesh, device = mesh_lib.init_mesh(device_name, shape="2x2")
+    args = train.build_argparser().parse_args(argv)
+    cfg = bf16_config(_mesh_config(args, "sharded"))
+    dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                           global_batch=args.batch, objective=cfg.objective,
+                           seed=args.seed)
+    batch = train.batch_to(data.get_batch(dcfg, step=0), device)
+    rows = cfg.lram.num_locations // mesh.size("model")
+    base = mesh.index("model") * rows
+    dense = transformer.init(dataclasses.replace(
+        cfg, lram=dataclasses.replace(cfg.lram, interp_impl="pallas")),
+        seed=args.seed).to(device)
+    with sharding.gathered(dense):
+        with torch.no_grad():
+            want = transformer.forward(dense, batch)
+        transformer.loss_fn(dense, batch, train=True)[0].backward()
+    want_dv = memory_tables(dense)[0].grad[base:base + rows].float()
+    del dense
+    model = transformer.init(cfg, seed=args.seed)
+    sharding.shard_params(model, mesh)
+    model = model.to(device)
+    reset_counts()
+    with sharding.gathered(model):
+        with torch.no_grad():
+            for _ in range(2):
+                got = transformer.forward(model, batch)
+        transformer.loss_fn(model, batch, train=True)[0].backward()
+    _sync(device)
+    launches = read_counts()
+    (table,) = memory_tables(model)
+    dv = table.grad.float()
+    results.put({
+        "rank": rank, "mesh": mesh.shape, "backend": dist.get_backend(),
+        "shard_rows": table.shape[0], "table_rows": cfg.lram.num_locations,
+        "table_dtype": str(table.dtype),
+        "logits_max_abs_err": (got - want).abs().max().item(),
+        "dvalues_max_abs_err": (dv - want_dv).abs().max().item(),
+        "dvalues_bf16": bf16_rounding_agrees(dv, want_dv),
+        "launches": launches,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                              if device.type == "cuda" else None)})
+    dist.destroy_process_group()
+
+
+def m6_mesh_path(argv=M6_ARGS, device_name="cuda") -> dict:
+    """(m6) 4 gloo ranks on the one card, the `sharded` placement with a
+    bf16 table: every rank's logits within 1e-5 of the dense bf16 twin's
+    and its shard of d values (bf16, rounded once from its fp32 sum)
+    within one bf16 ulp of the twin's rows (`bf16_rounding_agrees`: the
+    two fp32 sums add in atomics' order); K2, the bf16 range gather (3
+    forwards) and the bf16 range backward (once) launched on every rank.
+    Held against the dense twin: the reference's own sharded gradient is
+    red under jax 0.9.0 (ROADMAP C1).  Returns the counts summed over
+    ranks."""
+    if device_name == "cuda":
+        torch.cuda.empty_cache()
+    ranks, wall_s = _spawn_ranks(m6_rank, (argv, device_name), "(m6)")
+    for r in ranks:
+        c = r["launches"]
+        who = f"(m6) rank {r['rank']}"
+        check(c["lram_query"] >= 3 and c["sharded_gather_bf16"] >= 3
+              and c["lookup_bwd_range_bf16"] == 1
+              and c["sharded_gather"] == c["lookup_bwd_range"] == 0,
+              f"{who}: the bf16 range instances must launch: {c}")
+        check(r["table_dtype"] == "torch.bfloat16"
+              and r["shard_rows"] * 2 == r["table_rows"],
+              f"{who}: a {r['table_dtype']} shard of {r['shard_rows']} rows")
+        check(r["logits_max_abs_err"] <= 1e-5,
+              f"{who}: logits differ from the dense twin's by "
+              f"{r['logits_max_abs_err']}")
+        check(r["dvalues_bf16"]["ok"],
+              f"{who}: d values differ from the dense twin's rows: "
+              f"{r['dvalues_bf16']}, {r['dvalues_max_abs_err']}")
+    print(json.dumps({"path": "m6 mesh, bf16 table", "argv": argv,
+                      "ranks": ranks, "wall_s_incl_spawn": wall_s}),
+          flush=True)
+    return {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+
+
+def bf16_path() -> dict:
+    """Path (m), every part; prints its seconds.  Returns the launch
+    counts of each run."""
+    t0 = time.perf_counter()
+    launches = {}
+    launches["m1_dense_bf16"], m1 = m1_dense_graph()
+    for name in BF16_SERVE:
+        launches[name] = bf16_serve_path(name, m1)
+    del m1
+    launches["m4_train_bf16"] = m4_train_path()
+    with bf16_tables():
+        launches["m5_train_tiered_bf16"], run = tiered_train_path(
+            "m5_train_tiered_bf16", BF16_TIERED_TRAIN)
+    (store,) = run.stores
+    check(store.dtype == torch.bfloat16 and store.bytes_per_entry() == 2 * M,
+          f"(m5): the store's host tier is {store.dtype}")
+    del run, store
+    launches["m6_mesh_bf16"] = m6_mesh_path()
+    print(json.dumps({"path_m_s": time.perf_counter() - t0}), flush=True)
+    return launches
+
+
 def same_first_logits(name: str, got, want, tol: float = 1e-5) -> float:
     err = max(float(np.abs(a.first_logits - b.first_logits).max())
               for a, b in zip(got.requests, want.requests))
@@ -2376,6 +2914,8 @@ def train_path():
     step_ms = [r["step_ms"] for r in run.records]
     median_ms = float(np.median(step_ms[5:]))
     tokens = run.dcfg.global_batch * run.dcfg.seq_len
+    PHASE6.update(step_ms_median_steps_6_20=median_ms,
+                  peak_memory_bytes=peak)
     print(json.dumps({
         "train": "lram-bert-medium", "argv": TRAIN_ARGS,
         "tokens_per_step": tokens, "lookups_per_step": tokens * 32,
@@ -2478,7 +3018,7 @@ def _host_tier(store):
     return host, np.concatenate([p._host_scale.reshape(-1) for p in parts])
 
 
-def tiered_train_path(name: str):
+def tiered_train_path(name: str, spec=None):
     """Train a tiered arch at full width through the store's write-back;
     returns (launch counts, run).  The launch counts are reset just
     before and read just after.  Inside the timed steps the wrappers only
@@ -2488,8 +3028,9 @@ def tiered_train_path(name: str):
     its host work), the host index arrays it applies are kept and reduced
     to the touched rows after the run, and the flat route's host time and
     stats are read per call.  A sharded-tiered store writes back once a
-    step and each of its ranges once a step."""
-    arch, cls, gather, bwd, steps = TIERED_TRAIN[name]
+    step and each of its ranges once a step.  `spec`: (arch, store class,
+    gather, backward instance, steps), else TIERED_TRAIN's."""
+    arch, cls, gather, bwd, steps = spec or TIERED_TRAIN[name]
     argv = ["--arch", arch, *TIERED_ARGS, "--steps", str(steps)]
     before, applied, wb, fwd = {}, [], [], []
     bind = train.bind_stores
@@ -4107,12 +4648,15 @@ def main() -> None:
         reports["e_sharded_tiered"])
     del reports
     launches.update(obs_path())
+    launches.update(bf16_path())
     for name in PATHS:
         profile_path(name)
     profile_path("dense", cuda_graph=False)
     for name in H_PATHS:
         launches[name] = h_path(name)
     launches["train"], run = train_path()
+    print(json.dumps({"m4_vs_phase6": {"bf16_table": PATH_M["m4"],
+                                       "fp32_table": PHASE6}}), flush=True)
     profile_train_step(run)
     dense_records = run.records
     del run

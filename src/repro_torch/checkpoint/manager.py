@@ -57,8 +57,12 @@ reference's `ml_dtypes.float8_e4m3fn` arrays get), read back from `V1` as
 uint8 bytes, so neither side needs `ml_dtypes`.  bfloat16 leaves (the
 public archs' weights) are their twin: 2-byte bits written as `<V2` (the
 descr of the reference's `ml_dtypes.bfloat16` arrays, manifest dtype
-"bfloat16"), read back from `V2` as uint16 bits.  Every save and restore
-appends its timings to `history`.
+"bfloat16"), read back from `V2` as uint16 bits; so are a bf16 memory
+table (`LRAMConfig.table_dtype`) and the shards of a tiered store with a
+bf16 host tier (its manifest dtype "bfloat16", the reference's
+`str(store.dtype)`).  A restore converts bits and fp32 values to the
+target's dtype exactly (widened) or by rounding to nearest even.  Every
+save and restore appends its timings to `history`.
 """
 
 from __future__ import annotations
@@ -242,7 +246,7 @@ class _TieredLeaf:
         quantized = self.quant != "none"
         out = np.empty(
             (meta["num_shards"] * meta["shard_rows"], meta["m"]),
-            np.float32 if quantized else np.dtype(meta["dtype"]),
+            np.float32 if quantized else _numpy_dtype(meta["dtype"]),
         )
         r = meta["shard_rows"]
         for i in range(meta["num_shards"]):
@@ -343,11 +347,13 @@ class CheckpointManager:
             sub = _mangle(name) + ".shards"
             os.makedirs(os.path.join(tmp, sub))
             quantized = store.quant != "none"
+            logical = str(store.dtype).removeprefix("torch.")
+            raw = (_FP8 if store.quant == "fp8"
+                   else _BF16 if logical == _BF16 else "")
             crcs, scale_crcs = [], []
             for i in range(store.num_shards):  # streamed, one at a time
                 arr = store.shard_host(i)
-                _save(os.path.join(tmp, sub, f"shard_{i:06d}.npy"), arr,
-                      _FP8 if store.quant == "fp8" else "")
+                _save(os.path.join(tmp, sub, f"shard_{i:06d}.npy"), arr, raw)
                 crcs.append(_crc(arr))
                 if quantized:  # per-row fp32 scales ride beside it
                     s = store.shard_scale_host(i)
@@ -359,7 +365,7 @@ class CheckpointManager:
                 "num_shards": store.num_shards,
                 "shard_rows": store.shard_rows,
                 "m": store.m,
-                "dtype": "float32",  # the rows' logical dtype
+                "dtype": logical,  # the rows' logical dtype
                 "crc32": crcs,
             }
             if quantized:
@@ -503,11 +509,21 @@ class CheckpointManager:
                 arr = _reconcile_rows(name, np.asarray(arr), tuple(shape))
             want = _numpy_dtype(getattr(proto, "dtype", None))
             if want is not None and arr.dtype != want:
-                arr = arr.astype(want)
+                arr = _convert(arr, want)
             if sharding and name in sharding:
                 arr = mesh_blocks.own_block(arr, *sharding[name])
             leaves.append(arr)
         return _rebuild(like, iter(leaves))
+
+
+def _convert(arr: np.ndarray, want: np.dtype) -> np.ndarray:
+    """A restored leaf in the proto's numpy dtype: bf16 bits (uint16)
+    widened exactly, fp32 rounded to bf16 bits, anything else cast."""
+    if arr.dtype == np.uint16:
+        return quant.bf16_to_f32(arr).astype(want)
+    if want == np.uint16:
+        return quant.f32_to_bf16(arr)
+    return arr.astype(want)
 
 
 def _numpy_dtype(dtype) -> np.dtype | None:
@@ -516,12 +532,10 @@ def _numpy_dtype(dtype) -> np.dtype | None:
     its uint16 bits)."""
     if dtype is None:
         return None
-    if isinstance(dtype, torch.dtype):
-        name = str(dtype).removeprefix("torch.")
-        if name in (_FP8, _BF16):
-            return np.dtype(_RAW[name][1])
-        return np.dtype(name)
-    return np.dtype(dtype)
+    name = str(dtype).removeprefix("torch.")
+    if name in (_FP8, _BF16):
+        return np.dtype(_RAW[name][1])
+    return np.dtype(name if isinstance(dtype, torch.dtype) else dtype)
 
 
 def _is_lram_table_path(name: str) -> bool:

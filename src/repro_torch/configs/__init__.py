@@ -72,9 +72,12 @@ def with_lram(cfg: ModelConfig, log2_locations: int = 20,
               layer: int | None = None) -> ModelConfig:
     """Insert the paper's memory-augmented FFN at one layer of any arch
     (default the middle one), with a batchnorm query, as the reference's
-    `with_lram`: heads = d_model // 16, a float32 table of
-    2^log2_locations rows of 64.  Its placement is the config's default
-    (`reference`); a server sets `pallas` for the kernels."""
+    `with_lram`: heads = d_model // 16, a table of 2^log2_locations
+    rows of 64 in `LRAMConfig`'s default dtype, float32, the reference's
+    default too whatever the model's dtype (a bfloat16 table is
+    `table_dtype="bfloat16"` on the returned `lram`).  Its placement is
+    the config's default (`reference`); a server sets `pallas` for the
+    kernels."""
     layer = cfg.num_layers // 2 if layer is None else layer
     return dataclasses.replace(
         cfg,

@@ -4,7 +4,11 @@
 A config resolves once into a :class:`LookupPlan` that owns the memory
 read: how the table is built (`build_table` from the init-time fp32 draw,
 `table_from_payload` from a 1-byte payload and its scales), the top-k
-`query`, and the weighted `interp` gather.  Axes:
+`query`, and the weighted `interp` gather.  The table's dtype
+(`LRAMConfig.table_dtype`, fp32 or bf16) is not an axis: the draw arrives
+in it, a dense or sharded plan keeps it as its `Parameter`'s dtype, a
+tiered one as its host tier's, a quantized one quantizes it as fp32.
+Axes:
 
 * **placement** — ``dense`` (one tensor on the device) | ``tiered`` (host
   shards + a device hot cache, `repro_torch.memstore`) | ``sharded`` (the
@@ -92,11 +96,12 @@ class LookupPlan:
     ``query(q, spec, top_k) -> (idx, w)`` and ``interp(table, idx, w)``
     together are one memory read; ``lookup(table, q, spec, top_k) ->
     (out, idx, w)`` is that read as the one call `lram_apply` makes:
-    `query` then `interp` unless the plan sets it (the dense fp32
+    `query` then `interp` unless the plan sets it (the dense fp32 / bf16
     ``pallas`` cell: `kernels.ops.lram_lookup`, differentiable in the
     table and q through the backward kernel).  ``build_table(dense)``
-    turns the fp32 draw (N, m) into the table object an LRAM layer holds (an fp32
-    `Parameter`, a `QuantizedTable` or a `TieredValueStore`);
+    turns the draw (N, m), in the table's dtype, into the table object an
+    LRAM layer holds (a `Parameter`, a `QuantizedTable` or a
+    `TieredValueStore`);
     ``table_from_payload(q, scale)`` builds it from a quantized payload
     carried bit for bit (quantized storages only).
 
@@ -351,7 +356,7 @@ def _dense_plan(storage: str, kernel: str) -> LookupPlan:
     return LookupPlan(
         *cell, query=query_fn(kernel),
         build_table=lambda dense: quant.QuantizedTable.from_dense(
-            dense.detach().cpu().numpy(), storage),
+            dense.detach().float().cpu().numpy(), storage),
         interp=interp_quant, lookup=lookup_quant,
         table_from_payload=lambda q, scale: quant.QuantizedTable.from_payload(
             q, scale, storage),
@@ -373,7 +378,7 @@ def read_rows_fp32(table, rows) -> np.ndarray:
     if is_store(table):
         payload, scales = table._read_rows_raw(rows)
         if scales is None:
-            return np.asarray(payload, np.float32)
+            return quant.host_rows_f32(payload)
         return quant.dequantize_rows_np(payload, scales)
     if isinstance(table, quant.QuantizedTable):
         q, scale = host_quantized(table)

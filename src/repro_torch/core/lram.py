@@ -10,12 +10,17 @@ plus the memory-augmented FFN block dense(w -> w) . LRAM(w -> 4w) .
 dense(4w -> w) that replaces a transformer FFN (paper §3.1).
 
 The table and the two memory-read steps come from the resolved lookup
-plan (`repro_torch.core.lookup`): an fp32 `Parameter`, a `QuantizedTable`,
-a `TieredValueStore`, a `ShardedTieredStore` or this rank's row shard of
-the table.  The table is float32 whatever the model's dtype; the query
-norm's and the two dense layers' leaves take the model's dtype (bfloat16
-in the public archs), the query is cast to float32 before `torus_map`
-and the read is cast back to the input's dtype, as the reference does.
+plan (`repro_torch.core.lookup`): a `Parameter`, a `QuantizedTable`, a
+`TieredValueStore`, a `ShardedTieredStore` or this rank's row shard of
+the table.  The table's dtype is `LRAMConfig.table_dtype` whatever the
+model's: float32 (the default) or bfloat16, which a dense or row-sharded
+table keeps as its `Parameter`'s dtype and a tiered store as its host
+tier's (its device cache stays float32, as the reference's does); a
+1-byte table is quantized from that draw.  The query norm's and the two
+dense layers' leaves take the model's dtype (bfloat16 in the public
+archs), the query is cast to float32 before `torus_map`, every gather
+sums in float32 and the read is cast back to the input's dtype, as the
+reference does.
 Between the gather and the scale `lram_apply` consults the per-tenant
 overlay context (`repro_torch.core.overlay`), as the reference's does:
 inside the serve engine's `activate` block it adds the tenant's row
@@ -35,6 +40,10 @@ from repro_torch import nn as tnn
 from repro_torch.core import indexing, lattice, lookup, overlay, torus
 
 
+# LRAMConfig.table_dtype names the port takes (the reference takes any)
+TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @dataclasses.dataclass(frozen=True)
 class LRAMConfig:
     log2_locations: int = 18  # N = 2**18 == paper's LRAM-small
@@ -44,6 +53,7 @@ class LRAMConfig:
     top_k: int = 32           # paper §2.6: top-32 carries >=99.5% of mass
     query_norm: str = "batch"  # batch | rms | none  (paper: batchnorm)
     value_init_scale: float = 0.02
+    table_dtype: str = "float32"  # float32 | bfloat16
     # --- the lookup plan's three axes (repro_torch.core.lookup) ---
     interp_impl: str = "reference"  # placement: reference/pallas (dense) |
     #                                 tiered | sharded | sharded-tiered
@@ -54,6 +64,11 @@ class LRAMConfig:
     #                                 (0 = ambient mesh's model-axis size)
 
     def __post_init__(self):
+        if self.table_dtype not in TABLE_DTYPES:
+            raise ValueError(
+                f"table_dtype {self.table_dtype!r} is not ported: the port "
+                f"takes {sorted(TABLE_DTYPES)}; other dtypes (float16) are "
+                f"ROADMAP A6 part 2")
         if self.table_quant not in ("none", "int8", "fp8"):
             raise ValueError(
                 f"table_quant must be none|int8|fp8, got {self.table_quant!r}"
@@ -88,13 +103,17 @@ class LRAMConfig:
         return self.num_locations * self.m
 
     @property
+    def torch_table_dtype(self) -> torch.dtype:
+        return TABLE_DTYPES[self.table_dtype]
+
+    @property
     def table_bytes_per_entry(self) -> int:
-        """Storage bytes per table row: fp32 values, or the 1-byte payload
-        plus its per-row scale."""
+        """Storage bytes per table row: the values in `table_dtype` (4 or 2
+        bytes each), or the 1-byte payload plus its per-row scale."""
         from repro_torch import quant
 
         if self.table_quant == "none":
-            return self.m * 4  # the port's tables are float32
+            return self.m * self.torch_table_dtype.itemsize
         return quant.bytes_per_entry(self.m, self.table_quant)
 
 
@@ -113,11 +132,13 @@ class LRAM(nn.Module):
         super().__init__()
         plan = lookup.resolve(cfg)  # unsupported cells fail at build time
         self.cfg = cfg
-        # every plan starts from the same fp32 draw
+        # every plan starts from the same fp32 draw, rounded to the table's
+        # dtype (the reference draws in it directly: the values differ,
+        # the rounding of every later step does not)
         self.values = plan.build_table(tnn.truncated_normal_(
             torch.empty(cfg.num_locations, cfg.m), cfg.value_init_scale,
             generator,
-        ))
+        ).to(cfg.torch_table_dtype))
         if cfg.query_norm == "batch":
             self.qnorm = tnn.BatchNorm(2 * lattice.DIM, dtype=dtype)
         elif cfg.query_norm == "rms":
@@ -210,7 +231,7 @@ class MemFFN(nn.Module):
 def memffn_init(width: int, cfg: LRAMConfig, *,
                 generator: torch.Generator | None = None,
                 dtype: torch.dtype = torch.float32) -> MemFFN:
-    """The block with `dtype` leaves (the table float32)."""
+    """The block with `dtype` leaves (the table in `cfg.table_dtype`)."""
     return MemFFN(width, cfg, generator=generator, dtype=dtype)
 
 

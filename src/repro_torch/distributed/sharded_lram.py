@@ -23,8 +23,10 @@ Cells: ``pallas`` (the CUDA kernels; their plain versions on CPU tensors)
 looks up through one autograd Function, K2 then the range gather then the
 all-reduce, with the range backward and the dq all-reduce behind it (its
 interp hook alone is forward only on the card); ``reference`` is plain
-autograd over the reference's formulation, for CPU tables only.  fp32 tables train by autodiff (each rank steps its own
-rows); int8 / fp8 tables (`QuantizedTable` shards) are frozen.  The plan
+autograd over the reference's formulation, for CPU tables only.  fp32
+and bf16 tables (`LRAMConfig.table_dtype`; a bf16 shard's gradient is
+summed in fp32 and rounded once) train by autodiff (each rank steps its
+own rows); int8 / fp8 tables (`QuantizedTable` shards) are frozen.  The plan
 builds the whole table from the init-time draw, as every plan does;
 `repro_torch.distributed.sharding.shard_params` then keeps the rank's
 rows.  The placement cannot grow live (``supports_growth`` is false):
@@ -65,7 +67,8 @@ from repro_torch.distributed import collectives
 from repro_torch.kernels import e8_lookup, ops, sharded_gather
 from repro_torch.memstore import interp as tiered
 from repro_torch.memstore.store import (TieredSpec, TieredValueStore,
-                                        global_indices, global_update)
+                                        global_indices, global_update,
+                                        host_values)
 from repro_torch.quant import QuantizedTable
 
 AXIS = "model"
@@ -100,7 +103,9 @@ class _ShardedLookup(torch.autograd.Function):
                                            g.float().contiguous(), ctx.base,
                                            scale=scale, q=q, spec=ctx.spec)
         collectives.all_reduce_(dq, ctx.group)
-        return (dvalues if ctx.needs_input_grad[0] else None,
+        # a bf16 shard's gradient summed in fp32 and rounded once
+        return (dvalues.to(table.dtype) if ctx.needs_input_grad[0]
+                else None,
                 dq.to(q.dtype), None, None, None, None, None)
 
 
@@ -108,7 +113,7 @@ def sharded_gather_interp(mesh, *, axis: str = AXIS,
                           kernel: str = "pallas"):
     """The interp hook (values, idx, w) -> out of the sharded cells.
 
-    `values` is this rank's shard: an fp32 tensor (R, m) or a
+    `values` is this rank's shard: an fp32 or bf16 tensor (R, m) or a
     `QuantizedTable` of R rows, the rows [i * R, (i + 1) * R) of the table
     with i the rank's coordinate along `axis`; idx (..., k) int32 indices
     of the whole table and w (..., k), alike on the ranks of `axis`.  The
@@ -163,8 +168,8 @@ def sharded_plan(cfg, storage: str, kernel: str, mesh) -> lookup.LookupPlan:
         if quantized != isinstance(values, QuantizedTable) or not (
                 quantized or isinstance(values, torch.Tensor)):
             raise lookup.LookupPlanError(
-                *cell, f"expected {'a QuantizedTable' if quantized else 'an '
-                'fp32 tensor'} shard, got {type(values).__name__}")
+                *cell, f"expected {'a QuantizedTable' if quantized else 'a '
+                'tensor'} shard, got {type(values).__name__}")
         have = values.num_rows if quantized else values.shape[0]
         if have != rows:
             raise lookup.LookupPlanError(
@@ -195,7 +200,7 @@ def sharded_plan(cfg, storage: str, kernel: str, mesh) -> lookup.LookupPlan:
     return lookup.LookupPlan(
         *cell,
         build_table=lambda dense: QuantizedTable.from_dense(
-            dense.detach().cpu().numpy(), storage),
+            dense.detach().float().cpu().numpy(), storage),
         table_from_payload=lambda q, scale: QuantizedTable.from_payload(
             q, scale, storage),
         table_update="frozen", **common)
@@ -222,7 +227,7 @@ class ShardedTieredStore(nn.Module):
     """
 
     def __init__(self, num_rows: int, m: int, spec: TieredSpec,
-                 num_ranges: int):
+                 num_ranges: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         if num_ranges < 1:
             raise ValueError("need at least one row range")
@@ -241,8 +246,9 @@ class ShardedTieredStore(nn.Module):
         self.quant = spec.quant
         self.shard_rows = spec.shard_rows
         self.parts = nn.ModuleList(
-            TieredValueStore(rows_local, m, self._part_spec(spec, r))
+            TieredValueStore(rows_local, m, self._part_spec(spec, r), dtype)
             for r in range(num_ranges))
+        self.dtype = self.parts[0].dtype  # each range keeps the table's
         self._shards_per_range = self.parts[0].num_shards
         self.num_shards = num_ranges * self._shards_per_range
         self._pool: ThreadPoolExecutor | None = None  # prefetch fan-out
@@ -259,12 +265,12 @@ class ShardedTieredStore(nn.Module):
     @classmethod
     def from_dense(cls, values, spec: TieredSpec,
                    num_ranges: int) -> "ShardedTieredStore":
-        """A store holding fp32 `values` (N, m), each range quantized
-        (nearest) on the way in if the spec is quantized."""
-        if isinstance(values, torch.Tensor):
-            values = values.detach().cpu().numpy()
-        values = np.asarray(values, np.float32)
-        store = cls(values.shape[0], values.shape[1], spec, num_ranges)
+        """A store holding `values` (N, m), fp32 or bf16 (a tensor or its
+        bits: each range a bf16 host tier), each range quantized (nearest)
+        on the way in if the spec is quantized."""
+        values, dtype = host_values(values)
+        store = cls(values.shape[0], values.shape[1], spec, num_ranges,
+                    dtype)
         store.load_dense(values)
         return store
 
@@ -499,7 +505,7 @@ class ShardedTieredStore(nn.Module):
         for k in range(delta // self.rows_local):
             part = TieredValueStore(
                 self.rows_local, self.m,
-                self._part_spec(self.spec, self.num_ranges + k))
+                self._part_spec(self.spec, self.num_ranges + k), self.dtype)
             lo, hi = k * self.rows_local, (k + 1) * self.rows_local
             part._host[...] = payload[lo:hi].reshape(part._host.shape)
             if scales is not None:
@@ -539,7 +545,7 @@ class ShardedTieredStore(nn.Module):
         self.parts[i // per].load_shard(i % per, arr, scale)
 
     def load_dense(self, values) -> None:
-        values = np.asarray(values)
+        values, _ = host_values(values)
         if values.shape != (self.num_rows, self.m):
             raise ValueError(f"shape {values.shape} != "
                              f"{(self.num_rows, self.m)}")
@@ -548,12 +554,14 @@ class ShardedTieredStore(nn.Module):
             part.load_dense(values[i * r:(i + 1) * r])
 
     def to_dense(self) -> np.ndarray:
-        """Flush and return the whole (dequantized) (N, m) fp32 table."""
+        """Flush and return the whole (dequantized) (N, m) fp32 table (a
+        bf16 store's values, exactly)."""
         return np.concatenate([part.to_dense() for part in self.parts])
 
     def extra_repr(self) -> str:
         return (f"rows={self.num_rows}, m={self.m}, ranges="
-                f"{self.num_ranges}x{self.rows_local}, quant={self.quant!r}")
+                f"{self.num_ranges}x{self.rows_local}, quant={self.quant!r}, "
+                f"dtype={self.dtype}")
 
 
 def sharded_tiered_plan(cfg, storage: str, kernel: str,
@@ -581,4 +589,5 @@ def sharded_tiered_plan(cfg, storage: str, kernel: str,
         table_from_payload=lambda q, scale: ShardedTieredStore.from_payload(
             q, scale, spec, num_ranges),
         build_empty=lambda: ShardedTieredStore(cfg.num_locations, cfg.m,
-                                               spec, num_ranges))
+                                               spec, num_ranges,
+                                               cfg.torch_table_dtype))

@@ -89,8 +89,8 @@ constexpr int kMaxSplit = 8;  // warps a query at most (kWarps divides)
 constexpr int kBatch = 8;     // row loads a warp issues before its FMAs
 constexpr int kMinBlocks = 4;  // blocks an SM holds: at most 64 registers
 
-// Two adjacent columns of a row as stored (an fp32 pair, two int8, two
-// e4m3), loaded first and turned into fp32 only once the batch's loads
+// Two adjacent columns of a row as stored (an fp32 pair, a bf16 pair, two
+// int8, two e4m3), loaded first and turned into fp32 only once the batch's loads
 // are out: a conversion next to its load would wait for it.
 template <typename T>
 struct Raw;
@@ -102,6 +102,18 @@ struct Raw<float> {
     return *reinterpret_cast<const float2*>(r + c);
   }
   static __device__ __forceinline__ float2 f32(Pair v) { return v; }
+};
+
+template <>
+struct Raw<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static __device__ __forceinline__ Pair pair(const __nv_bfloat16* r,
+                                              int c) {
+    return *reinterpret_cast<const __nv_bfloat162*>(r + c);
+  }
+  static __device__ __forceinline__ float2 f32(Pair v) {
+    return __bfloat1622float2(v);  // exact: every bf16 value is a float
+  }
 };
 
 template <>

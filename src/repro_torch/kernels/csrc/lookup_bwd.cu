@@ -27,6 +27,13 @@
 //     src/repro/kernels/gather_interp.py, gather_interp_vjp, :206).
 //     Both write the whole dense (N, m) fp32 dvalues (the reference's
 //     jnp.zeros(...).at[idx].add), untouched rows as zeros.
+//   bf16, scatter, dq / dw   lookup_bwd_{dq,dw}_bf16: the same two on a
+//     bf16 table: the rows are read as bf16 pairs and widened to fp32
+//     exactly (Raw<__nv_bfloat16>), dvalues is summed in fp32 and written
+//     fp32; the wrapper rounds it to bf16 once afterwards, as the
+//     reference's dvalues.astype(values.dtype) (ops.py:98,
+//     gather_interp.py:217).  Given the same placement order the outputs
+//     are the fp32 instances' on values.float().
 //   fp32, no scatter, dq / dw   lookup_bwd_rows_{dq,dw}_f32: the tiered
 //     fp32 table (its gradient goes to the store's host write-back, not to
 //     a dense dvalues; the reference's tiered VJP, src/repro/memstore/
@@ -38,7 +45,7 @@
 //   int8 / e4m3, no scatter, dq   lookup_bwd_rows_dq_{i8,e4m3}: the same
 //     finished with dq, the backward of the dense 1-byte table's joined
 //     lookup and of the tiered lram-tiered-q8 training path.
-//   over a row range   lookup_bwd_range_{dq,dw}_{f32,i8,e4m3}: row 9's
+//   over a row range   lookup_bwd_range_{dq,dw}_{f32,bf16,i8,e4m3}: row 9's
 //     backward, on one rank's row-range shard [base, base + rows) of the
 //     table (replaces the autodiff of the shard-local gathers of
 //     src/repro/distributed/sharded_lram.py, sharded_gather_interp,
@@ -53,8 +60,8 @@
 //     counts the in-range distinct rows and the shard's dvalues.
 //
 // Bound on an H100: bytes, at 3.35 TB/s.  Every distinct row the forward
-// read is read once (4m bytes for fp32, m + 4 for a 1-byte row and its
-// scale), plus g (4m a query), idx, rows and w (4k each; rows only where
+// read is read once (4m bytes for fp32, 2m for bf16, m + 4 for a 1-byte
+// row and its scale), plus g (4m a query), idx, rows and w (4k each; rows only where
 // they are not idx), q (32) and the output (32 or 4k); the scatter
 // instances write dvalues once (4Nm bytes: 256 MiB at full width).  The
 // 2·n·k·m flops are far below the fp32 rate.
@@ -602,16 +609,17 @@ lookup_bwd_scatter_zero_kernel(const int32_t* __restrict__ counts,
   }
 }
 
-// A row of values into registers, two columns a lane.
-template <int kCh>
+// A row of values (fp32 or bf16) into registers as fp32, two columns a
+// lane.
+template <typename T, int kCh>
 __device__ __forceinline__ void load_row(float2 (&v)[kCh],
-                                         const float* __restrict__ row,
-                                         int m, int lane) {
+                                         const T* __restrict__ row, int m,
+                                         int lane) {
+  using Raw = gather_batched::Raw<T>;
 #pragma unroll
   for (int ch = 0; ch < kCh; ++ch) {
     const int col = ch * 64 + 2 * lane;
-    v[ch] = col < m ? *reinterpret_cast<const float2*>(row + col)
-                    : make_float2(0.f, 0.f);
+    v[ch] = col < m ? Raw::f32(Raw::pair(row, col)) : make_float2(0.f, 0.f);
   }
 }
 
@@ -651,9 +659,11 @@ __device__ __forceinline__ int row_at(const int32_t* __restrict__ entries,
 // row goes out once (put_row).  Lane j then adds pair j's 32 parts in
 // lane order: dw.  Every warp takes 32 pairs however they fall on rows, so
 // a row that many pairs hit spreads over many warps.
-template <int kCh>  // 64-column chunks a row has at most: 1 or kMaxChunks
+// T: the rows' type (fp32 or bf16); kCh: 64-column chunks a row has at
+// most, 1 or kMaxChunks.
+template <typename T, int kCh>
 __global__ void __launch_bounds__(kWarps * 32)
-lookup_bwd_scatter_sum_kernel(const float* __restrict__ values,
+lookup_bwd_scatter_sum_kernel(const T* __restrict__ values,
                               const int32_t* __restrict__ entries,
                               const int32_t* __restrict__ idx,
                               const int32_t* __restrict__ total_pairs,
@@ -692,7 +702,7 @@ lookup_bwd_scatter_sum_kernel(const float* __restrict__ values,
     float2 vr[kCh];
     int cur = __shfl_sync(kFull, my_r, 0);
     bool whole = cur != before;  // the current run began in this chunk
-    load_row<kCh>(vr, values + static_cast<int64_t>(cur) * m, m, lane);
+    load_row<T, kCh>(vr, values + static_cast<int64_t>(cur) * m, m, lane);
 #pragma unroll
     for (int ch = 0; ch < kCh; ++ch) acc[ch] = make_float2(0.f, 0.f);
     for (int j = 0; j < cnt; ++j) {
@@ -702,7 +712,8 @@ lookup_bwd_scatter_sum_kernel(const float* __restrict__ values,
                      lane);
         cur = r;
         whole = true;
-        load_row<kCh>(vr, values + static_cast<int64_t>(cur) * m, m, lane);
+        load_row<T, kCh>(vr, values + static_cast<int64_t>(cur) * m, m,
+                         lane);
 #pragma unroll
         for (int ch = 0; ch < kCh; ++ch) acc[ch] = make_float2(0.f, 0.f);
       }
@@ -842,7 +853,7 @@ int launch(const void* values, const void* scale, const void* rows,
 // dvalues (rows, m), every row written, and dw (n, k) (the in-range k's
 // only; the others 0) or dq (n, 8): the pairs (idx[t,k] - base, t, k)
 // counted and placed by row, then summed 32 at a time, then dq from dw.
-template <bool kDq, bool kRange = false>
+template <typename T, bool kDq, bool kRange = false>
 int launch_with_scatter(const void* values, const void* idx, const void* w,
                         const void* g, const void* q, void* dvalues,
                         void* out, void* scratch, int n, int top_k, int m,
@@ -874,15 +885,16 @@ int launch_with_scatter(const void* values, const void* idx, const void* w,
                                             rows, m);
   if (pairs > 0) {
     const int sum_blocks = blocks_for(static_cast<int>((pairs + 31) / 32));
-    const float* vals = static_cast<const float*>(values);
+    const T* vals = static_cast<const T*>(values);
     const float* wf = static_cast<const float*>(w);
     const float* gf = static_cast<const float*>(g);
     const int32_t* total = s.block + s.blocks;
     if (m <= 64)
-      lookup_bwd_scatter_sum_kernel<1><<<sum_blocks, kWarps * 32, 0, st>>>(
-          vals, s.entries, ix, total, wf, gf, dv, dw, top_k, m, base);
+      lookup_bwd_scatter_sum_kernel<T, 1>
+          <<<sum_blocks, kWarps * 32, 0, st>>>(vals, s.entries, ix, total, wf,
+                                               gf, dv, dw, top_k, m, base);
     else
-      lookup_bwd_scatter_sum_kernel<kMaxChunks>
+      lookup_bwd_scatter_sum_kernel<T, kMaxChunks>
           <<<sum_blocks, kWarps * 32, 0, st>>>(vals, s.entries, ix, total,
                                                wf, gf, dv, dw, top_k, m,
                                                base);
@@ -903,26 +915,29 @@ extern "C" long long lookup_bwd_scatter_scratch(int n, int top_k, int rows) {
          2LL * static_cast<long long>(n) * top_k;
 }
 
-// B3's backward: dvalues (N, m), written whole, and dq (n, 8); rows = idx.
-extern "C" int lookup_bwd_dq_f32(const void* values, const void* idx,
-                                 const void* w, const void* g, const void* q,
-                                 void* dvalues, void* dq, void* scratch,
-                                 int n, int top_k, int m, int rows,
-                                 const int* wrap, int device, void* stream) {
-  return launch_with_scatter<true>(values, idx, w, g, q, dvalues, dq,
-                                   scratch, n, top_k, m, rows, wrap, device,
-                                   stream);
-}
+// B3's backward: dvalues (N, m) fp32, written whole, and dq (n, 8); rows =
+// idx.  B1's VJP: dvalues and dw (n, k).  Over fp32 or bf16 rows.
+#define LOOKUP_BWD_SCATTER(NAME, T)                                           \
+  extern "C" int lookup_bwd_dq_##NAME(                                        \
+      const void* values, const void* idx, const void* w, const void* g,      \
+      const void* q, void* dvalues, void* dq, void* scratch, int n,           \
+      int top_k, int m, int rows, const int* wrap, int device,                \
+      void* stream) {                                                         \
+    return launch_with_scatter<T, true>(values, idx, w, g, q, dvalues, dq,    \
+                                        scratch, n, top_k, m, rows, wrap,     \
+                                        device, stream);                      \
+  }                                                                           \
+  extern "C" int lookup_bwd_dw_##NAME(                                        \
+      const void* values, const void* idx, const void* w, const void* g,      \
+      void* dvalues, void* dw, void* scratch, int n, int top_k, int m,        \
+      int rows, int device, void* stream) {                                   \
+    return launch_with_scatter<T, false>(values, idx, w, g, nullptr, dvalues, \
+                                         dw, scratch, n, top_k, m, rows,      \
+                                         nullptr, device, stream);            \
+  }
 
-// B1's VJP: dvalues (N, m), written whole, and dw (n, k).
-extern "C" int lookup_bwd_dw_f32(const void* values, const void* idx,
-                                 const void* w, const void* g, void* dvalues,
-                                 void* dw, void* scratch, int n, int top_k,
-                                 int m, int rows, int device, void* stream) {
-  return launch_with_scatter<false>(values, idx, w, g, nullptr, dvalues, dw,
-                                    scratch, n, top_k, m, rows, nullptr,
-                                    device, stream);
-}
+LOOKUP_BWD_SCATTER(f32, float)
+LOOKUP_BWD_SCATTER(bf16, __nv_bfloat16)
 
 // No scatter, over the rows `rows` of a table: dq (n, 8) with q, idx and
 // the torus (wrap), else dw (n, k).  `scale` is null for fp32 rows; w is
@@ -951,29 +966,30 @@ LOOKUP_BWD_ROWS(i8, int8_t)
 LOOKUP_BWD_ROWS(e4m3, __nv_fp8_e4m3)
 
 // Row 9's backward over the shard [base, base + rows) of the table: the
-// in-range k only, rows read at idx - base.  fp32: w (x) g scattered into
-// the shard's (rows, m) dvalues, written whole, and the partial dq (n, 8)
-// or dw (n, k).
-extern "C" int lookup_bwd_range_dq_f32(const void* values, const void* idx,
-                                       const void* w, const void* g,
-                                       const void* q, void* dvalues, void* dq,
-                                       void* scratch, int n, int top_k, int m,
-                                       int base, int rows, const int* wrap,
-                                       int device, void* stream) {
-  return launch_with_scatter<true, true>(values, idx, w, g, q, dvalues, dq,
-                                         scratch, n, top_k, m, rows, wrap,
-                                         device, stream, base);
-}
+// in-range k only, rows read at idx - base.  fp32 or bf16 rows: w (x) g
+// scattered into the shard's (rows, m) fp32 dvalues, written whole, and
+// the partial dq (n, 8) or dw (n, k).
+#define LOOKUP_BWD_RANGE_SCATTER(NAME, T)                                     \
+  extern "C" int lookup_bwd_range_dq_##NAME(                                  \
+      const void* values, const void* idx, const void* w, const void* g,      \
+      const void* q, void* dvalues, void* dq, void* scratch, int n,           \
+      int top_k, int m, int base, int rows, const int* wrap, int device,      \
+      void* stream) {                                                         \
+    return launch_with_scatter<T, true, true>(values, idx, w, g, q, dvalues,  \
+                                              dq, scratch, n, top_k, m, rows, \
+                                              wrap, device, stream, base);    \
+  }                                                                           \
+  extern "C" int lookup_bwd_range_dw_##NAME(                                  \
+      const void* values, const void* idx, const void* w, const void* g,      \
+      void* dvalues, void* dw, void* scratch, int n, int top_k, int m,        \
+      int base, int rows, int device, void* stream) {                         \
+    return launch_with_scatter<T, false, true>(                               \
+        values, idx, w, g, nullptr, dvalues, dw, scratch, n, top_k, m, rows,  \
+        nullptr, device, stream, base);                                       \
+  }
 
-extern "C" int lookup_bwd_range_dw_f32(const void* values, const void* idx,
-                                       const void* w, const void* g,
-                                       void* dvalues, void* dw, void* scratch,
-                                       int n, int top_k, int m, int base,
-                                       int rows, int device, void* stream) {
-  return launch_with_scatter<false, true>(values, idx, w, g, nullptr, dvalues,
-                                          dw, scratch, n, top_k, m, rows,
-                                          nullptr, device, stream, base);
-}
+LOOKUP_BWD_RANGE_SCATTER(f32, float)
+LOOKUP_BWD_RANGE_SCATTER(bf16, __nv_bfloat16)
 
 // 1-byte shards (frozen, no scatter): the partial dq or dw.
 #define LOOKUP_BWD_RANGE_QUANT(NAME, T)                                       \

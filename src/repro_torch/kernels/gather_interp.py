@@ -1,6 +1,7 @@
 """K1 and B4: the value gather + interpolation.
 
-    K1:  out[t] = sum_k w[t,k] * values[idx[t,k]]                (fp32 table)
+    K1:  out[t] = sum_k w[t,k] * values[idx[t,k]]                (fp32 or
+                                                                  bf16 table)
     B4:  out[t] = sum_k (w[t,k] * scale[i]) * q[i], i = idx[t,k]  (int8 or
          float8_e4m3fn payload, one fp32 scale per row)
 
@@ -11,7 +12,11 @@ and `gather_interp_quant_vjp`, whose backwards are `ops.lookup_bwd` and
 `gather_interp_quant` launch the hand-written kernels in
 `csrc/gather_interp.cu` and `csrc/gather_interp_quant.cu` (design and bound
 noted there) or raise; on a CPU tensor they take `gather_interp_plain` and
-`gather_interp_quant_plain`, the same functions in plain torch.
+`gather_interp_quant_plain`, the same functions in plain torch.  A bf16
+table (`LRAMConfig.table_dtype`) takes K1's bf16 instance,
+`gather_interp_bf16`, with a launch count of its own: each row widened to
+fp32 exactly, fp32 weights and sums, bit-equal to the fp32 instance on
+`values.float()`.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from repro_torch import quant
 from repro_torch.kernels import _build
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the table dtypes K1 takes -> (symbol suffix, alignment its pair loads need)
+TABLE_KINDS = {torch.float32: ("f32", 8), torch.bfloat16: ("bf16", 4)}
 _QUANT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _QUANT_SYMBOL = {torch.int8: "gather_interp_quant_i8",
                  torch.float8_e4m3fn: "gather_interp_quant_e4m3"}
@@ -31,7 +38,9 @@ _QUANT_SYMBOL = {torch.int8: "gather_interp_quant_i8",
 
 def gather_interp_plain(values: torch.Tensor, idx: torch.Tensor,
                         w: torch.Tensor) -> torch.Tensor:
-    """sum_k w[..., k] * values[idx[..., k]] -> (..., m), fp32 accumulate."""
+    """sum_k w[..., k] * values[idx[..., k]] -> (..., m), fp32 accumulate;
+    a bf16 table's rows are cast to fp32 before the product, as the
+    reference's are."""
     rows = values[idx.long()].float()  # (..., k, m)
     return torch.einsum("...k,...km->...m", w.float(), rows)
 
@@ -84,30 +93,48 @@ def gather_interp(values: torch.Tensor, idx: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
     """sum_k w[..., k] * values[idx[..., k]] -> (..., m) float32.
 
-    values (N, m) float32, contiguous; idx (..., k) int32 in [0, N);
-    w (..., k) float32 on either device (another dtype of values or w
-    raises, never cast).  On a CUDA tensor the output carries no
-    gradient, so it raises when grad mode is on and values or w require
-    grad: `gather_interp_vjp` is the differentiable form.  Its offsets
-    are 64-bit and its grid is capped (a grid-stride loop), so n * k and
-    n * m may pass 2^31.
+    values (N, m) float32 or bfloat16, contiguous; idx (..., k) int32 in
+    [0, N); w (..., k) float32 on either device (another dtype of values
+    or w raises, never cast).  A bf16 table launches K1's bf16 instance
+    (`gather_interp_bf16`'s count).  On a CUDA tensor the output carries
+    no gradient, so it raises when grad mode is on and values or w
+    require grad: `gather_interp_vjp` is the differentiable form.  Its
+    offsets are 64-bit and its grid is capped (a grid-stride loop), so
+    n * k and n * m may pass 2^31.
     """
-    if values.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"gather_interp takes a float32 table and weights, "
-                        f"got {values.dtype} and {w.dtype}")
+    if values.dtype not in TABLE_KINDS or w.dtype != torch.float32:
+        raise TypeError(f"gather_interp takes a float32 or bfloat16 table "
+                        f"and float32 weights, got {values.dtype} and "
+                        f"{w.dtype}")
     if not values.is_cuda:
         return gather_interp_plain(values, idx, w)
     _build.refuse_grad("gather_interp", values, w)
-    idx2, w2, lead = flat_gather_args(values, idx, w, "gather_interp")
+    suffix, align = TABLE_KINDS[values.dtype]
+    idx2, w2, lead = flat_gather_args(values, idx, w, "gather_interp",
+                                      align=align)
     n, top_k, m, out = gather_output(values, idx2)
     if n:
-        fn = _build.function("gather_interp", "gather_interp_f32", _ARGS)
+        fn = _build.function("gather_interp", f"gather_interp_{suffix}",
+                             _ARGS)
         status = fn(values.data_ptr(), idx2.data_ptr(), w2.data_ptr(),
                     out.data_ptr(), n, top_k, m, values.device.index,
                     current_stream(values))
         _build.check(status, "gather_interp")
-        gather_interp.launches += 1
+        counter = (gather_interp_bf16 if values.dtype == torch.bfloat16
+                   else gather_interp)
+        counter.launches += 1
     return out.reshape(*lead, m)
+
+
+def gather_interp_bf16(values: torch.Tensor, idx: torch.Tensor,
+                       w: torch.Tensor) -> torch.Tensor:
+    """K1 on a bfloat16 table (`gather_interp` on one; its launches count
+    here): sum_k w[..., k] * float(values[idx[..., k]]) -> (..., m)
+    float32, bit-equal to the fp32 instance on `values.float()`."""
+    if values.dtype != torch.bfloat16:
+        raise TypeError(f"gather_interp_bf16 takes a bfloat16 table, got "
+                        f"{values.dtype}")
+    return gather_interp(values, idx, w)
 
 
 def gather_interp_quant(q: torch.Tensor, scale: torch.Tensor,
@@ -189,4 +216,5 @@ def gather_interp_quant_vjp(q: torch.Tensor, scale: torch.Tensor,
 
 #: kernel launches since the last reset (a run shows the path used K1, B4)
 gather_interp.launches = 0
+gather_interp_bf16.launches = 0
 gather_interp_quant.launches = 0

@@ -11,8 +11,8 @@ nearest torus image of the lattice point x_k that idx_k names and relu_k
 = max(0, 1 - |delta_k|^2 / 8): the analytic derivative of w = relu^4.
 Where the table's gradient goes depends on the table (`lram_lookup`):
 
-  * a dense fp32 tensor: scattered into a dense dvalues (B3's backward,
-    `lookup_bwd`);
+  * a dense fp32 or bf16 tensor: scattered into a dense fp32 dvalues
+    (B3's backward, `lookup_bwd`), rounded once to a bf16 table's dtype;
   * a `RowSource`, a table autograd does not own: its rows are read
     through the source (a dense 1-byte table's own rows; a tiered store's
     flat table of cache + overflow rows) and w (x) g goes to its sink (the
@@ -150,17 +150,23 @@ def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     """The lookup's backward: (dvalues (N, m), dq (..., 8)) when q and spec
     are given, else (dvalues, dw (..., k)).
 
-    values (N, m) float32, m even and <= 256; idx (..., k) int32 in
-    [0, N); w (..., k) float32; g (..., m) float32; q (..., 8) float32.
-    All contiguous, on one device.
+    values (N, m) float32 or bfloat16, m even and <= 256; idx (..., k)
+    int32 in [0, N); w (..., k) float32; g (..., m) float32; q (..., 8)
+    float32.  All contiguous, on one device.  dvalues is float32 either
+    way (summed in fp32; the caller rounds it once to a bf16 table's
+    dtype, as the reference's VJPs do); a bf16 table launches the bf16
+    instances (`lookup_bwd_bf16`'s count).
     """
     if not values.is_cuda:
         return lookup_bwd_plain(values, idx, w, g, q, spec)
-    if values.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"lookup_bwd takes float32 values and g, got "
-                        f"{values.dtype} and {g.dtype}")
-    idx2, w2, lead = gather_interp.flat_gather_args(values, idx, w,
-                                                    "lookup_bwd")
+    if values.dtype not in gather_interp.TABLE_KINDS \
+            or g.dtype != torch.float32:
+        raise TypeError(f"lookup_bwd takes float32 or bfloat16 values and "
+                        f"float32 g, got {values.dtype} and {g.dtype}")
+    name, align = gather_interp.TABLE_KINDS[values.dtype]
+    counter = lookup_bwd_bf16 if name == "bf16" else lookup_bwd
+    idx2, w2, lead = gather_interp.flat_gather_args(
+        values, idx, w, "lookup_bwd", align=align)
     n, top_k, m = idx2.shape[0], idx2.shape[1], values.shape[1]
     if m % 2 or m > _MAX_M:
         raise ValueError(f"lookup_bwd kernel takes an even m <= {_MAX_M}, "
@@ -170,20 +176,21 @@ def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"g must be a contiguous {(*lead, m)} tensor on "
                          f"the table's device, got {tuple(g.shape)}")
     # the kernel writes every row of dvalues, untouched ones as zeros
-    dvalues = torch.empty_like(values)
+    dvalues = torch.empty(values.shape, dtype=torch.float32,
+                          device=values.device)
     num_rows = values.shape[0]
     scratch = _scatter_scratch(n, top_k, num_rows, values.device)
     stream = gather_interp.current_stream(values)
     if q is None:
         out = torch.empty((n, top_k), dtype=torch.float32,
                           device=values.device)
-        status = _build.function("lookup_bwd", "lookup_bwd_dw_f32",
+        status = _build.function("lookup_bwd", f"lookup_bwd_dw_{name}",
                                  _DW_ARGS)(
             values.data_ptr(), idx2.data_ptr(), w2.data_ptr(), g.data_ptr(),
             dvalues.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
             top_k, m, num_rows, values.device.index, stream)
         _build.check(status, "lookup_bwd (dw)")
-        lookup_bwd.launches += 1
+        counter.launches += 1
         return dvalues, out.reshape(*lead, top_k)
     if q.dtype != torch.float32 or q.shape != (*lead, lattice.DIM) \
             or not q.is_contiguous() or q.device != values.device:
@@ -193,17 +200,31 @@ def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     out = torch.empty((n, lattice.DIM), dtype=torch.float32,
                       device=values.device)
     wrap = (ctypes.c_int * lattice.DIM)(*spec.K)
-    status = _build.function("lookup_bwd", "lookup_bwd_dq_f32", _DQ_ARGS)(
+    status = _build.function("lookup_bwd", f"lookup_bwd_dq_{name}",
+                             _DQ_ARGS)(
         values.data_ptr(), idx2.data_ptr(), w2.data_ptr(), g.data_ptr(),
         q.data_ptr(), dvalues.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         n, top_k, m, num_rows, wrap, values.device.index, stream)
     _build.check(status, "lookup_bwd (dq)")
-    lookup_bwd.launches += 1
+    counter.launches += 1
     return dvalues, out.reshape(*lead, lattice.DIM)
+
+
+def lookup_bwd_bf16(values: torch.Tensor, idx: torch.Tensor,
+                    w: torch.Tensor, g: torch.Tensor,
+                    q: torch.Tensor | None = None,
+                    spec: indexing.TorusSpec | None = None):
+    """`lookup_bwd` on a bfloat16 table (its launches count here): the
+    rows read as bf16 and widened to fp32 exactly, dvalues (N, m) fp32."""
+    if values.dtype != torch.bfloat16:
+        raise TypeError(f"lookup_bwd_bf16 takes a bfloat16 table, got "
+                        f"{values.dtype}")
+    return lookup_bwd(values, idx, w, g, q, spec)
 
 
 #: kernel launches since the last reset (a run shows the path used it)
 lookup_bwd.launches = 0
+lookup_bwd_bf16.launches = 0
 
 
 # values, scale, rows, idx, w, g, q, dq, n, k, m, wrap, device, stream
@@ -343,8 +364,10 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
     q and spec are given, else (dvalues, dw), over the in-range k only.
 
     values (rows, m) is the shard [base, base + rows) of the table: fp32
-    (dvalues (rows, m) is the scatter-add of w (x) g at idx - base), or a
-    1-byte payload with `scale` (rows,) float32 (frozen: dvalues is None).
+    or bf16 (dvalues (rows, m) fp32 is the scatter-add of w (x) g at
+    idx - base; a bf16 shard launches `lookup_bwd_range_bf16`'s count),
+    or a 1-byte payload with `scale` (rows,) float32 (frozen: dvalues is
+    None).
     dq (..., 8) and dw (..., k) are the shard's PARTIAL sums (dw_k = 0 for
     an index the shard does not hold): the partials of the `model` ranks
     sum to the whole.  idx (..., k) int32, indices of the whole table;
@@ -356,15 +379,19 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
     if not values.is_cuda:
         return lookup_bwd_plain(values, idx, w, g, q, spec, scale=scale,
                                 scatter=scale is None, base=base)
-    if (scale is None) != (values.dtype == torch.float32) \
-            or values.dtype not in _ROWS_PAYLOAD:
-        raise TypeError(f"lookup_bwd_range takes a float32 shard, or an "
-                        f"int8 / float8_e4m3fn shard with its scales; got "
-                        f"{values.dtype} with scale={scale is not None}")
+    f32 = scale is None  # the scatter instances (fp32 or bf16 rows)
+    kinds = gather_interp.TABLE_KINDS if f32 else {
+        t: (n, 8) for t, n in _ROWS_PAYLOAD.items() if t != torch.float32}
+    if values.dtype not in kinds:
+        raise TypeError(f"lookup_bwd_range takes a float32 or bfloat16 "
+                        f"shard, or an int8 / float8_e4m3fn shard with its "
+                        f"scales; got {values.dtype} with "
+                        f"scale={scale is not None}")
     if g.dtype != torch.float32:
         raise TypeError(f"lookup_bwd_range takes float32 g, got {g.dtype}")
-    idx2, w2, lead = gather_interp.flat_gather_args(values, idx, w,
-                                                    "lookup_bwd_range")
+    name, align = kinds[values.dtype]
+    idx2, w2, lead = gather_interp.flat_gather_args(
+        values, idx, w, "lookup_bwd_range", align=align)
     n, top_k, m = idx2.shape[0], idx2.shape[1], values.shape[1]
     if m % 2 or m > _MAX_M:
         raise ValueError(f"lookup_bwd_range kernel takes an even m <= "
@@ -380,8 +407,6 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
                          "on the shard's device")
     base = sharded_gather.check_shard_base(values, base, "lookup_bwd_range")
     rows = values.shape[0]
-    name = _ROWS_PAYLOAD[values.dtype]
-    f32 = scale is None
     stream = gather_interp.current_stream(values)
     if q is not None and (
             q.dtype != torch.float32 or q.shape != (*lead, lattice.DIM)
@@ -389,8 +414,9 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"q must be a contiguous float32 {(*lead, 8)} "
                          f"tensor on the shard's device, got "
                          f"{tuple(q.shape)} {q.dtype}")
-    # the fp32 kernel writes every row of the shard's dvalues
-    dvalues = torch.empty_like(values) if f32 else None
+    # the scatter kernel writes every row of the shard's fp32 dvalues
+    dvalues = (torch.empty(values.shape, dtype=torch.float32,
+                           device=values.device) if f32 else None)
     out = torch.empty((n, top_k if q is None else lattice.DIM),
                       dtype=torch.float32, device=values.device)
     if not (n or f32):
@@ -411,12 +437,26 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
         (_RANGE_DW_ARGS if q is None else _RANGE_DQ_ARGS)[f32])(
         *ptrs, *args, values.device.index, stream)
     _build.check(status, f"lookup_bwd_range ({stage})")
-    lookup_bwd_range.launches += 1
+    (lookup_bwd_range_bf16 if name == "bf16"
+     else lookup_bwd_range).launches += 1
     return dvalues, out.reshape(*lead, out.shape[1])
+
+
+def lookup_bwd_range_bf16(values: torch.Tensor, idx: torch.Tensor,
+                          w: torch.Tensor, g: torch.Tensor, base: int, *,
+                          q: torch.Tensor | None = None,
+                          spec: indexing.TorusSpec | None = None):
+    """`lookup_bwd_range` on a bfloat16 shard (its launches count here):
+    dvalues (rows, m) fp32 and the partial dq or dw."""
+    if values.dtype != torch.bfloat16:
+        raise TypeError(f"lookup_bwd_range_bf16 takes a bfloat16 shard, "
+                        f"got {values.dtype}")
+    return lookup_bwd_range(values, idx, w, g, base, q=q, spec=spec)
 
 
 #: kernel launches since the last reset
 lookup_bwd_range.launches = 0
+lookup_bwd_range_bf16.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -505,7 +545,7 @@ def lram_lookup(values, q: torch.Tensor, spec: indexing.TorusSpec,
                 return_access: bool = False):
     """out[t] = sum_k f(d(q_t, k)) * values[k] over the top_k nearest slots,
     differentiable in q, and in values when it is a dense (N, m) float32
-    tensor; a `RowSource` takes the table's gradient itself (or is
+    or bfloat16 tensor (its gradient summed in fp32 and rounded once); a `RowSource` takes the table's gradient itself (or is
     frozen).  q (..., 8) float32 torus coordinates, contiguous.  With
     `return_access` returns (out, (idx, w))."""
     if isinstance(values, RowSource):

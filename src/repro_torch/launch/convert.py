@@ -33,7 +33,8 @@ manager (which gathers them on save and keeps this rank's block on
 restore), and `load_reference_tree` keeps this rank's block of a global
 leaf it is given.
 
-A memory layer's table (`...lram.values`) is an (N, m) fp32 array, or a
+A memory layer's table (`...lram.values`) is an (N, m) array in the
+layer's `LRAMConfig.table_dtype` (fp32, or bfloat16 bits), or a
 quantized table as ``{"q": payload, "scale": scales}``: the reference's
 payload (int8, or float8_e4m3fn as its uint8 bytes) and per-row scales,
 read from a `QuantizedTable` or, shard by shard, from a tiered store's
@@ -282,8 +283,9 @@ def _load_tables(model: transformer.Transformer,
             continue
         key = f"{name}.values"
         plan = lookup.resolve(layer.cfg)
-        if key in flat:
-            layer.values = plan.build_table(flat.pop(key))
+        if key in flat:  # in the layer's table dtype (bf16 bits exact)
+            layer.values = plan.build_table(
+                flat.pop(key).to(layer.cfg.torch_table_dtype))
         elif f"{key}.q" in flat:
             if plan.table_from_payload is None:
                 raise ValueError(f"{key}: a quantized payload cannot fill "

@@ -3,13 +3,16 @@ storage cells without a restart (torch counterpart of
 `repro.memctl.migrate`).
 
 The source table is read in storage form (the 1-byte payload and per-row
-scales of a quantized table, fp32 rows otherwise) and streamed into the
+scales of a quantized table, bf16 rows as their raw bits, fp32 rows
+otherwise) and streamed into the
 target: a store target (`LookupPlan.build_empty`) shard by shard through
 `load_shard`, the checkpoint's byte layout in memory; a dense target
 whole.  The target lands on the source table's device.
 
 * Same storage: payload-exact (bytes move, nothing is requantized), so
-  dense -> tiered -> sharded-tiered -> dense gives the same logits.
+  dense -> tiered -> sharded-tiered -> dense gives the same logits; a
+  bf16 table keeps its bits (a dense bf16 table spills into a bf16 host
+  tier).
 * Quantized -> fp32 dequantizes exactly; fp32 -> quantized rounds to
   nearest, within `quant.max_abs_error_bound`; a quantized pair of other
   kinds requantizes through fp32.
@@ -44,7 +47,7 @@ def _device(table) -> torch.device:
 
 def _read_rows(table, lo: int, hi: int):
     """(payload, scales or None) of rows [lo, hi) of any table, in storage
-    form (fp8 as its uint8 bytes), on the host."""
+    form (fp8 as its uint8 bytes, bf16 as its uint16 bits), on the host."""
     if lookup.is_store(table):
         return table._read_rows_raw(np.arange(lo, hi, dtype=np.int64))
     if isinstance(table, quant.QuantizedTable):
@@ -52,12 +55,14 @@ def _read_rows(table, lo: int, hi: int):
         if q.dtype == torch.float8_e4m3fn:
             q = q.view(torch.uint8)
         return q.cpu().numpy(), table.scale[lo:hi].cpu().numpy()
+    if table.dtype == torch.bfloat16:
+        return quant.bf16_bits(table[lo:hi]), None
     return table[lo:hi].detach().cpu().numpy(), None
 
 
 def _to_fp32(payload: np.ndarray, scales) -> np.ndarray:
     if scales is None:
-        return np.asarray(payload, np.float32)
+        return quant.host_rows_f32(payload)
     return quant.dequantize_rows_np(payload, scales)
 
 
@@ -90,9 +95,10 @@ def migrate_table(table, src_cfg, dst_cfg):
         return dst.to(device)
 
     payload, scales = _read_rows(table, 0, src_cfg.num_locations)
-    if dst_plan.storage == "fp32":
+    if dst_plan.storage == "fp32":  # in the target's table dtype
         return nn.Parameter(torch.from_numpy(
-            np.ascontiguousarray(_to_fp32(payload, scales))).to(device))
+            np.ascontiguousarray(_to_fp32(payload, scales))).to(
+                device, dst_cfg.torch_table_dtype))
     if scales is None or payload.dtype != quant.storage_dtype(
             dst_plan.storage):
         payload, scales = quant.quantize_rows_np(_to_fp32(payload, scales),

@@ -66,7 +66,8 @@ def tiered_plan(cfg, storage: str, kernel: str) -> lookup.LookupPlan:
         build_table=lambda dense: TieredValueStore.from_dense(dense, spec),
         table_from_payload=lambda q, scale: TieredValueStore.from_payload(
             q, scale, spec),
-        build_empty=lambda: TieredValueStore(cfg.num_locations, cfg.m, spec))
+        build_empty=lambda: TieredValueStore(cfg.num_locations, cfg.m, spec,
+                                             cfg.torch_table_dtype))
 
 
 def check_spec(cell, spec, rows: int) -> None:

@@ -7,8 +7,10 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
                           row    r &  (shard_rows - 1)
 
   * **Host tier** — one `(num_shards, shard_rows, m)` numpy array: fp32,
-    or a 1-byte payload (int8, or e4m3 bytes as uint8) plus
-    `(num_shards, shard_rows)` fp32 scales for a quantized store.  In host
+    bf16 (a store of `dtype=torch.bfloat16`, the table's
+    `LRAMConfig.table_dtype`: its raw bits as uint16, the reference's
+    ml_dtypes bytes), or a 1-byte payload (int8, or e4m3 bytes as uint8)
+    plus `(num_shards, shard_rows)` fp32 scales for a quantized store.  In host
     RAM (`backing="ram"`), or a memory-mapped ``.npy`` file on disk
     (`backing="mmap"`: ``values_{N}x{m}.npy`` and ``scales_{N}x{m}.npy``
     under `TieredSpec.backing_dir`, or a fresh ``memstore_*`` temporary
@@ -19,6 +21,9 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     (`.to(device)` moves it; the host tier stays on the host), their host
     mirror `cache_np` (the slots' current contents, which the write-back
     updates), and the indirection `shard -> slot` (-1 = not resident).
+    The cache is fp32 over a bf16 host tier, as the reference's is: a
+    fill widens the bits exactly, an eviction of a dirty slot rounds it
+    back to bf16.
   * **Fills** are batched per lookup: the shards a batch touches are made
     resident first (LRU eviction, the batch's shards pinned; a dirty
     victim is written back to its host shard first), and every slot filled
@@ -40,7 +45,9 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     host as a sparse SGD step (`writeback_lr`, 0 = off): to the cache
     mirror for resident rows, whose slots turn dirty (written back to the
     host shard on eviction or `flush`) and stale on the device, and to the
-    host tier for the others.  A quantized store dequantizes the touched
+    host tier for the others (a bf16 host row adds each pair's update,
+    rounded to bf16, and rounds after each add: the reference's
+    `np.add.at` on its bf16 array).  A quantized store dequantizes the touched
     rows, applies the summed update and requantizes with a fresh per-row
     scale and stochastic rounding (int8; fp8 rounds to nearest), drawing
     from its own `np.random.default_rng(0)` in the reference's order, so
@@ -126,7 +133,8 @@ class TieredValueStore(nn.Module):
     it.  The table's payload enters through `from_dense` / `from_payload`.
     """
 
-    def __init__(self, num_rows: int, m: int, spec: TieredSpec):
+    def __init__(self, num_rows: int, m: int, spec: TieredSpec,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if num_rows % spec.shard_rows:
             raise ValueError(f"num_rows={num_rows} not divisible by "
@@ -136,8 +144,15 @@ class TieredValueStore(nn.Module):
         self.m = m
         self.quant = spec.quant
         quantized = self.quant != "none"
+        if dtype not in _HOST_DTYPE:
+            raise TypeError(f"a tiered store holds float32 or bfloat16 "
+                            f"rows, not {dtype}")
+        # the rows' logical dtype: fp32 or bf16 (the reference's `dtype`);
+        # a quantized store's is fp32 whatever the table's was
+        self.dtype = torch.float32 if quantized else dtype
+        # the host tier's numpy dtype (`_read_rows_raw`'s storage form)
         self.storage_dtype = (quant.storage_dtype(self.quant) if quantized
-                              else np.dtype(np.float32))
+                              else _HOST_DTYPE[self.dtype])
         self.shard_rows = spec.shard_rows
         self.num_shards = num_rows // spec.shard_rows
         self.cache_slots = min(spec.cache_slots, self.num_shards)
@@ -147,7 +162,8 @@ class TieredValueStore(nn.Module):
         # the cache's host mirror: what each slot holds now (fills copy the
         # host shard in, the write-back updates it, syncs upload from it)
         cshape = (self.cache_slots, self.shard_rows, m)
-        self.cache_np = np.zeros(cshape, self.storage_dtype)
+        self.cache_np = np.zeros(cshape, self.storage_dtype if quantized
+                                 else np.float32)
         self.cache_scale_np = (np.zeros(cshape[:-1], np.float32)
                                if quantized else None)
         # device tier: (cache_slots * shard_rows, m) in the payload's raw
@@ -198,12 +214,12 @@ class TieredValueStore(nn.Module):
 
     @classmethod
     def from_dense(cls, values, spec: TieredSpec) -> "TieredValueStore":
-        """A store holding fp32 `values` (N, m), quantized (nearest) on the
-        way in if the spec is quantized."""
-        if isinstance(values, torch.Tensor):
-            values = values.detach().cpu().numpy()
-        values = np.asarray(values, np.float32)
-        store = cls(values.shape[0], values.shape[1], spec)
+        """A store holding `values` (N, m): fp32, or bf16 (a bfloat16
+        tensor, or its bits as uint16) held as a bf16 host tier; quantized
+        (nearest, from the values as fp32) on the way in if the spec is
+        quantized."""
+        values, dtype = host_values(values)
+        store = cls(values.shape[0], values.shape[1], spec, dtype)
         store._fill_host(values)
         return store
 
@@ -231,25 +247,46 @@ class TieredValueStore(nn.Module):
 
     def to_dense(self) -> np.ndarray:
         """Flush the dirty slots and return the full (dequantized) table as
-        an (N, m) fp32 array."""
+        an (N, m) fp32 array (a bf16 host tier's values, exactly)."""
         self.flush()
         if self.quant == "none":
-            return self._host.reshape(self.num_rows, self.m).copy()
+            return quant.host_rows_f32(self._host).reshape(
+                self.num_rows, self.m).copy()
         return quant.dequantize_rows_np(self._host, self._host_scale) \
             .reshape(self.num_rows, self.m)
 
     def _fill_host(self, values: np.ndarray) -> None:
-        shaped = np.asarray(values, np.float32).reshape(self._host.shape)
+        """The host tier from (N, m) fp32 values or bf16 bits: rounded to
+        a bf16 tier, quantized (nearest) for a 1-byte one."""
         if self.quant == "none":
-            self._host[...] = shaped
+            self._host[...] = self._host_form(values).reshape(
+                self._host.shape)
         else:  # nearest rounding: the dense QuantizedTable's payload
+            shaped = quant.host_rows_f32(values).reshape(self._host.shape)
             self._host[...], self._host_scale[...] = \
                 quant.quantize_rows_np(shaped, self.quant)
 
+    def _host_form(self, rows: np.ndarray) -> np.ndarray:
+        """fp32 values or bf16 bits as the dense host tier holds them:
+        bf16 bits (fp32 rounded to nearest even), or fp32."""
+        if self.dtype == torch.bfloat16:
+            if rows.dtype == np.uint16:
+                return rows
+            return quant.f32_to_bf16(rows)
+        return quant.host_rows_f32(rows)
+
+    def _cache_form(self, host_rows: np.ndarray) -> np.ndarray:
+        """Host-tier rows as the cache holds them: a bf16 tier's widened
+        to fp32 (exact); a 1-byte or fp32 payload as it is."""
+        if self.dtype == torch.bfloat16:
+            return quant.bf16_to_f32(host_rows)
+        return host_rows
+
     def load_dense(self, values) -> None:
-        """Replace the table with fp32 `values` (N, m), quantized (nearest)
-        on the way in if the spec is quantized; empties the cache."""
-        values = np.asarray(values)
+        """Replace the table with `values` (N, m) (fp32, or bf16 as a
+        tensor or its bits), rounded to a bf16 host tier or quantized
+        (nearest) on the way in; empties the cache."""
+        values, _ = host_values(values)
         if values.shape != (self.num_rows, self.m):
             raise ValueError(f"shape {values.shape} != "
                              f"{(self.num_rows, self.m)}")
@@ -307,7 +344,7 @@ class TieredValueStore(nn.Module):
                     self._shard_slot[victim] = -1
                     self.stats["evictions"] += 1
                     evictions += 1
-                self.cache_np[slot] = self._host[s]
+                self.cache_np[slot] = self._cache_form(self._host[s])
                 if self.quant != "none":
                     self.cache_scale_np[slot] = self._host_scale[s]
                 self._shard_slot[s] = slot
@@ -517,7 +554,7 @@ class TieredValueStore(nn.Module):
         slot_rows = np.where(mask, slot * self.shard_rows + row, 0)
         if not mask.all():
             inv = ~mask
-            ovf = self._host[shard[inv], row[inv]]
+            ovf = self._cache_form(self._host[shard[inv], row[inv]])
             slot_rows[inv] = table.shape[0] + np.arange(len(ovf))
             table = torch.cat([table, torch.from_numpy(ovf).to(self.device)])
             if table_scale is not None:  # overflow rows stay 1-byte
@@ -572,9 +609,36 @@ class TieredValueStore(nn.Module):
                     self._dev_stale |= touched
                 if not mask.all():
                     inv = ~mask
-                    np.add.at(self._host, (shard[inv], row[inv]), upd[inv])
+                    if self.dtype == torch.bfloat16:
+                        self._add_bf16(shard[inv], row[inv], upd[inv])
+                    else:
+                        np.add.at(self._host, (shard[inv], row[inv]),
+                                  upd[inv])
             self.stats["writebacks"] += 1
         obs.counter("memstore.writebacks").inc()
+
+    def _add_bf16(self, shard: np.ndarray, row: np.ndarray,
+                  upd: np.ndarray) -> None:
+        """host[shard, row] += bf16(upd), pair by pair in order, each sum
+        taken in fp32 and rounded to bf16: the reference's `np.add.at` on
+        its bf16 host tier, duplicates included.  The k-th pair of every
+        row goes in one vectorised step (the rows of a step are distinct),
+        steps in k order."""
+        upd = quant.bf16_to_f32(quant.f32_to_bf16(upd))
+        key = shard * self.shard_rows + row
+        order = np.argsort(key, kind="stable")
+        sk = key[order]
+        first = np.r_[True, sk[1:] != sk[:-1]]
+        pos = np.arange(len(sk))
+        rank = np.empty(len(sk), np.int64)
+        rank[order] = pos - np.maximum.accumulate(np.where(first, pos, 0))
+        by_rank = np.argsort(rank, kind="stable")
+        ends = np.cumsum(np.bincount(rank))
+        for lo, hi in zip(np.r_[0, ends[:-1]], ends):
+            sel = by_rank[lo:hi]
+            sh, rw = shard[sel], row[sel]
+            self._host[sh, rw] = quant.f32_to_bf16(
+                quant.bf16_to_f32(self._host[sh, rw]) + upd[sel])
 
     def _apply_writeback_quant(self, flat: np.ndarray,
                                upd: np.ndarray) -> None:
@@ -611,7 +675,8 @@ class TieredValueStore(nn.Module):
 
     def _flush_slot_to_host(self, slot: int) -> None:
         shard = self._slot_shard[slot]
-        self._host[shard] = self.cache_np[slot]
+        self._host[shard] = (self.cache_np[slot] if self.quant != "none"
+                             else self._host_form(self.cache_np[slot]))
         if self.quant != "none":
             self._host_scale[shard] = self.cache_scale_np[slot]
 
@@ -633,12 +698,15 @@ class TieredValueStore(nn.Module):
 
     def shard_host(self, i: int) -> np.ndarray:
         """Shard `i`'s stored payload as seen through the cache (a dirty
-        slot wins): fp32 rows, or the 1-byte payload of a quantized store
-        (e4m3 as uint8 bytes), whose scales `shard_scale_host` gives."""
+        slot wins, rounded to a bf16 tier): fp32 rows, bf16 bits (uint16),
+        or the 1-byte payload of a quantized store (e4m3 as uint8 bytes),
+        whose scales `shard_scale_host` gives."""
         with self._lock:
             slot = int(self._shard_slot[i])
             if slot >= 0 and slot in self._dirty:
-                return self.cache_np[slot].copy()
+                if self.quant != "none":
+                    return self.cache_np[slot].copy()
+                return np.array(self._host_form(self.cache_np[slot]))
             return self._host[i].copy()
 
     def shard_scale_host(self, i: int) -> np.ndarray:
@@ -653,23 +721,31 @@ class TieredValueStore(nn.Module):
 
     def load_shard(self, i: int, arr: np.ndarray,
                    scale: np.ndarray | None = None) -> None:
-        """Replace shard `i` with `arr` (shard_rows, m): fp32 rows
-        (quantized, nearest, if the store is), or a 1-byte payload (int8,
-        or e4m3 as uint8 bytes) with its per-row `scale` (dequantized for a
+        """Replace shard `i` with `arr` (shard_rows, m): fp32 rows or bf16
+        bits (uint16; quantized, nearest, if the store is; rounded to a
+        bf16 tier, widened to an fp32 one), or a 1-byte payload (int8, or
+        e4m3 as uint8 bytes) with its per-row `scale` (dequantized for a
         dense store, requantized for one of the other kind).  A cached copy
-        is refreshed: stale on the device, no longer dirty."""
+        is refreshed: stale on the device, no longer dirty; it takes the
+        rows as given, widened to fp32 (the reference's
+        `arr.astype(np.float32)`), not the bf16 tier's rounding of them."""
         arr = np.asarray(arr)
         if arr.shape != (self.shard_rows, self.m):
             raise ValueError(f"shard {i}: shape {arr.shape} != "
                              f"{(self.shard_rows, self.m)}")
         if scale is not None and arr.dtype.itemsize != 1:
             raise ValueError("scale given but payload is not quantized")
+        cached = None
+        if quant.is_bf16_bits(arr):
+            arr = arr.view(np.uint16)  # the reference's V2 bytes too
         if self.quant == "none":
-            q = (quant.dequantize_rows_np(arr, scale) if scale is not None
-                 else np.asarray(arr, np.float32))
-            s = None
+            rows = (quant.dequantize_rows_np(arr, scale) if scale is not None
+                    else arr)
+            q, s, cached = self._host_form(rows), None, \
+                quant.host_rows_f32(rows)
         elif scale is None:  # fp rows: quantize (nearest) on the way in
-            q, s = quant.quantize_rows_np(arr, self.quant)
+            q, s = quant.quantize_rows_np(quant.host_rows_f32(arr),
+                                          self.quant)
         elif arr.dtype != self.storage_dtype:  # the other kind: requantize
             q, s = quant.quantize_rows_np(
                 quant.dequantize_rows_np(arr, scale), self.quant)
@@ -681,7 +757,7 @@ class TieredValueStore(nn.Module):
                 self._host_scale[i] = s
             slot = int(self._shard_slot[i])
             if slot >= 0:  # refresh the cached copy too
-                self.cache_np[slot] = q
+                self.cache_np[slot] = q if cached is None else cached
                 if s is not None:
                     self.cache_scale_np[slot] = s
                 self._dirty.discard(slot)
@@ -692,7 +768,8 @@ class TieredValueStore(nn.Module):
     def _read_rows_raw(self, rows: np.ndarray):
         """(payload, scales or None) of global row ids in storage form (the
         1-byte payload, fp8 as its uint8 bytes, and per-row scales; else
-        fp32 rows), read from the host tier after flushing the dirty slots.
+        fp32 rows or bf16 bits), read from the host tier after flushing the
+        dirty slots.
         Residency, LRU order and stats are untouched: the bulk read of
         growth and migration, not a lookup."""
         with self._lock:
@@ -760,7 +837,10 @@ class TieredValueStore(nn.Module):
             }
 
     def bytes_per_entry(self) -> int:
-        """Host-tier storage bytes per table row (payload + scale)."""
+        """Host-tier storage bytes per table row (payload + scale; 2m for
+        a bf16 tier)."""
+        if self.quant == "none":
+            return self.m * self.dtype.itemsize
         return quant.bytes_per_entry(self.m, self.quant)
 
     def hit_rate(self) -> float:
@@ -776,7 +856,26 @@ class TieredValueStore(nn.Module):
         return (f"rows={self.num_rows}, m={self.m}, "
                 f"shards={self.num_shards}x{self.shard_rows}, "
                 f"slots={self.cache_slots}, quant={self.quant!r}, "
-                f"device={self.device}")
+                f"dtype={self.dtype}, device={self.device}")
+
+
+# a dense store's rows -> its host tier's numpy dtype (bf16 as raw bits)
+_HOST_DTYPE = {torch.float32: np.dtype(np.float32),
+               torch.bfloat16: np.dtype(np.uint16)}
+
+
+def host_values(values) -> tuple[np.ndarray, torch.dtype]:
+    """(host array, dtype) of a table handed to a store: a bfloat16 tensor
+    (or bf16 bits: uint16, the reference's `V2` bytes) as its bits and
+    torch.bfloat16; anything else as fp32 values and torch.float32."""
+    if isinstance(values, torch.Tensor):
+        if values.dtype == torch.bfloat16:
+            return quant.bf16_bits(values), torch.bfloat16
+        return values.detach().float().cpu().numpy(), torch.float32
+    values = np.asarray(values)
+    if quant.is_bf16_bits(values):
+        return values.view(np.uint16), torch.bfloat16
+    return np.asarray(values, np.float32), torch.float32
 
 
 def _spread(a: np.ndarray, sel: np.ndarray) -> np.ndarray:

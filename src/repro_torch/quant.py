@@ -120,6 +120,45 @@ def dequantize_rows_np(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# bfloat16 rows on the host: numpy has no bfloat16 and the port imports no
+# ml_dtypes, so a host array of bf16 values holds their raw bits as uint16
+# (the reference's ml_dtypes.bfloat16 arrays hold the same bytes)
+# ---------------------------------------------------------------------------
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """The fp32 values of bf16 raw bits (uint16, or the reference's `V2`
+    / bfloat16 bytes): exact."""
+    bits = np.ascontiguousarray(bits).view(np.uint16)
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def f32_to_bf16(x) -> np.ndarray:
+    """The bf16 raw bits (uint16) of fp32 values, rounded to nearest even
+    (torch's cast, as numpy's astype(bfloat16) under ml_dtypes)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's raw bits on the host (uint16), a copy."""
+    return t.detach().cpu().view(torch.int16).numpy().view(np.uint16).copy()
+
+
+def is_bf16_bits(a: np.ndarray) -> bool:
+    """A host array of bf16 raw bits: uint16, or the reference's 2-byte
+    void type (`V2`, a bfloat16 `.npy` loaded without ml_dtypes)."""
+    return a.dtype == np.uint16 or (a.dtype.kind == "V"
+                                    and a.dtype.itemsize == 2)
+
+
+def host_rows_f32(rows: np.ndarray) -> np.ndarray:
+    """fp32 rows from a host array of fp32 values or bf16 bits."""
+    if is_bf16_bits(rows):
+        return bf16_to_f32(rows)
+    return np.asarray(rows, np.float32)
+
+
+# ---------------------------------------------------------------------------
 # torch (device side: dense quantized tables)
 # ---------------------------------------------------------------------------
 

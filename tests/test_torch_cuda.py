@@ -1157,3 +1157,132 @@ def test_obs_on_the_card_is_free_and_profiles_the_kernels(cuda_device,
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     assert any("lram_query" in k for k in kernels), sorted(kernels)[:20]
     assert any("gather" in k for k in kernels), sorted(kernels)[:20]
+
+
+# ------------------------------------------------------ bfloat16 tables
+
+
+def _k1_split(values, idx, w, split):
+    """K1 through its C entry at an explicit split (not counted)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    suffix = gather_interp.TABLE_KINDS[values.dtype][0]
+    out = torch.empty(idx.shape[0], values.shape[1], device=values.device)
+    fn = _build.function(
+        "gather_interp", f"gather_interp_{suffix}_split",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    _build.check(fn(values.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), idx.shape[0], idx.shape[1],
+                    values.shape[1], split, values.device.index,
+                    torch.cuda.current_stream().cuda_stream), "K1 split")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 7])
+@pytest.mark.parametrize("n", [1, 128, 2048, 65536])
+def test_k1_bf16_bit_equal_to_fp32_instance_on_card(cuda_device, n, m):
+    """K1 on a bf16 table: one launch counted as `gather_interp_bf16`,
+    bit-equal to the fp32 instance on `values.float()` (each row widened
+    exactly, the same adds in the same order), at every split too, and
+    within rtol 2e-5 / atol 1e-6 of the plain version (K2's weights)."""
+    spec, q, idx, w, values, _ = _bwd_inputs(cuda_device, n, m=m)
+    vb = values.to(torch.bfloat16)
+    before = (gather_interp.gather_interp_bf16.launches,
+              gather_interp.gather_interp.launches)
+    out = gather_interp.gather_interp(vb, idx, w)
+    assert (gather_interp.gather_interp_bf16.launches,
+            gather_interp.gather_interp.launches) == (before[0] + 1,
+                                                      before[1])
+    assert torch.equal(out, gather_interp.gather_interp(vb.float(), idx, w))
+    torch.testing.assert_close(
+        out, gather_interp.gather_interp_plain(vb, idx, w), rtol=2e-5,
+        atol=1e-6)
+    if n <= 2048:
+        for split in (1, 2, 4, 8):
+            assert torch.equal(_k1_split(vb, idx, w, split),
+                               _k1_split(vb.float(), idx, w, split)), split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["dq", "dw"])
+@pytest.mark.parametrize("n", [1, 128, 2048])
+def test_lookup_bwd_bf16_matches_plain_on_card(cuda_device, stage, n):
+    """The backward's bf16 scatter instances (dense and on the upper half
+    as a range shard) against `lookup_bwd_plain`: the fp32 dvalues to
+    atol 1e-5 and, rounded once to bf16, within one bf16 ulp; dq / dw to
+    rtol 1e-4 / atol 1e-5; one launch each, counted as
+    `lookup_bwd_bf16` / `lookup_bwd_range_bf16`."""
+    spec, q, idx, w, values, g = _bwd_inputs(cuda_device, n)
+    vb = values.to(torch.bfloat16)
+    extra = {"q": q, "spec": spec} if stage == "dq" else {}
+    cases = [(ops.lookup_bwd_bf16, vb, None)]
+    base = 2**19
+    cases.append((ops.lookup_bwd_range_bf16, vb[base:].contiguous(), base))
+    for counter, table, at in cases:
+        before = counter.launches
+        if at is None:
+            dv, small = ops.lookup_bwd(table, idx, w, g, **extra)
+        else:
+            dv, small = ops.lookup_bwd_range(table, idx, w, g, at, **extra)
+        assert counter.launches == before + 1
+        dv_p, small_p = ops.lookup_bwd_plain(table, idx, w, g,
+                                             extra.get("q"), spec, base=at)
+        torch.cuda.synchronize()
+        assert dv.dtype == torch.float32
+        torch.testing.assert_close(dv, dv_p, rtol=0, atol=1e-5)
+        torch.testing.assert_close(small, small_p, rtol=1e-4, atol=1e-5)
+        a, b = (x.to(torch.bfloat16).view(torch.int16).int()
+                for x in (dv, dv_p))
+        assert (a - b).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 128, 2048, 32768])
+def test_range_gather_bf16_matches_plain_on_card(cuda_device, n):
+    """The range gather on both halves of a bf16 table: one launch each,
+    counted as `sharded_gather_bf16`, bit-equal to the fp32 instance on
+    the shard widened, within 2e-5 / 1e-6 of the plain version."""
+    spec, q, idx, w, values, _ = _bwd_inputs(cuda_device, n)
+    vb = values.to(torch.bfloat16)
+    rows = 2**19
+    for base in (0, rows):
+        shard = vb[base:base + rows]
+        before = sharded_gather.sharded_gather_bf16.launches
+        got = sharded_gather.sharded_gather(shard, idx, w, base)
+        assert sharded_gather.sharded_gather_bf16.launches == before + 1
+        assert torch.equal(got, sharded_gather.sharded_gather(
+            shard.float(), idx, w, base))
+        torch.testing.assert_close(
+            got, sharded_gather.sharded_gather_plain(shard, idx, w, base),
+            rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_bf16_dense_layer_gradient_on_card_matches_cpu(cuda_device):
+    """`lram_apply` on the dense `pallas` cell with a bf16 table: the
+    forward and the gradients of x and of the table (bf16, rounded once)
+    on the card against the CPU's plain versions."""
+    from repro_torch.core import lram
+
+    cfg = LRAMConfig(log2_locations=16, heads=4, interp_impl="pallas",
+                     table_dtype="bfloat16")
+    layer = lram.lram_init(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(8, 16, cfg.in_dim, generator=torch.Generator()
+                    .manual_seed(1))
+    outs = []
+    for device in ("cpu", cuda_device):
+        layer_d = lram.lram_init(cfg).to(device)
+        layer_d.load_state_dict(layer.state_dict())
+        xd = x.to(device, copy=True).requires_grad_()
+        y = lram.lram_apply(layer_d, xd)
+        y.square().sum().backward()
+        outs.append((y.detach().cpu(), xd.grad.cpu(),
+                     layer_d.values.grad.float().cpu()))
+    (y0, gx0, gv0), (y1, gx1, gv1) = outs
+    assert layer.values.dtype == torch.bfloat16
+    torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gx1, gx0, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gv1, gv0, rtol=2**-7, atol=1e-6)
