@@ -1,12 +1,14 @@
 """Architecture registry of the port: `get_config(name)` /
 `get_smoke_config(name)` and `with_lram(cfg)`, as in `repro.configs`.
 
-Registered: the dense public archs (`ARCHS`: yi-9b, qwen2-1.5b,
-starcoder2-3b, h2o-danube-3-4b; full configs in bfloat16, smoke configs
-in float32), the paper's `lram-bert-*` models and the tiered serving
-archs (`lram-sharded-tiered` among them).  The reference's other public
-archs (MoE, SSM, hybrid, enc-dec, VLM families) raise KeyError naming
-ROADMAP A14; any other name raises KeyError listing the ported ones.
+Registered: the public archs of the dense, MoE and SSM families (`ARCHS`:
+yi-9b, qwen2-1.5b, starcoder2-3b, h2o-danube-3-4b, phi3.5-moe-42b-a6.6b,
+mixtral-8x7b, mamba2-1.3b; full configs in bfloat16, smoke configs in
+float32), the paper's `lram-bert-*` models and the tiered serving archs
+(`lram-sharded-tiered` among them).  The reference's other public archs
+(the hybrid, enc-dec and VLM families: `NOT_PORTED`) raise KeyError
+naming ROADMAP A14; any other name raises KeyError listing the ported
+ones.
 `with_lram(cfg)` inserts the paper's memory FFN into any registered
 arch, as the reference's does.
 """
@@ -19,17 +21,20 @@ import importlib
 from repro_torch.core import lram as lram_mod
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("yi-9b", "qwen2-1.5b", "starcoder2-3b", "h2o-danube-3-4b")
+ARCHS = ("yi-9b", "qwen2-1.5b", "starcoder2-3b", "h2o-danube-3-4b",
+         "phi3.5-moe-42b-a6.6b", "mixtral-8x7b", "mamba2-1.3b")
 
 # the reference's public archs whose families are not ported yet
-NOT_PORTED = ("zamba2-2.7b", "phi3.5-moe-42b-a6.6b", "mixtral-8x7b",
-              "mamba2-1.3b", "whisper-small", "qwen2-vl-72b")
+NOT_PORTED = ("zamba2-2.7b", "whisper-small", "qwen2-vl-72b")
 
 _MODULES = {
     "yi-9b": "yi_9b",
     "qwen2-1.5b": "qwen2_1_5b",
     "starcoder2-3b": "starcoder2_3b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "mamba2-1.3b": "mamba2_1_3b",
     "lram-bert-baseline": "lram_bert",
     "lram-bert-pkm": "lram_bert",
     "lram-bert-small": "lram_bert",

@@ -14,6 +14,10 @@ walks it backwards):
     embed.embedding                     params/embed/embedding
     segments.seg0.<i>.attn.wq.kernel    params/segments/seg0/attn/wq/kernel,
                                         layer i of the stacked run
+    segments.seg0.<i>.moe.experts.wo    params/segments/seg0/moe/experts/wo,
+                                        (n, E, f, d): layer i's (E, f, d)
+    segments.seg0.<i>.mamba.A_log       params/segments/seg0/mamba/A_log
+                                        (float32 in a bfloat16 model too)
     segments.seg1.memffn.lram.values    params/segments/seg1/memffn/lram/values
     ....lram.values.q / .scale          .../lram/values/0 / 1 (QuantizedTable)
     ....memffn.lram.qnorm.mean          model_state/seg1/lram/qnorm/mean

@@ -10,6 +10,8 @@
         --smoke --device cpu --rate 4 --fixed-len --json
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --smoke --device cpu --json                     # a public arch
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+        --smoke --device cpu --json                     # an SSM
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lram-tiered \\
         --smoke --device cpu --tenants 4 --overlay-dir /tmp/ov --json
 
@@ -20,15 +22,18 @@ Poisson arrivals at `--rate` requests a second, which the engine
 honours), and replays it through `repro_torch.serving.ServeEngine`.  The device is
 `cuda` unless `--device cpu` is given; with no card it raises rather
 than falling back.  `--warmup` prefills once at every length the
-trace's prompts are prefilled at (their buckets; a sliding-window arch's
-exact lengths) and runs one decode tick before the trace, so its timings
-exclude each shape's first call.
+trace's prompts are prefilled at (their buckets; a sliding-window
+arch's or an SSM's exact lengths) and runs one decode tick before the
+trace, so its timings exclude each shape's first call.
 
-`--arch` takes the dense public archs (`yi-9b`, `qwen2-1.5b`,
-`starcoder2-3b`, `h2o-danube-3-4b`; full configs in bfloat16, `--smoke`
-in float32) as the reference's CLI does: they have no memory layer, so
-`--placement` and the memory flags are refused for them.  The
-reference's other public archs raise, naming ROADMAP A14.
+`--arch` takes the public archs of the dense family (`yi-9b`,
+`qwen2-1.5b`, `starcoder2-3b`, `h2o-danube-3-4b`), the MoE family
+(`phi3.5-moe-42b-a6.6b`, `mixtral-8x7b`) and the SSM family
+(`mamba2-1.3b`; prefilled at exact lengths); full configs in bfloat16,
+`--smoke` in float32, as the reference's CLI does: they have no memory
+layer, so `--placement` and the memory flags are refused for them.  The
+reference's other public archs (hybrid, enc-dec, VLM) raise, naming
+ROADMAP A14.
 
 `lram-tiered` and `lram-tiered-q8` serve on their own placement, `tiered`:
 the table lives in host RAM, a device cache holds the hot shards, and the
@@ -100,7 +105,10 @@ from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="lram-tiered")
+    p.add_argument("--arch", default="lram-tiered",
+                   help="a memory arch (lram-tiered, lram-tiered-q8, "
+                        "lram-sharded-tiered) or a public one (dense, MoE, "
+                        "SSM: repro_torch.configs.ARCHS)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--mode", choices=["continuous", "static"],
                    default="continuous")

@@ -128,9 +128,12 @@ for the profiler, as in the reference.  On a mesh only rank 0 arms obs
 reference's one JAX process sees every device, so it has one registry;
 here each rank is a process with its own.
 
-Not ported yet, and refused with the ROADMAP item that ports it: a
-bfloat16 config (the public archs' full configs: A14 part 2; their
-float32 `--smoke` configs train).
+Not ported yet, and refused with the ROADMAP item that ports it (A14
+part 2): a bfloat16 config (the public archs' full configs; their float32
+`--smoke` configs train, the MoE and SSM archs' too, through `loss_fn`
+with the router loss), and an MoE arch on a mesh of more than one batch
+rank (`pod` x `data`): the step sums `metrics["aux"]` over the batch
+axes, which would make a rank's router loss that many times too large.
 """
 
 from __future__ import annotations
@@ -138,6 +141,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import time
 
 import numpy as np
@@ -402,14 +406,23 @@ def main(argv=None) -> TrainRun:
                                           shape=args.mesh_shape or None)
     else:
         device = resolve_device(args.device)
-    main_rank = mesh is None or dist.get_rank() == 0
-    arm_obs(args, arm=main_rank)  # on a mesh the other ranks stay off
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     if cfg.dtype != "float32":
         raise SystemExit(f"{cfg.name} is {cfg.dtype}: training is not "
                          f"ported for it yet: ROADMAP A14 part 2 (training "
                          f"the public archs in bfloat16)")
+    batch_ranks = 1 if mesh is None else math.prod(
+        n for axis, n in mesh.shape.items() if axis in ("pod", "data"))
+    if cfg.num_experts > 0 and batch_ranks > 1:
+        # the step sums metrics["aux"] over the batch axes, right for the
+        # cross-entropy (a global denominator), not for a rank's router loss
+        raise SystemExit(f"{cfg.name} is an MoE arch: training it on a mesh "
+                         f"of {batch_ranks} batch ranks is not ported yet "
+                         f"(its router loss would be summed over them): "
+                         f"ROADMAP A14 part 2")
+    main_rank = mesh is None or dist.get_rank() == 0
+    arm_obs(args, arm=main_rank)  # on a mesh the other ranks stay off
     if args.placement:
         if cfg.lram is None:
             raise SystemExit(f"--placement needs a memory arch; {cfg.name} "

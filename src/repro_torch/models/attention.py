@@ -97,6 +97,15 @@ def _valid(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return ok
 
 
+@functools.lru_cache(maxsize=None)
+def _scale(d: int, dtype: torch.dtype) -> float:
+    """1/sqrt(d) rounded to `dtype`: JAX casts a Python scalar to the
+    array's dtype before it multiplies (a weak type), so the reference
+    scales bfloat16 queries by the bfloat16 nearest to 1/sqrt(d), where
+    torch would multiply by the float32 one and round after."""
+    return torch.tensor(d**-0.5, dtype=dtype).item()
+
+
 def _band_mask(s: int, t: int, *, causal: bool, window: int | None = None,
                q_offset: int = 0, device=None) -> torch.Tensor:
     """(S, T) validity mask; query i sits at absolute position
@@ -112,7 +121,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,S,H,D), k/v: (B,T,Kh,D) -> (B,S,H,D)."""
     b, s, h, d = q.shape
     kh = k.shape[2]
-    qg = q.reshape(b, s, kh, h // kh, d) * (d**-0.5)
+    qg = q.reshape(b, s, kh, h // kh, d) * _scale(d, q.dtype)
     scores = _scores(qg, k)
     mask = _band_mask(s, k.shape[1], causal=causal, window=window,
                       q_offset=q_offset, device=q.device)
@@ -135,7 +144,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"chunked attention needs S={s} and T={t} to be "
                          f"multiples of the chunks ({q_chunk}, {kv_chunk})")
     g = h // kh
-    qg = q.reshape(b, s, kh, g, d) * (d**-0.5)
+    qg = q.reshape(b, s, kh, g, d) * _scale(d, q.dtype)
     pos_q = torch.arange(q_chunk, device=q.device)[:, None]
     pos_k = torch.arange(kv_chunk, device=q.device)[None, :]
     outs = []
@@ -173,7 +182,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     softmax does not see."""
     b, _, h, d = q.shape
     t, kh = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(b, 1, kh, h // kh, d) * (d**-0.5)
+    qg = q.reshape(b, 1, kh, h // kh, d) * _scale(d, q.dtype)
     scores = _scores(qg, k_cache)  # (B,Kh,G,1,T)
     valid = torch.arange(t, device=q.device)[None, :] \
         < cache_len.reshape(-1, 1)

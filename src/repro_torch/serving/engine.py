@@ -9,10 +9,11 @@ tick over the whole pool:
     up to a power-of-two bucket as the reference does, and its sub-cache
     copied into a free slot.  Padded positions are harmless: decode writes
     its KV row at the current position before attending, and the mask only
-    exposes positions <= the slot's depth.  A sliding-window model
-    prefills at the prompt's exact length instead, as the reference's:
-    its ring keeps the last `window` positions of what was prefilled, all
-    valid once the ring is full, so pad rows there could not be masked.
+    exposes positions <= the slot's depth.  A sliding-window model and an
+    SSM prefill at the prompt's exact length instead, as the reference's:
+    a ring keeps the last `window` positions of what was prefilled, all
+    valid once the ring is full, and a recurrent state integrates every
+    position, so pad rows there could not be masked.
   * **step** — one `transformer.decode_step` with a per-slot position
     vector; free slots ride along (token 0 at a frozen position) and their
     outputs are dropped.  Greedy argmax picks the next token.
@@ -102,6 +103,9 @@ from repro_torch.serving.requests import Request, RequestQueue
 
 _STAT_KEYS = ("hits", "misses", "uncached")
 _GRAPH_WARMUP = 3  # eager ticks on a side stream before a capture
+# cache leaves a decode tick advances (an SSM's state and conv window);
+# the KV leaves it writes get the same row however often it runs
+_STATE_LEAVES = ("ssm", "conv")
 
 
 @functools.lru_cache(maxsize=None)
@@ -357,8 +361,9 @@ class ServeEngine:
 
     def prefill_len(self, prompt_len: int) -> int:
         """The length a prompt is prefilled at: its power-of-two bucket,
-        or its exact length for a sliding-window model."""
-        if self.cfg.attention == "swa":
+        or its exact length for an SSM, a hybrid or a sliding-window
+        model."""
+        if self.cfg.family in ("ssm", "hybrid") or self.cfg.attention == "swa":
             return prompt_len
         return _bucket(prompt_len, self.engine_cfg.max_len)
 
@@ -386,7 +391,12 @@ class ServeEngine:
         where the engine has overlays) and the argmax over the static
         buffers as one CUDA graph (the buffers hold this tick's inputs, or
         zeros: the warm-up ticks write each slot's KV row at its own
-        position, as the tick itself then does)."""
+        position, as the tick itself then does).  The warm-up ticks would
+        also advance an SSM's state and conv window, which the replay that
+        follows advances once more: those leaves are put back as they
+        were."""
+        held = [(leaf, leaf.clone()) for leaves in self.cache.values()
+                for k, leaf in leaves.items() if k in _STATE_LEAVES]
         stream = torch.cuda.current_stream(self.device)
         side = _capture_stream(self.device)
         side.wait_stream(stream)
@@ -394,6 +404,9 @@ class ServeEngine:
             for _ in range(_GRAPH_WARMUP):
                 self._step(self._tok, self._pos, self._packs)
         stream.wait_stream(side)
+        for leaf, kept in held:
+            leaf.copy_(kept)
+        del held
         counters = kernels.launch_counters()
         before = {name: fn.launches for name, fn in counters.items()}
         graph = torch.cuda.CUDAGraph()
@@ -441,8 +454,8 @@ class ServeEngine:
     def warmup(self, prompt_lens) -> None:
         """Prefill once at every length the prompts of `prompt_lens` (a
         trace's prompt lengths) are prefilled at (`prefill_len`: their
-        buckets, or a sliding window's exact lengths) and run one decode
-        tick, so the first call of each shape (library kernel choice,
+        buckets, or an SSM's or a sliding window's exact lengths) and run
+        one decode tick, so the first call of each shape (library kernel choice,
         allocator growth) falls outside a timed `run`, and capture the
         decode graph where the binding uses one.  The cache rows it
         writes are overwritten by the next admission into each slot."""

@@ -319,7 +319,7 @@ def test_serve_cli_refusals():
         serve.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
                     "--placement", "pallas"])
     with pytest.raises(KeyError, match="A14"):
-        serve.main(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu"])
     # tenants need a memory layer: the reference's own error, by both CLIs
     argv = ["--arch", "qwen2-1.5b", "--smoke", "--tenants", "2"]
     with pytest.raises(ValueError, match="overlay_rows needs a memory arch"):

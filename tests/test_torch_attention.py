@@ -125,7 +125,7 @@ def test_prefill_fills_the_ring_as_reference():
         positions = transformer._positions(toks)
         x = model.embed_tokens(toks, positions)
         layer = model.segments["seg0"][0]
-        _, (k, v) = layer.full(x, positions, causal=True)
+        _, (k, v), _, _ = layer.full(x, positions, causal=True)
     jk, jv = j_tf._fill_kv_cache(
         jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
         j_configs.get_smoke_config("h2o-danube-3-4b"), 8, 13)

@@ -1031,6 +1031,56 @@ def test_decode_graph_matches_eager_on_card(cuda_device, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("warmup", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mixtral-8x7b",
+                                  "mamba2-1.3b"])
+def test_moe_and_ssm_decode_graph_matches_eager_on_card(cuda_device, arch,
+                                                        dtype, warmup):
+    """The MoE and SSM smoke archs with the memory FFN on `pallas`: the
+    decode tick as one CUDA graph (one capture, every tick replayed; an
+    SSM's state and conv window written in place under it) gives the
+    eager twin's tokens, first logits and K2 / K1 launch counts.  Without
+    `warmup` the capture comes at the first tick, on the served state."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
+    from repro_torch.serving.engine import _GRAPH_WARMUP
+
+    cfg = configs.with_lram(configs.get_smoke_config(arch, dtype=dtype), 16)
+    cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, interp_impl="pallas"))
+    runs = []
+    for graph in (True, False):
+        model = transformer.init(cfg, seed=0).to(cuda_device)
+        engine = ServeEngine(model, EngineConfig(slots=2, max_len=16,
+                                                 cuda_graph=graph))
+        trace = synthetic_trace(np.random.default_rng(1), 4,
+                                vocab_size=cfg.vocab_size, max_prompt=8,
+                                max_gen=8)
+        if warmup:
+            engine.warmup([r.prompt_len for r in trace])
+        before = (e8_lookup.lram_query.launches,
+                  gather_interp.gather_interp.launches)
+        report = engine.run(trace)
+        torch.cuda.synchronize()
+        runs.append((report, e8_lookup.lram_query.launches - before[0],
+                     gather_interp.gather_interp.launches - before[1]))
+    (g, g_k2, g_k1), (e, e_k2, e_k1) = runs
+    assert g.cuda_graph and g.graph_captures == 1
+    assert g.graph_ticks == len(g.step_s) > 0
+    assert not e.cuda_graph and e.graph_captures == 0
+    assert [r.tokens for r in g.requests] == [r.tokens for r in e.requests]
+    for a, b in zip(g.requests, e.requests):
+        np.testing.assert_array_equal(a.first_logits, b.first_logits)
+    # a capture in the run adds its eager warm-up ticks' launches
+    extra = 0 if warmup else _GRAPH_WARMUP * len(cfg.lram_layers)
+    assert g_k2 - extra == e_k2 > 0 and g_k1 - extra == e_k1 > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["lram-tiered", "lram-tiered-q8"])
 def test_overlay_decode_graph_matches_eager_on_card(cuda_device, arch):
     """Per-tenant overlays under the decode graph (smoke config, dense

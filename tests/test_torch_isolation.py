@@ -4,7 +4,8 @@ JAX, nor the JAX package, nor `ml_dtypes` (the card's machine lacks it),
 and import no triton or CUDA build at import; a CPU serve with a live
 spill, multi-tenant serves with the overlay lifecycle, a serve from an
 mmap-backed table, serves of the dense public archs (one with the memory
-FFN, one in bfloat16, the sliding window's ring), a training run with
+FFN, one in bfloat16, the sliding window's ring), serves of the MoE and
+SSM archs, a training run with
 growth and telemetry, and a serve and a training run with obs armed
 (`--metrics-dir`, `--profile-dir`) load none of them either."""
 
@@ -16,6 +17,8 @@ import sys
 from pathlib import Path
 
 import pytest
+
+from repro_torch import configs
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -47,10 +50,15 @@ def test_port_files_have_no_forbidden_imports():
     # and so is the observability package
     assert {f.name for f in files if f.parent.name == "obs"} == {
         "__init__.py", "registry.py", "trace.py", "export.py"}
-    # and so are the dense public archs' configs
+    # and so are the public archs' configs (dense, MoE, SSM)
     assert {f.name for f in files if f.parent.name == "configs"} >= {
         "yi_9b.py", "qwen2_1_5b.py", "starcoder2_3b.py",
-        "h2o_danube3_4b.py"}
+        "h2o_danube3_4b.py", "phi3_5_moe.py", "mixtral_8x7b.py",
+        "mamba2_1_3b.py"}
+    # and so are the MoE and SSM blocks
+    assert {str(f.relative_to(PORT)) for f in files
+            if f.name in ("moe.py", "mamba2.py")} == {"models/moe.py",
+                                                     "models/mamba2.py"}
     bad = {str(f.relative_to(REPO)): m.group(0).strip()
            for f in files for m in [FORBIDDEN.search(f.read_text())] if m}
     assert not bad, bad
@@ -133,7 +141,11 @@ print(json.dumps({"bad": bad, "requests": served,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"bad": [], "requests": 12, "train_steps": 2}
+    # 7 serves of the memory archs, one of each public arch
+    # (configs.ARCHS: 4 dense, 2 MoE, 1 SSM) and the bfloat16 danube with
+    # its memory FFN
+    assert out == {"bad": [], "requests": 7 + len(configs.ARCHS) + 1,
+                   "train_steps": 2}
 
 
 def test_cpu_serve_and_train_with_obs_leave_no_jax_modules(tmp_path):

@@ -245,7 +245,7 @@ def test_cli_trains_on_the_cpu(capsys):
 @pytest.mark.parametrize("flag", [
     ["--telemetry"], ["--grow-at", "2:17"], ["--use-mesh"],
 ])
-def test_cli_refuses_what_is_not_ported(flag, capsys):
+def test_cli_runs_the_once_refused_options(flag, capsys):
     """The options that were once refused, each now ported.  `--use-mesh`:
     outside a launch of several ranks it trains on one process without a
     mesh, as the reference does on one device, and gives the run without
