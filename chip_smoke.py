@@ -52,8 +52,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
        1-byte without; each with dq and with dw);
        K2 and K1 at path (h)'s n: 384, 768, 960 and 1,024 (a decode tick
        of 4 slots x 96, 192, 240 and 256 memory heads; 1,024 is path
-       (n)'s MoE tick too), 512 (path (n)'s mamba2-1.3b tick, 128 heads)
-       and 16,384 (a 64-token yi-9b prompt) as above, and
+       (n)'s MoE tick too), 512 (path (n)'s mamba2-1.3b tick, 128 heads),
+       192 (path (o)'s whisper-small decode step, 4 x 48 heads; its
+       qwen2-vl-72b step, 4 x 512, is the 2,048 above) and 16,384 (a
+       64-token yi-9b prompt) as above, and
        1,966,080 in one call (danube's 8,192-token prompt x 240 heads),
        held against the plain versions on its last 65,536 queries;
        the bf16-table instances (path (m)), each with a launch count of
@@ -250,6 +252,30 @@ Phases, each fatal on failure (exit code != 0, no result line):
      also serve eagerly (tokens and launch counts equal the graph's: the
      SSM state written in place under the graph); n3b holds one prompt's
      chunked prefill against `ssd_sequential` to that tolerance;
+ 5o. path (o), the hybrid, enc-dec and VLM families at full width in
+     bfloat16, weights drawn on the card from seed 0, each model freed
+     before the next: (o1) zamba2-2.7b whole (54 Mamba layers, the shared
+     attention + MLP block called after every 6; no memory layer: the
+     reference allows none in a hybrid) served through `ServeEngine` on
+     the serve paths' trace (exact-length prefills, the decode tick one
+     CUDA graph) and again eagerly, tokens equal, no kernel of the port
+     launched, every request's first logits against an eager prefill of
+     its prompt, and the tick against its read bound (the shared block's
+     weights once a call); (o2) whisper-small with `with_lram(cfg, 20)`
+     (encoder 12 layers over 1,500 seeded frames, the memory FFN at
+     decoder layer 6 of 12, 48 heads) and (o3) qwen2-vl-72b cut from 80
+     layers to 8 (widths as published; the memory FFN at layer 4, 512
+     heads; 256 seeded vision embeddings on a 16 x 16 frame at their
+     M-RoPE positions, text after them), both on `pallas`: the engine
+     refuses both families (as the reference's), so 4 prompts (64 and
+     512 tokens) go through `transformer.prefill` and 32 greedy
+     `decode_step`s; each fails unless K2 and K1 launched, the path's
+     own memory reads agree with the plain versions, the first logits
+     match a prefill through the plain versions and every decoded
+     step's logits a full forward over the generated sequence, both to
+     the bfloat16 tolerance.  Each prints its decode step (or tick) p50
+     / p99 against its read bound, the prefill, the peak memory and its
+     K2 / K1 launches;
   6. train `lram-bert-medium` at full width through
      `repro_torch.launch.train.main` (`--placement pallas --batch 8 --seq
      256 --steps 20`: 2,048 tokens, n = 65,536 lookups a step), with every
@@ -370,10 +396,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      from the same seed's weights and batches, per-step losses and
      gradient norms to rtol 1e-4, and lram-bert-pkm's smoke config and
      lram-bert-medium's with `--compression int8` and `topk` the same
-     way; serve the four dense public archs' and mamba2-1.3b's smoke
-     configs with the memory FFN (2^16 rows, `pallas`) on the card and
-     on the CPU from the same weights, in float32 (first logits to rtol /
-     atol 1e-5) and in bfloat16 (to the tolerance above);
+     way; serve every public arch's smoke config with the memory FFN
+     (2^16 rows, `pallas`; zamba2 without) on the card and on the CPU
+     from the same weights, in float32 (first logits to rtol / atol
+     1e-5, greedy tokens equal) and in bfloat16 (to the tolerance
+     above), whisper-small and qwen2-vl-72b (which the engine refuses)
+     through `transformer.prefill` and 4 `decode_step`s instead;
   9. last lines: the script's seconds, the card again, the `kernels` JSON
      line, and {"ok": true, "device": {...}}.
 
@@ -382,6 +410,7 @@ It imports nothing of JAX, of the JAX package or of ml_dtypes.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
 import dataclasses
@@ -438,8 +467,10 @@ RANGE_ROWS = 2**19  # one rank's shard of the 2^20-row table, model 2
 # path (h)'s memory reads: a decode tick of 4 slots x 96 / 192 / 240 / 256
 # heads (qwen2-1.5b, starcoder2-3b, danube, yi-9b), a 64-token yi-9b prompt
 # (64 x 256); danube's 8,192-token prompt x 240 heads; path (n)'s decode
-# tick of 4 slots x 128 heads (mamba2-1.3b; its MoE archs' 256 are 1,024)
-H_SHAPES = (384, 512, 768, 960, 1024, 16384)
+# tick of 4 slots x 128 heads (mamba2-1.3b; its MoE archs' 256 are 1,024);
+# path (o)'s decode steps of 4 sequences x 48 heads (whisper-small: 192;
+# qwen2-vl-72b's 512 heads give 2,048, in SHAPES)
+H_SHAPES = (192, 384, 512, 768, 960, 1024, 16384)
 H_BIG_N = 8192 * 240
 PLAIN_SLICE = 65536  # the plain versions' share of the H_BIG_N call
 TOP_K = 32
@@ -4246,11 +4277,14 @@ def h_config(arch: str, dtype: str | None = None, smoke: bool = False,
              log2: int = LOG2_LOCATIONS, layers: int | None = None):
     """`with_lram(arch)` on the dense `pallas` placement (the kernels),
     `num_layers` cut to `layers` where given (the memory FFN at layer
-    num_layers // 2 of those kept)."""
+    num_layers // 2 of those kept).  A hybrid takes no memory FFN (the
+    reference allows none inside its units): its config as it is."""
     get = configs.get_smoke_config if smoke else configs.get_config
     cfg = get(arch) if dtype is None else get(arch, dtype=dtype)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.family == "hybrid":
+        return cfg
     cfg = configs.with_lram(cfg, log2)
     return dataclasses.replace(cfg, lram=dataclasses.replace(
         cfg.lram, interp_impl="pallas"))
@@ -4553,10 +4587,13 @@ def sequential_scan():
 
 def tick_read_bytes(model, cfg, args, experts_read=None) -> float:
     """The bytes a decode tick of `args.batch` slots must move: every
-    weight but the embedding (the tick reads one row a slot) and the
-    memory table (its K1 reads 32 rows a head and slot), the KV cache up
-    to the trace's end, and an SSM's float32 state and conv window read
-    and written.  Of an MoE's experts, the `experts_read` the tick routed
+    weight but the embedding (the tick reads one row a slot), a learned
+    position table (one row), the encoder (an enc-dec decode reads its
+    cached ck / cv instead) and the memory table (its K1 reads 32 rows a
+    head and slot); a hybrid's shared block once a call (its ~157 MB do
+    not stay in the 50 MB L2 from one call to the next); the caches up
+    to the trace's end, an SSM's float32 state and conv window read and
+    written.  Of an MoE's experts, the `experts_read` the tick routed
     to, summed over its blocks; None: every expert of every block, which
     is what the batched expert products read (a decode's capacity of 1
     gives each expert a buffer row)."""
@@ -4567,17 +4604,26 @@ def tick_read_bytes(model, cfg, args, experts_read=None) -> float:
     experts = [p for m in model.modules() if isinstance(m, moe.Experts)
                for p in m.parameters()]
     skip = tables | {id(p) for p in experts} | {id(model.embed.embedding)}
+    skip |= {id(p) for p in (model.pos_embed, model.enc_pos_embed)
+             if p is not None}
+    if model.encoder is not None:
+        skip |= {id(p) for p in model.encoder.parameters()}
     weights = nbytes(p for p in model.parameters() if id(p) not in skip)
+    if model.shared_attn is not None:  # once more a call after the first
+        calls = cfg.num_layers // cfg.hybrid_pattern
+        weights += (calls - 1) * nbytes(model.shared_attn.parameters())
     if experts:
         share = (1.0 if experts_read is None else
                  experts_read / (cfg.num_experts * moe_blocks(cfg)))
         weights += share * nbytes(experts)
-    rows = args.batch * cfg.lram.heads * TOP_K * cfg.lram.m * 4
+    rows = (0 if cfg.lram is None
+            else args.batch * cfg.lram.heads * TOP_K * cfg.lram.m * 4)
     cache = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+                * (2 if leaf in ("ssm", "conv") else 1)
                 for leaves in transformer.cache_shapes(
                     cfg, args.batch, args.prompt_len + args.gen).values()
-                for shape, dt in leaves.values())
-    return weights + rows + cache * (2 if cfg.family == "ssm" else 1)
+                for leaf, (shape, dt) in leaves.items())
+    return weights + rows + cache
 
 
 def window_checks(model, cfg, trace, report, ticks, last_pos, args) -> dict:
@@ -4806,20 +4852,390 @@ def public_path(name: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# path (o): the hybrid, enc-dec and VLM families
+# ---------------------------------------------------------------------------
+
+O1_ARCH = "zamba2-2.7b"
+# path -> (arch, layers kept or None for all, prompt tokens); the model is
+# `with_lram(get_config(arch), 20)` on `pallas`, its widths as published,
+# drawn on the card from seed 0; qwen2-vl cut from 80 layers to 8 (80 of
+# ~1.76 GB fit no 80 GB card)
+O_PATHS = {
+    "o2_whisper_small": ("whisper-small", None, 64),
+    "o3_qwen2_vl_72b": ("qwen2-vl-72b", 8, 512),
+}
+O_SEQS, O_DECODE_STEPS = 4, 32
+
+
+def o1_hybrid_path():
+    """(o1): zamba2-2.7b whole (54 Mamba layers, the shared attention +
+    MLP block called after every 6: 9 calls), bfloat16, weights drawn on
+    the card from seed 0, no memory layer (the reference allows none in a
+    hybrid), served through `ServeEngine` on SERVE_ARGS (warm-up, the
+    decode tick one CUDA graph, exact-length prefills) and again eagerly:
+    tokens equal.  Fails unless 8 of 8 requests finished with finite
+    logits, no kernel of the port launched (neither K2 nor K1: the path
+    runs none), the graph served every tick from one capture, and every
+    request's first logits match an eager prefill of its prompt within
+    `bf16_tol`.  Prints the tick p50 / p99 against its read bound (the
+    shared block's weights once a call).  Returns the launch counts."""
+    args = serve.build_argparser().parse_args(["--arch", O1_ARCH]
+                                              + SERVE_ARGS)
+    cfg = h_config(O1_ARCH)
+    name = "o1_zamba2_2_7b"
+    started = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init(cfg, seed=args.seed, device="cuda").eval()
+    device = model.embed.embedding.device
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    trace = synthetic_trace(np.random.default_rng(args.seed), args.requests,
+                            vocab_size=cfg.vocab_size,
+                            max_prompt=args.prompt_len, max_gen=args.gen,
+                            mixed=not args.fixed_len)
+    report, launches, reads, warm_s, engine = h_engine_run(model, args,
+                                                           trace)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(report.requests) == args.requests,
+          f"{name}: served {len(report.requests)} of {args.requests} "
+          f"requests")
+    check(not any(launches.values()) and not reads,
+          f"{name}: a kernel of the port launched: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(report.cuda_graph and report.graph_captures == 1
+          and report.graph_ticks == len(report.step_s),
+          f"{name}: cuda_graph {report.cuda_graph}, "
+          f"{report.graph_captures} captures")
+    read_bytes = tick_read_bytes(model, cfg, args)
+    out = {"serve": name, "arch": O1_ARCH, "config": cfg.name,
+           "argv": SERVE_ARGS, "layers": cfg.num_layers,
+           "published_layers": configs.get_config(O1_ARCH).num_layers,
+           "hybrid_pattern": cfg.hybrid_pattern,
+           "shared_block_calls": cfg.num_layers // cfg.hybrid_pattern,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "ssm_heads_state_headdim": [cfg.ssm_heads, cfg.ssm_state,
+                                       cfg.ssm_headdim],
+           "dtype": cfg.dtype, "memory_layer": None,
+           "params": sum(p.numel() for p in model.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "shared_block_bytes": sum(
+               p.numel() * p.element_size()
+               for p in model.shared_attn.parameters()),
+           "init_s": init_s, "warmup_s": warm_s,
+           "requests": len(report.requests),
+           "generated_tokens": report.generated_tokens,
+           "decode_p50_ms": report.p50_ms(), "decode_p99_ms": report.p99_ms(),
+           "tokens_per_sec": report.tokens_per_sec,
+           "prefill_median_ms": 1e3 * float(np.median(report.prefill_s)),
+           "decode_ticks": len(report.step_s), "wall_s": report.wall_s,
+           "peak_memory_bytes": peak,
+           "k2_k1_launches": [launches["lram_query"],
+                              launches["gather_interp"]],
+           "tick_read_bytes": read_bytes,
+           "tick_read_bound_ms": 1e3 * read_bytes / HBM_BYTES_PER_S}
+    out.update(tick_busy_share(engine, args))
+    errs = []
+    with torch.inference_mode():
+        for req, done in zip(trace, report.requests):
+            logits, _ = transformer.prefill(
+                model, torch.from_numpy(req.prompt[None]).long().to(device),
+                engine.engine_cfg.max_len)
+            want = logits[0, -1].float()
+            got = torch.from_numpy(done.first_logits).to(want.device)
+            err = float((got - want).abs().max())
+            check(err <= bf16_tol(cfg, want),
+                  f"{name}: request {req.id}'s first logits differ from an "
+                  f"eager prefill's by {err}")
+            errs.append(err)
+    out["first_logits_vs_eager_prefill_max_abs_err"] = max(errs)
+    out["bf16_tol_of_first"] = bf16_tol(cfg, want)
+    del engine
+    eager, eager_launches, _, _, engine = h_engine_run(model, args, trace,
+                                                       cuda_graph=False)
+    check(not eager.cuda_graph and eager.graph_captures == 0,
+          f"{name}: the eager twin captured a graph")
+    check(len(eager.requests) == len(report.requests)
+          and all(a.tokens == b.tokens
+                  for a, b in zip(report.requests, eager.requests)),
+          f"{name}: graph vs eager: tokens differ")
+    check(not any(eager_launches.values()),
+          f"{name}: a kernel launched in the eager twin")
+    out["eager"] = {"decode_p50_ms": eager.p50_ms(),
+                    "decode_p99_ms": eager.p99_ms(),
+                    "tokens_per_sec": eager.tokens_per_sec,
+                    "tokens_equal_graph": True}
+    out["path_s"] = time.perf_counter() - started
+    print(json.dumps(out), flush=True)
+    del engine, model, report, eager
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vision_positions(grid: int, s: int, b: int, device=None) -> torch.Tensor:
+    """M-RoPE positions (3, b, s) of one frame of grid x grid patches
+    then text: patch i at (t, h, w) = (0, i // grid, i % grid), text
+    token j at grid + j on every stream (continuing from the grid's
+    largest position, grid - 1)."""
+    pos = torch.empty((3, s), dtype=torch.long)
+    patch = torch.arange(grid * grid)
+    pos[0, :grid * grid] = 0
+    pos[1, :grid * grid] = patch // grid
+    pos[2, :grid * grid] = patch % grid
+    pos[:, grid * grid:] = grid + torch.arange(s - grid * grid)
+    return pos[:, None].expand(3, b, s).contiguous().to(device)
+
+
+def family_inputs(cfg, b: int, s: int, device, seed: int = 0) -> dict:
+    """A batch of `b` prompts of `s` tokens and the family's extras,
+    drawn from `seed` on the CPU (the same on every device): an enc-dec
+    model's `encoder_embeds` (b, encoder_len, d), a VLM's
+    `vision_embeds` (b, vision_tokens, d) on one square frame of patches
+    and their M-RoPE `positions` (`vision_positions`); unit-scale
+    embeddings, the token embedding's own scale."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen)}
+    if cfg.family == "encdec":
+        batch["encoder_embeds"] = torch.randn(
+            b, cfg.encoder_len, cfg.d_model, generator=gen).to(
+                cfg.torch_dtype)
+    if cfg.family == "vlm":
+        grid = math.isqrt(cfg.vision_tokens)
+        check(grid * grid == cfg.vision_tokens and s > cfg.vision_tokens,
+              f"{cfg.name}: {cfg.vision_tokens} vision tokens are no square "
+              f"frame inside a {s}-token prompt")
+        batch["vision_embeds"] = torch.randn(
+            b, cfg.vision_tokens, cfg.d_model, generator=gen).to(
+                cfg.torch_dtype)
+        batch["positions"] = vision_positions(grid, s, b)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def extras(batch: dict) -> dict:
+    return {k: v for k, v in batch.items() if k != "tokens"}
+
+
+def greedy_decode(model, batch: dict, steps: int, max_len: int,
+                  times: list | None = None):
+    """`transformer.prefill` of the batch, then `steps` greedy
+    `decode_step`s at positions s, s + 1, ... (the cache slots; M-RoPE
+    turns every stream by them, as the reference's decode does).
+    Returns (prefill logits, [each step's logits (B, V), float32], the
+    tokens fed (B, steps)).  With `times` each step's seconds (host
+    clock, synchronised) are appended."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    logits, cache = transformer.prefill(model, tokens, max_len,
+                                        **extras(batch))
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    fed, out = [], []
+    for t in range(steps):
+        pos = torch.full((b,), s + t, dtype=torch.long, device=tokens.device)
+        if times is not None:
+            _sync(tokens.device)
+            t0 = time.perf_counter()
+        step = transformer.decode_step(model, tok, pos, cache)
+        fed.append(tok)
+        tok = torch.argmax(step[:, -1], dim=-1)[:, None]
+        if times is not None:
+            _sync(tokens.device)
+            times.append(time.perf_counter() - t0)
+        out.append(step[:, -1].float())
+    return logits, out, torch.cat(fed, dim=1)
+
+
+def full_forward_of(model, batch: dict, fed: torch.Tensor):
+    """The full forward over prompt + the tokens decode fed, at the
+    positions decode used (M-RoPE: the prompt's, then the slot indices
+    on every stream); logits at the fed tokens (B, steps, V)."""
+    s = batch["tokens"].shape[1]
+    seq = dict(batch, tokens=torch.cat([batch["tokens"], fed], dim=1))
+    if "positions" in batch:
+        b, n = fed.shape
+        more = torch.arange(s, s + n, device=fed.device).expand(3, b, n)
+        seq["positions"] = torch.cat([batch["positions"], more], dim=2)
+    return transformer.forward(model, seq)[:, s:]
+
+
+def o_decoder_path(name: str):
+    """(o2) whisper-small (encoder 12 layers over 1,500 frames, decoder
+    12, the memory FFN at decoder layer 6, 48 heads) and (o3)
+    qwen2-vl-72b cut to 8 of 80 layers (the memory FFN at layer 4, 512
+    heads; 256 vision embeddings on a 16 x 16 frame, M-RoPE): bfloat16,
+    `with_lram(cfg, 20)` on `pallas`, weights drawn on the card from
+    seed 0, inputs from `family_inputs`.  The serve engine refuses both
+    families (as the reference's), so the path is the transformer's:
+    O_SEQS prompts through `transformer.prefill`, then O_DECODE_STEPS
+    greedy `decode_step`s (after one untimed prefill and step).  Fails
+    unless K2 and K1 launched (counts reset just before the timed
+    prefill, read after the last step), the logits are finite, the
+    path's own memory reads agree with the plain versions
+    (`check_reads`), the first logits match a prefill through the
+    kernels' plain versions (`plain_memory_reads`) and every decoded
+    step's logits a full forward over the generated sequence, both
+    within `bf16_tol`.  Returns the launch counts."""
+    arch, layers, prompt = O_PATHS[name]
+    cfg = h_config(arch, layers=layers)
+    started = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init(cfg, seed=0, device="cuda").eval()
+    device = model.embed.embedding.device
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    batch = family_inputs(cfg, O_SEQS, prompt, device)
+    max_len = prompt + O_DECODE_STEPS
+    reads, times = {}, []
+    with torch.inference_mode(), recorded_reads(reads):
+        greedy_decode(model, batch, 1, max_len)  # untimed first calls
+        reset_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, _ = transformer.prefill(model, batch["tokens"], max_len,
+                                        **extras(batch))
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        del logits
+        logits, steps, fed = greedy_decode(model, batch, O_DECODE_STEPS,
+                                           max_len, times)
+        _sync(device)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    first = logits[:, -1].float()
+    check(bool(torch.isfinite(first).all())
+          and all(bool(torch.isfinite(x).all()) for x in steps),
+          f"{name}: non-finite logits")
+    for kernel in ("lram_query", "gather_interp"):
+        check(launches[kernel] > 0, f"{name}: {kernel} never launched")
+    args = argparse.Namespace(batch=O_SEQS, prompt_len=prompt,
+                              gen=O_DECODE_STEPS)
+    read_bytes = tick_read_bytes(model, cfg, args)
+    out = {"path": name, "arch": arch, "config": cfg.name,
+           "layers": cfg.num_layers,
+           "published_layers": configs.get_config(arch).num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "memory_layer": cfg.lram_layers[0],
+           "memory_heads": cfg.lram.heads, "dtype": cfg.dtype,
+           "sequences": O_SEQS, "prompt_tokens": prompt,
+           "decode_steps": O_DECODE_STEPS,
+           "params": sum(p.numel() for p in model.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "init_s": init_s, "prefill_ms": 1e3 * prefill_s,
+           "decode_p50_ms": 1e3 * float(np.percentile(times, 50)),
+           "decode_p99_ms": 1e3 * float(np.percentile(times, 99)),
+           "decode_step_ms": [1e3 * t for t in times],
+           "peak_memory_bytes": peak,
+           "launches": {k: v for k, v in launches.items() if v},
+           "memory_read_n": sorted(reads),
+           "decode_read_bytes": read_bytes,
+           "decode_read_bound_ms": 1e3 * read_bytes / HBM_BYTES_PER_S}
+    if cfg.family == "encdec":
+        out["encoder_layers_frames"] = [cfg.encoder_layers,
+                                        cfg.encoder_len]
+    if cfg.family == "vlm":
+        out["vision_tokens_grid"] = [cfg.vision_tokens,
+                                     math.isqrt(cfg.vision_tokens)]
+        out["mrope_sections"] = list(cfg.mrope_sections)
+    out["k1_vs_plain_on_path_reads_max_abs_err"] = check_reads(name, reads)
+    del reads
+    with torch.inference_mode():
+        with plain_memory_reads():
+            reset_counts()
+            plain, _ = transformer.prefill(model, batch["tokens"], max_len,
+                                           **extras(batch))
+            check(not any(read_counts().values()),
+                  f"{name}: a kernel launched in the plain prefill")
+        want = plain[:, -1].float()
+        del plain
+        err = float((first - want).abs().max())
+        check(err <= bf16_tol(cfg, want),
+              f"{name}: the first logits differ from the plain memory "
+              f"read's by {err}")
+        out["kernel_vs_plain_first_logits_max_abs_err"] = err
+        out["bf16_tol_of_first"] = bf16_tol(cfg, want)
+        full = full_forward_of(model, batch, fed).float()
+        got = torch.stack(steps, dim=1)
+        err = float((got - full).abs().max())
+        check(err <= bf16_tol(cfg, full),
+              f"{name}: the decoded logits differ from a full forward's by "
+              f"{err}")
+        out["decode_vs_forward_max_abs_err"] = err
+        out["bf16_tol_of_forward"] = bf16_tol(cfg, full)
+        del full, got
+    out["path_s"] = time.perf_counter() - started
+    print(json.dumps(out), flush=True)
+    del model, logits, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_parity(model, devices) -> dict:
+    """An enc-dec or VLM smoke model on two devices from the same weights
+    and inputs (`family_inputs`, 2 prompts of 8 tokens): the prefill's
+    logits at every position and 4 decode steps' fed the same tokens,
+    card against CPU, float32 to rtol / atol 1e-5, bfloat16 to
+    `bf16_tol`."""
+    cfg = model.cfg
+    b, s, steps = 2, 8, 4
+    fed = torch.randint(0, cfg.vocab_size, (b, steps),
+                        generator=torch.Generator().manual_seed(2))
+    got = {}
+    for device in devices:
+        model.to(device)
+        batch = family_inputs(cfg, b, s, device)
+        with torch.inference_mode():
+            logits, cache = transformer.prefill(model, batch["tokens"],
+                                                s + steps, **extras(batch))
+            outs = [logits.float().cpu()]
+            for t in range(steps):
+                pos = torch.full((b,), s + t, dtype=torch.long,
+                                 device=device)
+                outs.append(transformer.decode_step(
+                    model, fed[:, t:t + 1].to(device), pos,
+                    cache).float().cpu())
+        got[device] = outs
+    errs, tols = [], []
+    for i, (a, ref) in enumerate(zip(*(got[d] for d in devices))):
+        err, tol = float((a - ref).abs().max()), bf16_tol(cfg, ref)
+        ok = (torch.allclose(a, ref, rtol=tol, atol=tol)
+              if cfg.dtype == "float32" else err <= tol)
+        check(ok, f"{cfg.name} {cfg.dtype} smoke: card vs CPU "
+              f"{'prefill' if i == 0 else f'decode step {i}'} logits "
+              f"differ by {err} (tolerance {tol})")
+        errs.append(err)
+        tols.append(tol)
+    return {"card_vs_cpu_prefill_max_abs_err": errs[0],
+            "card_vs_cpu_decode_max_abs_err": max(errs[1:]),
+            "tolerance": max(tols), "through": "prefill + decode_step"}
+
+
 def arch_parity_phase(devices=("cuda", "cpu")):
     """Phase 8 for the public archs: each smoke config with its memory
-    FFN (2^16 rows, `pallas`) served on the card and on the CPU from the
-    same seed's weights (drawn on the CPU), in float32 and in bfloat16:
-    every request's first logits to 1e-5 / to `bf16_tol`, and in float32
-    the greedy tokens equal (the decode graph captured on the served
-    state, no warm-up).  A bfloat16 MoE
-    request whose prefill the two route apart is held to the routing
-    rule instead (`routing_excused`, the CPU's margins)."""
+    FFN (2^16 rows, `pallas`; the hybrid without: the reference allows
+    none) served on the card and on the CPU from the same seed's weights
+    (drawn on the CPU), in float32 and in bfloat16: every request's
+    first logits to 1e-5 / to `bf16_tol`, and in float32 the greedy
+    tokens equal (the decode graph captured on the served state, no
+    warm-up).  A bfloat16 MoE request whose prefill the two route apart
+    is held to the routing rule instead (`routing_excused`, the CPU's
+    margins).  The enc-dec and VLM archs, which the engine refuses, go
+    through `transformer.prefill` and `decode_step` (`family_parity`)."""
     out = {}
     for arch in configs.ARCHS:
         for dtype in ("float32", "bfloat16"):
             cfg = h_config(arch, dtype, smoke=True, log2=16)
             model = transformer.init(cfg, seed=1).eval()
+            if cfg.family in ("encdec", "vlm"):  # the engine refuses them
+                out[f"{arch}/{dtype}"] = family_parity(model, devices)
+                continue
             reports, routes = {}, {}
             for device in devices:
                 trace = synthetic_trace(np.random.default_rng(1), 3,
@@ -4869,7 +5285,8 @@ def arch_parity_phase(devices=("cuda", "cpu")):
                 "greedy_tokens_equal": same}
             if n:
                 out[f"{arch}/{dtype}"]["routing_excused"] = excused
-    print(json.dumps({"parity": "public archs, smoke, with_lram", **out}),
+    print(json.dumps({"parity": "public archs, smoke, with_lram "
+                      "(the hybrid without)", **out}),
           flush=True)
 
 
@@ -4936,6 +5353,11 @@ def main() -> None:
     for name in N_PATHS:
         launches[name] = public_path(name)
     print(json.dumps({"path_n_s": time.perf_counter() - t_n}), flush=True)
+    t_o = time.perf_counter()
+    launches["o1_zamba2_2_7b"] = o1_hybrid_path()
+    for name in O_PATHS:
+        launches[name] = o_decoder_path(name)
+    print(json.dumps({"path_o_s": time.perf_counter() - t_o}), flush=True)
     launches["train"], run = train_path()
     print(json.dumps({"m4_vs_phase6": {"bf16_table": PATH_M["m4"],
                                        "fp32_table": PHASE6}}), flush=True)

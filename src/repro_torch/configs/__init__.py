@@ -1,16 +1,16 @@
 """Architecture registry of the port: `get_config(name)` /
 `get_smoke_config(name)` and `with_lram(cfg)`, as in `repro.configs`.
 
-Registered: the public archs of the dense, MoE and SSM families (`ARCHS`:
-yi-9b, qwen2-1.5b, starcoder2-3b, h2o-danube-3-4b, phi3.5-moe-42b-a6.6b,
-mixtral-8x7b, mamba2-1.3b; full configs in bfloat16, smoke configs in
-float32), the paper's `lram-bert-*` models and the tiered serving archs
-(`lram-sharded-tiered` among them).  The reference's other public archs
-(the hybrid, enc-dec and VLM families: `NOT_PORTED`) raise KeyError
-naming ROADMAP A14; any other name raises KeyError listing the ported
-ones.
+Registered: the reference's ten public archs of every family (`ARCHS`, in
+the reference's order: dense yi-9b, qwen2-1.5b, starcoder2-3b,
+h2o-danube-3-4b; hybrid zamba2-2.7b; MoE phi3.5-moe-42b-a6.6b,
+mixtral-8x7b; SSM mamba2-1.3b; enc-dec whisper-small; VLM qwen2-vl-72b;
+full configs in bfloat16, smoke configs in float32), the paper's
+`lram-bert-*` models and the tiered serving archs (`lram-sharded-tiered`
+among them).  Any other name raises KeyError listing the registered ones.
 `with_lram(cfg)` inserts the paper's memory FFN into any registered
-arch, as the reference's does.
+arch, as the reference's does (a hybrid then fails at `init`, as the
+reference's does: no memory layer inside hybrid units).
 """
 
 from __future__ import annotations
@@ -22,19 +22,20 @@ from repro_torch.core import lram as lram_mod
 from repro_torch.models.config import ModelConfig
 
 ARCHS = ("yi-9b", "qwen2-1.5b", "starcoder2-3b", "h2o-danube-3-4b",
-         "phi3.5-moe-42b-a6.6b", "mixtral-8x7b", "mamba2-1.3b")
-
-# the reference's public archs whose families are not ported yet
-NOT_PORTED = ("zamba2-2.7b", "whisper-small", "qwen2-vl-72b")
+         "zamba2-2.7b", "phi3.5-moe-42b-a6.6b", "mixtral-8x7b",
+         "mamba2-1.3b", "whisper-small", "qwen2-vl-72b")
 
 _MODULES = {
     "yi-9b": "yi_9b",
     "qwen2-1.5b": "qwen2_1_5b",
     "starcoder2-3b": "starcoder2_3b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
     "mixtral-8x7b": "mixtral_8x7b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "whisper-small": "whisper_small",
+    "qwen2-vl-72b": "qwen2_vl_72b",
     "lram-bert-baseline": "lram_bert",
     "lram-bert-pkm": "lram_bert",
     "lram-bert-small": "lram_bert",
@@ -47,12 +48,8 @@ _MODULES = {
 
 
 def _module(name: str):
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported to torch yet: its "
-                       f"family is ROADMAP A14")
     if name not in _MODULES:
-        raise KeyError(f"arch {name!r} is not ported to torch yet; ported: "
-                       f"{sorted(_MODULES)} (see ROADMAP queue A)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -3,8 +3,10 @@
 The input is the JAX pytree with every leaf already a numpy array (for
 example `jax.tree.map(np.asarray, params)`), so this module imports no
 JAX.  Keys map one to one onto the `Transformer`'s `state_dict`: nested
-dict keys join with "." and the leading layer axis of a stacked ("run", n)
-segment is split into n per-layer entries.  Dense kernels keep their
+dict keys join with "." and the stacked axes are split into per-layer
+entries: a ("run", n) segment's leading layer axis, a ("hybrid", units)
+segment's two (unit, layer in the unit) and the enc-dec encoder's layer
+axis.  Dense kernels keep their
 (in, out) layout.  Batchnorm running stats come from `state`.
 
 The names, both ways (`reference_path` is the table; `state_dict_from_jax`
@@ -18,6 +20,12 @@ walks it backwards):
                                         (n, E, f, d): layer i's (E, f, d)
     segments.seg0.<i>.mamba.A_log       params/segments/seg0/mamba/A_log
                                         (float32 in a bfloat16 model too)
+    segments.seg0.<u>.<j>.mamba.conv    params/segments/seg0/mamba/conv of a
+                                        hybrid segment, (units, pattern,
+                                        ...): unit u's layer j
+    shared_attn.attn.wq.kernel          params/shared_attn/attn/wq/kernel
+    encoder.<i>.mlp.wi.kernel           params/encoder/mlp/wi/kernel, layer i
+    enc_pos_embed / enc_norm.scale      params/enc_pos_embed / enc_norm/scale
     segments.seg1.memffn.lram.values    params/segments/seg1/memffn/lram/values
     ....lram.values.q / .scale          .../lram/values/0 / 1 (QuantizedTable)
     ....memffn.lram.qnorm.mean          model_state/seg1/lram/qnorm/mean
@@ -97,20 +105,32 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def _unstack(flat: dict, prefix: str, leaves: dict, lead: tuple) -> None:
+    """Split each leaf's leading axes `lead` into per-layer entries of
+    `flat`: `<prefix>.<i>[.<j>].<key>`."""
+    for key, arr in leaves.items():
+        if arr.shape[:len(lead)] != lead:
+            raise ValueError(f"{prefix}.{key}: expected stacked layers "
+                             f"{lead}, got {arr.shape}")
+        for index in np.ndindex(*lead):
+            flat[".".join([prefix, *map(str, index), key])] = arr[index]
+
+
 def state_dict_from_jax(params, state, cfg: ModelConfig
                         ) -> dict[str, torch.Tensor]:
     """The port's `state_dict` for the reference's (params, state)."""
-    flat = _flatten({k: v for k, v in params.items() if k != "segments"})
+    flat = _flatten({k: v for k, v in params.items()
+                     if k not in ("segments", "encoder")})
+    if "encoder" in params:
+        _unstack(flat, "encoder", _flatten(params["encoder"]),
+                 (cfg.encoder_layers,))
     for si, seg in enumerate(transformer.layer_plan(cfg)):
         name = f"seg{si}"
         leaves = _flatten(params["segments"][name])
-        if seg[0] == "run":
-            for key, arr in leaves.items():
-                if arr.shape[0] != seg[1]:
-                    raise ValueError(f"{name}.{key}: expected {seg[1]} "
-                                     f"stacked layers, got {arr.shape}")
-                for i in range(seg[1]):
-                    flat[f"segments.{name}.{i}.{key}"] = arr[i]
+        if seg[0] in ("run", "hybrid"):
+            lead = ((seg[1],) if seg[0] == "run"
+                    else (seg[1], cfg.hybrid_pattern))
+            _unstack(flat, f"segments.{name}", leaves, lead)
         else:
             for key, arr in leaves.items():
                 flat[f"segments.{name}.{key}"] = arr
@@ -122,10 +142,15 @@ def state_dict_from_jax(params, state, cfg: ModelConfig
     return {k: tensor_from_numpy(v) for k, v in flat.items()}
 
 
-def reference_path(key: str, cfg: ModelConfig) -> tuple[str, int | None]:
-    """(the reference's pytree path, the layer's index in a stacked run or
-    None) of a port `state_dict` key (or a tiered table's `...values`)."""
+def reference_path(key: str, cfg: ModelConfig
+                   ) -> tuple[str, int | tuple[int, int] | None]:
+    """(the reference's pytree path, the leaf's index in its stacked
+    array: a layer of a run or of the encoder, (unit, layer) of a hybrid
+    segment, or None) of a port `state_dict` key (or a tiered table's
+    `...values`)."""
     parts = key.split(".")
+    if parts[0] == "encoder":
+        return "params/encoder/" + "/".join(parts[2:]), int(parts[1])
     if parts[0] != "segments":
         return "params/" + "/".join(parts), None
     name = parts[1]
@@ -133,6 +158,9 @@ def reference_path(key: str, cfg: ModelConfig) -> tuple[str, int | None]:
     if seg[0] == "run":
         return f"params/segments/{name}/" + "/".join(parts[3:]), \
             int(parts[2])
+    if seg[0] == "hybrid":
+        return f"params/segments/{name}/" + "/".join(parts[4:]), \
+            (int(parts[2]), int(parts[3]))
     rest = parts[2:]
     if rest[-1] in _STATS and rest[-2] == "qnorm":  # drop memffn / pkm
         return f"model_state/{name}/" + "/".join(rest[1:]), None
@@ -156,6 +184,25 @@ def _moment_path(moment: str, path: str) -> str:
     return f"opt/{moment}/" + path.removeprefix("params/")
 
 
+def _stacked_axes(layer) -> int:
+    """The stacked axes before a leaf's own: 0, 1 (a layer) or 2."""
+    if layer is None:
+        return 0
+    return len(layer) if isinstance(layer, tuple) else 1
+
+
+def _stack(parts: list) -> torch.Tensor:
+    """The stacked array of (index, tensor) parts (`reference_path`'s
+    index: an int, or (unit, layer) stacked unit by unit), a copy."""
+    if not isinstance(parts[0][0], tuple):
+        return torch.stack([t.detach() for _, t in
+                            sorted(parts, key=lambda p: p[0])])
+    units: dict[int, list] = {}
+    for (u, j), t in parts:
+        units.setdefault(u, []).append((j, t))
+    return torch.stack([_stack(units[u]) for u in sorted(units)])
+
+
 def reference_sharding(model: transformer.Transformer,
                        opt_state=None) -> dict[str, tuple]:
     """{reference leaf name: (mesh, spec)} of every leaf of which this rank
@@ -167,7 +214,7 @@ def reference_sharding(model: transformer.Transformer,
     out = {}
     for key, spec in sharding.split_leaves(model, mesh).items():
         path, layer = reference_path(key, model.cfg)
-        spec = (None,) * (layer is not None) + tuple(spec)
+        spec = (None,) * _stacked_axes(layer) + tuple(spec)
         out[path] = (mesh, spec)
         if opt_state is not None and key in opt_state["mu"]:
             for moment in ("mu", "nu"):
@@ -198,15 +245,16 @@ def reference_tree(model: transformer.Transformer, opt_state=None, *,
     def leaf(path, parts):
         layer, t = parts[0]
         if like:
-            shape = (len(parts),) * (layer is not None) + tuple(t.shape)
+            meta = [(i, torch.empty(x.shape, dtype=x.dtype, device="meta"))
+                    for i, x in parts]
+            shape = tuple(t.shape if layer is None else _stack(meta).shape)
             if path in spread:
                 shape = sharding.global_shape(shape, spread[path][1],
                                               spread[path][0])
             return torch.empty(shape, dtype=t.dtype, device="meta")
         if layer is None:
             return t.detach()
-        return torch.stack([x.detach() for _, x in
-                            sorted(parts, key=lambda p: p[0])])
+        return _stack(parts)
 
     flat = {path: leaf(path, parts) for path, parts in groups.items()}
     flat.update(stores)
@@ -263,7 +311,8 @@ def load_reference_tree(model: transformer.Transformer, tree: dict,
         arr = arr if layer is None else arr[layer]
         if path in spread and tuple(arr.shape) != tuple(t.shape):
             mesh, spec = spread[path]
-            arr = sharding.own_block(arr, mesh, spec[layer is not None:])
+            arr = sharding.own_block(arr, mesh,
+                                     spec[_stacked_axes(layer):])
         t.copy_(_as_tensor(arr, t))
 
     for key, t in model.state_dict(keep_vars=True).items():

@@ -28,12 +28,13 @@ trace, so its timings exclude each shape's first call.
 
 `--arch` takes the public archs of the dense family (`yi-9b`,
 `qwen2-1.5b`, `starcoder2-3b`, `h2o-danube-3-4b`), the MoE family
-(`phi3.5-moe-42b-a6.6b`, `mixtral-8x7b`) and the SSM family
-(`mamba2-1.3b`; prefilled at exact lengths); full configs in bfloat16,
-`--smoke` in float32, as the reference's CLI does: they have no memory
-layer, so `--placement` and the memory flags are refused for them.  The
-reference's other public archs (hybrid, enc-dec, VLM) raise, naming
-ROADMAP A14.
+(`phi3.5-moe-42b-a6.6b`, `mixtral-8x7b`), the SSM family (`mamba2-1.3b`)
+and the hybrid (`zamba2-2.7b`; both prefilled at exact lengths); full
+configs in bfloat16, `--smoke` in float32, as the reference's CLI does:
+they have no memory layer, so `--placement` and the memory flags are
+refused for them.  The enc-dec and VLM archs (`whisper-small`,
+`qwen2-vl-72b`) raise the engine's ValueError, as the reference's CLI
+does.
 
 `lram-tiered` and `lram-tiered-q8` serve on their own placement, `tiered`:
 the table lives in host RAM, a device cache holds the hot shards, and the

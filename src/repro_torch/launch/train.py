@@ -131,9 +131,15 @@ here each rank is a process with its own.
 Not ported yet, and refused with the ROADMAP item that ports it (A14
 part 2): a bfloat16 config (the public archs' full configs; their float32
 `--smoke` configs train, the MoE and SSM archs' too, through `loss_fn`
-with the router loss), and an MoE arch on a mesh of more than one batch
+with the router loss), an MoE arch on a mesh of more than one batch
 rank (`pod` x `data`): the step sums `metrics["aux"]` over the batch
-axes, which would make a rank's router loss that many times too large.
+axes, which would make a rank's router loss that many times too large,
+and a hybrid arch on any mesh (its shared block and two stacked axes
+have no sharding rules here).  The hybrid's float32 smoke config trains
+on one process.  As the reference's CLI, the trainer feeds no
+`encoder_embeds` or `vision_embeds`: whisper-small's forward raises
+without them, and the enc-dec and VLM archs train through
+`transformer.loss_fn` with the batch extras.
 """
 
 from __future__ import annotations
@@ -421,6 +427,9 @@ def main(argv=None) -> TrainRun:
                          f"of {batch_ranks} batch ranks is not ported yet "
                          f"(its router loss would be summed over them): "
                          f"ROADMAP A14 part 2")
+    if cfg.family == "hybrid" and mesh is not None:
+        raise SystemExit(f"{cfg.name} is a hybrid arch: training it on a "
+                         f"mesh is not ported yet: ROADMAP A14 part 2")
     main_rank = mesh is None or dist.get_rank() == 0
     arm_obs(args, arm=main_rank)  # on a mesh the other ranks stay off
     if args.placement:

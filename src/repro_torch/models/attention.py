@@ -1,6 +1,6 @@
-"""Attention: GQA with split-half RoPE, sliding window, full-sequence,
-chunked and per-slot decode (torch counterpart of
-`repro.models.attention`).
+"""Attention: GQA with split-half RoPE or M-RoPE, sliding window,
+cross attention, full-sequence, chunked and per-slot decode (torch
+counterpart of `repro.models.attention`).
 
 Three paths, as the reference's:
 
@@ -17,8 +17,15 @@ Three paths, as the reference's:
 Plain torch matmuls and softmax in float32 whatever the activation dtype,
 masked with -1e30 as the reference does (no fused attention call: the
 reference computes attention outside any Pallas kernel).  The decode's
-attend runs in the cache's dtype, as the reference's.  M-RoPE is not
-ported yet and raises (ROADMAP A14).
+attend runs in the cache's dtype, as the reference's.
+
+M-RoPE (qwen2-vl): positions (3, B, S) for (t, h, w); the rotation's
+frequency bands are split between the three streams by
+`cfg.mrope_sections`, angles in float32.  A decode step puts its one
+position on all three streams.  Cross attention (the enc-dec decoder):
+the keys and values are the encoder output's projections, given whole
+(`cross_kv`); the query is this layer's, never chunked under `auto`, and
+a cross decode step attends over every encoder row.
 """
 
 from __future__ import annotations
@@ -33,12 +40,6 @@ from repro_torch import nn as tnn
 from repro_torch.models.config import ModelConfig
 
 _NEG_INF = -1e30
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.pos_scheme == "mrope":
-        raise NotImplementedError("M-RoPE is not yet ported to torch: "
-                                  "ROADMAP A14")
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +68,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _bands_on(sections: tuple[int, ...], device: torch.device
+              ) -> torch.Tensor:
+    """The position stream (0, 1, 2: t, h, w) of each frequency band."""
+    with torch.inference_mode(False):
+        return torch.repeat_interleave(
+            torch.arange(len(sections)), torch.tensor(sections)).to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE: x (B, S, H, D), positions (3, B, S) int; frequency
+    band j turns by the position of stream `bands[j]` (the reference's
+    one-hot selection, exact in float32)."""
+    d = x.shape[-1]
+    half = d // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope_sections {sections} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = _frequencies_on(d, theta, x.device)
+    sel = positions.float()[_bands_on(tuple(sections), x.device)]
+    angles = sel.permute(1, 2, 0) * freqs  # (B, S, half)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
 
@@ -199,7 +229,6 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, *,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _check_ported(cfg)
         h, khd, d, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_model, \
             cfg.head_dim
         self.cfg = cfg
@@ -210,28 +239,55 @@ class Attention(nn.Module):
         self.wo = tnn.Dense(h * hd, d, use_bias=False, **kw)
 
 
-def _project_qkv(attn: Attention, x: torch.Tensor, positions: torch.Tensor):
+def _rotate(cfg: ModelConfig, x: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    if cfg.pos_scheme == "rope":
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.pos_scheme == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return x
+
+
+def _project_q(attn: Attention, x: torch.Tensor, positions: torch.Tensor):
     cfg = attn.cfg
     b, s, _ = x.shape
     q = attn.wq(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    return _rotate(cfg, q, positions)
+
+
+def _project_qkv(attn: Attention, x: torch.Tensor, positions: torch.Tensor):
+    cfg = attn.cfg
+    b, s, _ = x.shape
     k = attn.wk(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = attn.wv(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.pos_scheme == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return _project_q(attn, x, positions), _rotate(cfg, k, positions), v
+
+
+def project_kv(attn: Attention, enc: torch.Tensor):
+    """The cross attention's keys and values of an encoder output (B, T,
+    d): (B, T, Kh, D) each, unrotated (the reference's per-layer `cross`
+    projections)."""
+    cfg = attn.cfg
+    b, t, _ = enc.shape
+    return (attn.wk(enc).reshape(b, t, cfg.num_kv_heads, cfg.head_dim),
+            attn.wv(enc).reshape(b, t, cfg.num_kv_heads, cfg.head_dim))
 
 
 def attn_apply(attn: Attention, x: torch.Tensor, *,
-               positions: torch.Tensor, causal: bool = True):
-    """Full-sequence attention (train / prefill). x: (B, S, d).
-    Returns (y, (k, v))."""
+               positions: torch.Tensor, causal: bool = True,
+               cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Full-sequence attention (train / prefill). x: (B, S, d); with
+    `cross_kv` the keys and values are those (B, T, Kh, D) instead of x's
+    own.  Returns (y, (k, v))."""
     cfg = attn.cfg
     b, s, _ = x.shape
-    q, k, v = _project_qkv(attn, x, positions)
+    if cross_kv is None:
+        q, k, v = _project_qkv(attn, x, positions)
+    else:
+        q, (k, v) = _project_q(attn, x, positions), cross_kv
     window = cfg.window if cfg.attention == "swa" else None
     use_chunked = cfg.attn_impl == "chunked" or (
-        cfg.attn_impl == "auto" and s > cfg.attn_chunk)
+        cfg.attn_impl == "auto" and s > cfg.attn_chunk and cross_kv is None)
     if use_chunked and s % cfg.attn_chunk == 0:
         out = chunked_attention(q, k, v, causal=causal, window=window,
                                 q_chunk=cfg.attn_chunk,
@@ -256,10 +312,8 @@ def attn_decode(attn: Attention, x: torch.Tensor, *, pos,
     """
     b = x.shape[0]
     t = k_cache.shape[1]
-    if not torch.is_tensor(pos):
-        pos = torch.full((b,), int(pos), dtype=torch.long, device=x.device)
-    pos = pos.to(torch.long)
-    q, k, v = _project_qkv(attn, x, pos[:, None])
+    pos = _slot_positions(pos, b, x.device)
+    q, k, v = _project_qkv(attn, x, _decode_positions(attn.cfg, pos))
     if attn.cfg.attention == "swa":
         slot = torch.remainder(pos, t)
     else:
@@ -268,4 +322,33 @@ def attn_decode(attn: Attention, x: torch.Tensor, *, pos,
     k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
     out = decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=t))
+    return attn.wo(out.reshape(b, 1, -1))
+
+
+def _slot_positions(pos, b: int, device) -> torch.Tensor:
+    """`pos` as a long vector (B,): one int is every slot's."""
+    if not torch.is_tensor(pos):
+        return torch.full((b,), int(pos), dtype=torch.long, device=device)
+    return pos.to(torch.long)
+
+
+def _decode_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """A decode step's rotation positions: (B, 1), or (3, B, 1) for
+    M-RoPE (the one position on every stream, as the reference's)."""
+    if cfg.pos_scheme == "mrope":
+        return pos[None, :, None].expand(3, -1, 1)
+    return pos[:, None]
+
+
+def cross_decode(attn: Attention, x: torch.Tensor, *, pos,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor):
+    """One decode step's cross attention: x (B, 1, d) attends over every
+    row of the encoder's keys and values (B, T, Kh, D), which stay as
+    they are.  Returns y."""
+    b = x.shape[0]
+    pos = _slot_positions(pos, b, x.device)
+    q = _project_q(attn, x, _decode_positions(attn.cfg, pos))
+    t = torch.full((b,), k_cache.shape[1], dtype=torch.long,
+                   device=x.device)
+    out = decode_attention(q, k_cache, v_cache, t)
     return attn.wo(out.reshape(b, 1, -1))

@@ -1,10 +1,9 @@
 """Model configuration (the port's own copy of `repro.models.config`).
 
 One frozen dataclass describes every family of the reference, with the
-same fields and defaults, so configs carry over letter for letter.  The
-port builds the dense family only so far; the other families' fields are
-kept so every config of the reference can be expressed.  `dtype` is
-live for the dense family: "float32" or "bfloat16" (`torch_dtype`).
+same fields and defaults, so configs carry over letter for letter; the
+port builds every family.  `dtype` is "float32" or "bfloat16"
+(`torch_dtype`).
 """
 
 from __future__ import annotations

@@ -1,43 +1,62 @@
-"""Transformer assembly for the dense, MoE and SSM families (torch
-counterpart of `repro.models.transformer`).
+"""Transformer assembly for every family of the reference: dense, MoE,
+SSM, hybrid, enc-dec and VLM (torch counterpart of
+`repro.models.transformer`).
 
 The stack follows the reference's segment plan: ("run", n) segments of n
-plain layers and ("memory", i, "lram") layers whose FFN is the paper's
-memory block.  The reference scans each run over stacked parameters; here
-a run is a `ModuleList` walked by a Python loop, and the converter
+plain layers, ("memory", i, "lram") layers whose FFN is the paper's
+memory block, and for the hybrid family one ("hybrid", units) segment.
+The reference scans each run over stacked parameters; here a run is a
+`ModuleList` walked by a Python loop, and the converter
 (`repro_torch.launch.convert`) splits the stacked arrays per layer.
 
-A plain layer is attention + MLP (dense), attention + the top-k MoE
-(`models.moe`, when `num_experts` > 0), or norm + the Mamba-2 mixer
-(`models.mamba2`, family "ssm").  A memory layer is attention + the
-memory FFN; on an SSM host it has no attention: the memory FFN sits on
-the residual stream (the reference's `_memory_layer_full`), though the
-layer still owns the unused `attn_norm` / `attn` leaves the reference's
-`_memory_layer_init` builds.  The MoE layers' router losses are summed
-into `loss_fn`'s aux term, run by run.
+A plain layer is attention + MLP (dense, and the VLM), attention + the
+top-k MoE (`models.moe`, when `num_experts` > 0), norm + the Mamba-2
+mixer (`models.mamba2`, family "ssm"), or for the enc-dec decoder
+attention + cross attention over the encoder's output + MLP
+(`CrossLayer`).  A memory layer is attention + the memory FFN, with no
+cross attention in an enc-dec decoder (the reference's
+`_memory_layer_*`); on an SSM host it has no attention: the memory FFN
+sits on the residual stream (the reference's `_memory_layer_full`),
+though the layer still owns the unused `attn_norm` / `attn` leaves the
+reference's `_memory_layer_init` builds.  The MoE layers' router losses
+are summed into `loss_fn`'s aux term, run by run.
+
+The hybrid family (zamba2): `units` units of `hybrid_pattern` Mamba
+layers, each unit followed by the one `shared_attn` block (attention +
+MLP, built as the dense family), the same module and parameters at every
+call, so its gradient sums over the calls.  The reference allows no
+memory layer in a hybrid (`layer_plan` raises).  The enc-dec family
+(whisper): a stack of `encoder_layers` non-causal layers (dense
+attention) over `encoder_embeds` plus `enc_pos_embed`, then `enc_norm`;
+each decoder run layer projects that output through its own `cross`
+keys and values.  The VLM (qwen2-vl): `vision_embeds` replace the first
+`vision_tokens` embeddings, and the rotation is M-RoPE on positions (3,
+B, S) (`batch["positions"]`; default the sequence index on all three
+streams).
 
 Modes: full sequence (`forward`, in train mode too, and `prefill`, which
 also fills the decode cache) and single-token decode (`decode_step`) with
 one position per batch slot.  `loss_fn` is the masked cross-entropy of
 both objectives (clm next token, mlm masked positions) plus
 `router_aux_weight` times the aux loss.  The decode cache keeps the
-reference's layout (a run's leaves stack a leading layer axis): K/V for
-attention, the float32 SSM state and conv window for a Mamba run, nothing
-for a memory layer on an SSM host.  It is updated IN PLACE by decode and
-by `write_cache_slot`.  A ("memory", i, "pkm") layer's FFN is the
-product-key memory baseline (`repro_torch.core.pkm`), applied to the
-normed residual with no dense around it.  Weights, activations and the
-KV cache take `cfg.dtype` (float32 or bfloat16; a memory table stays
-float32).  A sliding-window model's cache holds `min(window, max_len)`
-positions per layer as a ring (position p in slot p % window): a prefill
-longer than the window keeps its last `window` positions, permuted into
-their ring slots.  The hybrid, enc-dec and VLM families are not ported
-yet and raise, naming ROADMAP A14.
+reference's layout (a run's leaves stack a leading layer axis, a hybrid
+segment's Mamba leaves two: unit and layer): K/V for attention, the
+encoder's projected ck / cv for an enc-dec run, the float32 SSM state
+and conv window for a Mamba layer, nothing for a memory layer on an SSM
+host.  It is updated IN PLACE by decode and by `write_cache_slot`.  A
+("memory", i, "pkm") layer's FFN is the product-key memory baseline
+(`repro_torch.core.pkm`), applied to the normed residual with no dense
+around it.  Weights, activations and the KV cache take `cfg.dtype`
+(float32 or bfloat16; a memory table stays float32).  A sliding-window
+model's cache holds `min(window, max_len)` positions per layer as a ring
+(position p in slot p % window): a prefill longer than the window keeps
+its last `window` positions, permuted into their ring slots.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 from torch import nn
@@ -57,9 +76,19 @@ from repro_torch.models.mlp import MLP
 # ---------------------------------------------------------------------------
 
 def layer_plan(cfg: ModelConfig) -> list[tuple]:
-    """[("run", count) | ("memory", layer_idx, kind)] covering all layers."""
+    """[("run", count) | ("memory", layer_idx, kind)] covering all
+    layers, or [("hybrid", units)] for the hybrid family."""
     special = {i: "lram" for i in cfg.lram_layers}
     special.update({i: "pkm" for i in cfg.pkm_layers})
+    if cfg.family == "hybrid":
+        if special:
+            raise ValueError(
+                f"{cfg.name}: memory layers inside hybrid units are not "
+                f"supported (the reference's layer_plan rule)")
+        if cfg.num_layers % cfg.hybrid_pattern:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                             f"units of {cfg.hybrid_pattern}")
+        return [("hybrid", cfg.num_layers // cfg.hybrid_pattern)]
     plan: list[tuple] = []
     run = 0
     for i in range(cfg.num_layers):
@@ -76,14 +105,6 @@ def layer_plan(cfg: ModelConfig) -> list[tuple]:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(
-            f"the {cfg.family} family is not yet ported to torch: "
-            f"ROADMAP A14")
-    if cfg.pos_scheme not in ("rope", "learned", "none"):
-        raise NotImplementedError(
-            f"pos_scheme {cfg.pos_scheme!r} is not yet ported to torch: "
-            f"ROADMAP A14")
     if cfg.pkm_layers and cfg.dtype != "float32":
         raise NotImplementedError("the PKM layer runs float32 models only")
 
@@ -144,6 +165,44 @@ class Layer(_Block):
 
     def ffn(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         return self.mlp(self.ffn_norm(x))
+
+
+class CrossLayer(Layer):
+    """Attention + cross attention over the encoder's output (`cross`,
+    its own keys and values of it) + MLP: an enc-dec decoder's run
+    layer."""
+
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: torch.Generator | None = None):
+        super().__init__(cfg, generator=generator)
+        self.cross_norm = _norm(cfg)
+        self.cross = attention.Attention(cfg, generator=generator)
+
+    def full(self, x, positions, *, causal: bool, train: bool = False,
+             collect_access: bool = False, enc=None):
+        """`_Block.full` with the encoder's output `enc` (B, T, d); the
+        K/V it returns are (k, v, ck, cv), the last two the cross
+        attention's projections of `enc`."""
+        h, kv = attention.attn_apply(self.attn, self.attn_norm(x),
+                                     positions=positions, causal=causal)
+        x = x + h
+        ckv = attention.project_kv(self.cross, enc)
+        h, _ = attention.attn_apply(self.cross, self.cross_norm(x),
+                                    positions=positions, causal=False,
+                                    cross_kv=ckv)
+        x = x + h
+        return x + self.ffn(x, train), kv + ckv, None, None
+
+    def decode(self, x, pos, cache):
+        """Single-token step over the self-attention K/V (written in
+        place) and the encoder's ck / cv (read whole)."""
+        x = x + attention.attn_decode(self.attn, self.attn_norm(x), pos=pos,
+                                      k_cache=cache["k"],
+                                      v_cache=cache["v"])
+        x = x + attention.cross_decode(self.cross, self.cross_norm(x),
+                                       pos=pos, k_cache=cache["ck"],
+                                       v_cache=cache["cv"])
+        return x + self.ffn(x, False)
 
 
 class MoELayer(_Block):
@@ -245,12 +304,16 @@ def _layer_class(cfg: ModelConfig):
     """A run's layer: by family, and MoE where experts are configured."""
     if cfg.family == "ssm":
         return SSMLayer
+    if cfg.family == "encdec":
+        return CrossLayer
     return MoELayer if cfg.num_experts > 0 else Layer
 
 
 class Transformer(nn.Module):
     """Parameters are named as the reference's pytree, so `state_dict`
-    keys are its paths with run segments split per layer."""
+    keys are its paths with stacked layers split: a run's per layer
+    (`segments.seg0.<i>`), a hybrid segment's per unit and layer
+    (`segments.seg0.<u>.<j>`), the encoder's per layer (`encoder.<i>`)."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: torch.Generator | None = None):
@@ -268,9 +331,30 @@ class Transformer(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else tnn.Dense(
             cfg.d_model, cfg.vocab_size, use_bias=False, generator=generator,
             dtype=dtype)
+        self.enc_pos_embed = self.encoder = self.enc_norm = None
+        if cfg.family == "encdec":
+            self.enc_pos_embed = nn.Parameter(tnn.truncated_normal_(
+                torch.empty(cfg.encoder_len, cfg.d_model, dtype=dtype), 0.02,
+                generator))
+            enc_cfg = dataclasses.replace(cfg, num_experts=0,
+                                          attn_impl="dense")
+            self.encoder = nn.ModuleList(
+                Layer(enc_cfg, generator=generator)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = _norm(cfg)
+        self.shared_attn = None
         segs = {}
         for si, seg in enumerate(layer_plan(cfg)):
-            if seg[0] == "run":
+            if seg[0] == "hybrid":
+                ssm_cfg = dataclasses.replace(cfg, family="ssm")
+                segs[f"seg{si}"] = nn.ModuleList(
+                    nn.ModuleList(SSMLayer(ssm_cfg, generator=generator)
+                                  for _ in range(cfg.hybrid_pattern))
+                    for _ in range(seg[1]))
+                self.shared_attn = Layer(
+                    dataclasses.replace(cfg, family="dense"),
+                    generator=generator)
+            elif seg[0] == "run":
                 segs[f"seg{si}"] = nn.ModuleList(
                     _layer_class(cfg)(cfg, generator=generator)
                     for _ in range(seg[1]))
@@ -282,15 +366,21 @@ class Transformer(nn.Module):
         # gather (`distributed.sharding.shard_params`); None: whole
         self.placement = None
 
-    def embed_tokens(self, tokens: torch.Tensor, positions) -> torch.Tensor:
-        """Token embeddings, plus the learned position rows where
-        configured: `positions` (an int tensor broadcastable to tokens, or
-        one int) clamped to the table, as the reference's decode does.
-        Every forward starts here: it raises while the dense leaves are
-        this rank's blocks (`sharding.gathered` makes them whole)."""
+    def embed_tokens(self, tokens: torch.Tensor, positions,
+                     vision: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings, the first `vision_tokens` of them replaced by
+        `vision` (B, vision_tokens, d) where given, plus the learned
+        position rows where configured: `positions` (an int tensor
+        broadcastable to tokens, or one int) clamped to the table, as the
+        reference's decode does.  Every forward starts here: it raises
+        while the dense leaves are this rank's blocks
+        (`sharding.gathered` makes them whole)."""
         if self.placement is not None:
             self.placement.check()
         x = self.embed(tokens)
+        if vision is not None and self.cfg.vision_tokens:
+            x = torch.cat([vision.to(x.dtype),
+                           x[:, self.cfg.vision_tokens:]], dim=1)
         if self.pos_embed is None:
             return x
         pos = torch.as_tensor(positions, device=tokens.device).long()
@@ -331,6 +421,68 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=tokens.device).expand(b, s)
 
 
+def _embed_inputs(model: Transformer, batch: dict):
+    """(x, positions) of a batch, as the reference's `_embed_inputs`:
+    `vision_embeds` where the model takes them, and M-RoPE's positions
+    (3, B, S) from `batch["positions"]` (default the sequence index on
+    every stream)."""
+    tokens = batch["tokens"]
+    if model.cfg.pos_scheme == "mrope":
+        positions = batch.get("positions")
+        if positions is None:
+            positions = _positions(tokens).expand(3, *tokens.shape)
+    else:
+        positions = _positions(tokens)
+    x = model.embed_tokens(tokens, positions, batch.get("vision_embeds"))
+    return x, positions
+
+
+def _run_encoder(model: Transformer, batch: dict):
+    """The enc-dec encoder over `batch["encoder_embeds"]` (B, T, d), cast
+    to the model's dtype, plus the encoder's position rows, non-causal;
+    None for the other families."""
+    if model.encoder is None:
+        return None
+    embeds = batch.get("encoder_embeds")
+    if embeds is None:
+        raise ValueError(f"{model.cfg.name} is an enc-dec model: its "
+                         f"batch needs encoder_embeds")
+    x = embeds.to(model.cfg.torch_dtype)
+    b, s = x.shape[:2]
+    x = x + model.enc_pos_embed[:s][None].to(x.dtype)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for layer in model.encoder:
+        x = layer.full(x, positions, causal=False)[0]
+    return model.enc_norm(x)
+
+
+def _walk(model: Transformer, cache=None):
+    """(segment name, layer, {leaf: its cache view}) for every decoder
+    layer in order; a hybrid unit's Mamba layers, then the shared block.
+    Views are {} without a cache."""
+    for name, seg in model.segments.items():
+        c = {} if cache is None else cache[name]
+        if not isinstance(seg, nn.ModuleList):
+            yield name, seg, c
+            continue
+        for i, layer in enumerate(seg):
+            if not isinstance(layer, nn.ModuleList):
+                yield name, layer, {k: v[i] for k, v in c.items()}
+                continue
+            for j, mamba_layer in enumerate(layer):  # a hybrid unit
+                yield name, mamba_layer, {k: c[k][i, j] for k in c
+                                          if k in ("ssm", "conv")}
+            yield name, model.shared_attn, {k: c[k][i] for k in c
+                                            if k in ("k", "v")}
+
+
+def _full(layer, x, positions, enc, **kw):
+    """`layer.full`, the encoder's output passed to a cross layer."""
+    if isinstance(layer, CrossLayer):
+        kw["enc"] = enc
+    return layer.full(x, positions, **kw)
+
+
 def _forward(model: Transformer, batch: dict, *, train: bool,
              collect_access: bool):
     """(logits, {segment: (idx, w)} (empty without `collect_access`), the
@@ -338,30 +490,33 @@ def _forward(model: Transformer, batch: dict, *, train: bool,
     reference's scan sums them; float32 zero without an MoE layer)."""
     tokens = batch["tokens"]
     causal = model.cfg.objective == "clm"
-    positions = _positions(tokens)
-    x = model.embed_tokens(tokens, positions)
+    x, positions = _embed_inputs(model, batch)
+    enc = _run_encoder(model, batch)
     accesses = {}
+    auxs = {name: [] for name in model.segments}
+    for name, layer, _ in _walk(model):
+        x, _, access, aux = _full(layer, x, positions, enc, causal=causal,
+                                  train=train,
+                                  collect_access=collect_access)
+        if access is not None:
+            accesses[name] = access
+        if aux is not None:
+            auxs[name].append(aux)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for name, seg in model.segments.items():
-        auxs = []
-        for layer in (seg if isinstance(seg, nn.ModuleList) else (seg,)):
-            x, _, access, aux = layer.full(x, positions, causal=causal,
-                                           train=train,
-                                           collect_access=collect_access)
-            if access is not None:
-                accesses[name] = access
-            if aux is not None:
-                auxs.append(aux)
-        if auxs:
-            aux_total = aux_total + torch.stack(auxs).sum()
+    for run in auxs.values():
+        if run:
+            aux_total = aux_total + torch.stack(run).sum()
     return model.logits(x), accesses, aux_total
 
 
 def forward(model: Transformer, batch: dict, *, train: bool = False,
             collect_access: bool = False):
-    """Full-sequence forward: batch["tokens"] (B, S) -> logits (B, S, V).
-    In train mode the memory layers' batchnorm stats update in place.
-    With `collect_access` returns (logits, {segment: (idx, w)}), one
+    """Full-sequence forward: batch["tokens"] (B, S) -> logits (B, S, V);
+    the batch also carries "encoder_embeds" (B, T, d) for an enc-dec
+    model and, for a VLM, "vision_embeds" (B, vision_tokens, d) and
+    "positions" (3, B, S), each optional there.  In train mode the
+    memory layers' batchnorm stats update in place.  With
+    `collect_access` returns (logits, {segment: (idx, w)}), one
     entry an LRAM memory segment, named as the reference's (the telemetry
     train step counts `idx`)."""
     logits, accesses, _ = _forward(model, batch, train=train,
@@ -420,24 +575,38 @@ def _attn_cache_len(cfg: ModelConfig, max_len: int) -> int:
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     """Nested dict of (shape, dtype), the reference's layout: a run's
     leaves stack a leading layer axis.  Attention layers hold K/V in the
-    model's dtype; a Mamba run its state (n, B, h, N, P) and conv window
-    (n, B, K-1, C), float32; a memory layer on an SSM host nothing."""
+    model's dtype, an enc-dec run also the encoder's projections ck / cv
+    (encoder_len rows); a Mamba run its state (n, B, h, N, P) and conv
+    window (n, B, K-1, C), float32; a hybrid segment both, the Mamba
+    leaves (units, pattern, ...) and the shared block's K/V (units, ...);
+    a memory layer on an SSM host nothing."""
     dtype = cfg.torch_dtype
     kvd = (batch, _attn_cache_len(cfg, max_len), cfg.num_kv_heads,
            cfg.head_dim)
+    ssm = mamba2.mamba_cache_shapes(cfg, batch) if cfg.ssm_state else {}
     shapes = {}
     for si, seg in enumerate(layer_plan(cfg)):
+        name = f"seg{si}"
+        if seg[0] == "hybrid":
+            lead = (seg[1], cfg.hybrid_pattern)
+            shapes[name] = {k: (lead + shape, torch.float32)
+                            for k, shape in ssm.items()}
+            shapes[name].update({k: ((seg[1],) + kvd, dtype)
+                                 for k in ("k", "v")})
+            continue
         lead = (seg[1],) if seg[0] == "run" else ()
         if cfg.family != "ssm":
-            shapes[f"seg{si}"] = {"k": (lead + kvd, dtype),
-                                  "v": (lead + kvd, dtype)}
+            shapes[name] = {"k": (lead + kvd, dtype),
+                            "v": (lead + kvd, dtype)}
+            if cfg.family == "encdec" and seg[0] == "run":
+                ckv = lead + (batch, cfg.encoder_len, cfg.num_kv_heads,
+                              cfg.head_dim)
+                shapes[name].update(ck=(ckv, dtype), cv=(ckv, dtype))
         elif seg[0] == "run":
-            shapes[f"seg{si}"] = {
-                k: (lead + shape, torch.float32)
-                for k, shape in mamba2.mamba_cache_shapes(cfg,
-                                                          batch).items()}
+            shapes[name] = {k: (lead + shape, torch.float32)
+                            for k, shape in ssm.items()}
         else:
-            shapes[f"seg{si}"] = {}
+            shapes[name] = {}
     return shapes
 
 
@@ -471,17 +640,6 @@ def write_cache_slot(cache, sub_cache, slot: int, axes) -> None:
             leaf.narrow(axes[name][k], slot, 1).copy_(sub_cache[name][k])
 
 
-def _layers_with_cache(model: Transformer, cache):
-    """(layer, {leaf: its cache view}) for every layer, in order."""
-    for name, seg in model.segments.items():
-        c = cache[name]
-        if isinstance(seg, nn.ModuleList):
-            for i, layer in enumerate(seg):
-                yield layer, {k: v[i] for k, v in c.items()}
-        else:
-            yield seg, c
-
-
 def ring_fill_order(s: int, t_cache: int, device=None) -> torch.Tensor:
     """The prompt positions a ring of `t_cache` slots keeps after a
     prefill of `s` > `t_cache` positions, in slot order: the last
@@ -491,12 +649,18 @@ def ring_fill_order(s: int, t_cache: int, device=None) -> torch.Tensor:
     return keep[torch.argsort(keep % t_cache)]
 
 
-def prefill(model: Transformer, tokens: torch.Tensor, max_len: int):
+def prefill(model: Transformer, tokens: torch.Tensor, max_len: int, *,
+            encoder_embeds: torch.Tensor | None = None,
+            vision_embeds: torch.Tensor | None = None,
+            positions: torch.Tensor | None = None):
     """Run the prompt (B, S), building the decode cache. Returns
-    (logits (B, S, V), cache).  A full-attention cache holds position p
-    at p (positions >= S left zero); a sliding window's ring holds the
-    last min(S, window) positions, each in slot p % window; a Mamba layer
-    its final state and conv window."""
+    (logits (B, S, V), cache).  The reference's batch extras: an enc-dec
+    model's `encoder_embeds` (B, encoder_len, d), whose projections fill
+    ck / cv; a VLM's `vision_embeds` and M-RoPE `positions` (3, B, S).
+    A full-attention cache holds position p at p (positions >= S left
+    zero); a sliding window's ring holds the last min(S, window)
+    positions, each in slot p % window; a Mamba layer its final state and
+    conv window."""
     cfg = model.cfg
     b, s = tokens.shape
     if s > max_len:
@@ -505,32 +669,38 @@ def prefill(model: Transformer, tokens: torch.Tensor, max_len: int):
     t_cache = _attn_cache_len(cfg, max_len)
     keep = (ring_fill_order(s, t_cache, tokens.device)
             if cfg.attention == "swa" and s > t_cache else None)
-    positions = _positions(tokens)
-    x = model.embed_tokens(tokens, positions)
-    for layer, lc in _layers_with_cache(model, cache):
+    batch = {"tokens": tokens, "encoder_embeds": encoder_embeds,
+             "vision_embeds": vision_embeds, "positions": positions}
+    x, positions = _embed_inputs(model, batch)
+    enc = _run_encoder(model, batch)
+    for _, layer, lc in _walk(model, cache):
         if isinstance(layer, SSMLayer):
             x = layer.prefill(x, lc)
             continue
-        x, kv, _, _ = layer.full(x, positions, causal=True)
+        x, kv, _, _ = _full(layer, x, positions, enc, causal=True)
         if kv is None:  # a memory layer on an SSM host
             continue
-        k, v = kv
+        k, v = kv[:2]
         if keep is None:
             lc["k"][:, :s] = k
             lc["v"][:, :s] = v
         else:
             lc["k"].copy_(k[:, keep])
             lc["v"].copy_(v[:, keep])
+        if len(kv) == 4:  # a cross layer: the encoder's projections
+            lc["ck"].copy_(kv[2])
+            lc["cv"].copy_(kv[3])
     return model.logits(x), cache
 
 
 def decode_step(model: Transformer, tokens: torch.Tensor, pos,
                 cache) -> torch.Tensor:
     """One serving step: tokens (B, 1) at absolute positions `pos` (an int
-    vector (B,), one per slot, or one int).  Updates `cache` in place and
-    returns logits (B, 1, V)."""
+    vector (B,), one per slot, or one int; a VLM's M-RoPE turns every
+    stream by it).  Updates `cache` in place and returns logits (B, 1,
+    V)."""
     x = model.embed_tokens(tokens, pos[:, None] if torch.is_tensor(pos)
                            else pos)
-    for layer, lc in _layers_with_cache(model, cache):
+    for _, layer, lc in _walk(model, cache):
         x = layer.decode(x, pos, lc)
     return model.logits(x)

@@ -20,6 +20,12 @@ tick over the whole pool:
   * **retire** — a slot whose request reaches its budget or the cache end
     is marked free; the next admission overwrites its cache rows.
 
+The enc-dec and VLM families are refused, as the reference's engine
+refuses them (their entry points are `transformer.prefill` /
+`decode_step` with the batch extras).  A hybrid is served as an SSM is
+(exact-length prefills; the decode tick advances the state and conv
+window of every unit's Mamba layers beside the shared block's K/V).
+
 `continuous` admits into any free slot every tick; `static` admits only
 when every slot is free (gang admission).  The KV cache is updated IN
 PLACE (decode writes its row, admission copies into the slot); the
@@ -103,7 +109,8 @@ from repro_torch.serving.requests import Request, RequestQueue
 
 _STAT_KEYS = ("hits", "misses", "uncached")
 _GRAPH_WARMUP = 3  # eager ticks on a side stream before a capture
-# cache leaves a decode tick advances (an SSM's state and conv window);
+# cache leaves a decode tick advances (the state and conv window of an
+# SSM's or a hybrid's Mamba layers);
 # the KV leaves it writes get the same row however often it runs
 _STATE_LEAVES = ("ssm", "conv")
 
@@ -278,6 +285,10 @@ class ServeEngine:
         cfg = model.cfg
         if cfg.objective != "clm":
             raise ValueError("serving requires a causal-LM arch")
+        if cfg.family in ("encdec", "vlm"):
+            raise ValueError(
+                f"continuous batching supports decoder-only families; "
+                f"{cfg.name} is {cfg.family}")
         self.engine_cfg = engine_cfg
         self.controller = controller
         self.ticks = 0  # decode ticks since construction (policy clock)

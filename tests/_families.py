@@ -1,6 +1,9 @@
-"""Shared pieces of the MoE and SSM parity tests (`test_torch_moe.py`,
-`test_torch_ssm.py`): the two packages' configs with the memory FFN,
-converted models, the tolerances, and the JAX package run op by op.
+"""Shared pieces of the family parity tests (`test_torch_moe.py`,
+`test_torch_ssm.py`, `test_torch_hybrid.py`, `test_torch_encdec.py`,
+`test_torch_vlm.py`): the two packages' configs with the memory FFN (or
+without), converted models, the families' inputs (encoder frames, vision
+embeddings on a frame of patches with their M-RoPE positions), the
+tolerances, and the JAX package run op by op.
 
 Why op by op for bfloat16.  Under `jax.jit` XLA fuses chains of
 bfloat16 elementwise ops and keeps their intermediates in float32, so the
@@ -30,6 +33,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro import configs as j_configs
 from repro.models import moe as j_moe
@@ -64,13 +68,16 @@ def assert_close(cfg, got, want, excused=None):
         float(err.max()), bf16_tol(cfg, want))
 
 
-def cfgs(arch, dtype, **overrides):
+def cfgs(arch, dtype, lram=True, **overrides):
     """(JAX cfg on its reference placement, port cfg on `pallas`): the
-    smoke config in `dtype` with the memory FFN (2^16 rows)."""
-    j_cfg = j_configs.with_lram(
-        j_configs.get_smoke_config(arch, dtype=dtype, **overrides), LOG2)
-    cfg = configs.with_lram(
-        configs.get_smoke_config(arch, dtype=dtype, **overrides), LOG2)
+    smoke config in `dtype` with the memory FFN (2^16 rows), or without
+    it when not `lram`."""
+    j_cfg = j_configs.get_smoke_config(arch, dtype=dtype, **overrides)
+    cfg = configs.get_smoke_config(arch, dtype=dtype, **overrides)
+    if not lram:
+        return j_cfg, cfg
+    j_cfg = j_configs.with_lram(j_cfg, LOG2)
+    cfg = configs.with_lram(cfg, LOG2)
     cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
         cfg.lram, interp_impl="pallas"))
     return j_cfg, cfg
@@ -79,12 +86,12 @@ def cfgs(arch, dtype, **overrides):
 _CACHE = {}
 
 
-def pair(arch, dtype, **overrides):
+def pair(arch, dtype, lram=True, **overrides):
     """(JAX cfg, params, state, port cfg), memoised; `model` converts a
     fresh port model from them."""
-    key = (arch, dtype, tuple(sorted(overrides.items())))
+    key = (arch, dtype, lram, tuple(sorted(overrides.items())))
     if key not in _CACHE:
-        j_cfg, cfg = cfgs(arch, dtype, **overrides)
+        j_cfg, cfg = cfgs(arch, dtype, lram, **overrides)
         params, state = jax.jit(j_tf.init, static_argnums=1)(
             jax.random.PRNGKey(0), j_cfg)
         _CACHE[key] = (j_cfg, params, state, cfg)
@@ -100,6 +107,92 @@ def model(cfg, params, state):
 def tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def grid_positions(grid: int, b: int, s: int) -> np.ndarray:
+    """M-RoPE positions (3, b, s): one frame of grid x grid patches,
+    patch i at (t, h, w) = (0, i // grid, i % grid), then text at grid,
+    grid + 1, ... on every stream (continuing from the grid's largest
+    position): not the sequence index, so a wrong band split shows."""
+    pos = np.empty((3, s), np.int32)
+    patch = np.arange(grid * grid)
+    pos[0, :grid * grid] = 0
+    pos[1, :grid * grid] = patch // grid
+    pos[2, :grid * grid] = patch % grid
+    pos[:, grid * grid:] = grid + np.arange(s - grid * grid)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, b, s)))
+
+
+def batch(cfg, b, s, seed=0) -> dict:
+    """numpy inputs of a (b, s) batch: tokens, and the family's extras
+    (an enc-dec model's encoder frames, a VLM's vision embeddings on one
+    square frame and their positions), drawn from `seed`."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)}
+    if cfg.family == "encdec":
+        out["encoder_embeds"] = rng.standard_normal(
+            (b, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        grid = int(np.sqrt(cfg.vision_tokens))
+        out["vision_embeds"] = rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+        out["positions"] = grid_positions(grid, b, s)
+    return out
+
+
+def j_batch(np_batch: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in np_batch.items()}
+
+
+def t_batch(np_batch: dict) -> dict:
+    """The batch as torch tensors (ints as long)."""
+    return {k: torch.from_numpy(v).long() if v.dtype.kind == "i"
+            else torch.from_numpy(v) for k, v in np_batch.items()}
+
+
+def prefix(np_batch: dict, s: int) -> dict:
+    """The batch's first `s` positions (tokens and M-RoPE positions;
+    the encoder frames and vision embeddings whole)."""
+    out = dict(np_batch, tokens=np_batch["tokens"][:, :s])
+    if "positions" in out:
+        out["positions"] = np.ascontiguousarray(out["positions"][..., :s])
+    return out
+
+
+def extras(t: dict) -> dict:
+    """`transformer.prefill`'s keyword extras of a torch batch."""
+    return {k: v for k, v in t.items() if k != "tokens"}
+
+
+def assert_grads_match(m, j_grads, cfg, rtol=TOL32):
+    """Every parameter's gradient in the port against the JAX package's
+    (its tree converted to the port's names, stacked layers split): to
+    `rtol` and an atol of `rtol` times the leaf's largest magnitude.
+    Returns the number of leaves compared."""
+    want = convert.state_dict_from_jax(jax.tree.map(np.asarray, j_grads),
+                                       {}, cfg)
+    params = dict(m.named_parameters())
+    assert set(params) == set(want)
+    for key, p in params.items():
+        jg = want[key].float().numpy()
+        assert p.grad is not None, key
+        np.testing.assert_allclose(
+            p.grad.float().numpy(), jg, rtol=rtol,
+            atol=rtol * max(float(np.abs(jg).max()), 1e-30), err_msg=key)
+    return len(params)
+
+
+def reference_logits(j_cfg, params, state, np_batch: dict) -> np.ndarray:
+    """The JAX package's forward logits of a numpy batch as float32, in
+    `oracle`'s mode: compiled for float32, op by op for bfloat16."""
+    def fwd(p, s, b):
+        return j_tf.forward(p, s, b, j_cfg)[0]
+
+    if j_cfg.dtype == "float32":
+        return f32(jax.jit(fwd)(params, state, j_batch(np_batch)))
+    with jax.disable_jit():
+        return f32(fwd(params, state, j_batch(np_batch)))
 
 
 def oracle(cfg):

@@ -191,10 +191,3 @@ def test_attention_impl_selection():
     for impl in ("chunked", "auto"):
         np.testing.assert_allclose(out[impl].numpy(), out["dense"].numpy(),
                                    rtol=TOL, atol=TOL)
-
-
-def test_mrope_still_raises_naming_a14():
-    cfg = dataclasses.replace(configs.get_smoke_config("yi-9b"),
-                              pos_scheme="mrope")
-    with pytest.raises(NotImplementedError, match="A14"):
-        attention.Attention(cfg)

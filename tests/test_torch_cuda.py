@@ -1081,6 +1081,111 @@ def test_moe_and_ssm_decode_graph_matches_eager_on_card(cuda_device, arch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("warmup", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_decode_graph_matches_eager_on_card(cuda_device, dtype,
+                                                   warmup):
+    """zamba2's smoke config (no memory layer: the reference allows none
+    in a hybrid): the decode tick as one CUDA graph (one capture, every
+    tick replayed; every unit's Mamba state and conv window written in
+    place beside the shared block's K/V) gives the eager twin's tokens
+    and first logits, and launches no kernel of the port.  Without
+    `warmup` the capture comes at the first tick, on the served state
+    (its warm-up ticks must not advance the state twice)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serving import EngineConfig, ServeEngine, synthetic_trace
+
+    cfg = configs.get_smoke_config("zamba2-2.7b", dtype=dtype)
+    runs = []
+    for graph in (True, False):
+        model = transformer.init(cfg, seed=0).to(cuda_device)
+        engine = ServeEngine(model, EngineConfig(slots=2, max_len=16,
+                                                 cuda_graph=graph))
+        trace = synthetic_trace(np.random.default_rng(1), 4,
+                                vocab_size=cfg.vocab_size, max_prompt=8,
+                                max_gen=8)
+        if warmup:
+            engine.warmup([r.prompt_len for r in trace])
+        before = (e8_lookup.lram_query.launches,
+                  gather_interp.gather_interp.launches)
+        report = engine.run(trace)
+        torch.cuda.synchronize()
+        assert (e8_lookup.lram_query.launches,
+                gather_interp.gather_interp.launches) == before
+        runs.append(report)
+    g, e = runs
+    assert g.cuda_graph and g.graph_captures == 1
+    assert g.graph_ticks == len(g.step_s) > 0
+    assert not e.cuda_graph and e.graph_captures == 0
+    assert [r.tokens for r in g.requests] == [r.tokens for r in e.requests]
+    for a, b in zip(g.requests, e.requests):
+        np.testing.assert_array_equal(a.first_logits, b.first_logits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-72b"])
+def test_encdec_and_vlm_on_card_match_cpu(cuda_device, arch, dtype):
+    """whisper-small's and qwen2-vl-72b's smoke configs with the memory
+    FFN on `pallas` (K2 and K1 on the card, their plain versions on the
+    CPU), the same weights and inputs (encoder frames; vision embeddings
+    on a 2 x 2 frame with M-RoPE positions): the prefill's logits and 4
+    decode steps' card against CPU, float32 to 1e-5, bfloat16 to 2^-8 x
+    (layers + 1) x the largest logit; K2 and K1 launched on the card."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.with_lram(configs.get_smoke_config(arch, dtype=dtype), 16)
+    cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, interp_impl="pallas"))
+    model = transformer.init(cfg, seed=0).eval()
+    rng = np.random.default_rng(3)
+    b, s, steps = 2, 8, 4
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + steps)))
+    extras = {}
+    if cfg.family == "encdec":
+        extras["encoder_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_len, cfg.d_model)).astype(np.float32))
+    else:
+        extras["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+        patch = torch.arange(cfg.vision_tokens)
+        pos = torch.empty((3, s), dtype=torch.long)
+        pos[0, :4], pos[1, :4], pos[2, :4] = 0, patch // 2, patch % 2
+        pos[:, 4:] = 2 + torch.arange(s - 4)
+        extras["positions"] = pos[:, None].expand(3, b, s)
+    got = {}
+    for device in (cuda_device, torch.device("cpu")):
+        model.to(device)
+        before = (e8_lookup.lram_query.launches,
+                  gather_interp.gather_interp.launches)
+        with torch.no_grad():
+            logits, cache = transformer.prefill(
+                model, toks[:, :s].to(device), s + steps,
+                **{k: v.to(device) for k, v in extras.items()})
+            outs = [logits.float().cpu()]
+            for t in range(s, s + steps):
+                outs.append(transformer.decode_step(
+                    model, toks[:, t:t + 1].to(device),
+                    torch.full((b,), t, device=device), cache).float().cpu())
+        launched = (e8_lookup.lram_query.launches - before[0],
+                    gather_interp.gather_interp.launches - before[1])
+        got[device.type] = outs
+        if device.type == "cuda":
+            assert launched[0] > 0 and launched[1] > 0
+    for a, ref in zip(got["cuda"], got["cpu"]):
+        assert torch.isfinite(a).all()
+        if dtype == "float32":
+            torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-5)
+        else:
+            tol = 2.0**-8 * (cfg.num_layers + 1) * ref.abs().max().item()
+            assert (a - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["lram-tiered", "lram-tiered-q8"])
 def test_overlay_decode_graph_matches_eager_on_card(cuda_device, arch):
     """Per-tenant overlays under the decode graph (smoke config, dense

@@ -4,8 +4,8 @@ JAX, nor the JAX package, nor `ml_dtypes` (the card's machine lacks it),
 and import no triton or CUDA build at import; a CPU serve with a live
 spill, multi-tenant serves with the overlay lifecycle, a serve from an
 mmap-backed table, serves of the dense public archs (one with the memory
-FFN, one in bfloat16, the sliding window's ring), serves of the MoE and
-SSM archs, a training run with
+FFN, one in bfloat16, the sliding window's ring), serves of the MoE, SSM
+and hybrid archs, a training run with
 growth and telemetry, and a serve and a training run with obs armed
 (`--metrics-dir`, `--profile-dir`) load none of them either."""
 
@@ -50,11 +50,13 @@ def test_port_files_have_no_forbidden_imports():
     # and so is the observability package
     assert {f.name for f in files if f.parent.name == "obs"} == {
         "__init__.py", "registry.py", "trace.py", "export.py"}
-    # and so are the public archs' configs (dense, MoE, SSM)
+    # and so are the public archs' configs (dense, MoE, SSM, hybrid,
+    # enc-dec, VLM)
     assert {f.name for f in files if f.parent.name == "configs"} >= {
         "yi_9b.py", "qwen2_1_5b.py", "starcoder2_3b.py",
         "h2o_danube3_4b.py", "phi3_5_moe.py", "mixtral_8x7b.py",
-        "mamba2_1_3b.py"}
+        "mamba2_1_3b.py", "zamba2_2_7b.py", "whisper_small.py",
+        "qwen2_vl_72b.py"}
     # and so are the MoE and SSM blocks
     assert {str(f.relative_to(PORT)) for f in files
             if f.name in ("moe.py", "mamba2.py")} == {"models/moe.py",
@@ -114,6 +116,8 @@ with tempfile.TemporaryDirectory() as d:
             max_gen=3, tenants=1))
     served += len(rep.requests)
 for arch in configs.ARCHS:
+    if configs.get_smoke_config(arch).family in ("encdec", "vlm"):
+        continue  # the engine refuses them, as the reference's does
     rep = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                       "--batch", "1", "--prompt-len", "10", "--gen", "2",
                       "--requests", "1", "--warmup"])
@@ -141,10 +145,11 @@ print(json.dumps({"bad": bad, "requests": served,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    # 7 serves of the memory archs, one of each public arch
-    # (configs.ARCHS: 4 dense, 2 MoE, 1 SSM) and the bfloat16 danube with
-    # its memory FFN
-    assert out == {"bad": [], "requests": 7 + len(configs.ARCHS) + 1,
+    # 7 serves of the memory archs, one of each public arch the engine
+    # serves (configs.ARCHS less the enc-dec and VLM archs: 4 dense, 1
+    # hybrid, 2 MoE, 1 SSM) and the bfloat16 danube with its memory FFN
+    assert len(configs.ARCHS) == 10
+    assert out == {"bad": [], "requests": 7 + len(configs.ARCHS) - 2 + 1,
                    "train_steps": 2}
 
 
