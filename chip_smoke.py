@@ -58,6 +58,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
        64-token yi-9b prompt) as above, and
        1,966,080 in one call (danube's 8,192-token prompt x 240 heads),
        held against the plain versions on its last 65,536 queries;
+       K2, K1 and the backward (dq, dw) at path (p)'s n: 196,608,
+       262,144 and 524,288 (K2 on uniform queries: the tie sets hold at
+       the smaller n), and the range gather and range backward (fp32)
+       at (p4a)'s 262,144 on both halves of the table;
        the bf16-table instances (path (m)), each with a launch count of
        its own, on the table rounded to bf16: K1's `gather_interp_bf16`
        at n = 128, 2,048, 65,536 and 1,966,080, bit for bit the fp32
@@ -276,6 +280,41 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the bfloat16 tolerance.  Each prints its decode step (or tick) p50
      / p99 against its read bound, the prefill, the peak memory and its
      K2 / K1 launches;
+ 5p. path (p), the public archs trained in bfloat16 with the memory FFN
+     (`with_lram(get_config(arch), 20)`: a 2^20 x 64 fp32 table, at
+     layer num_layers // 2) through `train.main` on a replaced config
+     registry (`p_registry`; the reference's CLI has no flag for
+     `with_lram`), `--placement pallas --batch 8 --seq 256 --steps 20`
+     (weights drawn on the card from seed 0, `transformer.init(device=)`
+     put in for the host draw, which (p1) also times once at its size; no
+     CPU twin), each freed before the next: (p1) qwen2-1.5b whole (28
+     layers, the memory FFN at 14, 96 heads: n = 196,608 a step), (p2)
+     mamba2-1.3b whole (48 layers, at 24, 128 heads: n = 262,144; 256
+     positions, 4 chunks of the SSD scan forward and backward), (p3)
+     phi3.5-moe-42b-a6.6b cut from 32 layers to 2 (widths as published:
+     one MoE layer of 16 experts, top-2, then the memory FFN, 256 heads:
+     n = 524,288); then (p4) one spawn of 4 gloo ranks on the card (data
+     2 x model 2) running in turn (p4a) (p3)'s config on `--placement
+     sharded` 5 steps (the range gather and the range backward at
+     262,144 a rank) and (p4b) zamba2-2.7b cut from 9 units to 2 (12
+     Mamba layers, the shared block called twice, no memory layer) 5
+     steps, against a one-process run of the same cut first.
+     Counts set to 0 just before each run and read just after; each
+     fails unless K2 and K1 (the range gather on p4a) launched every step
+     and the backward (`lookup_bwd`, p4a `lookup_bwd_range`) once a
+     step, the losses are finite and fall, and step 1's backward inputs,
+     kept on the host, agree with the plain version on the card (dvalues
+     atol 1e-5, dq / dw rtol 1e-4 / atol 1e-5); (p4a)'s router term
+     within 1% of (p3)'s at step 1 (same weights, same batch) and within
+     5% at steps 2-5 (`P4A_AUX_TOL`), and its losses, as (p4b)'s against
+     its twin, within 2^-8 x (layers + 1) x the largest (the CPU tests'
+     bf16 bound); (p4b) and its twin launch no kernel.  Each prints the
+     step ms median (from step 6; from step 2 on the mesh), tokens/s, the
+     step against its FLOP bound (`train_flops` at 989 TFLOP/s: every
+     Dense product, the attention's, an MoE's dispatch buffers), peak
+     memory against `train_bytes`' reckoning, the init seconds, an MoE's
+     router term and dropped copies a step, a rank's held bytes; then
+     one profiled step's top kernels (p1-p3);
   6. train `lram-bert-medium` at full width through
      `repro_torch.launch.train.main` (`--placement pallas --batch 8 --seq
      256 --steps 20`: 2,048 tokens, n = 65,536 lookups a step), with every
@@ -401,7 +440,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      from the same weights, in float32 (first logits to rtol / atol
      1e-5, greedy tokens equal) and in bfloat16 (to the tolerance
      above), whisper-small and qwen2-vl-72b (which the engine refuses)
-     through `transformer.prefill` and 4 `decode_step`s instead;
+     through `transformer.prefill` and 4 `decode_step`s instead; train
+     qwen2-1.5b, mamba2-1.3b and phi3.5-moe's smoke configs in bfloat16
+     with the memory FFN (2^16 rows, `pallas`) 5 steps on the card and
+     on the CPU: losses and gradient norms within 2^-8 x (layers + 1) of
+     the CPU's, relative;
   9. last lines: the script's seconds, the card again, the `kernels` JSON
      line, and {"ok": true, "device": {...}}.
 
@@ -414,6 +457,8 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
+import inspect
 import io
 import json
 import math
@@ -471,6 +516,11 @@ RANGE_ROWS = 2**19  # one rank's shard of the 2^20-row table, model 2
 # path (o)'s decode steps of 4 sequences x 48 heads (whisper-small: 192;
 # qwen2-vl-72b's 512 heads give 2,048, in SHAPES)
 H_SHAPES = (192, 384, 512, 768, 960, 1024, 16384)
+# path (p)'s train steps: 2,048 tokens x 96 / 128 / 256 memory heads
+# (qwen2-1.5b, mamba2-1.3b, phi3.5-moe); (p4a)'s data rank holds half of
+# phi's (the range gather and its backward at 262,144)
+P_SHAPES = (196608, 262144, 524288)
+P4A_RANGE_N = 262144
 H_BIG_N = 8192 * 240
 PLAIN_SLICE = 65536  # the plain versions' share of the H_BIG_N call
 TOP_K = 32
@@ -947,15 +997,18 @@ def backward_rows(n, spec, values, q, idx, w, gen):
     return rows
 
 
-def k2_row(rows, n, q, spec, values):
+def k2_row(rows, n, q, spec, values, ties: bool = True):
     """K2 at one n against its plain version, bit for bit: weights and
     indices on the uniform queries q and on `lattice.tie_queries` (exact
     ties of weight, most at the top-32's cut; and ties in the canonical
     sort), and the output the uniform set gathers; the timings on q, with
-    the device time on the weight-tie set beside them.  Appends its row
-    and returns the kernel's (idx, w) on q."""
+    the device time on the weight-tie set beside them.  Without `ties`
+    the uniform set alone (path (p)'s n, where drawing the tie sets takes
+    the host seconds; smaller n hold the tie rule).  Appends its row and
+    returns the kernel's (idx, w) on q."""
     sets = {"uniform": q}
-    for name, distinct in (("weight_ties", True), ("sort_ties", False)):
+    for name, distinct in (("weight_ties", True),
+                           ("sort_ties", False)) if ties else ():
         sets[name] = torch.from_numpy(lattice.tie_queries(
             n, spec.K, seed=n, distinct=distinct)).to(q.device)
     same = {}
@@ -989,7 +1042,7 @@ def k2_row(rows, n, q, spec, values):
         "ms": time_ms(k2), "device_ms": dev, **seen,
         "weight_ties_device_ms": device_ms(
             lambda: e8_lookup.lram_query(sets["weight_ties"], spec, TOP_K),
-            "lram_query_kernel"),
+            "lram_query_kernel") if ties else None,
         "plain_ms": time_ms(lambda: e8_lookup.lram_query_plain(
             q, spec, TOP_K)),
         "bound_ms": b2[0], "bound_by": b2[1], "library_ms": None})
@@ -1096,6 +1149,13 @@ def kernel_phase(device):
     for n in RANGE_SHAPES:
         range_rows(rows, n, spec, values, tables, wrap, gen, values_bf16)
     h_kernel_rows(rows, spec, values, wrap, gen, values_bf16, values_wide)
+    for n in P_SHAPES:  # path (p)'s train steps: K2, K1, the backward
+        q = torch.rand(n, 8, generator=gen, device=device) * wrap
+        idx, w = k2_row(rows, n, q, spec, values, ties=False)
+        k1_dense_row(rows, n, values, idx, w, "uniform")
+        rows["lookup_bwd"] += backward_rows(n, spec, values, q, idx, w, gen)
+    range_rows(rows, P4A_RANGE_N, spec, values, tables, wrap, gen,
+               values_bf16, fp32_only=True)
     return rows
 
 
@@ -1287,19 +1347,21 @@ def k1_bf16_row(rows, n, values_bf16, values_wide, idx, w):
                "library_note": BF16_NO_LIBRARY}))
 
 
-def range_rows(rows, n, spec, values, tables, wrap, gen, values_bf16):
+def range_rows(rows, n, spec, values, tables, wrap, gen, values_bf16,
+               fp32_only: bool = False):
     """Row 9's kernels at one n, on both halves of the table split over a
     2-way model axis (shards of 2^19 rows at base 0 and 2^19) with K2's
-    indices (K2 itself where the serving shapes do not hold n): the range
+    indices (K2 itself where no other row holds n): the range
     gather over fp32 (to K1's tolerance, 1e-5; library yardstick
     `F.embedding_bag` over the shard with the clamped indices and the
     masked weights) and int8 / e4m3 shards (B4's, rtol 2e-5 / atol 1e-6),
     and the range backward, fp32 (scatter into the shard's dvalues) and
     1-byte (no scatter), each with dq and with dw, against
     `lookup_bwd_plain` with the range mask (dvalues atol 1e-5, atomics;
-    dq / dw rtol 1e-4 / atol 1e-5)."""
+    dq / dw rtol 1e-4 / atol 1e-5).  `fp32_only`: the fp32 cells alone
+    (path (p4a)'s table)."""
     q = torch.rand(n, 8, generator=gen, device=values.device) * wrap
-    if n in SHAPES:
+    if n in SHAPES or n in P_SHAPES:
         idx, w = e8_lookup.lram_query(q, spec, TOP_K)
     else:
         idx, w = k2_row(rows, n, q, spec, values)
@@ -1322,7 +1384,7 @@ def range_rows(rows, n, spec, values, tables, wrap, gen, values_bf16):
                                             per_sample_weights=wm,
                                             mode="sum")))
         cells = [("fp32", shard, None)]
-        for kind in PAYLOADS:
+        for kind in () if fp32_only else PAYLOADS:
             tq, ts = tables[kind]
             sq, ss = tq[base:base + RANGE_ROWS], ts[base:base + RANGE_ROWS]
             cells.append((kind, sq, ss))
@@ -1340,7 +1402,7 @@ def range_rows(rows, n, spec, values, tables, wrap, gen, values_bf16):
                 rows["lookup_bwd_range"].append(range_backward_row(
                     n, stage, payload, table, scale, base, spec, q, idx, w,
                     g, rel, ok, where))
-        if base:  # the bf16 instances on the lower half alone
+        if base or fp32_only:  # the bf16 instances on the lower half
             continue
         shard_b = values_bf16[base:base + RANGE_ROWS]
         fn = lambda: sharded_gather.sharded_gather(  # noqa: E731
@@ -2674,28 +2736,15 @@ def m4_train_path() -> dict:
     on the card: dvalues to atol 1e-5 in fp32 and once rounded to bf16
     (`bf16_rounding_agrees`), dq / dw to rtol 1e-4 / atol 1e-5.  Step ms
     and peak memory beside phase 6's at the end of the script."""
-    step1, bwd = {}, ops.lookup_bwd
-
-    def kept(values, idx, w, g, q=None, spec=None):
-        if not step1:  # host copies (Adam steps the table in place; the
-            # run's peak memory stays its own)
-            step1.update(values=values.detach().cpu(), idx=idx.cpu(),
-                         w=w.cpu(), g=g.cpu(), q=q.detach().cpu(),
-                         spec=spec)
-        return bwd(values, idx, w, g, q, spec)
-
+    kept: dict = {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     allocated_before = torch.cuda.memory_allocated()
-    ops.lookup_bwd = kept
-    try:
-        with bf16_tables():
-            reset_counts()
-            run = train.main(TRAIN_ARGS)
-            torch.cuda.synchronize()
-            launches = read_counts()
-    finally:
-        ops.lookup_bwd = bwd
+    reset_counts()  # before the wrapper takes its count over
+    with bf16_tables(), first_call_kept("lookup_bwd", kept):
+        run = train.main(TRAIN_ARGS)
+        torch.cuda.synchronize()
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     (table,) = memory_tables(run.model)
     check(table.dtype == torch.bfloat16, f"(m4): a {table.dtype} table")
@@ -2711,24 +2760,7 @@ def m4_train_path() -> dict:
           and np.mean(losses[-5:]) < np.mean(losses[:5]),
           f"(m4): steps missing, non-finite or the loss did not fall: "
           f"{losses}")
-    c = {k: v.to(table.device) if isinstance(v, torch.Tensor) else v
-         for k, v in step1.items()}
-    dv, dq = ops.lookup_bwd(c["values"], c["idx"], c["w"], c["g"],
-                            q=c["q"], spec=c["spec"])
-    dv_p, dq_p = ops.lookup_bwd_plain(c["values"], c["idx"], c["w"], c["g"],
-                                      c["q"], c["spec"])
-    _, dw = ops.lookup_bwd(c["values"], c["idx"], c["w"], c["g"])
-    _, dw_p = ops.lookup_bwd_plain(c["values"], c["idx"], c["w"], c["g"])
-    torch.cuda.synchronize()
-    errs = {"dvalues": (dv - dv_p).abs().max().item(),
-            "dq": (dq - dq_p).abs().max().item(),
-            "dw": (dw - dw_p).abs().max().item()}
-    rounded = bf16_rounding_agrees(dv, dv_p)
-    check(torch.allclose(dv, dv_p, rtol=0, atol=1e-5) and rounded["ok"]
-          and torch.allclose(dq, dq_p, rtol=1e-4, atol=1e-5)
-          and torch.allclose(dw, dw_p, rtol=1e-4, atol=1e-5),
-          f"(m4): step 1's backward differs from its plain version: "
-          f"{errs}, rounded {rounded}")
+    step1 = held_backward("(m4)", kept, table.device)
     step_ms = [r["step_ms"] for r in run.records]
     tokens = run.dcfg.global_batch * run.dcfg.seq_len
     median_ms = float(np.median(step_ms[5:]))
@@ -2736,16 +2768,16 @@ def m4_train_path() -> dict:
                     "peak_memory_bytes": peak}
     print(json.dumps({
         "train": "m4 lram-bert-medium, bf16 table", "argv": TRAIN_ARGS,
-        "n_step1": int(c["idx"].numel() // TOP_K), "losses": losses,
-        "grad_norms": norms, "step1_max_abs_err": errs,
-        "step1_dvalues_bf16": rounded, "step_ms": step_ms,
+        "n_step1": step1["n_step1"], "losses": losses,
+        "grad_norms": norms, "step1_max_abs_err": step1["max_abs_err"],
+        "step1_dvalues_bf16": step1["dvalues_bf16"], "step_ms": step_ms,
         "step_ms_median_steps_6_20": median_ms,
         "tokens_per_sec": tokens / (median_ms / 1e3),
         "allocated_before_bytes": allocated_before,
         "peak_memory_bytes": peak,
         "table_bytes": table.numel() * table.element_size(),
         "launches": {k: v for k, v in launches.items() if v}}), flush=True)
-    del run, table, step1, c
+    del run, table, kept
     torch.cuda.empty_cache()
     return launches
 
@@ -3289,37 +3321,40 @@ def held_dense_bytes(model, opt_state, mesh) -> dict:
     """The bytes of dense parameters and Adam moments this rank holds
     between steps (every leaf but a row-sharded table's), against its
     share: a split leaf's block (its whole / the ranks of its spec's
-    axes) and every replicated leaf whole, three times (the parameter, mu
-    and nu).  Fails if a dense leaf is whole after the step or a rank
-    holds more than its share; lists the replicated leaves."""
+    axes) and every replicated leaf whole, each with its two Adam
+    moments (the parameter in its dtype, mu and nu fp32).  Fails if a
+    dense leaf is whole after the step or a rank holds more than its
+    share; lists the replicated leaves."""
     tables = set(sharding.sharded_tables(model, mesh))
     blocks = sharding.dense_blocks(model)
     check(blocks is not None and not blocks.whole,
           "mesh: the dense weights are not this rank's blocks between "
           "steps")
-    held = share = whole = 0
+    held = share = whole = replicated_bytes = 0
     replicated = {}
     for k, p in model.named_parameters():
         if k in tables:
             continue
-        size = p.element_size()
+        leaf = (p, opt_state["mu"][k], opt_state["nu"][k])
+        # bytes an element: the parameter's dtype and both moments' (fp32)
+        size = sum(t.element_size() for t in leaf)
         if k in blocks.specs:
             full = math.prod(blocks.shapes[k]) * size
             part = full // math.prod(
                 mesh.size(a) for a in sharding.spec_axes(blocks.specs[k]))
         else:
             full = part = p.numel() * size
-            replicated[k] = full
-        held += sum(t.numel() * t.element_size() for t in (
-            p, opt_state["mu"][k], opt_state["nu"][k]))
-        share += 3 * part
-        whole += 3 * full
+            replicated[k] = p.numel() * p.element_size()
+            replicated_bytes += full
+        held += sum(t.numel() * t.element_size() for t in leaf)
+        share += part
+        whole += full
     check(held <= share, f"mesh: a rank holds {held} B of dense parameters "
                          f"and moments against its share of {share} B")
     return {"held_bytes": held, "share_bytes": share,
             "whole_bytes": whole, "split_leaves": len(blocks.specs),
             "replicated_leaves": replicated,
-            "replicated_bytes": 3 * sum(replicated.values())}
+            "replicated_bytes": replicated_bytes}
 
 
 def _rank_env(rank: int, port: int) -> None:
@@ -4208,23 +4243,48 @@ def checkpoint_dir():
         shutil.rmtree(root, ignore_errors=True)
 
 
-def train_parity(arch: str, extra=()) -> None:
+BF16_PARITY_ARCHS = ("qwen2-1.5b", "mamba2-1.3b", "phi3.5-moe-42b-a6.6b")
+
+
+@contextlib.contextmanager
+def bf16_smoke_registry():
+    """`configs.get_smoke_config` in bfloat16 with the memory FFN (2^16
+    rows), as the CPU tests build the public archs' bf16 train cells (the
+    smoke configs are float32; the CLI has no flag for either)."""
+    smoke = configs.get_smoke_config
+    configs.get_smoke_config = lambda name, **kw: configs.with_lram(
+        smoke(name, **{"dtype": BF16, **kw}), 16)
+    try:
+        yield
+    finally:
+        configs.get_smoke_config = smoke
+
+
+def train_parity(arch: str, extra=(), bf16: bool = False) -> None:
     """A smoke config, 5 steps on the card and on the CPU (plain versions)
     from the same seed's weights and batches: per-step losses and gradient
     norms to rtol 1e-4 (atomics and another summation order; for the
     tiered archs w (x) g rounds differently, which may flip a stochastic
-    floor of the int8 write-back now and then)."""
+    floor of the int8 write-back now and then).  `bf16`: the bfloat16
+    config with the memory FFN (`bf16_smoke_registry`), each value within
+    `bf16_tol` of the CPU's (2^-8 x (layers + 1) x its magnitude: the
+    CPU tests' bound, as they hold these cells against the JAX package)."""
     argv = ["--arch", arch, "--smoke", *extra, "--steps", "5", "--batch",
             "4", "--seq", "32", "--seed", "1"]
-    card = train.main(argv + ["--device", "cuda"])
-    cpu = train.main(argv + ["--device", "cpu"])
-    out = {"parity": f"smoke train card vs CPU: {arch}", "args": list(extra)}
+    with bf16_smoke_registry() if bf16 else contextlib.nullcontext():
+        card = train.main(argv + ["--device", "cuda"])
+        cpu = train.main(argv + ["--device", "cpu"])
+    out = {"parity": f"smoke train card vs CPU: {arch}", "args": list(extra),
+           "dtype": card.model.cfg.dtype}
     for key in ("loss", "grad_norm"):
         pairs = [(a[key], b[key]) for a, b in zip(card.records, cpu.records)]
         err = max(abs(a - b) / abs(b) for a, b in pairs)
-        check(len(pairs) == 5 and err <= 1e-4,
+        tol = (bf16_tol(cpu.model.cfg, torch.tensor(1.0)) if bf16
+               else 1e-4)
+        check(len(pairs) == 5 and err <= tol,
               f"{arch} smoke train {key} differs card vs CPU: {pairs}")
-        out.update({key: pairs, f"{key}_max_rel_err": err})
+        out.update({key: pairs, f"{key}_max_rel_err": err,
+                    f"{key}_rel_tol": tol})
     if card.stores:
         out["writebacks"] = [card.stores[0].stats["writebacks"],
                              cpu.stores[0].stats["writebacks"]]
@@ -5290,6 +5350,446 @@ def arch_parity_phase(devices=("cuda", "cpu")):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# path (p): the public archs trained in bfloat16 with the memory FFN
+# ---------------------------------------------------------------------------
+
+# steps: (p1)-(p3); (p4a) and (p4b) and (p4b)'s twin (a gloo step of
+# (p4a) moves 3.5 GB of weights and 3.5 GB of gradients through host
+# memory a rank: ~12 s)
+P_STEPS, P4A_STEPS, P4B_STEPS = 20, 5, 5
+# (p4a)'s router term against (p3)'s, relative: at step 1 (same weights,
+# same batch: a router loss per rank summed over the 2 data ranks would
+# be 2x) and after it.  From step 2 the runs' weights part: even two
+# runs of (p3) on one process differ (the atomic sums of the MoE
+# dispatch and of the lookup's backward) by 1.8% at step 5 (2.4892 /
+# 2.4605 / 2.4438 in three runs of this script), and the router of a
+# model at random weights is collapsing (its term rises from 1.26 to
+# ~2.5 in 5 steps), which carries such differences on; (p4a) read 2.5%
+# from (p3) at step 5.  The bound after step 1 is twice that (a later
+# run read 3.9%)
+P4A_AUX_TOL = (0.01, 0.05)
+P_BATCH, P_SEQ = 8, 256
+# path -> (arch, layers kept or None for all); each model is
+# `with_lram(get_config(arch), 20)` on `pallas` (`h_config`), its widths as
+# published, drawn on the card from --seed 0 (`p_registry`), trained
+# through `train.main` on a replaced registry.  phi3.5-moe is cut from 32
+# layers to 2: one MoE layer, then the memory FFN at layer 1
+P_PATHS = {
+    "p1_qwen2_1_5b": ("qwen2-1.5b", None),
+    "p2_mamba2_1_3b": ("mamba2-1.3b", None),
+    "p3_phi3_5_moe": ("phi3.5-moe-42b-a6.6b", 2),
+}
+# (p4b): zamba2-2.7b cut to 2 of its 9 units (12 Mamba layers, the shared
+# block called twice), no memory layer
+P4B_ARCH, P4B_LAYERS = "zamba2-2.7b", 12
+# the path whose model is also drawn once on the host, timed
+HOST_DRAW_PATH = "p1_qwen2_1_5b"
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 peak (data sheet)
+
+
+def p_argv(arch: str, steps: int, placement: str = "pallas",
+           mesh: bool = False) -> list[str]:
+    return (["--arch", arch, "--batch", str(P_BATCH), "--seq", str(P_SEQ),
+             "--steps", str(steps), "--json"]
+            + (["--placement", placement] if placement else [])
+            + (["--use-mesh"] if mesh else []))
+
+
+@contextlib.contextmanager
+def p_registry(arch: str, layers: int | None):
+    """`configs.get_config(arch)` replaced by `h_config(arch, layers=)`
+    (the memory FFN on `pallas`; a hybrid as it is), so that `train.main`
+    builds it: the reference's CLI has no flag for `with_lram`; and
+    `transformer.init` drawing on the card (`device=`): the host draw of
+    1.3-1.8 B weights a run, four ranks at once on (p4a), would add
+    minutes to path (p) (its seconds at (p1)'s size in `host_init_s`)."""
+    cfg = h_config(arch, layers=layers)
+    get, init = configs.get_config, transformer.init
+    configs.get_config = lambda name, **kw: (
+        cfg if name == arch and not kw else get(name, **kw))
+    transformer.init = functools.partial(
+        init, device=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield cfg
+    finally:
+        configs.get_config, transformer.init = get, init
+
+
+@contextlib.contextmanager
+def first_call_kept(name: str, kept: dict):
+    """The arguments of the first launch of `ops.<name>` (a backward
+    wrapper) copied to the host into `kept` (positional and keyword),
+    through `ops.input_sink`: the wrapper, and its count, stay as they
+    are."""
+    def host(x):
+        return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+    def keep(fn, args, kw):
+        if fn == name and not kept:
+            kept.update(fn=fn, args=[host(a) for a in args],
+                        kw={k: host(v) for k, v in kw.items()})
+
+    ops.input_sink = keep
+    try:
+        yield
+    finally:
+        ops.input_sink = None
+
+
+@contextlib.contextmanager
+def counted_drops(drops: list):
+    """Each MoE block's dispatch: the token copies its capacity dropped,
+    a device scalar a call appended to `drops` (no host sync)."""
+    dispatch = moe.dispatch
+
+    def counting(cfg, expert_ids):
+        slot, keep = dispatch(cfg, expert_ids)
+        drops.append((~keep).sum())
+        return slot, keep
+
+    moe.dispatch = counting
+    try:
+        yield
+    finally:
+        moe.dispatch = dispatch
+
+
+def p_train(arch: str, layers: int | None, argv: list[str],
+            backward: str | None, drops: list | None = None) -> dict:
+    """`train.main(argv)` on the replaced registry with every launch count
+    set to 0 just before and read just after; step 1's backward inputs
+    kept (`ops.<backward>`), an MoE's dropped copies counted; peak
+    memory after a reset.  Returns cfg, run, launches, kept, peak bytes,
+    the bytes allocated before and the wall seconds."""
+    kept: dict = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    reset_counts()  # before the wrapper takes its count over
+    with contextlib.ExitStack() as stack:
+        cfg = stack.enter_context(p_registry(arch, layers))
+        if backward:
+            stack.enter_context(first_call_kept(backward, kept))
+        if drops is not None:
+            stack.enter_context(counted_drops(drops))
+        run = train.main(argv)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    return {"arch": arch, "cfg": cfg, "run": run, "launches": launches,
+            "kept": kept,
+            "peak": torch.cuda.max_memory_allocated(), "before": before,
+            "wall_s": time.perf_counter() - t0}
+
+
+def held_backward(name: str, kept: dict, device) -> dict:
+    """Step 1's kept backward inputs back on `device`: the kernel's dq
+    and dw instances (the range instances where the path trained through
+    them) against `lookup_bwd_plain` on the same inputs: dvalues to atol
+    1e-5 (atomics order a row's sum) and, on a bf16 table, rounded once
+    to bf16 (`bf16_rounding_agrees`), dq / dw to rtol 1e-4 / atol 1e-5.
+    Returns the errors and the step's n."""
+    def card(x):
+        return x.to(device) if isinstance(x, torch.Tensor) else x
+
+    fn = getattr(ops, kept["fn"])
+    a = inspect.signature(fn).bind(*kept["args"], **kept["kw"]).arguments
+    values, idx, w, g, q, spec = (card(a[k]) for k in (
+        "values", "idx", "w", "g", "q", "spec"))
+    extra = {}
+    if "base" in a:  # the range instances
+        extra = {"scatter": True, "base": a["base"]}
+        fn = functools.partial(fn, base=a["base"])
+    dv, dq = fn(values, idx, w, g, q=q, spec=spec)
+    dv_p, dq_p = ops.lookup_bwd_plain(values, idx, w, g, q, spec, **extra)
+    _, dw = fn(values, idx, w, g)
+    _, dw_p = ops.lookup_bwd_plain(values, idx, w, g, None, spec, **extra)
+    torch.cuda.synchronize()
+    errs = {"dvalues": (dv - dv_p).abs().max().item(),
+            "dq": (dq - dq_p).abs().max().item(),
+            "dw": (dw - dw_p).abs().max().item()}
+    rounded = (bf16_rounding_agrees(dv, dv_p)
+               if values.dtype == torch.bfloat16 else None)
+    check(torch.allclose(dv, dv_p, rtol=0, atol=1e-5)
+          and (rounded is None or rounded["ok"])
+          and torch.allclose(dq, dq_p, rtol=1e-4, atol=1e-5)
+          and torch.allclose(dw, dw_p, rtol=1e-4, atol=1e-5),
+          f"{name}: step 1's backward ({kept['fn']}) differs from its "
+          f"plain version: {errs}, rounded {rounded}")
+    return {"kernel": kept["fn"], "n_step1": int(idx.numel() // TOP_K),
+            "max_abs_err": errs, "dvalues_bf16": rounded}
+
+
+def whole_leaves(model) -> dict[str, tuple[tuple[int, ...], int]]:
+    """{parameter key: (its whole shape, bytes an element)}: a dense
+    leaf kept as this rank's block between steps by its global shape, a
+    row-sharded table by the rows this rank holds."""
+    blocks = sharding.dense_blocks(model)
+    shapes = blocks.shapes if blocks is not None else {}
+    return {k: (tuple(shapes.get(k, p.shape)), p.element_size())
+            for k, p in model.named_parameters()}
+
+
+def train_flops(leaves: dict, cfg, tied: bool, batch: int,
+                seq: int) -> float:
+    """The products one train step computes (2 flops a multiply-add
+    forward, 4 backward), from `whole_leaves`: every Dense kernel once a
+    token (the hybrid's shared block once a call), a tied embedding as
+    the logits' product, an MoE's stacked experts on every row of its
+    dispatch buffers (B x E x C, the capacity's, dropped or empty rows
+    too) and the attention's two S x S products a head and layer.  Not
+    counted: the memory layer's gathers (K1's bytes), norms, the SSD
+    scan and convolutions."""
+    tokens = batch * seq
+    calls = (cfg.num_layers // cfg.hybrid_pattern
+             if cfg.family == "hybrid" else 1)
+    flops = 0.0
+    for key, (shape, _) in leaves.items():
+        size = math.prod(shape)
+        if key == "embed.embedding":
+            flops += 6 * tokens * size * tied
+        elif ".experts." in key:
+            flops += 6 * batch * moe.capacity(cfg, seq) * size
+        elif key.endswith(".kernel") and len(shape) == 2:
+            flops += 6 * tokens * size * (
+                calls if key.startswith("shared_attn.") else 1)
+    attn_layers = {"ssm": 0, "hybrid": calls}.get(cfg.family,
+                                                  cfg.num_layers)
+    return flops + 12.0 * batch * cfg.num_heads * seq * seq \
+        * cfg.head_dim * attn_layers
+
+
+def train_bytes(leaves: dict, cfg, tokens: int, ranks: int = 1) -> dict:
+    """The memory a train step should hold, reckoned from `whole_leaves`:
+    the parameters and their gradients (the leaves' dtypes), Adam's two
+    fp32 moments, and three fp32 copies of the logits (the log-softmax,
+    its gradient and the logits' own).  On a mesh (`ranks` > 1, a rank's
+    view): the whole parameters gathered and whole gradients, one flat
+    buffer of their sum (`collectives.FLAT_BUCKET_BYTES`), and a rank's
+    share of the blocks and their moments."""
+    params = sum(math.prod(shape) for shape, _ in leaves.values())
+    pbytes = sum(math.prod(shape) * size for shape, size in leaves.values())
+    logits = 3 * 4 * tokens * cfg.vocab_size
+    if ranks == 1:
+        parts = {"params": pbytes, "grads": pbytes, "adam_moments":
+                 8 * params, "logits_fp32_x3": logits}
+    else:
+        parts = {"gathered_params": pbytes, "grads": pbytes,
+                 "flat_sum": collectives.FLAT_BUCKET_BYTES,
+                 "blocks_and_moments": (pbytes + 8 * params) // ranks,
+                 "logits_fp32_x3": logits}
+    return {**parts, "params": params,
+            "reckoned_bytes": sum(parts.values())}
+
+
+def p_numbers(name: str, out: dict, steps: int, ranks: int = 1) -> dict:
+    """The numbers a sub-path prints: losses, router terms, step ms
+    (median from step 6 on), tokens/s, the step against its FLOP bound
+    (the global batch's products: on a mesh the 4 ranks share the one
+    card), peak memory against the reckoning (`train_bytes`, a rank's
+    on a mesh), init seconds."""
+    cfg, run = out["cfg"], out["run"]
+    leaves = whole_leaves(run.model)
+    recs = run.records
+    losses = [r["loss"] for r in recs]
+    norms = [r["grad_norm"] for r in recs]
+    check(len(recs) == steps and all(math.isfinite(x)
+                                     for x in losses + norms),
+          f"{name}: steps missing or non-finite: {losses} {norms}")
+    step_ms = [r["step_ms"] for r in recs]
+    first = 6 if steps > 5 else 2  # the first steps warm the allocator
+    median_ms = float(np.median(step_ms[first - 1:]))
+    tokens = P_BATCH * P_SEQ
+    flops = train_flops(leaves, cfg, run.model.lm_head is None, P_BATCH,
+                        P_SEQ)
+    bound = 1e3 * flops / BF16_TENSOR_FLOPS
+    return {
+        "path": name, "config": cfg.name, "dtype": cfg.dtype,
+        "layers": cfg.num_layers,
+        "published_layers": configs.get_config(out["arch"]).num_layers,
+        "d_model": cfg.d_model,
+        "memory_layer_heads": cfg.lram.heads if cfg.lram else None,
+        "lookups_per_step": tokens * cfg.lram.heads if cfg.lram else 0,
+        "reckoning": train_bytes(leaves, cfg, tokens, ranks),
+        "losses": losses, "grad_norms": norms,
+        "aux": [r["aux"] for r in recs],
+        "step_ms": step_ms, "step_ms_median": median_ms,
+        "median_from_step": first,
+        "tokens_per_sec": tokens / (median_ms / 1e3),
+        "train_flops": flops, "flop_bound_ms": bound,
+        "flop_bound_share": bound / median_ms,
+        "peak_memory_bytes": out["peak"],
+        "allocated_before_bytes": out["before"],
+        "init_s": run.init_s, "wall_s": out["wall_s"],
+        "final_eval_loss": run.final_eval_loss,
+        "launches": {k: v for k, v in out["launches"].items() if v}}
+
+
+def p_path(name: str) -> tuple[dict, list]:
+    """(p1)-(p3): 20 steps of `--batch 8 --seq 256` through `train.main`
+    (`--placement pallas`, drawn on the card).  Fails unless K2 and K1
+    launched every step (and in the evaluation), the backward kernel
+    `lookup_bwd` once a step, the losses are finite and fall (steps
+    16-20 below 1-5), and step 1's backward inputs, kept, agree with the
+    plain version on the card (`held_backward`).  Prints `p_numbers`,
+    the reckoned bytes, an MoE's router term and dropped copies a step,
+    (p1) the seconds of one host draw of its model (`host_init_s`), then
+    one profiled step's top kernels.  Returns the launch counts and the
+    records."""
+    arch, layers = P_PATHS[name]
+    host_init_s = None
+    if name == HOST_DRAW_PATH:  # the host draw the card's replaces
+        t0 = time.perf_counter()
+        host = transformer.init(h_config(arch, layers=layers), seed=0)
+        host_init_s = time.perf_counter() - t0
+        del host
+    drops: list = []
+    out = p_train(arch, layers, p_argv(arch, P_STEPS), "lookup_bwd",
+                  drops)
+    cfg, run, c = out["cfg"], out["run"], out["launches"]
+    check(c["lram_query"] >= P_STEPS and c["gather_interp"] >= P_STEPS
+          and c["lookup_bwd"] == P_STEPS,
+          f"{name}: K2 / K1 / lookup_bwd launched {c['lram_query']} / "
+          f"{c['gather_interp']} / {c['lookup_bwd']} times in {P_STEPS} "
+          f"steps (the backward once a step)")
+    numbers = p_numbers(name, out, P_STEPS)
+    numbers["host_init_s"] = host_init_s
+    losses = numbers["losses"]
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"{name}: the loss did not fall: {losses}")
+    numbers["step1_backward"] = held_backward(
+        name, out["kept"], run.model.embed.embedding.device)
+    if cfg.num_experts:
+        blocks = moe_blocks(cfg)
+        per_step = [int(sum(int(d) for d in drops[s * blocks:
+                                                  (s + 1) * blocks]))
+                    for s in range(P_STEPS)]
+        numbers.update(
+            experts=[cfg.num_experts, cfg.top_k_experts],
+            capacity_per_sequence=moe.capacity(cfg, P_SEQ),
+            token_copies_per_step=P_BATCH * P_SEQ * cfg.top_k_experts
+            * blocks, dropped_copies_by_step=per_step)
+    print(json.dumps(numbers), flush=True)
+    profile_train_step(run, f"train step {name}")
+    records = run.records
+    del run, out
+    torch.cuda.empty_cache()
+    return c, records
+
+
+def p4_rank(rank: int, port: int, results, device_name) -> None:
+    """One rank of (p4) (a spawned process; all ranks on the one card,
+    gloo, data 2 x model 2): (p4a) (p3)'s config on `--placement sharded`,
+    then (p4b) zamba2-2.7b cut to 2 units, P4A_STEPS and P4B_STEPS steps
+    through `train.main`, launch counts reset just before and read just
+    after; (p4a)'s step-1 range backward held against its plain version
+    on this rank's shard; each part's held bytes against its share."""
+    _rank_env(rank, port)
+    mesh, device = mesh_lib.init_mesh(device_name)
+    res = {"rank": rank, "coords": mesh.coords, "mesh": mesh.shape,
+           "backend": dist.get_backend()}
+    arch, layers = P_PATHS["p3_phi3_5_moe"]
+    parts = {
+        "p4a": (arch, layers, p_argv(arch, P4A_STEPS, "sharded", True),
+                "lookup_bwd_range", P4A_STEPS),
+        "p4b": (P4B_ARCH, P4B_LAYERS,
+                p_argv(P4B_ARCH, P4B_STEPS, "", True), None, P4B_STEPS)}
+    for part, (arch, layers, argv, backward, steps) in parts.items():
+        out = p_train(arch, layers, argv, backward)
+        run = out["run"]
+        numbers = p_numbers(part, out, steps, MESH_RANKS)
+        numbers["held"] = held_dense_bytes(run.model, run.opt_state, mesh)
+        if backward:
+            numbers["step1_backward"] = held_backward(
+                f"({part}) rank {rank}", out["kept"], device)
+        res[part] = numbers
+        del run, out
+        torch.cuda.empty_cache()
+    results.put(res)
+    dist.destroy_process_group()
+
+
+def p4_path(p3_records: list, device_name: str = "cuda") -> dict:
+    """(p4): (p4b)'s one-process twin first (zamba2-2.7b cut to 2 units,
+    P4B_STEPS steps on the card), then one spawn of 4 ranks that runs
+    (p4a) and (p4b) in turn (`p4_rank`).  Fails unless on every rank
+    (p4a) launched K2 and the range gather every step and the range
+    backward once a step, its router term is within `P4A_AUX_TOL` of
+    (p3)'s (1% at step 1, 5% after it) and its losses within the bf16 bound of (p3)'s (2^-8 x (layers
+    + 1) x the largest of (p3)'s first losses: the CPU tests' bound, the
+    two runs differing in rounding alone at step 1: the dense and the
+    row-range sums, the batch split over two ranks, the gradients'
+    bf16 sum over them), (p4b) launched no kernel of the port and its
+    losses are within that bound of its twin's, and each part's losses
+    are finite and fall (the last step below the first).  Returns the
+    launch counts summed over the ranks, by part."""
+    twin = p_train(P4B_ARCH, P4B_LAYERS,
+                   p_argv(P4B_ARCH, P4B_STEPS, ""), None)
+    twin_numbers = p_numbers("p4b one-process twin", twin, P4B_STEPS)
+    twin_cfg = twin["cfg"]
+    print(json.dumps(twin_numbers), flush=True)
+    check(not any(twin["launches"].values()),
+          f"(p4b) twin: a kernel of the port launched: "
+          f"{ {k: v for k, v in twin['launches'].items() if v} }")
+    del twin
+    torch.cuda.empty_cache()
+    ranks, wall_s = _spawn_ranks(p4_rank, (device_name,), "path (p4)")
+    p3_cfg = h_config(*P_PATHS["p3_phi3_5_moe"])
+    refs = {"p4a": ([r["loss"] for r in p3_records[:P4A_STEPS]],
+                    [r["aux"] for r in p3_records[:P4A_STEPS]], p3_cfg),
+            "p4b": (twin_numbers["losses"], twin_numbers["aux"], twin_cfg)}
+    totals = {}
+    for part, (want, want_aux, cfg) in refs.items():
+        tol = bf16_tol(cfg, torch.tensor(want))
+        for r in ranks:
+            got, who = r[part], f"({part}) rank {r['rank']}"
+            c, losses = got["launches"], got["losses"]
+            if part == "p4a":
+                check(c.get("lram_query", 0) >= P4A_STEPS
+                      and c.get("sharded_gather", 0) >= P4A_STEPS
+                      and c.get("lookup_bwd_range", 0) == P4A_STEPS,
+                      f"{who}: K2 / the range gather / the range backward "
+                      f"launched {c} in {P4A_STEPS} steps")
+                rel = [abs(a / b - 1) for a, b in zip(got["aux"], want_aux)]
+                first, later = P4A_AUX_TOL
+                check(rel[0] <= first and max(rel[1:]) <= later,
+                      f"{who}: the router term {got['aux']} is not within "
+                      f"{first:.0%} of (p3)'s {want_aux} at step 1 or "
+                      f"within {later:.0%} after it")
+                got.update(aux_rel_err_vs_p3_by_step=rel,
+                           aux_rel_bound=P4A_AUX_TOL)
+            else:
+                check(not c, f"{who}: a kernel of the port launched: {c}")
+            err = max(abs(a - b) for a, b in zip(losses, want))
+            check(err <= tol, f"{who}: losses {losses} differ from the "
+                              f"one-process run's {want} by {err} (bound "
+                              f"{tol})")
+            check(losses[-1] < losses[0],
+                  f"{who}: the loss did not fall: {losses}")
+            got.update(loss_max_abs_err_vs_one_process=err, loss_bound=tol)
+        totals[f"{part}_mesh"] = {k: sum(r[part]["launches"].get(k, 0)
+                                         for r in ranks) for k in KERNELS}
+    print(json.dumps({"path": "p4 mesh", "ranks": MESH_RANKS,
+                      "mesh": ranks[0]["mesh"],
+                      "backend": ranks[0]["backend"],
+                      "wall_s_incl_spawn": wall_s,
+                      "by_rank": [{k: r[k] for k in ("rank", "coords",
+                                                     "p4a", "p4b")}
+                                  for r in ranks]}), flush=True)
+    return totals
+
+
+def p_paths(launches: dict) -> None:
+    """Path (p): (p1)-(p3) one process each, then (p4) on 4 ranks."""
+    t_p = time.perf_counter()
+    records = {}
+    for name in P_PATHS:
+        launches[name], records[name] = p_path(name)
+    launches.update(p4_path(records["p3_phi3_5_moe"]))
+    print(json.dumps({"path_p_s": time.perf_counter() - t_p}), flush=True)
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5358,6 +5858,7 @@ def main() -> None:
     for name in O_PATHS:
         launches[name] = o_decoder_path(name)
     print(json.dumps({"path_o_s": time.perf_counter() - t_o}), flush=True)
+    p_paths(launches)
     launches["train"], run = train_path()
     print(json.dumps({"m4_vs_phase6": {"bf16_table": PATH_M["m4"],
                                        "fp32_table": PHASE6}}), flush=True)
@@ -5401,6 +5902,8 @@ def main() -> None:
     train_parity("lram-tiered")
     train_parity("lram-tiered-q8")
     train_parity("lram-sharded-tiered")
+    for arch in BF16_PARITY_ARCHS:
+        train_parity(arch, ["--placement", "pallas"], bf16=True)
     check(not {"jax", "repro", "ml_dtypes"} & set(sys.modules),
           "the port pulled in JAX, the JAX package or ml_dtypes")
 

@@ -85,16 +85,63 @@ def compressed_psum(x: torch.Tensor, group) -> torch.Tensor:
     return total.float() * scale
 
 
+#: bytes of one flat buffer of `all_reduce_flat_`
+FLAT_BUCKET_BYTES = 256 * 2**20
+
+
 def all_reduce_flat_(tensors: list[torch.Tensor], group) -> None:
-    """Sum every tensor of `tensors` (one dtype, one device) over `group`
-    with one all-reduce of their concatenation, in place."""
+    """Sum every tensor of `tensors` (contiguous, one device) over
+    `group`, in place: the tensors of each dtype in order, in flat
+    buffers of at most FLAT_BUCKET_BYTES (one all-reduce each); a tensor
+    as large alone is summed where it lies.
+
+    A dtype apiece, not one buffer: a bfloat16 model's gradients mix
+    bfloat16 leaves with float32 ones (a dense memory table, an SSM's
+    `A_log` / `D` / `dt_bias`), and `torch.cat` would promote them all
+    to float32, a transient float32 copy of every gradient.  Bounded
+    buckets: a flat copy of every gradient would hold a second copy of
+    the whole gradients (3.5 GB of a 1.76 B parameter bf16 model) on
+    every rank.
+
+    A bfloat16 sum is the exact sum rounded once, as XLA's partitioner
+    sums a bfloat16 reduction over devices (in float32, then rounded):
+    over two ranks the bfloat16 all-reduce is that already (a + b rounded
+    once) and moves half the bytes; over more, a bucket is summed in
+    float32 and cast back once, since the wire would round once a rank
+    added."""
     if _trivial(group) or not tensors:
         return
-    if len(tensors) == 1:
-        all_reduce_(tensors[0], group)
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    wide = dist.get_world_size(group) > 2
+    for dtype, same in by_dtype.items():
+        acc = torch.float32 if wide and dtype == torch.bfloat16 else dtype
+        bucket: list[torch.Tensor] = []
+        size = 0
+        for t in same:
+            nbytes = t.numel() * t.element_size()
+            if nbytes >= FLAT_BUCKET_BYTES:
+                _reduce_bucket([t], group, acc)
+                continue
+            if size + nbytes > FLAT_BUCKET_BYTES:
+                _reduce_bucket(bucket, group, acc)
+                bucket, size = [], 0
+            bucket.append(t)
+            size += nbytes
+        _reduce_bucket(bucket, group, acc)
+
+
+def _reduce_bucket(bucket: list[torch.Tensor], group,
+                   acc: torch.dtype) -> None:
+    if not bucket:
         return
-    flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors]), group)
-    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+    if len(bucket) == 1 and bucket[0].dtype == acc:
+        all_reduce_(bucket[0], group)
+        return
+    flat = all_reduce_(torch.cat([t.reshape(-1) for t in bucket]).to(acc),
+                       group)
+    for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
         t.copy_(part.view_as(t))
 
 

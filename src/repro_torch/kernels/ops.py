@@ -144,6 +144,14 @@ def _scatter_scratch(n: int, top_k: int, rows: int,
     return torch.empty(fn(n, top_k, rows), dtype=torch.int32, device=device)
 
 
+#: None, or a callable that `lookup_bwd` and `lookup_bwd_range` hand
+#: their name, positional and keyword arguments each time they go to
+#: launch on the card (a caller keeps a training step's backward inputs
+#: to hold them against the plain version); the launch counts stay with
+#: the wrappers
+input_sink = None
+
+
 def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                g: torch.Tensor, q: torch.Tensor | None = None,
                spec: indexing.TorusSpec | None = None):
@@ -159,6 +167,8 @@ def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     """
     if not values.is_cuda:
         return lookup_bwd_plain(values, idx, w, g, q, spec)
+    if input_sink is not None:
+        input_sink("lookup_bwd", (values, idx, w, g), {"q": q, "spec": spec})
     if values.dtype not in gather_interp.TABLE_KINDS \
             or g.dtype != torch.float32:
         raise TypeError(f"lookup_bwd takes float32 or bfloat16 values and "
@@ -379,6 +389,9 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
     if not values.is_cuda:
         return lookup_bwd_plain(values, idx, w, g, q, spec, scale=scale,
                                 scatter=scale is None, base=base)
+    if input_sink is not None:
+        input_sink("lookup_bwd_range", (values, idx, w, g, base),
+                   {"scale": scale, "q": q, "spec": spec})
     f32 = scale is None  # the scatter instances (fp32 or bf16 rows)
     kinds = gather_interp.TABLE_KINDS if f32 else {
         t: (n, 8) for t, n in _ROWS_PAYLOAD.items() if t != torch.float32}

@@ -65,8 +65,9 @@ does a `ShardedTieredStore` (`lram-sharded-tiered`, or `--placement
 sharded-tiered`), each row range through its own store.  A dense
 quantized table is frozen and is refused: the reference trains a
 quantized table only through the tiered write-back.
-`--json` prints one line per step (loss, xent, grad norm, lr, step ms and
-the cache hit rate of a tiered table) and a summary.
+`--json` prints one line per step (loss, xent, the MoE router loss `aux`
+(0 without experts), grad norm, lr, step ms and the cache hit rate of a
+tiered table) and a summary.
 
 `--use-mesh` under a launch of several ranks (torchrun: WORLD_SIZE > 1)
 joins the process group and builds the host mesh (`launch.mesh`: data x
@@ -128,18 +129,18 @@ for the profiler, as in the reference.  On a mesh only rank 0 arms obs
 reference's one JAX process sees every device, so it has one registry;
 here each rank is a process with its own.
 
-Not ported yet, and refused with the ROADMAP item that ports it (A14
-part 2): a bfloat16 config (the public archs' full configs; their float32
-`--smoke` configs train, the MoE and SSM archs' too, through `loss_fn`
-with the router loss), an MoE arch on a mesh of more than one batch
-rank (`pod` x `data`): the step sums `metrics["aux"]` over the batch
-axes, which would make a rank's router loss that many times too large,
-and a hybrid arch on any mesh (its shared block and two stacked axes
-have no sharding rules here).  The hybrid's float32 smoke config trains
-on one process.  As the reference's CLI, the trainer feeds no
-`encoder_embeds` or `vision_embeds`: whisper-small's forward raises
-without them, and the enc-dec and VLM archs train through
-`transformer.loss_fn` with the batch extras.
+The trainer takes every config the reference's `train` takes: the public
+archs' full configs in bfloat16 (Adam's moments float32, the update cast
+back to the leaf's dtype; the memory table in its own dtype), an MoE arch
+on a mesh of several batch ranks (its router loss is each rank's part of
+the global batch's, `models.moe.router_loss`, so the step's sum over the
+batch axes is the global loss) and a hybrid arch on a mesh (its shared
+block and Mamba leaves split by the reference's rules, two stacked
+axes).  As the reference's CLI, the trainer feeds no `encoder_embeds` or
+`vision_embeds`: whisper-small's forward raises without them, and the
+enc-dec and VLM archs train through `transformer.loss_fn` with the batch
+extras.  `--json`'s summary gives the seconds the weights took to draw
+and place (`init_s`).
 """
 
 from __future__ import annotations
@@ -147,7 +148,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import time
 
 import numpy as np
@@ -325,7 +325,8 @@ class TrainRun:
     the step function (for one more, profiled, step), the data config,
     one record per step (from `start_step`, 0 or the step resumed from),
     the tiered stores it trained by write-back, the usage counters of
-    `--telemetry` (as reported) and the lifecycle events."""
+    `--telemetry` (as reported), the lifecycle events and the seconds
+    the weights took to draw and place (`init_s`)."""
 
     model: transformer.Transformer
     opt_state: dict
@@ -338,6 +339,7 @@ class TrainRun:
     start_step: int = 0
     telemetry: dict | None = None
     lifecycle: list = dataclasses.field(default_factory=list)
+    init_s: float = 0.0
 
 
 def same_step_on_every_rank(found: int | None) -> None:
@@ -414,22 +416,6 @@ def main(argv=None) -> TrainRun:
         device = resolve_device(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    if cfg.dtype != "float32":
-        raise SystemExit(f"{cfg.name} is {cfg.dtype}: training is not "
-                         f"ported for it yet: ROADMAP A14 part 2 (training "
-                         f"the public archs in bfloat16)")
-    batch_ranks = 1 if mesh is None else math.prod(
-        n for axis, n in mesh.shape.items() if axis in ("pod", "data"))
-    if cfg.num_experts > 0 and batch_ranks > 1:
-        # the step sums metrics["aux"] over the batch axes, right for the
-        # cross-entropy (a global denominator), not for a rank's router loss
-        raise SystemExit(f"{cfg.name} is an MoE arch: training it on a mesh "
-                         f"of {batch_ranks} batch ranks is not ported yet "
-                         f"(its router loss would be summed over them): "
-                         f"ROADMAP A14 part 2")
-    if cfg.family == "hybrid" and mesh is not None:
-        raise SystemExit(f"{cfg.name} is a hybrid arch: training it on a "
-                         f"mesh is not ported yet: ROADMAP A14 part 2")
     main_rank = mesh is None or dist.get_rank() == 0
     arm_obs(args, arm=main_rank)  # on a mesh the other ranks stay off
     if args.placement:
@@ -457,10 +443,14 @@ def main(argv=None) -> TrainRun:
     )
     opt_cfg = optim.OptimConfig(lr=args.lr,
                                 memory_lr_mult=args.memory_lr_mult)
+    t_init = time.perf_counter()
     model = transformer.init(cfg, seed=args.seed)
     if mesh is not None:  # every rank drew the whole model; keep its part
         sharding.shard_params(model, mesh)
     model = model.to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t_init
     # a store's table is no Parameter: Adam and the clip never see it
     stores = bind_stores(model, args.lr * args.memory_lr_mult)
     opt_state = optim.adam_init(dict(model.named_parameters()))
@@ -534,7 +524,7 @@ def main(argv=None) -> TrainRun:
             metrics = step_fn(opt_state, batch, tel)
             rec = {"step": step,
                    **{k: float(metrics[k])  # the host sync ends the step
-                      for k in ("loss", "xent", "grad_norm", "lr")}}
+                      for k in ("loss", "xent", "aux", "grad_norm", "lr")}}
         dt = time.perf_counter() - t0
         rec["step_ms"] = 1e3 * dt
         timer.record(dt)
@@ -597,6 +587,7 @@ def main(argv=None) -> TrainRun:
             "arch": cfg.name, "device": str(device), "steps": args.steps,
             "tokens_per_step": args.batch * args.seq,
             "mesh": mesh.shape if mesh is not None else None,
+            "init_s": init_s,
             "step_ms_median_after_5": float(np.median(steady))
             if steady else None,
             "final_eval_loss": eval_loss, "final_fact_recall": recall,
@@ -606,7 +597,8 @@ def main(argv=None) -> TrainRun:
     return TrainRun(model, opt_state, step_fn, dcfg, records, eval_loss,
                     recall, stores, start_step,
                     None if tel is None else reported_telemetry(tel),
-                    controller.events if controller is not None else [])
+                    controller.events if controller is not None else [],
+                    init_s)
 
 
 if __name__ == "__main__":

@@ -128,11 +128,17 @@ def ssd_chunked(x, B, C, dt, A, *, chunk: int, h0=None):
     cl_last = cl[:, :, -1:, :]
     dx = xr * dtr[..., None]  # dt-weighted inputs
 
-    # intra-chunk: scores_ij = (C_i . B_j) exp(cl_i - cl_j) [j <= i]
+    # intra-chunk: scores_ij = (C_i . B_j) exp(cl_i - cl_j) [j <= i]; the
+    # upper triangle (j > i, exponents >= 0) is masked before the exp:
+    # masked after it, as the reference does, a chunk whose decay spans
+    # more than ~88 overflows there to inf, and the backward's 0 * inf
+    # makes every gradient NaN.  The forward is the reference's bit for
+    # bit (exp(-inf) = 0 where the mask zeroes the score anyway)
     cb = _repeat(torch.einsum("bcqgn,bckgn->bcgqk", Cr, Br), hg, 2)
     clh = cl.permute(0, 1, 3, 2)  # (b,nc,h,q)
-    decay = torch.exp(clh[..., :, None] - clh[..., None, :])
     mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(mask, clh[..., :, None]
+                                  - clh[..., None, :], -torch.inf))
     scores = torch.where(mask, cb * decay, 0.0)
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", scores, dx)
 

@@ -23,6 +23,11 @@ No shape depends on the data (no `nonzero`, no boolean indexing, no
 expert products are plain torch matmuls, as the reference leaves them to
 XLA.  The reference's sharding constraints pin layouts on a mesh; on one
 rank they do nothing, and the port has none.
+
+In train mode under an ambient mesh whose batch axes hold several ranks
+(each with its slice of the global batch), the router loss is this
+rank's part of the global batch's (`router_loss`): the step sums the
+parts over the batch axes, as it sums the cross-entropy's.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import nn as tnn
+from repro_torch.distributed import collectives, context
 from repro_torch.models.config import ModelConfig
 
 
@@ -133,8 +139,37 @@ def expert_ffn(experts: Experts, xb: torch.Tensor,
     return proj(h, experts.wo)
 
 
-def moe_apply(moe: MoE, x: torch.Tensor):
-    """x (B, S, d) -> (y (B, S, d), the router's aux loss, float32).
+def router_loss(probs: torch.Tensor, top1: torch.Tensor, e: int, *,
+                train: bool = False) -> torch.Tensor:
+    """The Switch load-balancing loss `E * sum(me * ce)`, float32: `me`
+    the mean router probability of each expert, `ce` the share of tokens
+    whose first choice it is, both over (B, S) of `probs` (B, S, E) and
+    `top1` (B, S).
+
+    In train mode with several batch ranks (`context.batch_group()`) the
+    means are the global batch's, as GSPMD takes the reference's: the
+    top-1 counts and the token count are summed over the batch axes (no
+    gradient: `ce` is a one-hot mean), and this rank's part is `E *
+    sum(probs.sum((0, 1)) / N * ce)` with N the global count.  The parts
+    sum to the global loss, and their gradients to its gradient.
+    Elsewhere (one process, or `train=False`, where every rank holds the
+    whole batch) the means are this call's own."""
+    onehot = _one_hot(top1, e, torch.float32)
+    group = context.batch_group() if train else None
+    if group is None:
+        return e * torch.sum(probs.mean(dim=(0, 1))
+                             * onehot.mean(dim=(0, 1)))
+    counts = torch.cat([onehot.sum(dim=(0, 1)), onehot.new_tensor(
+        [top1.numel()])])
+    counts = collectives.all_reduce_(counts, group)
+    ce = counts[:e] / counts[e]
+    return e * torch.sum(probs.sum(dim=(0, 1)) / counts[e] * ce)
+
+
+def moe_apply(moe: MoE, x: torch.Tensor, *, train: bool = False):
+    """x (B, S, d) -> (y (B, S, d), the router's aux loss, float32; in
+    train mode on several batch ranks this rank's part of the global
+    batch's, `router_loss`).
 
     The dispatch is a scatter-add: each buffer slot receives one token
     copy plus exact zeros (the dropped copies, all at slot 0), so any
@@ -147,10 +182,7 @@ def moe_apply(moe: MoE, x: torch.Tensor):
     e, k = cfg.num_experts, cfg.top_k_experts
     probs, gate_vals, expert_ids = route(moe, x)
 
-    # load-balancing auxiliary loss (Switch)
-    me = probs.mean(dim=(0, 1))
-    ce = _one_hot(expert_ids[..., 0], e, torch.float32).mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
+    aux = router_loss(probs, expert_ids[..., 0], e, train=train)
 
     slot, keep = dispatch(cfg, expert_ids)
     cap = capacity(cfg, s)

@@ -217,7 +217,7 @@ class MoELayer(_Block):
         return moe.moe_apply(self.moe, self.ffn_norm(x))[0]
 
     def ffn_full(self, x: torch.Tensor, train: bool, collect_access: bool):
-        y, aux = moe.moe_apply(self.moe, self.ffn_norm(x))
+        y, aux = moe.moe_apply(self.moe, self.ffn_norm(x), train=train)
         return y, None, aux
 
 
@@ -542,8 +542,8 @@ def loss_fn(model: Transformer, batch: dict, *, train: bool = True,
     data rank's slice of the global batch: the denominator is the global
     count of valid labels (summed over the batch axes, ``data`` or
     ("pod", "data")), so the loss is this rank's part of the global loss
-    and the parts' gradients sum to the global loss's.  The router loss
-    is this rank's (the train CLI refuses an MoE arch on such a mesh)."""
+    and the parts' gradients sum to the global loss's.  So is the router
+    loss (`moe.router_loss`: its means taken over the global batch)."""
     logits, accesses, aux = _forward(model, batch, train=train,
                                      collect_access=collect_access)
     labels = batch["labels"]

@@ -320,11 +320,20 @@ def test_serve_cli_refusals():
         serve.main(argv + ["--device", "cpu"])
 
 
-def test_train_cli_refuses_bfloat16_and_trains_smoke():
-    with pytest.raises(SystemExit, match="A14 part 2"):
-        train.main(["--arch", "qwen2-1.5b", "--device", "cpu"])
+def test_train_cli_trains_smoke_in_float32_and_bfloat16(monkeypatch):
+    """The float32 smoke config trains, and so does the bfloat16 one (the
+    registry replaced: `--smoke` is float32, and a full config is too
+    large for the CPU): its weights stay bfloat16."""
     run = train.main(["--arch", "starcoder2-3b", "--smoke", "--device",
                       "cpu", "--steps", "2", "--batch", "2", "--seq", "8"])
+    assert len(run.records) == 2
+    assert all(np.isfinite(r["loss"]) for r in run.records)
+    smoke = configs.get_smoke_config
+    monkeypatch.setattr(configs, "get_smoke_config",
+                        lambda name: smoke(name, dtype="bfloat16"))
+    run = train.main(["--arch", "starcoder2-3b", "--smoke", "--device",
+                      "cpu", "--steps", "2", "--batch", "2", "--seq", "8"])
+    assert run.model.embed.embedding.dtype == torch.bfloat16
     assert len(run.records) == 2
     assert all(np.isfinite(r["loss"]) for r in run.records)
 

@@ -475,22 +475,3 @@ def test_train_cli_trains_the_smoke_moe_with_its_router_loss():
                       "cpu", "--steps", "2", "--batch", "2", "--seq", "8"])
     assert len(run.records) == 2
     assert all(np.isfinite(r["loss"]) for r in run.records)
-
-
-def test_train_cli_refuses_moe_on_a_mesh_of_batch_ranks(monkeypatch):
-    """An MoE arch on a mesh of 2 data ranks is refused, naming A14 part
-    2 (its router loss would be summed over the ranks); a mesh of one
-    batch rank is not refused by this check."""
-    class FakeMesh:
-        shape = {"data": 2, "model": 2}
-
-    monkeypatch.setattr(train.mesh_lib, "world_size", lambda: 4)
-    monkeypatch.setattr(train.mesh_lib, "init_mesh",
-                        lambda *a, **kw: (FakeMesh(), torch.device("cpu")))
-    with pytest.raises(SystemExit, match="A14 part 2"):
-        train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--device",
-                    "cpu", "--use-mesh"])
-    FakeMesh.shape = {"pod": 2, "data": 1, "model": 2}
-    with pytest.raises(SystemExit, match="2 batch ranks"):
-        train.main(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu",
-                    "--use-mesh"])
