@@ -60,8 +60,10 @@ descr of the reference's `ml_dtypes.bfloat16` arrays, manifest dtype
 "bfloat16"), read back from `V2` as uint16 bits; so are a bf16 memory
 table (`LRAMConfig.table_dtype`) and the shards of a tiered store with a
 bf16 host tier (its manifest dtype "bfloat16", the reference's
-`str(store.dtype)`).  A restore converts bits and fp32 values to the
-target's dtype exactly (widened) or by rounding to nearest even.  Every
+`str(store.dtype)`).  float16 needs no such form: a float16 leaf, table
+or host tier shard is numpy's own `<f2`, as the reference's.  A restore
+converts bits and fp32 values to the target's dtype exactly (widened) or
+by rounding to nearest even.  Every
 save and restore appends its timings to `history`.
 """
 

@@ -5,7 +5,7 @@ A config resolves once into a :class:`LookupPlan` that owns the memory
 read: how the table is built (`build_table` from the init-time fp32 draw,
 `table_from_payload` from a 1-byte payload and its scales), the top-k
 `query`, and the weighted `interp` gather.  The table's dtype
-(`LRAMConfig.table_dtype`, fp32 or bf16) is not an axis: the draw arrives
+(`LRAMConfig.table_dtype`, fp32, bf16 or fp16) is not an axis: the draw arrives
 in it, a dense or sharded plan keeps it as its `Parameter`'s dtype, a
 tiered one as its host tier's, a quantized one quantizes it as fp32.
 Axes:

@@ -13,9 +13,9 @@ The table and the two memory-read steps come from the resolved lookup
 plan (`repro_torch.core.lookup`): a `Parameter`, a `QuantizedTable`, a
 `TieredValueStore`, a `ShardedTieredStore` or this rank's row shard of
 the table.  The table's dtype is `LRAMConfig.table_dtype` whatever the
-model's: float32 (the default) or bfloat16, which a dense or row-sharded
-table keeps as its `Parameter`'s dtype and a tiered store as its host
-tier's (its device cache stays float32, as the reference's does); a
+model's: float32 (the default), bfloat16 or float16, which a dense or
+row-sharded table keeps as its `Parameter`'s dtype and a tiered store as
+its host tier's (its device cache stays float32, as the reference's does); a
 1-byte table is quantized from that draw.  The query norm's and the two
 dense layers' leaves take the model's dtype (bfloat16 in the public
 archs), the query is cast to float32 before `torus_map`, every gather
@@ -40,8 +40,19 @@ from repro_torch import nn as tnn
 from repro_torch.core import indexing, lattice, lookup, overlay, torus
 
 
-# LRAMConfig.table_dtype names the port takes (the reference takes any)
-TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# LRAMConfig.table_dtype names the port takes
+TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+# names the reference takes too but builds no table of their own from:
+# without jax's x64 a "float64" table is a float32 draw (behind a
+# warning), and an "int8" one rounds the 0.02-scale draw to all zeros
+REFUSED_TABLE_DTYPES = {
+    "float64": "the reference (x64 off) draws it as float32: ask for "
+               "float32",
+    "int8": "a cast of the 0.02-scale draw to int8 is all zeros (the "
+            "reference's lookup returns exactly 0): use table_quant='int8' "
+            "for a 1-byte table",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +64,7 @@ class LRAMConfig:
     top_k: int = 32           # paper §2.6: top-32 carries >=99.5% of mass
     query_norm: str = "batch"  # batch | rms | none  (paper: batchnorm)
     value_init_scale: float = 0.02
-    table_dtype: str = "float32"  # float32 | bfloat16
+    table_dtype: str = "float32"  # float32 | bfloat16 | float16
     # --- the lookup plan's three axes (repro_torch.core.lookup) ---
     interp_impl: str = "reference"  # placement: reference/pallas (dense) |
     #                                 tiered | sharded | sharded-tiered
@@ -65,10 +76,11 @@ class LRAMConfig:
 
     def __post_init__(self):
         if self.table_dtype not in TABLE_DTYPES:
+            why = REFUSED_TABLE_DTYPES.get(
+                self.table_dtype, "the port builds no table in it")
             raise ValueError(
-                f"table_dtype {self.table_dtype!r} is not ported: the port "
-                f"takes {sorted(TABLE_DTYPES)}; other dtypes (float16) are "
-                f"ROADMAP A6 part 2")
+                f"table_dtype {self.table_dtype!r} is refused: {why}; the "
+                f"port takes {sorted(TABLE_DTYPES)}")
         if self.table_quant not in ("none", "int8", "fp8"):
             raise ValueError(
                 f"table_quant must be none|int8|fp8, got {self.table_quant!r}"

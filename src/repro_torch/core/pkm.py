@@ -16,7 +16,14 @@ no Pallas kernel, so the port is plain torch too:
   * the rows are never materialised: `F.embedding_bag` with the softmax
     weights as per-sample weights sums them over heads and k, the
     reference's einsum "...hk,...hkm->...m" (at full width its (B, S, 8,
-    32, 512) rows would be a 1 GiB tensor, and its gradient another).
+    32, 512) rows would be a 1 GiB tensor, and its gradient another).  It
+    runs on the table widened to float32, so a bfloat16 or float16 layer
+    (the model's dtype: every leaf is, as the reference builds them) sums
+    in float32 as the reference does, and only the table is widened.  Its
+    gradient is summed in float32 and rounded once to the table's dtype;
+    the reference rounds each row's cotangent and scatter-adds in the
+    table's dtype, which differs within 2 (d_max + 1) u of the summed
+    magnitudes, d_max the most contributions a row takes.
 """
 
 from __future__ import annotations
@@ -60,30 +67,33 @@ class PKM(nn.Module):
     """The layer's weights, named as the reference's pytree: the query
     projection `query`, the half-key codebooks `subkeys1` / `subkeys2`
     (heads, n_keys, half_dim), the table `values` (n_keys**2, value_dim)
-    and, with batchnorm queries, `qnorm` (running stats as buffers).
+    and, with batchnorm queries, `qnorm` (running stats as buffers), all
+    in `dtype` (the model's; the running stats stay float32).
     `pkm_apply` runs it."""
 
     def __init__(self, in_dim: int, cfg: PKMConfig, *,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         shape = (cfg.heads, cfg.n_keys, cfg.half_dim)
         self.query = tnn.Dense(in_dim, cfg.heads * cfg.key_dim,
-                               generator=generator)
+                               generator=generator, dtype=dtype)
         self.subkeys1 = nn.Parameter(
-            tnn.fan_in_init_(torch.empty(shape), generator))
+            tnn.fan_in_init_(torch.empty(shape, dtype=dtype), generator))
         self.subkeys2 = nn.Parameter(
-            tnn.fan_in_init_(torch.empty(shape), generator))
+            tnn.fan_in_init_(torch.empty(shape, dtype=dtype), generator))
         self.values = nn.Parameter(tnn.truncated_normal_(
-            torch.empty(cfg.num_locations, cfg.value_dim),
+            torch.empty(cfg.num_locations, cfg.value_dim, dtype=dtype),
             cfg.value_init_scale, generator))
-        self.qnorm = (tnn.BatchNorm(cfg.heads * cfg.key_dim)
+        self.qnorm = (tnn.BatchNorm(cfg.heads * cfg.key_dim, dtype=dtype)
                       if cfg.query_norm == "batch" else None)
 
 
 def pkm_init(in_dim: int, cfg: PKMConfig, *,
-             generator: torch.Generator | None = None) -> PKM:
-    return PKM(in_dim, cfg, generator=generator)
+             generator: torch.Generator | None = None,
+             dtype: torch.dtype = torch.float32) -> PKM:
+    return PKM(in_dim, cfg, generator=generator, dtype=dtype)
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -119,9 +129,8 @@ def pkm_apply(layer: PKM, x: torch.Tensor, *,
     idx = r1 * cfg.n_keys + r2  # (..., heads, k) flat memory indices
     w = torch.softmax(scores, dim=-1)
     bag = cfg.heads * cfg.top_k
-    out = F.embedding_bag(idx.reshape(-1, bag), layer.values,
-                          per_sample_weights=w.reshape(-1, bag).to(
-                              layer.values.dtype),
+    out = F.embedding_bag(idx.reshape(-1, bag), layer.values.float(),
+                          per_sample_weights=w.reshape(-1, bag),
                           mode="sum")  # sums over heads too
     return out.reshape(*lead, cfg.value_dim).to(x.dtype)
 

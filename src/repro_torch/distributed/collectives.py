@@ -89,6 +89,9 @@ def compressed_psum(x: torch.Tensor, group) -> torch.Tensor:
 FLAT_BUCKET_BYTES = 256 * 2**20
 
 
+_TWO_BYTE = (torch.bfloat16, torch.float16)
+
+
 def all_reduce_flat_(tensors: list[torch.Tensor], group) -> None:
     """Sum every tensor of `tensors` (contiguous, one device) over
     `group`, in place: the tensors of each dtype in order, in flat
@@ -103,12 +106,12 @@ def all_reduce_flat_(tensors: list[torch.Tensor], group) -> None:
     the whole gradients (3.5 GB of a 1.76 B parameter bf16 model) on
     every rank.
 
-    A bfloat16 sum is the exact sum rounded once, as XLA's partitioner
-    sums a bfloat16 reduction over devices (in float32, then rounded):
-    over two ranks the bfloat16 all-reduce is that already (a + b rounded
-    once) and moves half the bytes; over more, a bucket is summed in
-    float32 and cast back once, since the wire would round once a rank
-    added."""
+    A bfloat16 or float16 sum is the exact sum rounded once, as XLA's
+    partitioner sums a 2-byte reduction over devices (in float32, then
+    rounded): over two ranks the 2-byte all-reduce is that already (a + b
+    rounded once) and moves half the bytes; over more, a bucket is summed
+    in float32 and cast back once, since the wire would round once a
+    rank added."""
     if _trivial(group) or not tensors:
         return
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
@@ -116,7 +119,7 @@ def all_reduce_flat_(tensors: list[torch.Tensor], group) -> None:
         by_dtype.setdefault(t.dtype, []).append(t)
     wide = dist.get_world_size(group) > 2
     for dtype, same in by_dtype.items():
-        acc = torch.float32 if wide and dtype == torch.bfloat16 else dtype
+        acc = torch.float32 if wide and dtype in _TWO_BYTE else dtype
         bucket: list[torch.Tensor] = []
         size = 0
         for t in same:

@@ -23,9 +23,9 @@ Cells: ``pallas`` (the CUDA kernels; their plain versions on CPU tensors)
 looks up through one autograd Function, K2 then the range gather then the
 all-reduce, with the range backward and the dq all-reduce behind it (its
 interp hook alone is forward only on the card); ``reference`` is plain
-autograd over the reference's formulation, for CPU tables only.  fp32
-and bf16 tables (`LRAMConfig.table_dtype`; a bf16 shard's gradient is
-summed in fp32 and rounded once) train by autodiff (each rank steps its
+autograd over the reference's formulation, for CPU tables only.  fp32,
+bf16 and fp16 tables (`LRAMConfig.table_dtype`; a 2-byte shard's
+gradient is summed in fp32 and rounded once) train by autodiff (each rank steps its
 own rows); int8 / fp8 tables (`QuantizedTable` shards) are frozen.  The plan
 builds the whole table from the init-time draw, as every plan does;
 `repro_torch.distributed.sharding.shard_params` then keeps the rank's
@@ -103,7 +103,7 @@ class _ShardedLookup(torch.autograd.Function):
                                            g.float().contiguous(), ctx.base,
                                            scale=scale, q=q, spec=ctx.spec)
         collectives.all_reduce_(dq, ctx.group)
-        # a bf16 shard's gradient summed in fp32 and rounded once
+        # a 2-byte shard's gradient summed in fp32 and rounded once
         return (dvalues.to(table.dtype) if ctx.needs_input_grad[0]
                 else None,
                 dq.to(q.dtype), None, None, None, None, None)
@@ -113,7 +113,7 @@ def sharded_gather_interp(mesh, *, axis: str = AXIS,
                           kernel: str = "pallas"):
     """The interp hook (values, idx, w) -> out of the sharded cells.
 
-    `values` is this rank's shard: an fp32 or bf16 tensor (R, m) or a
+    `values` is this rank's shard: an fp32, bf16 or fp16 tensor (R, m) or a
     `QuantizedTable` of R rows, the rows [i * R, (i + 1) * R) of the table
     with i the rank's coordinate along `axis`; idx (..., k) int32 indices
     of the whole table and w (..., k), alike on the ranks of `axis`.  The
@@ -265,9 +265,9 @@ class ShardedTieredStore(nn.Module):
     @classmethod
     def from_dense(cls, values, spec: TieredSpec,
                    num_ranges: int) -> "ShardedTieredStore":
-        """A store holding `values` (N, m), fp32 or bf16 (a tensor or its
-        bits: each range a bf16 host tier), each range quantized (nearest)
-        on the way in if the spec is quantized."""
+        """A store holding `values` (N, m), fp32, bf16 (a tensor or its
+        bits) or fp16, each range a host tier of that dtype, or quantized
+        (nearest) on the way in if the spec is quantized."""
         values, dtype = host_values(values)
         store = cls(values.shape[0], values.shape[1], spec, num_ranges,
                     dtype)
@@ -555,7 +555,7 @@ class ShardedTieredStore(nn.Module):
 
     def to_dense(self) -> np.ndarray:
         """Flush and return the whole (dequantized) (N, m) fp32 table (a
-        bf16 store's values, exactly)."""
+        2-byte store's values, exactly)."""
         return np.concatenate([part.to_dense() for part in self.parts])
 
     def extra_repr(self) -> str:

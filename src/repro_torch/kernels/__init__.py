@@ -14,11 +14,13 @@ def launch_counters() -> dict:
                                      sharded_gather, tiered_gather)
 
     fns = (e8_lookup.lram_query, gather_interp.gather_interp,
-           gather_interp.gather_interp_bf16,
+           gather_interp.gather_interp_bf16, gather_interp.gather_interp_f16,
            gather_interp.gather_interp_quant, tiered_gather.tiered_gather,
            tiered_gather.tiered_gather_quant, ops.lookup_bwd,
-           ops.lookup_bwd_bf16, ops.lookup_bwd_rows, ops.lookup_bwd_quant,
-           ops.lookup_bwd_range, ops.lookup_bwd_range_bf16,
+           ops.lookup_bwd_bf16, ops.lookup_bwd_f16, ops.lookup_bwd_rows,
+           ops.lookup_bwd_quant, ops.lookup_bwd_range,
+           ops.lookup_bwd_range_bf16, ops.lookup_bwd_range_f16,
            sharded_gather.sharded_gather, sharded_gather.sharded_gather_bf16,
+           sharded_gather.sharded_gather_f16,
            sharded_gather.sharded_gather_quant)
     return {fn.__name__: fn for fn in fns}

@@ -89,9 +89,9 @@ constexpr int kMaxSplit = 8;  // warps a query at most (kWarps divides)
 constexpr int kBatch = 8;     // row loads a warp issues before its FMAs
 constexpr int kMinBlocks = 4;  // blocks an SM holds: at most 64 registers
 
-// Two adjacent columns of a row as stored (an fp32 pair, a bf16 pair, two
-// int8, two e4m3), loaded first and turned into fp32 only once the batch's loads
-// are out: a conversion next to its load would wait for it.
+// Two adjacent columns of a row as stored (an fp32 pair, a bf16 or fp16
+// pair, two int8, two e4m3), loaded first and turned into fp32 only once the
+// batch's loads are out: a conversion next to its load would wait for it.
 template <typename T>
 struct Raw;
 
@@ -113,6 +113,17 @@ struct Raw<__nv_bfloat16> {
   }
   static __device__ __forceinline__ float2 f32(Pair v) {
     return __bfloat1622float2(v);  // exact: every bf16 value is a float
+  }
+};
+
+template <>
+struct Raw<__half> {
+  using Pair = __half2;
+  static __device__ __forceinline__ Pair pair(const __half* r, int c) {
+    return *reinterpret_cast<const __half2*>(r + c);
+  }
+  static __device__ __forceinline__ float2 f32(Pair v) {
+    return __half22float2(v);  // exact: every fp16 value is a float
   }
 };
 

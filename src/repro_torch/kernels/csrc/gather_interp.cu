@@ -1,5 +1,5 @@
 // K1: weighted row gather  out[t] = sum_k w[t,k] * values[idx[t,k]]  over
-// an fp32 or a bf16 table, fp32 weights, accumulate and output.
+// an fp32, bf16 or fp16 table, fp32 weights, accumulate and output.
 //
 // Replaces the TPU kernel src/repro/kernels/gather_interp.py
 // (gather_interp_pallas, _kernel; pallas_call at :73), which DMAs one
@@ -7,7 +7,7 @@
 // accumulates in VMEM.
 //
 // Bound on an H100: bytes.  Each distinct row the indices name is read
-// once (4m bytes, 2m for a bf16 row), plus n*k*8 bytes of indices and
+// once (4m bytes, 2m for a bf16 or fp16 row), plus n*k*8 bytes of indices and
 // weights and 4*n*m of output, at 3.35 TB/s.  The 2*n*k*m flops are far
 // below the fp32 rate.
 //
@@ -24,7 +24,8 @@
 // to fp32 exactly before its multiply-add: the same fp32 operations in
 // the same order, so its output is bit-equal to the fp32 instance's on
 // values.float() at the same split.  Half the row bytes, so half the
-// bound's row term.
+// bound's row term.  An fp16 table (gather_interp_f16) is the same again
+// on __half2 pairs (Raw<__half>, widened by __half22float2, also exact).
 //
 // Tried and dropped: running the queries in the order of their top
 // candidate's row (a counting sort on the card, then the gather in that
@@ -120,3 +121,4 @@ static int entry_split(const void* values, const void* idx, const void* w,
 
 GATHER_INTERP(f32, float)
 GATHER_INTERP(bf16, __nv_bfloat16)
+GATHER_INTERP(f16, __half)

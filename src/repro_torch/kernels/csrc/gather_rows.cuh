@@ -4,9 +4,9 @@
 //   out[t] = sum_k  w[t,k] * (scale[r] if scaled) * values[r],
 //            r = row_map(idx[t,k])
 //
-// `values` rows are fp32, bf16 (read exactly as fp32), or 1-byte int8 /
-// e4m3 payloads with one fp32 scale per row; Payload reads one column of a
-// row as fp32 (the odd-m path; gather_batched.cuh's Raw and Raw8 load
+// `values` rows are fp32, bf16 or fp16 (read exactly as fp32), or 1-byte
+// int8 / e4m3 payloads with one fp32 scale per row; Payload reads one column
+// of a row as fp32 (the odd-m path; gather_batched.cuh's Raw and Raw8 load
 // pairs and 8-byte words).
 // `row_map` is the identity (DirectRows: a dense table), the tiered
 // store's shard -> slot indirection (SlotRows: B5, B6), or a row-range
@@ -27,6 +27,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,6 +54,13 @@ struct Payload<__nv_bfloat16> {
   static __device__ __forceinline__ float one(const __nv_bfloat16* r,
                                               int c) {
     return __bfloat162float(r[c]);  // exact
+  }
+};
+
+template <>
+struct Payload<__half> {
+  static __device__ __forceinline__ float one(const __half* r, int c) {
+    return __half2float(r[c]);  // exact
   }
 };
 

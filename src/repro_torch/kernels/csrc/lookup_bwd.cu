@@ -34,6 +34,9 @@
 //     reference's dvalues.astype(values.dtype) (ops.py:98,
 //     gather_interp.py:217).  Given the same placement order the outputs
 //     are the fp32 instances' on values.float().
+//   fp16, scatter, dq / dw   lookup_bwd_{dq,dw}_f16: the same on an fp16
+//     table (Raw<__half>, widened exactly); the wrapper rounds dvalues to
+//     fp16 once.
 //   fp32, no scatter, dq / dw   lookup_bwd_rows_{dq,dw}_f32: the tiered
 //     fp32 table (its gradient goes to the store's host write-back, not to
 //     a dense dvalues; the reference's tiered VJP, src/repro/memstore/
@@ -45,9 +48,9 @@
 //   int8 / e4m3, no scatter, dq   lookup_bwd_rows_dq_{i8,e4m3}: the same
 //     finished with dq, the backward of the dense 1-byte table's joined
 //     lookup and of the tiered lram-tiered-q8 training path.
-//   over a row range   lookup_bwd_range_{dq,dw}_{f32,bf16,i8,e4m3}: row 9's
-//     backward, on one rank's row-range shard [base, base + rows) of the
-//     table (replaces the autodiff of the shard-local gathers of
+//   over a row range   lookup_bwd_range_{dq,dw}_{f32,bf16,f16,i8,e4m3}:
+//     row 9's backward, on one rank's row-range shard [base, base + rows)
+//     of the table (replaces the autodiff of the shard-local gathers of
 //     src/repro/distributed/sharded_lram.py, sharded_gather_interp,
 //     :62-136: gather_interp_vjp's backward :206 and gather_interp_quant's
 //     :165-179, through shard_map).  Only the in-range k count: the row
@@ -60,11 +63,11 @@
 //     counts the in-range distinct rows and the shard's dvalues.
 //
 // Bound on an H100: bytes, at 3.35 TB/s.  Every distinct row the forward
-// read is read once (4m bytes for fp32, 2m for bf16, m + 4 for a 1-byte
-// row and its scale), plus g (4m a query), idx, rows and w (4k each; rows only where
-// they are not idx), q (32) and the output (32 or 4k); the scatter
-// instances write dvalues once (4Nm bytes: 256 MiB at full width).  The
-// 2·n·k·m flops are far below the fp32 rate.
+// read is read once (4m bytes for fp32, 2m for bf16 / fp16, m + 4 for a
+// 1-byte row and its scale), plus g (4m a query), idx, rows and w (4k
+// each; rows only where they are not idx), q (32) and the output (32 or
+// 4k); the scatter instances write dvalues once (4Nm bytes: 256 MiB at
+// full width).  The 2·n·k·m flops are far below the fp32 rate.
 //
 // Design of the instances without scatter (redesigned for the H100; the
 // old body shuffled out each of a query's 32 rows in turn, loaded it and
@@ -609,8 +612,8 @@ lookup_bwd_scatter_zero_kernel(const int32_t* __restrict__ counts,
   }
 }
 
-// A row of values (fp32 or bf16) into registers as fp32, two columns a
-// lane.
+// A row of values (fp32, bf16 or fp16) into registers as fp32, two columns
+// a lane.
 template <typename T, int kCh>
 __device__ __forceinline__ void load_row(float2 (&v)[kCh],
                                          const T* __restrict__ row, int m,
@@ -659,8 +662,8 @@ __device__ __forceinline__ int row_at(const int32_t* __restrict__ entries,
 // row goes out once (put_row).  Lane j then adds pair j's 32 parts in
 // lane order: dw.  Every warp takes 32 pairs however they fall on rows, so
 // a row that many pairs hit spreads over many warps.
-// T: the rows' type (fp32 or bf16); kCh: 64-column chunks a row has at
-// most, 1 or kMaxChunks.
+// T: the rows' type (fp32, bf16 or fp16); kCh: 64-column chunks a row has
+// at most, 1 or kMaxChunks.
 template <typename T, int kCh>
 __global__ void __launch_bounds__(kWarps * 32)
 lookup_bwd_scatter_sum_kernel(const T* __restrict__ values,
@@ -916,7 +919,7 @@ extern "C" long long lookup_bwd_scatter_scratch(int n, int top_k, int rows) {
 }
 
 // B3's backward: dvalues (N, m) fp32, written whole, and dq (n, 8); rows =
-// idx.  B1's VJP: dvalues and dw (n, k).  Over fp32 or bf16 rows.
+// idx.  B1's VJP: dvalues and dw (n, k).  Over fp32, bf16 or fp16 rows.
 #define LOOKUP_BWD_SCATTER(NAME, T)                                           \
   extern "C" int lookup_bwd_dq_##NAME(                                        \
       const void* values, const void* idx, const void* w, const void* g,      \
@@ -938,6 +941,7 @@ extern "C" long long lookup_bwd_scatter_scratch(int n, int top_k, int rows) {
 
 LOOKUP_BWD_SCATTER(f32, float)
 LOOKUP_BWD_SCATTER(bf16, __nv_bfloat16)
+LOOKUP_BWD_SCATTER(f16, __half)
 
 // No scatter, over the rows `rows` of a table: dq (n, 8) with q, idx and
 // the torus (wrap), else dw (n, k).  `scale` is null for fp32 rows; w is
@@ -966,9 +970,9 @@ LOOKUP_BWD_ROWS(i8, int8_t)
 LOOKUP_BWD_ROWS(e4m3, __nv_fp8_e4m3)
 
 // Row 9's backward over the shard [base, base + rows) of the table: the
-// in-range k only, rows read at idx - base.  fp32 or bf16 rows: w (x) g
-// scattered into the shard's (rows, m) fp32 dvalues, written whole, and
-// the partial dq (n, 8) or dw (n, k).
+// in-range k only, rows read at idx - base.  fp32, bf16 or fp16 rows:
+// w (x) g scattered into the shard's (rows, m) fp32 dvalues, written
+// whole, and the partial dq (n, 8) or dw (n, k).
 #define LOOKUP_BWD_RANGE_SCATTER(NAME, T)                                     \
   extern "C" int lookup_bwd_range_dq_##NAME(                                  \
       const void* values, const void* idx, const void* w, const void* g,      \
@@ -990,6 +994,7 @@ LOOKUP_BWD_ROWS(e4m3, __nv_fp8_e4m3)
 
 LOOKUP_BWD_RANGE_SCATTER(f32, float)
 LOOKUP_BWD_RANGE_SCATTER(bf16, __nv_bfloat16)
+LOOKUP_BWD_RANGE_SCATTER(f16, __half)
 
 // 1-byte shards (frozen, no scatter): the partial dq or dw.
 #define LOOKUP_BWD_RANGE_QUANT(NAME, T)                                       \

@@ -5,12 +5,13 @@
 //                w[t,k] * (scale[r] if 1-byte) * shard[r],
 //   r = idx[t,k] - base
 //
-// (fp32 sum), over an fp32 or a bf16 shard (K1 on a shard; a bf16 row is
-// widened to fp32 exactly, as K1's bf16 instance does) or an int8 / e4m3
-// shard with one fp32 scale per row (B4 on a shard).  An index outside the shard
-// adds nothing and its row is not read: the other ranks of the `model`
-// axis hold it, and the partial outputs are summed across ranks by one
-// all-reduce outside the kernel (repro_torch.distributed.sharded_lram).
+// (fp32 sum), over an fp32, bf16 or fp16 shard (K1 on a shard; a 2-byte
+// row is widened to fp32 exactly, as K1's bf16 and fp16 instances do) or
+// an int8 / e4m3 shard with one fp32 scale per row (B4 on a shard).  An
+// index outside the shard adds nothing and its row is not read: the other
+// ranks of the `model` axis hold it, and the partial outputs are summed
+// across ranks by one all-reduce outside the kernel
+// (repro_torch.distributed.sharded_lram).
 //
 // Replaces the shard-local gathers of src/repro/distributed/sharded_lram.py
 // (sharded_gather_interp, :62-136): inside a shard_map, the TPU kernel
@@ -22,9 +23,9 @@
 // an out-of-range index reads local row 0 or rows - 1 at weight 0.
 //
 // Bound on an H100: bytes, at 3.35 TB/s.  Each distinct in-range row is
-// read once (4m bytes, 2m for bf16, or m + 4 for a 1-byte row and its
-// scale), plus
-// idx and w (4k bytes each a query) and the output (4m a query).  The
+// read once (4m bytes, 2m for bf16 / fp16, or m + 4 for a 1-byte row and
+// its scale), plus idx and w (4k bytes each a query) and the output (4m a
+// query).  The
 // 2*n*k*m flops of the in-range terms are far below the fp32 rate.
 //
 // Design: gather_batched.cuh's body with the RangeRows row map.  Lane l
@@ -123,6 +124,15 @@ extern "C" int sharded_gather_bf16(const void* values, const void* idx,
                                    void* stream) {
   return launch<__nv_bfloat16, false>(values, nullptr, idx, w, out, n, top_k,
                                       m, base, rows, device, stream);
+}
+
+// fp16 shard (K1's fp16 instance on a shard)
+extern "C" int sharded_gather_f16(const void* values, const void* idx,
+                                  const void* w, void* out, int n, int top_k,
+                                  int m, int base, int rows, int device,
+                                  void* stream) {
+  return launch<__half, false>(values, nullptr, idx, w, out, n, top_k, m,
+                               base, rows, device, stream);
 }
 
 // 1-byte shards with one fp32 scale per row (B4 on a shard)

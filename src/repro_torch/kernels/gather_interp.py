@@ -1,7 +1,8 @@
 """K1 and B4: the value gather + interpolation.
 
-    K1:  out[t] = sum_k w[t,k] * values[idx[t,k]]                (fp32 or
-                                                                  bf16 table)
+    K1:  out[t] = sum_k w[t,k] * values[idx[t,k]]                (fp32,
+                                                                  bf16 or
+                                                                  fp16 table)
     B4:  out[t] = sum_k (w[t,k] * scale[i]) * q[i], i = idx[t,k]  (int8 or
          float8_e4m3fn payload, one fp32 scale per row)
 
@@ -13,10 +14,10 @@ and `gather_interp_quant_vjp`, whose backwards are `ops.lookup_bwd` and
 `csrc/gather_interp.cu` and `csrc/gather_interp_quant.cu` (design and bound
 noted there) or raise; on a CPU tensor they take `gather_interp_plain` and
 `gather_interp_quant_plain`, the same functions in plain torch.  A bf16
-table (`LRAMConfig.table_dtype`) takes K1's bf16 instance,
-`gather_interp_bf16`, with a launch count of its own: each row widened to
-fp32 exactly, fp32 weights and sums, bit-equal to the fp32 instance on
-`values.float()`.
+or fp16 table (`LRAMConfig.table_dtype`) takes K1's bf16 or fp16
+instance, `gather_interp_bf16` / `gather_interp_f16`, each with a launch
+count of its own: each row widened to fp32 exactly, fp32 weights and
+sums, bit-equal to the fp32 instance on `values.float()`.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from repro_torch.kernels import _build
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # the table dtypes K1 takes -> (symbol suffix, alignment its pair loads need)
-TABLE_KINDS = {torch.float32: ("f32", 8), torch.bfloat16: ("bf16", 4)}
+TABLE_KINDS = {torch.float32: ("f32", 8), torch.bfloat16: ("bf16", 4),
+               torch.float16: ("f16", 4)}
 _QUANT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _QUANT_SYMBOL = {torch.int8: "gather_interp_quant_i8",
                  torch.float8_e4m3fn: "gather_interp_quant_e4m3"}
@@ -39,8 +41,8 @@ _QUANT_SYMBOL = {torch.int8: "gather_interp_quant_i8",
 def gather_interp_plain(values: torch.Tensor, idx: torch.Tensor,
                         w: torch.Tensor) -> torch.Tensor:
     """sum_k w[..., k] * values[idx[..., k]] -> (..., m), fp32 accumulate;
-    a bf16 table's rows are cast to fp32 before the product, as the
-    reference's are."""
+    a bf16 or fp16 table's rows are cast to fp32 before the product, as
+    the reference's are."""
     rows = values[idx.long()].float()  # (..., k, m)
     return torch.einsum("...k,...km->...m", w.float(), rows)
 
@@ -93,19 +95,19 @@ def gather_interp(values: torch.Tensor, idx: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
     """sum_k w[..., k] * values[idx[..., k]] -> (..., m) float32.
 
-    values (N, m) float32 or bfloat16, contiguous; idx (..., k) int32 in
-    [0, N); w (..., k) float32 on either device (another dtype of values
-    or w raises, never cast).  A bf16 table launches K1's bf16 instance
-    (`gather_interp_bf16`'s count).  On a CUDA tensor the output carries
-    no gradient, so it raises when grad mode is on and values or w
-    require grad: `gather_interp_vjp` is the differentiable form.  Its
-    offsets are 64-bit and its grid is capped (a grid-stride loop), so
-    n * k and n * m may pass 2^31.
+    values (N, m) float32, bfloat16 or float16, contiguous; idx (..., k)
+    int32 in [0, N); w (..., k) float32 on either device (another dtype of
+    values or w raises, never cast).  A bf16 or fp16 table launches K1's
+    instance of its dtype (`gather_interp_bf16`'s or `gather_interp_f16`'s
+    count).  On a CUDA tensor the output carries no gradient, so it raises
+    when grad mode is on and values or w require grad: `gather_interp_vjp`
+    is the differentiable form.  Its offsets are 64-bit and its grid is
+    capped (a grid-stride loop), so n * k and n * m may pass 2^31.
     """
     if values.dtype not in TABLE_KINDS or w.dtype != torch.float32:
-        raise TypeError(f"gather_interp takes a float32 or bfloat16 table "
-                        f"and float32 weights, got {values.dtype} and "
-                        f"{w.dtype}")
+        raise TypeError(f"gather_interp takes a float32, bfloat16 or "
+                        f"float16 table and float32 weights, got "
+                        f"{values.dtype} and {w.dtype}")
     if not values.is_cuda:
         return gather_interp_plain(values, idx, w)
     _build.refuse_grad("gather_interp", values, w)
@@ -120,9 +122,7 @@ def gather_interp(values: torch.Tensor, idx: torch.Tensor,
                     out.data_ptr(), n, top_k, m, values.device.index,
                     current_stream(values))
         _build.check(status, "gather_interp")
-        counter = (gather_interp_bf16 if values.dtype == torch.bfloat16
-                   else gather_interp)
-        counter.launches += 1
+        _COUNTER.get(suffix, gather_interp).launches += 1
     return out.reshape(*lead, m)
 
 
@@ -133,6 +133,17 @@ def gather_interp_bf16(values: torch.Tensor, idx: torch.Tensor,
     float32, bit-equal to the fp32 instance on `values.float()`."""
     if values.dtype != torch.bfloat16:
         raise TypeError(f"gather_interp_bf16 takes a bfloat16 table, got "
+                        f"{values.dtype}")
+    return gather_interp(values, idx, w)
+
+
+def gather_interp_f16(values: torch.Tensor, idx: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """K1 on a float16 table (`gather_interp` on one; its launches count
+    here): sum_k w[..., k] * float(values[idx[..., k]]) -> (..., m)
+    float32, bit-equal to the fp32 instance on `values.float()`."""
+    if values.dtype != torch.float16:
+        raise TypeError(f"gather_interp_f16 takes a float16 table, got "
                         f"{values.dtype}")
     return gather_interp(values, idx, w)
 
@@ -217,4 +228,7 @@ def gather_interp_quant_vjp(q: torch.Tensor, scale: torch.Tensor,
 #: kernel launches since the last reset (a run shows the path used K1, B4)
 gather_interp.launches = 0
 gather_interp_bf16.launches = 0
+gather_interp_f16.launches = 0
+# a 2-byte table's instance -> the wrapper its launches count on
+_COUNTER = {"bf16": gather_interp_bf16, "f16": gather_interp_f16}
 gather_interp_quant.launches = 0

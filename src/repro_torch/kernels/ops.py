@@ -11,8 +11,9 @@ nearest torus image of the lattice point x_k that idx_k names and relu_k
 = max(0, 1 - |delta_k|^2 / 8): the analytic derivative of w = relu^4.
 Where the table's gradient goes depends on the table (`lram_lookup`):
 
-  * a dense fp32 or bf16 tensor: scattered into a dense fp32 dvalues
-    (B3's backward, `lookup_bwd`), rounded once to a bf16 table's dtype;
+  * a dense fp32, bf16 or fp16 tensor: scattered into a dense fp32
+    dvalues (B3's backward, `lookup_bwd`), rounded once to a 2-byte
+    table's dtype;
   * a `RowSource`, a table autograd does not own: its rows are read
     through the source (a dense 1-byte table's own rows; a tiered store's
     flat table of cache + overflow rows) and w (x) g goes to its sink (the
@@ -158,12 +159,13 @@ def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     """The lookup's backward: (dvalues (N, m), dq (..., 8)) when q and spec
     are given, else (dvalues, dw (..., k)).
 
-    values (N, m) float32 or bfloat16, m even and <= 256; idx (..., k)
-    int32 in [0, N); w (..., k) float32; g (..., m) float32; q (..., 8)
-    float32.  All contiguous, on one device.  dvalues is float32 either
-    way (summed in fp32; the caller rounds it once to a bf16 table's
-    dtype, as the reference's VJPs do); a bf16 table launches the bf16
-    instances (`lookup_bwd_bf16`'s count).
+    values (N, m) float32, bfloat16 or float16, m even and <= 256;
+    idx (..., k) int32 in [0, N); w (..., k) float32; g (..., m) float32;
+    q (..., 8) float32.  All contiguous, on one device.  dvalues is
+    float32 either way (summed in fp32; the caller rounds it once to a
+    2-byte table's dtype, as the reference's VJPs do); a bf16 or fp16
+    table launches the instances of its dtype (`lookup_bwd_bf16`'s or
+    `lookup_bwd_f16`'s count).
     """
     if not values.is_cuda:
         return lookup_bwd_plain(values, idx, w, g, q, spec)
@@ -171,10 +173,11 @@ def lookup_bwd(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         input_sink("lookup_bwd", (values, idx, w, g), {"q": q, "spec": spec})
     if values.dtype not in gather_interp.TABLE_KINDS \
             or g.dtype != torch.float32:
-        raise TypeError(f"lookup_bwd takes float32 or bfloat16 values and "
-                        f"float32 g, got {values.dtype} and {g.dtype}")
+        raise TypeError(f"lookup_bwd takes float32, bfloat16 or float16 "
+                        f"values and float32 g, got {values.dtype} and "
+                        f"{g.dtype}")
     name, align = gather_interp.TABLE_KINDS[values.dtype]
-    counter = lookup_bwd_bf16 if name == "bf16" else lookup_bwd
+    counter = _BWD_COUNTER.get(name, lookup_bwd)
     idx2, w2, lead = gather_interp.flat_gather_args(
         values, idx, w, "lookup_bwd", align=align)
     n, top_k, m = idx2.shape[0], idx2.shape[1], values.shape[1]
@@ -232,9 +235,23 @@ def lookup_bwd_bf16(values: torch.Tensor, idx: torch.Tensor,
     return lookup_bwd(values, idx, w, g, q, spec)
 
 
+def lookup_bwd_f16(values: torch.Tensor, idx: torch.Tensor,
+                   w: torch.Tensor, g: torch.Tensor,
+                   q: torch.Tensor | None = None,
+                   spec: indexing.TorusSpec | None = None):
+    """`lookup_bwd` on a float16 table (its launches count here): the
+    rows read as fp16 and widened to fp32 exactly, dvalues (N, m) fp32."""
+    if values.dtype != torch.float16:
+        raise TypeError(f"lookup_bwd_f16 takes a float16 table, got "
+                        f"{values.dtype}")
+    return lookup_bwd(values, idx, w, g, q, spec)
+
+
 #: kernel launches since the last reset (a run shows the path used it)
 lookup_bwd.launches = 0
 lookup_bwd_bf16.launches = 0
+lookup_bwd_f16.launches = 0
+_BWD_COUNTER = {"bf16": lookup_bwd_bf16, "f16": lookup_bwd_f16}
 
 
 # values, scale, rows, idx, w, g, q, dq, n, k, m, wrap, device, stream
@@ -373,11 +390,11 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
     """Row 9's backward on one rank's row-range shard: (dvalues, dq) when
     q and spec are given, else (dvalues, dw), over the in-range k only.
 
-    values (rows, m) is the shard [base, base + rows) of the table: fp32
-    or bf16 (dvalues (rows, m) fp32 is the scatter-add of w (x) g at
-    idx - base; a bf16 shard launches `lookup_bwd_range_bf16`'s count),
-    or a 1-byte payload with `scale` (rows,) float32 (frozen: dvalues is
-    None).
+    values (rows, m) is the shard [base, base + rows) of the table: fp32,
+    bf16 or fp16 (dvalues (rows, m) fp32 is the scatter-add of w (x) g at
+    idx - base; a 2-byte shard launches `lookup_bwd_range_bf16`'s or
+    `lookup_bwd_range_f16`'s count), or a 1-byte payload with `scale`
+    (rows,) float32 (frozen: dvalues is None).
     dq (..., 8) and dw (..., k) are the shard's PARTIAL sums (dw_k = 0 for
     an index the shard does not hold): the partials of the `model` ranks
     sum to the whole.  idx (..., k) int32, indices of the whole table;
@@ -392,13 +409,13 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
     if input_sink is not None:
         input_sink("lookup_bwd_range", (values, idx, w, g, base),
                    {"scale": scale, "q": q, "spec": spec})
-    f32 = scale is None  # the scatter instances (fp32 or bf16 rows)
+    f32 = scale is None  # the scatter instances (fp32, bf16 or fp16 rows)
     kinds = gather_interp.TABLE_KINDS if f32 else {
         t: (n, 8) for t, n in _ROWS_PAYLOAD.items() if t != torch.float32}
     if values.dtype not in kinds:
-        raise TypeError(f"lookup_bwd_range takes a float32 or bfloat16 "
-                        f"shard, or an int8 / float8_e4m3fn shard with its "
-                        f"scales; got {values.dtype} with "
+        raise TypeError(f"lookup_bwd_range takes a float32, bfloat16 or "
+                        f"float16 shard, or an int8 / float8_e4m3fn shard "
+                        f"with its scales; got {values.dtype} with "
                         f"scale={scale is not None}")
     if g.dtype != torch.float32:
         raise TypeError(f"lookup_bwd_range takes float32 g, got {g.dtype}")
@@ -450,8 +467,7 @@ def lookup_bwd_range(values: torch.Tensor, idx: torch.Tensor,
         (_RANGE_DW_ARGS if q is None else _RANGE_DQ_ARGS)[f32])(
         *ptrs, *args, values.device.index, stream)
     _build.check(status, f"lookup_bwd_range ({stage})")
-    (lookup_bwd_range_bf16 if name == "bf16"
-     else lookup_bwd_range).launches += 1
+    _RANGE_COUNTER.get(name, lookup_bwd_range).launches += 1
     return dvalues, out.reshape(*lead, out.shape[1])
 
 
@@ -467,9 +483,24 @@ def lookup_bwd_range_bf16(values: torch.Tensor, idx: torch.Tensor,
     return lookup_bwd_range(values, idx, w, g, base, q=q, spec=spec)
 
 
+def lookup_bwd_range_f16(values: torch.Tensor, idx: torch.Tensor,
+                         w: torch.Tensor, g: torch.Tensor, base: int, *,
+                         q: torch.Tensor | None = None,
+                         spec: indexing.TorusSpec | None = None):
+    """`lookup_bwd_range` on a float16 shard (its launches count here):
+    dvalues (rows, m) fp32 and the partial dq or dw."""
+    if values.dtype != torch.float16:
+        raise TypeError(f"lookup_bwd_range_f16 takes a float16 shard, "
+                        f"got {values.dtype}")
+    return lookup_bwd_range(values, idx, w, g, base, q=q, spec=spec)
+
+
 #: kernel launches since the last reset
 lookup_bwd_range.launches = 0
 lookup_bwd_range_bf16.launches = 0
+lookup_bwd_range_f16.launches = 0
+_RANGE_COUNTER = {"bf16": lookup_bwd_range_bf16,
+                  "f16": lookup_bwd_range_f16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -557,8 +588,9 @@ def lram_lookup(values, q: torch.Tensor, spec: indexing.TorusSpec,
                 top_k: int = lattice.DEFAULT_TOP_K, *,
                 return_access: bool = False):
     """out[t] = sum_k f(d(q_t, k)) * values[k] over the top_k nearest slots,
-    differentiable in q, and in values when it is a dense (N, m) float32
-    or bfloat16 tensor (its gradient summed in fp32 and rounded once); a `RowSource` takes the table's gradient itself (or is
+    differentiable in q, and in values when it is a dense (N, m) float32,
+    bfloat16 or float16 tensor (its gradient summed in fp32 and rounded
+    once); a `RowSource` takes the table's gradient itself (or is
     frozen).  q (..., 8) float32 torus coordinates, contiguous.  With
     `return_access` returns (out, (idx, w))."""
     if isinstance(values, RowSource):

@@ -1,8 +1,9 @@
 """Row 9's forward: the weighted gather over one rank's row-range shard.
 
     out[t] = sum_k ok[t,k] * w[t,k] * shard[idx[t,k] - base]
-             ok = base <= idx[t,k] < base + rows               (fp32 or
-                                                                bf16 shard)
+             ok = base <= idx[t,k] < base + rows               (fp32,
+                                                                bf16 or
+                                                                fp16 shard)
     out[t] = sum_k ok[t,k] * (w[t,k] * scale[r]) * q[r]        (int8 or
              r = idx[t,k] - base                                e4m3 shard)
 
@@ -71,12 +72,14 @@ def check_shard_base(table: torch.Tensor, base: int, what: str) -> int:
 
 def sharded_gather(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                    base: int) -> torch.Tensor:
-    """The partial gather over the fp32 or bf16 shard `values` (rows, m),
-    which holds the table's rows [base, base + rows) -> (..., m) float32.
+    """The partial gather over the fp32, bf16 or fp16 shard `values`
+    (rows, m), which holds the table's rows [base, base + rows) -> (..., m)
+    float32.
 
     idx (..., k) int32, indices of the whole table; w (..., k) float32.
-    A bf16 shard launches the bf16 instance (`sharded_gather_bf16`'s
-    count; each row widened to fp32 exactly, as K1's bf16 instance does).
+    A bf16 or fp16 shard launches the instance of its dtype
+    (`sharded_gather_bf16`'s or `sharded_gather_f16`'s count; each row
+    widened to fp32 exactly, as K1's 2-byte instances do).
     On a CUDA tensor the output carries no gradient, so it raises when
     grad mode is on and values or w require grad (the differentiable forms
     are in `repro_torch.distributed.sharded_lram`).
@@ -85,8 +88,8 @@ def sharded_gather(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         return sharded_gather_plain(values, idx, w, base)
     _build.refuse_grad("sharded_gather", values, w)
     if values.dtype not in gather_interp.TABLE_KINDS:
-        raise TypeError(f"sharded_gather kernel takes float32 or bfloat16 "
-                        f"shards, got {values.dtype}")
+        raise TypeError(f"sharded_gather kernel takes float32, bfloat16 "
+                        f"or float16 shards, got {values.dtype}")
     suffix, align = gather_interp.TABLE_KINDS[values.dtype]
     base = check_shard_base(values, base, "sharded_gather")
     idx2, w2, lead = gather_interp.flat_gather_args(values, idx, w,
@@ -101,8 +104,7 @@ def sharded_gather(values: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                     values.device.index,
                     gather_interp.current_stream(values))
         _build.check(status, "sharded_gather")
-        (sharded_gather_bf16 if suffix == "bf16"
-         else sharded_gather).launches += 1
+        _COUNTER.get(suffix, sharded_gather).launches += 1
     return out.reshape(*lead, m)
 
 
@@ -111,6 +113,15 @@ def sharded_gather_bf16(values: torch.Tensor, idx: torch.Tensor,
     """`sharded_gather` over a bfloat16 shard (its launches count here)."""
     if values.dtype != torch.bfloat16:
         raise TypeError(f"sharded_gather_bf16 takes a bfloat16 shard, got "
+                        f"{values.dtype}")
+    return sharded_gather(values, idx, w, base)
+
+
+def sharded_gather_f16(values: torch.Tensor, idx: torch.Tensor,
+                       w: torch.Tensor, base: int) -> torch.Tensor:
+    """`sharded_gather` over a float16 shard (its launches count here)."""
+    if values.dtype != torch.float16:
+        raise TypeError(f"sharded_gather_f16 takes a float16 shard, got "
                         f"{values.dtype}")
     return sharded_gather(values, idx, w, base)
 
@@ -150,4 +161,6 @@ def sharded_gather_quant(q: torch.Tensor, scale: torch.Tensor,
 #: kernel launches since the last reset (a run shows the path used them)
 sharded_gather.launches = 0
 sharded_gather_bf16.launches = 0
+sharded_gather_f16.launches = 0
+_COUNTER = {"bf16": sharded_gather_bf16, "f16": sharded_gather_f16}
 sharded_gather_quant.launches = 0

@@ -46,7 +46,7 @@ restore), and `load_reference_tree` keeps this rank's block of a global
 leaf it is given.
 
 A memory layer's table (`...lram.values`) is an (N, m) array in the
-layer's `LRAMConfig.table_dtype` (fp32, or bfloat16 bits), or a
+layer's `LRAMConfig.table_dtype` (fp32, float16, or bfloat16 bits), or a
 quantized table as ``{"q": payload, "scale": scales}``: the reference's
 payload (int8, or float8_e4m3fn as its uint8 bytes) and per-row scales,
 read from a `QuantizedTable` or, shard by shard, from a tiered store's

@@ -30,7 +30,9 @@ trace, so its timings exclude each shape's first call.
 `qwen2-1.5b`, `starcoder2-3b`, `h2o-danube-3-4b`), the MoE family
 (`phi3.5-moe-42b-a6.6b`, `mixtral-8x7b`), the SSM family (`mamba2-1.3b`)
 and the hybrid (`zamba2-2.7b`; both prefilled at exact lengths); full
-configs in bfloat16, `--smoke` in float32, as the reference's CLI does:
+configs in bfloat16, `--smoke` in float32, as the reference's CLI does
+(no flag takes a dtype; a float16 model or table is a config built in
+Python, `dataclasses.replace(cfg, dtype="float16")`):
 they have no memory layer, so `--placement` and the memory flags are
 refused for them.  The enc-dec and VLM archs (`whisper-small`,
 `qwen2-vl-72b`) raise the engine's ValueError, as the reference's CLI

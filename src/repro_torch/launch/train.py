@@ -130,8 +130,10 @@ reference's one JAX process sees every device, so it has one registry;
 here each rank is a process with its own.
 
 The trainer takes every config the reference's `train` takes: the public
-archs' full configs in bfloat16 (Adam's moments float32, the update cast
-back to the leaf's dtype; the memory table in its own dtype), an MoE arch
+archs' full configs in bfloat16 (float16 ones too, built in Python: no
+flag takes a dtype, as in the reference; Adam's moments float32, the
+update cast back to the leaf's dtype; the memory table in its own
+dtype), an MoE arch
 on a mesh of several batch ranks (its router loss is each rank's part of
 the global batch's, `models.moe.router_loss`, so the step's sum over the
 batch axes is the global loss) and a hybrid arch on a mesh (its shared

@@ -3,16 +3,17 @@ storage cells without a restart (torch counterpart of
 `repro.memctl.migrate`).
 
 The source table is read in storage form (the 1-byte payload and per-row
-scales of a quantized table, bf16 rows as their raw bits, fp32 rows
-otherwise) and streamed into the
+scales of a quantized table, bf16 rows as their raw bits, fp16 rows as
+numpy float16, fp32 rows otherwise) and streamed into the
 target: a store target (`LookupPlan.build_empty`) shard by shard through
 `load_shard`, the checkpoint's byte layout in memory; a dense target
 whole.  The target lands on the source table's device.
 
 * Same storage: payload-exact (bytes move, nothing is requantized), so
   dense -> tiered -> sharded-tiered -> dense gives the same logits; a
-  bf16 table keeps its bits (a dense bf16 table spills into a bf16 host
-  tier).
+  bf16 or fp16 table keeps its bits (a dense 2-byte table spills into a
+  host tier of its dtype, where the reference's spill target is a
+  float32 tier: its `build_empty` takes no dtype).
 * Quantized -> fp32 dequantizes exactly; fp32 -> quantized rounds to
   nearest, within `quant.max_abs_error_bound`; a quantized pair of other
   kinds requantizes through fp32.

@@ -9,7 +9,8 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
   * **Host tier** — one `(num_shards, shard_rows, m)` numpy array: fp32,
     bf16 (a store of `dtype=torch.bfloat16`, the table's
     `LRAMConfig.table_dtype`: its raw bits as uint16, the reference's
-    ml_dtypes bytes), or a 1-byte payload (int8, or e4m3 bytes as uint8)
+    ml_dtypes bytes), fp16 (`dtype=torch.float16`: a numpy float16 array,
+    the reference's own), or a 1-byte payload (int8, or e4m3 bytes as uint8)
     plus `(num_shards, shard_rows)` fp32 scales for a quantized store.  In host
     RAM (`backing="ram"`), or a memory-mapped ``.npy`` file on disk
     (`backing="mmap"`: ``values_{N}x{m}.npy`` and ``scales_{N}x{m}.npy``
@@ -21,9 +22,9 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     (`.to(device)` moves it; the host tier stays on the host), their host
     mirror `cache_np` (the slots' current contents, which the write-back
     updates), and the indirection `shard -> slot` (-1 = not resident).
-    The cache is fp32 over a bf16 host tier, as the reference's is: a
-    fill widens the bits exactly, an eviction of a dirty slot rounds it
-    back to bf16.
+    The cache is fp32 over a bf16 or fp16 host tier, as the reference's
+    is: a fill widens the rows exactly, an eviction of a dirty slot rounds
+    it back to the tier's dtype.
   * **Fills** are batched per lookup: the shards a batch touches are made
     resident first (LRU eviction, the batch's shards pinned; a dirty
     victim is written back to its host shard first), and every slot filled
@@ -45,9 +46,10 @@ The (N, m) table is split into shards of `shard_rows` consecutive rows:
     host as a sparse SGD step (`writeback_lr`, 0 = off): to the cache
     mirror for resident rows, whose slots turn dirty (written back to the
     host shard on eviction or `flush`) and stale on the device, and to the
-    host tier for the others (a bf16 host row adds each pair's update,
-    rounded to bf16, and rounds after each add: the reference's
-    `np.add.at` on its bf16 array).  A quantized store dequantizes the touched
+    host tier for the others (a bf16 or fp16 host row adds each pair's
+    update, rounded to the tier's dtype, and rounds after each add: the
+    reference's `np.add.at` on its 2-byte array; on an fp16 tier that is
+    numpy's own `np.add.at`).  A quantized store dequantizes the touched
     rows, applies the summed update and requantizes with a fresh per-row
     scale and stochastic rounding (int8; fp8 rounds to nearest), drawing
     from its own `np.random.default_rng(0)` in the reference's order, so
@@ -145,9 +147,10 @@ class TieredValueStore(nn.Module):
         self.quant = spec.quant
         quantized = self.quant != "none"
         if dtype not in _HOST_DTYPE:
-            raise TypeError(f"a tiered store holds float32 or bfloat16 "
-                            f"rows, not {dtype}")
-        # the rows' logical dtype: fp32 or bf16 (the reference's `dtype`);
+            raise TypeError(f"a tiered store holds float32, bfloat16 or "
+                            f"float16 rows, not {dtype}")
+        # the rows' logical dtype: fp32, bf16 or fp16 (the reference's
+        # `dtype`);
         # a quantized store's is fp32 whatever the table's was
         self.dtype = torch.float32 if quantized else dtype
         # the host tier's numpy dtype (`_read_rows_raw`'s storage form)
@@ -214,8 +217,9 @@ class TieredValueStore(nn.Module):
 
     @classmethod
     def from_dense(cls, values, spec: TieredSpec) -> "TieredValueStore":
-        """A store holding `values` (N, m): fp32, or bf16 (a bfloat16
-        tensor, or its bits as uint16) held as a bf16 host tier; quantized
+        """A store holding `values` (N, m): fp32, bf16 (a bfloat16
+        tensor, or its bits as uint16) held as a bf16 host tier, or fp16 (a
+        float16 tensor or array) held as an fp16 one; quantized
         (nearest, from the values as fp32) on the way in if the spec is
         quantized."""
         values, dtype = host_values(values)
@@ -247,7 +251,7 @@ class TieredValueStore(nn.Module):
 
     def to_dense(self) -> np.ndarray:
         """Flush the dirty slots and return the full (dequantized) table as
-        an (N, m) fp32 array (a bf16 host tier's values, exactly)."""
+        an (N, m) fp32 array (a 2-byte host tier's values, exactly)."""
         self.flush()
         if self.quant == "none":
             return quant.host_rows_f32(self._host).reshape(
@@ -256,8 +260,8 @@ class TieredValueStore(nn.Module):
             .reshape(self.num_rows, self.m)
 
     def _fill_host(self, values: np.ndarray) -> None:
-        """The host tier from (N, m) fp32 values or bf16 bits: rounded to
-        a bf16 tier, quantized (nearest) for a 1-byte one."""
+        """The host tier from (N, m) fp32 or fp16 values or bf16 bits:
+        rounded to a 2-byte tier, quantized (nearest) for a 1-byte one."""
         if self.quant == "none":
             self._host[...] = self._host_form(values).reshape(
                 self._host.shape)
@@ -267,24 +271,31 @@ class TieredValueStore(nn.Module):
                 quant.quantize_rows_np(shaped, self.quant)
 
     def _host_form(self, rows: np.ndarray) -> np.ndarray:
-        """fp32 values or bf16 bits as the dense host tier holds them:
-        bf16 bits (fp32 rounded to nearest even), or fp32."""
+        """fp32 or fp16 values or bf16 bits as the dense host tier holds
+        them: bf16 bits or fp16 values (rounded to nearest even), or
+        fp32."""
         if self.dtype == torch.bfloat16:
             if rows.dtype == np.uint16:
                 return rows
             return quant.f32_to_bf16(rows)
+        if self.dtype == torch.float16:
+            if rows.dtype == np.float16:
+                return rows
+            return quant.host_rows_f32(rows).astype(np.float16)
         return quant.host_rows_f32(rows)
 
     def _cache_form(self, host_rows: np.ndarray) -> np.ndarray:
-        """Host-tier rows as the cache holds them: a bf16 tier's widened
-        to fp32 (exact); a 1-byte or fp32 payload as it is."""
+        """Host-tier rows as the cache holds them: a bf16 or fp16 tier's
+        widened to fp32 (exact); a 1-byte or fp32 payload as it is."""
         if self.dtype == torch.bfloat16:
             return quant.bf16_to_f32(host_rows)
+        if self.dtype == torch.float16:
+            return host_rows.astype(np.float32)
         return host_rows
 
     def load_dense(self, values) -> None:
-        """Replace the table with `values` (N, m) (fp32, or bf16 as a
-        tensor or its bits), rounded to a bf16 host tier or quantized
+        """Replace the table with `values` (N, m) (fp32, bf16 as a tensor
+        or its bits, or fp16), rounded to a 2-byte host tier or quantized
         (nearest) on the way in; empties the cache."""
         values, _ = host_values(values)
         if values.shape != (self.num_rows, self.m):
@@ -611,9 +622,9 @@ class TieredValueStore(nn.Module):
                     inv = ~mask
                     if self.dtype == torch.bfloat16:
                         self._add_bf16(shard[inv], row[inv], upd[inv])
-                    else:
+                    else:  # an fp16 tier: each update rounded first
                         np.add.at(self._host, (shard[inv], row[inv]),
-                                  upd[inv])
+                                  upd[inv].astype(self._host.dtype))
             self.stats["writebacks"] += 1
         obs.counter("memstore.writebacks").inc()
 
@@ -698,7 +709,8 @@ class TieredValueStore(nn.Module):
 
     def shard_host(self, i: int) -> np.ndarray:
         """Shard `i`'s stored payload as seen through the cache (a dirty
-        slot wins, rounded to a bf16 tier): fp32 rows, bf16 bits (uint16),
+        slot wins, rounded to a 2-byte tier): fp32 rows, bf16 bits (uint16),
+        fp16 rows,
         or the 1-byte payload of a quantized store (e4m3 as uint8 bytes),
         whose scales `shard_scale_host` gives."""
         with self._lock:
@@ -721,14 +733,15 @@ class TieredValueStore(nn.Module):
 
     def load_shard(self, i: int, arr: np.ndarray,
                    scale: np.ndarray | None = None) -> None:
-        """Replace shard `i` with `arr` (shard_rows, m): fp32 rows or bf16
-        bits (uint16; quantized, nearest, if the store is; rounded to a
-        bf16 tier, widened to an fp32 one), or a 1-byte payload (int8, or
+        """Replace shard `i` with `arr` (shard_rows, m): fp32 or fp16 rows
+        or bf16 bits (uint16; quantized, nearest, if the store is; rounded
+        to a 2-byte tier, widened to an fp32 one), or a 1-byte payload (int8, or
         e4m3 as uint8 bytes) with its per-row `scale` (dequantized for a
         dense store, requantized for one of the other kind).  A cached copy
         is refreshed: stale on the device, no longer dirty; it takes the
         rows as given, widened to fp32 (the reference's
-        `arr.astype(np.float32)`), not the bf16 tier's rounding of them."""
+        `arr.astype(np.float32)`), not the 2-byte tier's rounding of
+        them."""
         arr = np.asarray(arr)
         if arr.shape != (self.shard_rows, self.m):
             raise ValueError(f"shard {i}: shape {arr.shape} != "
@@ -838,7 +851,7 @@ class TieredValueStore(nn.Module):
 
     def bytes_per_entry(self) -> int:
         """Host-tier storage bytes per table row (payload + scale; 2m for
-        a bf16 tier)."""
+        a bf16 or fp16 tier)."""
         if self.quant == "none":
             return self.m * self.dtype.itemsize
         return quant.bytes_per_entry(self.m, self.quant)
@@ -861,20 +874,26 @@ class TieredValueStore(nn.Module):
 
 # a dense store's rows -> its host tier's numpy dtype (bf16 as raw bits)
 _HOST_DTYPE = {torch.float32: np.dtype(np.float32),
-               torch.bfloat16: np.dtype(np.uint16)}
+               torch.bfloat16: np.dtype(np.uint16),
+               torch.float16: np.dtype(np.float16)}
 
 
 def host_values(values) -> tuple[np.ndarray, torch.dtype]:
     """(host array, dtype) of a table handed to a store: a bfloat16 tensor
     (or bf16 bits: uint16, the reference's `V2` bytes) as its bits and
-    torch.bfloat16; anything else as fp32 values and torch.float32."""
+    torch.bfloat16; a float16 tensor or array as fp16 values and
+    torch.float16; anything else as fp32 values and torch.float32."""
     if isinstance(values, torch.Tensor):
         if values.dtype == torch.bfloat16:
             return quant.bf16_bits(values), torch.bfloat16
+        if values.dtype == torch.float16:
+            return values.detach().cpu().numpy(), torch.float16
         return values.detach().float().cpu().numpy(), torch.float32
     values = np.asarray(values)
     if quant.is_bf16_bits(values):
         return values.view(np.uint16), torch.bfloat16
+    if values.dtype == np.float16:
+        return values, torch.float16
     return np.asarray(values, np.float32), torch.float32
 
 

@@ -131,8 +131,9 @@ def _valid(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 def _scale(d: int, dtype: torch.dtype) -> float:
     """1/sqrt(d) rounded to `dtype`: JAX casts a Python scalar to the
     array's dtype before it multiplies (a weak type), so the reference
-    scales bfloat16 queries by the bfloat16 nearest to 1/sqrt(d), where
-    torch would multiply by the float32 one and round after."""
+    scales bfloat16 (float16) queries by the bfloat16 (float16) nearest to
+    1/sqrt(d), where torch would multiply by the float32 one and round
+    after."""
     return torch.tensor(d**-0.5, dtype=dtype).item()
 
 

@@ -2,8 +2,8 @@
 
 One frozen dataclass describes every family of the reference, with the
 same fields and defaults, so configs carry over letter for letter; the
-port builds every family.  `dtype` is "float32" or "bfloat16"
-(`torch_dtype`).
+port builds every family.  `dtype` is "float32", "bfloat16" or
+"float16" (`torch_dtype`).
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from repro_torch.core.lram import LRAMConfig
 from repro_torch.core.pkm import PKMConfig
 
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,8 +101,9 @@ class ModelConfig:
         """The dtype of the weights, activations and KV cache."""
         if self.dtype not in DTYPES:
             raise NotImplementedError(
-                f"dtype {self.dtype!r} is not ported to torch; ported: "
-                f"{sorted(DTYPES)}")
+                f"dtype {self.dtype!r} is refused: the model runs in "
+                f"{sorted(DTYPES)} (the reference, x64 off, draws a "
+                f"float64 model as float32 and has no integer one)")
         return DTYPES[self.dtype]
 
     @property

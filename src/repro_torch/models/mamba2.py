@@ -11,8 +11,8 @@ state per head; `ssd_sequential` steps it position by position (the
 oracle, short prompts and the decode).  `mamba_apply` takes the chunked
 form only where the length is a multiple of `ssm_chunk` and above 1, as
 the reference's does.  The scan runs in float32 whatever the model's
-dtype; `A_log`, `D` and `dt_bias` stay float32 leaves in a bfloat16
-model.  The prefill's causal conv rounds its output to the model's
+dtype; `A_log`, `D` and `dt_bias` stay float32 leaves in a bfloat16 or
+float16 model.  The prefill's causal conv rounds its output to the model's
 dtype, the decode's keeps it float32: the reference's asymmetry, kept.
 """
 

@@ -47,7 +47,8 @@ host.  It is updated IN PLACE by decode and by `write_cache_slot`.  A
 ("memory", i, "pkm") layer's FFN is the product-key memory baseline
 (`repro_torch.core.pkm`), applied to the normed residual with no dense
 around it.  Weights, activations and the KV cache take `cfg.dtype`
-(float32 or bfloat16; a memory table stays float32).  A sliding-window
+(float32, bfloat16 or float16; a PKM's leaves too; an LRAM table takes
+its `LRAMConfig.table_dtype`).  A sliding-window
 model's cache holds `min(window, max_len)` positions per layer as a ring
 (position p in slot p % window): a prefill longer than the window keeps
 its last `window` positions, permuted into their ring slots.
@@ -102,11 +103,6 @@ def layer_plan(cfg: ModelConfig) -> list[tuple]:
     if run:
         plan.append(("run", run))
     return plan
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.pkm_layers and cfg.dtype != "float32":
-        raise NotImplementedError("the PKM layer runs float32 models only")
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +266,8 @@ class MemoryLayer(_Block):
                                                dtype=cfg.torch_dtype)
         else:
             self.pkm = pkm_mod.pkm_init(cfg.d_model, cfg.pkm,
-                                        generator=generator)
+                                        generator=generator,
+                                        dtype=cfg.torch_dtype)
 
     def ffn(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if self.kind == "lram":
@@ -318,7 +315,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         dtype = cfg.torch_dtype
         self.embed = tnn.Embedding(cfg.vocab_size, cfg.d_model,

@@ -7,11 +7,11 @@ onto a module's `state_dict` key for key: a dense kernel is stored
 `mean`/`var` as buffers.  Inits draw from an explicit `torch.Generator`
 (the numbers differ from `jax.random`'s; tests convert weights instead).
 
-Every leaf takes a `dtype` (float32 or bfloat16), with the reference's
-casts: an init draws in float32 and casts to the leaf's dtype, a dense
-layer applies its leaves cast to the activation's dtype, and the norms
-compute in float32 and cast back.  Batchnorm's running stats stay
-float32.  Leaves are made on the ambient default device (`with
+Every leaf takes a `dtype` (float32, bfloat16 or float16), with the
+reference's casts: an init draws in float32 and casts to the leaf's
+dtype, a dense layer applies its leaves cast to the activation's dtype,
+and the norms compute in float32 and cast back.  Batchnorm's running
+stats stay float32.  Leaves are made on the ambient default device (`with
 torch.device(...)`), so a model can be drawn leaf by leaf on the card.
 """
 

@@ -407,8 +407,8 @@ def test_bfloat16_checkpoints_cross_both_ways(tmp_path):
 def test_wrappers_raise_for_non_float32_queries(dtype):
     """K2's and K1's wrappers take float32 queries and weights on either
     device and never cast: the memory layer casts before `torus_map`.  K1
-    takes a float32 or a bfloat16 table (`LRAMConfig.table_dtype`) and
-    returns float32; a float16 or float64 table raises."""
+    takes a float32, bfloat16 or float16 table (`LRAMConfig.table_dtype`)
+    and returns float32; a float64 table raises."""
     spec = configs.with_lram(configs.get_smoke_config("yi-9b"),
                              LOG2).lram.torus_spec
     q = torch.rand(5, 8) * 8
@@ -418,7 +418,7 @@ def test_wrappers_raise_for_non_float32_queries(dtype):
     values = torch.randn(spec.num_locations, 4)
     with pytest.raises(TypeError, match="float32"):
         gather_interp.gather_interp(values, idx, w.to(dtype))
-    if dtype == torch.bfloat16:
+    if dtype in (torch.bfloat16, torch.float16):
         out = gather_interp.gather_interp(values.to(dtype), idx, w)
         assert out.dtype == torch.float32
     else:

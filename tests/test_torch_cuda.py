@@ -1314,7 +1314,7 @@ def test_obs_on_the_card_is_free_and_profiles_the_kernels(cuda_device,
     assert any("gather" in k for k in kernels), sorted(kernels)[:20]
 
 
-# ------------------------------------------------------ bfloat16 tables
+# ------------------------------------------- bfloat16 and float16 tables
 
 
 def _k1_split(values, idx, w, split):
@@ -1335,79 +1335,114 @@ def _k1_split(values, idx, w, split):
     return out
 
 
+# a 2-byte table dtype -> its instances' launch counters
+HALF = {
+    torch.bfloat16: (gather_interp.gather_interp_bf16, ops.lookup_bwd_bf16,
+                     ops.lookup_bwd_range_bf16,
+                     sharded_gather.sharded_gather_bf16),
+    torch.float16: (gather_interp.gather_interp_f16, ops.lookup_bwd_f16,
+                    ops.lookup_bwd_range_f16,
+                    sharded_gather.sharded_gather_f16),
+}
+
+
+def _ulps(a, b, dtype):
+    """Elementwise distance of two fp32 tensors rounded to the 2-byte
+    `dtype`, in its ulps."""
+    def scale(t):
+        x = t.to(dtype).view(torch.int16).int()
+        return torch.where(x < 0, -32768 - x, x)
+    return (scale(a) - scale(b)).abs()
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(HALF))
 @pytest.mark.parametrize("m", [64, 7])
 @pytest.mark.parametrize("n", [1, 128, 2048, 65536])
-def test_k1_bf16_bit_equal_to_fp32_instance_on_card(cuda_device, n, m):
-    """K1 on a bf16 table: one launch counted as `gather_interp_bf16`,
-    bit-equal to the fp32 instance on `values.float()` (each row widened
-    exactly, the same adds in the same order), at every split too, and
-    within rtol 2e-5 / atol 1e-6 of the plain version (K2's weights)."""
+def test_k1_half_bit_equal_to_fp32_instance_on_card(cuda_device, n, m,
+                                                    dtype):
+    """K1 on a bf16 or fp16 table: one launch counted on its dtype's
+    instance (`gather_interp_bf16` / `_f16`), bit-equal to the fp32
+    instance on `values.float()` (each row widened exactly, the same adds
+    in the same order), at every split too, and within rtol 2e-5 / atol
+    1e-6 of the plain version (K2's weights)."""
     spec, q, idx, w, values, _ = _bwd_inputs(cuda_device, n, m=m)
-    vb = values.to(torch.bfloat16)
-    before = (gather_interp.gather_interp_bf16.launches,
-              gather_interp.gather_interp.launches)
-    out = gather_interp.gather_interp(vb, idx, w)
-    assert (gather_interp.gather_interp_bf16.launches,
-            gather_interp.gather_interp.launches) == (before[0] + 1,
-                                                      before[1])
-    assert torch.equal(out, gather_interp.gather_interp(vb.float(), idx, w))
+    vh = values.to(dtype)
+    counter = HALF[dtype][0]
+    before = (counter.launches, gather_interp.gather_interp.launches)
+    out = gather_interp.gather_interp(vh, idx, w)
+    assert (counter.launches, gather_interp.gather_interp.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(out, gather_interp.gather_interp(vh.float(), idx, w))
     torch.testing.assert_close(
-        out, gather_interp.gather_interp_plain(vb, idx, w), rtol=2e-5,
+        out, gather_interp.gather_interp_plain(vh, idx, w), rtol=2e-5,
         atol=1e-6)
     if n <= 2048:
         for split in (1, 2, 4, 8):
-            assert torch.equal(_k1_split(vb, idx, w, split),
-                               _k1_split(vb.float(), idx, w, split)), split
+            assert torch.equal(_k1_split(vh, idx, w, split),
+                               _k1_split(vh.float(), idx, w, split)), split
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(HALF))
 @pytest.mark.parametrize("stage", ["dq", "dw"])
 @pytest.mark.parametrize("n", [1, 128, 2048])
-def test_lookup_bwd_bf16_matches_plain_on_card(cuda_device, stage, n):
-    """The backward's bf16 scatter instances (dense and on the upper half
-    as a range shard) against `lookup_bwd_plain`: the fp32 dvalues to
-    atol 1e-5 and, rounded once to bf16, within one bf16 ulp; dq / dw to
-    rtol 1e-4 / atol 1e-5; one launch each, counted as
-    `lookup_bwd_bf16` / `lookup_bwd_range_bf16`."""
+def test_lookup_bwd_half_matches_fp32_instance_on_card(cuda_device, stage,
+                                                       n, dtype):
+    """The backward's bf16 / fp16 scatter instances (dense, and on the
+    upper half as a range shard): one launch each, counted on its dtype's
+    `lookup_bwd_*` / `lookup_bwd_range_*`; dq / dw bit-equal to the fp32
+    instance's on the widened rows (their sums run in lane and candidate
+    order, which the placement does not touch); the fp32 dvalues to atol
+    1e-5 of the fp32 instance's and the plain version's (a row's sum runs
+    in placement order, which atomics set) and, rounded once to the
+    table's dtype, within one of its ulps of the plain version's; dq / dw
+    to rtol 1e-4 / atol 1e-5 of the plain version's."""
     spec, q, idx, w, values, g = _bwd_inputs(cuda_device, n)
-    vb = values.to(torch.bfloat16)
+    vh = values.to(dtype)
     extra = {"q": q, "spec": spec} if stage == "dq" else {}
-    cases = [(ops.lookup_bwd_bf16, vb, None)]
     base = 2**19
-    cases.append((ops.lookup_bwd_range_bf16, vb[base:].contiguous(), base))
-    for counter, table, at in cases:
+    _, dense, ranged, _ = HALF[dtype]
+    for counter, table, at in ((dense, vh, None),
+                               (ranged, vh[base:].contiguous(), base)):
+        def run(t):
+            if at is None:
+                return ops.lookup_bwd(t, idx, w, g, **extra)
+            return ops.lookup_bwd_range(t, idx, w, g, at, **extra)
+
         before = counter.launches
-        if at is None:
-            dv, small = ops.lookup_bwd(table, idx, w, g, **extra)
-        else:
-            dv, small = ops.lookup_bwd_range(table, idx, w, g, at, **extra)
+        dv, small = run(table)
         assert counter.launches == before + 1
+        dv32, small32 = run(table.float())
         dv_p, small_p = ops.lookup_bwd_plain(table, idx, w, g,
                                              extra.get("q"), spec, base=at)
         torch.cuda.synchronize()
         assert dv.dtype == torch.float32
+        assert torch.equal(small, small32)
+        torch.testing.assert_close(dv, dv32, rtol=0, atol=1e-5)
         torch.testing.assert_close(dv, dv_p, rtol=0, atol=1e-5)
         torch.testing.assert_close(small, small_p, rtol=1e-4, atol=1e-5)
-        a, b = (x.to(torch.bfloat16).view(torch.int16).int()
-                for x in (dv, dv_p))
-        assert (a - b).abs().max().item() <= 1
+        assert _ulps(dv, dv_p, dtype).max().item() <= 1
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(HALF))
 @pytest.mark.parametrize("n", [1, 128, 2048, 32768])
-def test_range_gather_bf16_matches_plain_on_card(cuda_device, n):
-    """The range gather on both halves of a bf16 table: one launch each,
-    counted as `sharded_gather_bf16`, bit-equal to the fp32 instance on
-    the shard widened, within 2e-5 / 1e-6 of the plain version."""
+def test_range_gather_half_bit_equal_to_fp32_instance_on_card(cuda_device,
+                                                              n, dtype):
+    """The range gather on both halves of a bf16 or fp16 table: one
+    launch each, counted on its dtype's `sharded_gather_*`, bit-equal to
+    the fp32 instance on the shard widened, within 2e-5 / 1e-6 of the
+    plain version."""
     spec, q, idx, w, values, _ = _bwd_inputs(cuda_device, n)
-    vb = values.to(torch.bfloat16)
+    vh = values.to(dtype)
+    counter = HALF[dtype][3]
     rows = 2**19
     for base in (0, rows):
-        shard = vb[base:base + rows]
-        before = sharded_gather.sharded_gather_bf16.launches
+        shard = vh[base:base + rows]
+        before = counter.launches
         got = sharded_gather.sharded_gather(shard, idx, w, base)
-        assert sharded_gather.sharded_gather_bf16.launches == before + 1
+        assert counter.launches == before + 1
         assert torch.equal(got, sharded_gather.sharded_gather(
             shard.float(), idx, w, base))
         torch.testing.assert_close(
@@ -1416,14 +1451,16 @@ def test_range_gather_bf16_matches_plain_on_card(cuda_device, n):
 
 
 @pytest.mark.cuda
-def test_bf16_dense_layer_gradient_on_card_matches_cpu(cuda_device):
-    """`lram_apply` on the dense `pallas` cell with a bf16 table: the
-    forward and the gradients of x and of the table (bf16, rounded once)
-    on the card against the CPU's plain versions."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_dense_layer_gradient_on_card_matches_cpu(cuda_device, dtype):
+    """`lram_apply` on the dense `pallas` cell with a bf16 or fp16 table:
+    the forward and the gradients of x and of the table (in its dtype,
+    rounded once: within one of its ulps, rtol 2^-7 / 2^-10) on the card
+    against the CPU's plain versions."""
     from repro_torch.core import lram
 
     cfg = LRAMConfig(log2_locations=16, heads=4, interp_impl="pallas",
-                     table_dtype="bfloat16")
+                     table_dtype=dtype)
     layer = lram.lram_init(cfg, generator=torch.Generator().manual_seed(0))
     x = torch.randn(8, 16, cfg.in_dim, generator=torch.Generator()
                     .manual_seed(1))
@@ -1437,7 +1474,8 @@ def test_bf16_dense_layer_gradient_on_card_matches_cpu(cuda_device):
         outs.append((y.detach().cpu(), xd.grad.cpu(),
                      layer_d.values.grad.float().cpu()))
     (y0, gx0, gv0), (y1, gx1, gv1) = outs
-    assert layer.values.dtype == torch.bfloat16
+    assert layer.values.dtype == cfg.torch_table_dtype
     torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(gx1, gx0, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(gv1, gv0, rtol=2**-7, atol=1e-6)
+    ulp = 2**-7 if dtype == "bfloat16" else 2**-10
+    torch.testing.assert_close(gv1, gv0, rtol=ulp, atol=1e-6)
