@@ -309,10 +309,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      one MoE layer of 16 experts, top-2, then the memory FFN, 256 heads:
      n = 524,288); then (p4) one spawn of 4 gloo ranks on the card (data
      2 x model 2) running in turn (p4a) (p3)'s config on `--placement
-     sharded` 5 steps (the range gather and the range backward at
+     sharded` 3 steps (the range gather and the range backward at
      262,144 a rank) and (p4b) zamba2-2.7b cut from 9 units to 2 (12
-     Mamba layers, the shared block called twice, no memory layer) 5
-     steps, against a one-process run of the same cut first.
+     Mamba layers, the shared block called twice, no memory layer) 3
+     steps, against a one-process run of the same cut first, then on a
+     data 4 x model 1 mesh of the same ranks (p4c) (p1)'s config (every
+     dense leaf split 4 ways over data and gathered one unit at a time,
+     `distributed.sharding.DenseBlocks`) 3 steps, against (p1)'s first 3
+     losses.
      Counts set to 0 just before each run and read just after; each
      fails unless K2 and K1 (the range gather on p4a) launched every step
      and the backward (`lookup_bwd`, p4a `lookup_bwd_range`) once a
@@ -320,9 +324,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      kept on the host, agree with the plain version on the card (dvalues
      atol 1e-5, dq / dw rtol 1e-4 / atol 1e-5); (p4a)'s router term
      within 1% of (p3)'s at step 1 (same weights, same batch) and within
-     5% at steps 2-5 (`P4A_AUX_TOL`), and its losses, as (p4b)'s against
-     its twin, within 2^-8 x (layers + 1) x the largest (the CPU tests'
-     bf16 bound); (p4b) and its twin launch no kernel.  Each prints the
+     5% at steps 2-3 (`P4A_AUX_TOL`), and its losses, as (p4b)'s against
+     its twin and (p4c)'s against (p1)'s, within 2^-8 x (layers + 1) x
+     the largest (the CPU tests' bf16 bound); (p4b) and its twin launch
+     no kernel; (p4c) holds no two units whole at once (beside the tied
+     embedding) and prints the bytes a rank gathered and summed and the
+     units it held whole at once, a step.  Each prints the
      step ms median (from step 6; from step 2 on the mesh), tokens/s, the
      step against its FLOP bound (`train_flops` at 989 TFLOP/s: every
      Dense product, the attention's, an MoE's dispatch buffers), peak
@@ -410,7 +417,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      full-width plain layers of lram-bert-medium (w 512, d_ff 2048), a
      stage a rank, on x (8, 256, 512); fails unless every rank's output
      is within 1e-5 (rtol and atol) of the 4 layers applied in sequence
-     in one process.  Both timed;
+     in one process, and the backward of sum(out * r) (x's gradient and
+     each rank's stage's parameter gradients) within 1e-5 of the
+     sequential layers' (rtol, and atol 1e-5 x each gradient's largest
+     element: a microbatch at a time, the fp32 sums run in another
+     order).  Both timed, forward and backward;
  6e. gradient compression: lram-bert-medium at full width, `--placement
      pallas --compression int8` and then `topk`, 10 steps each; fails
      unless K2, K1 and `lookup_bwd` launched (the backward once a step),
@@ -4209,7 +4220,11 @@ def pipeline_rank(rank: int, port: int, results, device_name) -> None:
     """One rank of phase 6d (a spawned process): the 4 layers (drawn alike
     on every rank from one seed) through `pipeline_apply`, this rank the
     stage at its coordinate along ``pod``, against the 4 applied in
-    sequence in this process; both timed (the device synchronized)."""
+    sequence in this process; both timed (the device synchronized).
+    Then the backward of sum(out * r) (r drawn from a seed): x's
+    gradient and this rank's stage's parameter gradients through the
+    pipeline against the same loss on the 4 layers in sequence, each
+    timed once after an untimed first call."""
     _rank_env(rank, port)
     device = torch.device(device_name)
     if device.type == "cuda":
@@ -4255,6 +4270,44 @@ def pipeline_rank(rank: int, port: int, results, device_name) -> None:
             ms.append(1e3 * (time.perf_counter() - t0))
         times[name] = (got, ms)
     out, want = times["pipeline"][0], times["sequential"][0]
+    r = torch.randn(x.shape, generator=torch.Generator().manual_seed(13)
+                    ).to(device)
+    mine = layers[mesh.index("pod")]
+
+    def grads(piped: bool):
+        """(d x, this stage's parameter gradients, ms) of sum(out * r)."""
+        for layer in layers:
+            layer.zero_grad(set_to_none=True)
+        h = x.clone().requires_grad_()
+        dist.barrier()
+        _sync(device)
+        t0 = time.perf_counter()
+        if piped:
+            y = pipeline.pipeline_apply(stage, layers, h, mesh=mesh,
+                                        axis="pod",
+                                        num_microbatches=PIPE_MICROBATCHES)
+        else:
+            y = h
+            for layer in layers:
+                y = stage(layer, y)
+        (y * r).sum().backward()
+        _sync(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        return h.grad, [p.grad.clone() for p in mine.parameters()], ms
+
+    backward = {}
+    for piped in (True, False):
+        grads(piped)  # the first call: set-up
+        backward[piped] = grads(piped)
+    (dx, dps, ms), (dx_s, dps_s, ms_s) = backward[True], backward[False]
+    errs = [(dx - dx_s).abs().max().item()] + [
+        (a - b).abs().max().item() for a, b in zip(dps, dps_s)]
+    # atol scaled to each gradient's largest element: the pipeline adds a
+    # stage's parameter gradient microbatch by microbatch, the sequential
+    # run over the whole batch at once (fp32 sums in another order)
+    close = all(torch.allclose(a, b, rtol=PIPE_TOL,
+                               atol=PIPE_TOL * b.abs().max().item())
+                for a, b in zip([dx, *dps], [dx_s, *dps_s]))
     results.put({
         "rank": rank, "stage": mesh.index("pod"),
         "shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
@@ -4262,7 +4315,13 @@ def pipeline_rank(rank: int, port: int, results, device_name) -> None:
         "close": bool(torch.allclose(out, want, rtol=PIPE_TOL,
                                      atol=PIPE_TOL)),
         "pipeline_ms": times["pipeline"][1],
-        "sequential_ms": times["sequential"][1]})
+        "sequential_ms": times["sequential"][1],
+        "grad_finite": all(bool(torch.isfinite(t).all())
+                           for t in [dx, *dps]),
+        "grad_max_abs_err": max(errs), "grad_close": close,
+        "grad_max_abs": max(t.abs().max().item() for t in [dx_s, *dps_s]),
+        "stage_leaves": len(dps),
+        "backward_ms": {"pipeline": ms, "sequential": ms_s}})
     dist.destroy_process_group()
 
 
@@ -4271,7 +4330,12 @@ def pipeline_phase(device_name="cuda") -> None:
     microbatches over 4 full-width plain layers of lram-bert-medium (w =
     512, d_ff 2048), x (8, 256, 512); fails unless every rank's output is
     finite, of x's shape and within 1e-5 (rtol and atol) of the 4 layers
-    applied in sequence on one process."""
+    applied in sequence on one process, and the backward of a loss on
+    the output (x's gradient, whole on every rank, and each rank's
+    stage's parameter gradients) is finite and within 1e-5 of the
+    sequential layers' on one process (rtol, and atol 1e-5 times each
+    gradient's largest element: the pipeline adds a parameter's gradient
+    a microbatch at a time, fp32 sums in another order)."""
     if device_name == "cuda":
         torch.cuda.empty_cache()
     ranks, wall_s = _spawn_ranks(pipeline_rank, (device_name,),
@@ -4281,6 +4345,10 @@ def pipeline_phase(device_name="cuda") -> None:
               and r["close"],
               f"pipeline rank {r['rank']}: output {r['shape']} differs from "
               f"the sequential layers by {r['max_abs_err']}")
+        check(r["grad_finite"] and r["grad_close"]
+              and r["stage_leaves"] > 0,
+              f"pipeline rank {r['rank']}: the backward's gradients differ "
+              f"from the sequential layers' by {r['grad_max_abs_err']}")
     print(json.dumps({
         "pipeline": "GPipe over pod", "stages": MESH_RANKS,
         "microbatches": PIPE_MICROBATCHES, "x": [*PIPE_SHAPE, 512],
@@ -4288,6 +4356,10 @@ def pipeline_phase(device_name="cuda") -> None:
         "max_abs_err_by_rank": [r["max_abs_err"] for r in ranks],
         "pipeline_ms_by_rank": [r["pipeline_ms"] for r in ranks],
         "sequential_ms_by_rank": [r["sequential_ms"] for r in ranks],
+        "backward": "d x and each stage's parameters of sum(out * r)",
+        "grad_max_abs_err_by_rank": [r["grad_max_abs_err"] for r in ranks],
+        "grad_max_abs": max(r["grad_max_abs"] for r in ranks),
+        "forward_backward_ms_by_rank": [r["backward_ms"] for r in ranks],
         "wall_s_incl_spawn": wall_s}), flush=True)
 
 
@@ -5670,8 +5742,14 @@ def arch_parity_phase(devices=("cuda", "cpu")):
 # (p4a) moves 3.5 GB of weights and 3.5 GB of gradients through host
 # memory a rank: ~12 s)
 # (p1)-(p3) cut from 20 steps to 12 to keep the script in its time limit
-# (PERF.md section 4)
-P_STEPS, P4A_STEPS, P4B_STEPS = 12, 5, 5
+# (PERF.md section 4); (p4a) and (p4b) from 5 to 3 for the same reason
+# when (p4c) came (a mesh step now gathers every unit twice: (p4a)'s
+# took about 10 s, not 7.8)
+P_STEPS, P4A_STEPS, P4B_STEPS = 12, 3, 3
+# (p4c): (p1)'s config on 4 ranks, data 4 x model 1 (pure FSDP: every
+# dense leaf split 4 ways over data, gathered a unit at a time), held
+# against (p1)'s first P4C_STEPS losses
+P4C_STEPS, P4C_MESH = 3, (4, 1)
 # (p4a)'s router term against (p3)'s, relative: at step 1 (same weights,
 # same batch: a router loss per rank summed over the 2 data ranks would
 # be 2x) and after it.  From step 2 the runs' weights part: even two
@@ -5703,11 +5781,13 @@ BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 peak (data sheet)
 
 
 def p_argv(arch: str, steps: int, placement: str = "pallas",
-           mesh: bool = False) -> list[str]:
+           mesh: bool = False, shape=None) -> list[str]:
     return (["--arch", arch, "--batch", str(P_BATCH), "--seq", str(P_SEQ),
              "--steps", str(steps), "--json"]
             + (["--placement", placement] if placement else [])
-            + (["--use-mesh"] if mesh else []))
+            + (["--use-mesh"] if mesh else [])
+            + (["--mesh-shape", "x".join(map(str, shape))] if shape
+               else []))
 
 
 @contextlib.contextmanager
@@ -5774,9 +5854,18 @@ def p_train(arch: str, layers: int | None, argv: list[str],
     """`train.main(argv)` on the replaced registry with every launch count
     set to 0 just before and read just after; step 1's backward inputs
     kept (`ops.<backward>`), an MoE's dropped copies counted; peak
-    memory after a reset.  Returns cfg, run, launches, kept, peak bytes,
-    the bytes allocated before and the wall seconds."""
+    memory after a reset, and the steps' own (read as the final
+    evaluation starts).  Returns cfg, run, launches, kept, peak bytes
+    (the run's and the steps'), the bytes allocated before and the wall
+    seconds."""
     kept: dict = {}
+    steps_peak = []
+    evaluate = train.evaluate
+
+    def peak_then_evaluate(*args, **kw):
+        steps_peak.append(torch.cuda.max_memory_allocated())
+        return evaluate(*args, **kw)
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -5788,12 +5877,15 @@ def p_train(arch: str, layers: int | None, argv: list[str],
             stack.enter_context(first_call_kept(backward, kept))
         if drops is not None:
             stack.enter_context(counted_drops(drops))
+        train.evaluate = peak_then_evaluate
+        stack.callback(setattr, train, "evaluate", evaluate)
         run = train.main(argv)
         torch.cuda.synchronize()
     launches = read_counts()
     return {"arch": arch, "cfg": cfg, "run": run, "launches": launches,
             "kept": kept,
-            "peak": torch.cuda.max_memory_allocated(), "before": before,
+            "peak": torch.cuda.max_memory_allocated(),
+            "steps_peak": steps_peak[0], "before": before,
             "wall_s": time.perf_counter() - t0}
 
 
@@ -5874,24 +5966,43 @@ def train_flops(leaves: dict, cfg, tied: bool, batch: int,
         * cfg.head_dim * attn_layers
 
 
-def train_bytes(leaves: dict, cfg, tokens: int, ranks: int = 1) -> dict:
+def train_bytes(leaves: dict, cfg, tokens: int, model=None) -> dict:
     """The memory a train step should hold, reckoned from `whole_leaves`:
     the parameters and their gradients (the leaves' dtypes), Adam's two
     fp32 moments, and three fp32 copies of the logits (the log-softmax,
-    its gradient and the logits' own).  On a mesh (`ranks` > 1, a rank's
-    view): the whole parameters gathered and whole gradients, one flat
-    buffer of their sum (`collectives.FLAT_BUCKET_BYTES`), and a rank's
-    share of the blocks and their moments."""
+    its gradient and the logits' own; `tokens` a rank's).  On a mesh
+    (`model` given, its `DenseBlocks`: a rank's view) the leaves as this
+    rank holds them (blocks, replicated leaves, a table's rows), their
+    gradients and moments, plus the largest unit whole with its whole
+    gradient (the forward and backward gather one unit at a time; a
+    shared unit is held through the backward) and the buffers of its
+    sum (the blocks of every batch rank, float32 for a 2-byte leaf over
+    more than 2 ranks)."""
     params = sum(math.prod(shape) for shape, _ in leaves.values())
     pbytes = sum(math.prod(shape) * size for shape, size in leaves.values())
     logits = 3 * 4 * tokens * cfg.vocab_size
-    if ranks == 1:
+    blocks = None if model is None else sharding.dense_blocks(model)
+    if blocks is None:
         parts = {"params": pbytes, "grads": pbytes, "adam_moments":
                  8 * params, "logits_fp32_x3": logits}
     else:
-        parts = {"gathered_params": pbytes, "grads": pbytes,
-                 "flat_sum": collectives.FLAT_BUCKET_BYTES,
-                 "blocks_and_moments": (pbytes + 8 * params) // ranks,
+        held = [p for p in model.parameters()]
+        hbytes = sum(p.numel() * p.element_size() for p in held)
+
+        def unit_bytes(unit, acc: bool) -> int:
+            return sum(math.prod(blocks.shapes[k]) * (
+                collectives.sum_dtype(blocks.params[k].dtype,
+                                      blocks.batch_group).itemsize
+                if acc else blocks.params[k].element_size())
+                for k in unit.keys)
+
+        largest = max(blocks.units.values(),
+                      key=lambda u: unit_bytes(u, False))
+        parts = {"params_held": hbytes, "grads_held": hbytes,
+                 "adam_moments_held": 8 * sum(p.numel() for p in held),
+                 "largest_unit_whole_and_grad": 2 * unit_bytes(largest,
+                                                               False),
+                 "largest_unit_sum_buffers": unit_bytes(largest, True),
                  "logits_fp32_x3": logits}
     return {**parts, "params": params,
             "reckoned_bytes": sum(parts.values())}
@@ -5915,6 +6026,9 @@ def p_numbers(name: str, out: dict, steps: int, ranks: int = 1) -> dict:
     first = 6 if steps > 5 else 2  # the first steps warm the allocator
     median_ms = float(np.median(step_ms[first - 1:]))
     tokens = P_BATCH * P_SEQ
+    blocks = sharding.dense_blocks(run.model)
+    data_ranks = (blocks.mesh.size(blocks.batch_axes)
+                  if blocks is not None and blocks.batch_axes else 1)
     flops = train_flops(leaves, cfg, run.model.lm_head is None, P_BATCH,
                         P_SEQ)
     bound = 1e3 * flops / BF16_TENSOR_FLOPS
@@ -5925,7 +6039,8 @@ def p_numbers(name: str, out: dict, steps: int, ranks: int = 1) -> dict:
         "d_model": cfg.d_model,
         "memory_layer_heads": cfg.lram.heads if cfg.lram else None,
         "lookups_per_step": tokens * cfg.lram.heads if cfg.lram else 0,
-        "reckoning": train_bytes(leaves, cfg, tokens, ranks),
+        "reckoning": train_bytes(leaves, cfg, tokens // data_ranks,
+                                 run.model if ranks > 1 else None),
         "losses": losses, "grad_norms": norms,
         "aux": [r["aux"] for r in recs],
         "step_ms": step_ms, "step_ms_median": median_ms,
@@ -5934,7 +6049,11 @@ def p_numbers(name: str, out: dict, steps: int, ranks: int = 1) -> dict:
         "train_flops": flops, "flop_bound_ms": bound,
         "flop_bound_share": bound / median_ms,
         "peak_memory_bytes": out["peak"],
+        "steps_peak_memory_bytes": out["steps_peak"],
         "allocated_before_bytes": out["before"],
+        **{f"{k}_by_step": [r[k] for r in recs] for k in (
+            "gathered_bytes", "summed_bytes", "units_held_peak",
+            "shared_held_peak") if k in recs[0]},
         "init_s": run.init_s, "wall_s": out["wall_s"],
         "final_eval_loss": run.final_eval_loss,
         "launches": {k: v for k, v in out["launches"].items() if v}}
@@ -5994,22 +6113,32 @@ def p_path(name: str) -> tuple[dict, list]:
 
 def p4_rank(rank: int, port: int, results, device_name) -> None:
     """One rank of (p4) (a spawned process; all ranks on the one card,
-    gloo, data 2 x model 2): (p4a) (p3)'s config on `--placement sharded`,
-    then (p4b) zamba2-2.7b cut to 2 units, P4A_STEPS and P4B_STEPS steps
-    through `train.main`, launch counts reset just before and read just
-    after; (p4a)'s step-1 range backward held against its plain version
-    on this rank's shard; each part's held bytes against its share."""
+    gloo): on data 2 x model 2 (p4a) (p3)'s config on `--placement
+    sharded`, then (p4b) zamba2-2.7b cut to 2 units; then on data 4 x
+    model 1 (a mesh of the same ranks) (p4c) (p1)'s config; P4A_STEPS,
+    P4B_STEPS and P4C_STEPS steps through `train.main`, launch counts
+    reset just before and read just after; (p4a)'s step-1 range backward
+    held against its plain version on this rank's shard; each part's
+    held bytes against its share."""
     _rank_env(rank, port)
     mesh, device = mesh_lib.init_mesh(device_name)
     res = {"rank": rank, "coords": mesh.coords, "mesh": mesh.shape,
            "backend": dist.get_backend()}
     arch, layers = P_PATHS["p3_phi3_5_moe"]
+    p1_arch, p1_layers = P_PATHS["p1_qwen2_1_5b"]
     parts = {
         "p4a": (arch, layers, p_argv(arch, P4A_STEPS, "sharded", True),
                 "lookup_bwd_range", P4A_STEPS),
         "p4b": (P4B_ARCH, P4B_LAYERS,
-                p_argv(P4B_ARCH, P4B_STEPS, "", True), None, P4B_STEPS)}
+                p_argv(P4B_ARCH, P4B_STEPS, "", True), None, P4B_STEPS),
+        "p4c": (p1_arch, p1_layers,
+                p_argv(p1_arch, P4C_STEPS, "pallas", True, P4C_MESH),
+                None, P4C_STEPS)}
     for part, (arch, layers, argv, backward, steps) in parts.items():
+        if part == "p4c":  # the same ranks, another mesh
+            mesh = mesh_lib.make_host_mesh(P4C_MESH)
+            context.set_mesh(mesh)
+            res["p4c_coords"], res["p4c_mesh"] = mesh.coords, mesh.shape
         out = p_train(arch, layers, argv, backward)
         run = out["run"]
         numbers = p_numbers(part, out, steps, MESH_RANKS)
@@ -6024,20 +6153,29 @@ def p4_rank(rank: int, port: int, results, device_name) -> None:
     dist.destroy_process_group()
 
 
-def p4_path(p3_records: list, device_name: str = "cuda") -> dict:
+def p4_path(p1_records: list, p3_records: list,
+            device_name: str = "cuda") -> dict:
     """(p4): (p4b)'s one-process twin first (zamba2-2.7b cut to 2 units,
     P4B_STEPS steps on the card), then one spawn of 4 ranks that runs
-    (p4a) and (p4b) in turn (`p4_rank`).  Fails unless on every rank
-    (p4a) launched K2 and the range gather every step and the range
+    (p4a), (p4b) and (p4c) in turn (`p4_rank`).  Fails unless on every
+    rank (p4a) launched K2 and the range gather every step and the range
     backward once a step, its router term is within `P4A_AUX_TOL` of
-    (p3)'s (1% at step 1, 5% after it) and its losses within the bf16 bound of (p3)'s (2^-8 x (layers
-    + 1) x the largest of (p3)'s first losses: the CPU tests' bound, the
-    two runs differing in rounding alone at step 1: the dense and the
-    row-range sums, the batch split over two ranks, the gradients'
-    bf16 sum over them), (p4b) launched no kernel of the port and its
-    losses are within that bound of its twin's, and each part's losses
-    are finite and fall (the last step below the first).  Returns the
-    launch counts summed over the ranks, by part."""
+    (p3)'s (1% at step 1, 5% after it) and its losses within the bf16
+    bound of (p3)'s (2^-8 x (layers + 1) x the largest of (p3)'s first
+    losses: the CPU tests' bound, the two runs differing in rounding
+    alone at step 1: the dense and the row-range sums, the batch split
+    over two ranks, the gradients' bf16 sum over them), (p4b) launched
+    no kernel of the port and its losses are within that bound of its
+    twin's, (p4a) and (p4b)'s losses fall (the last step below the
+    first), and (p4c) launched K2 and K1 every step and `lookup_bwd`
+    once a step, held at most one unit whole at once beside the shared
+    embedding, and its losses are within the bound of (p1)'s first
+    P4C_STEPS (the same weights, from the same seed, and batches).
+    Every part's losses are finite.  Prints each part's numbers: a
+    rank's peak (the run's and the steps') beside its reckoning, step
+    ms, and on (p4c) the bytes gathered and summed and the units held
+    whole at once, a step.  Returns the launch counts summed over the
+    ranks, by part."""
     twin = p_train(P4B_ARCH, P4B_LAYERS,
                    p_argv(P4B_ARCH, P4B_STEPS, ""), None)
     twin_numbers = p_numbers("p4b one-process twin", twin, P4B_STEPS)
@@ -6051,9 +6189,13 @@ def p4_path(p3_records: list, device_name: str = "cuda") -> dict:
     ranks, wall_s = _spawn_ranks(p4_rank, (device_name,), "path (p4)")
     p3_arch, p3_layers = P_PATHS["p3_phi3_5_moe"]
     p3_cfg = h_config(p3_arch, layers=p3_layers)
+    p1_arch, p1_layers = P_PATHS["p1_qwen2_1_5b"]
     refs = {"p4a": ([r["loss"] for r in p3_records[:P4A_STEPS]],
                     [r["aux"] for r in p3_records[:P4A_STEPS]], p3_cfg),
-            "p4b": (twin_numbers["losses"], twin_numbers["aux"], twin_cfg)}
+            "p4b": (twin_numbers["losses"], twin_numbers["aux"], twin_cfg),
+            "p4c": ([r["loss"] for r in p1_records[:P4C_STEPS]],
+                    [r["aux"] for r in p1_records[:P4C_STEPS]],
+                    h_config(p1_arch, layers=p1_layers))}
     totals = {}
     for part, (want, want_aux, cfg) in refs.items():
         tol = bf16_tol(cfg, torch.tensor(want))
@@ -6074,13 +6216,24 @@ def p4_path(p3_records: list, device_name: str = "cuda") -> dict:
                       f"within {later:.0%} after it")
                 got.update(aux_rel_err_vs_p3_by_step=rel,
                            aux_rel_bound=P4A_AUX_TOL)
+            elif part == "p4c":
+                check(c.get("lram_query", 0) >= P4C_STEPS
+                      and c.get("gather_interp", 0) >= P4C_STEPS
+                      and c.get("lookup_bwd", 0) == P4C_STEPS,
+                      f"{who}: K2 / K1 / lookup_bwd launched {c} in "
+                      f"{P4C_STEPS} steps (the backward once a step)")
+                check(max(got["units_held_peak_by_step"]) == 1
+                      and max(got["shared_held_peak_by_step"]) <= 1,
+                      f"{who}: more than one unit whole at once: "
+                      f"{got['units_held_peak_by_step']} (shared "
+                      f"{got['shared_held_peak_by_step']})")
             else:
                 check(not c, f"{who}: a kernel of the port launched: {c}")
             err = max(abs(a - b) for a, b in zip(losses, want))
             check(err <= tol, f"{who}: losses {losses} differ from the "
                               f"one-process run's {want} by {err} (bound "
                               f"{tol})")
-            check(losses[-1] < losses[0],
+            check(part == "p4c" or losses[-1] < losses[0],
                   f"{who}: the loss did not fall: {losses}")
             got.update(loss_max_abs_err_vs_one_process=err, loss_bound=tol)
         totals[f"{part}_mesh"] = {k: sum(r[part]["launches"].get(k, 0)
@@ -6089,9 +6242,10 @@ def p4_path(p3_records: list, device_name: str = "cuda") -> dict:
                       "mesh": ranks[0]["mesh"],
                       "backend": ranks[0]["backend"],
                       "wall_s_incl_spawn": wall_s,
-                      "by_rank": [{k: r[k] for k in ("rank", "coords",
-                                                     "p4a", "p4b")}
-                                  for r in ranks]}), flush=True)
+                      "p4c_mesh": ranks[0]["p4c_mesh"],
+                      "by_rank": [{k: r[k] for k in (
+                          "rank", "coords", "p4a", "p4b", "p4c_coords",
+                          "p4c")} for r in ranks]}), flush=True)
     return totals
 
 
@@ -6101,7 +6255,8 @@ def p_paths(launches: dict) -> None:
     records = {}
     for name in P_PATHS:
         launches[name], records[name] = p_path(name)
-    launches.update(p4_path(records["p3_phi3_5_moe"]))
+    launches.update(p4_path(records["p1_qwen2_1_5b"],
+                            records["p3_phi3_5_moe"]))
     print(json.dumps({"path_p_s": time.perf_counter() - t_p}), flush=True)
 
 

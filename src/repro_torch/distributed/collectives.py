@@ -1,9 +1,9 @@
 """Sums across the ranks of a process group, plain, differentiable and
 compressed, and the gathers of a batch's rows and of a leaf's blocks.
 
-`all_reduce_` is the one place the port sums tensors across ranks, and
-`all_gather_blocks` the one place it gathers them (`all_gather_rows`
-concatenates its parts).  On a gloo group they take CUDA tensors too:
+`all_reduce_` and `reduce_scatter_` are the places the port sums tensors
+across ranks, and `all_gather_blocks` the one place it gathers them
+(`all_gather_rows` concatenates its parts).  On a gloo group they take CUDA tensors too:
 gloo stages them through host memory, which is how the one-card mesh
 (several ranks on one H100) runs; NCCL moves them on the cards.
 `compressed_psum` is the reference's wire form of the int8 gradient
@@ -41,6 +41,17 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     if not _trivial(group):
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
+
+
+def reduce_scatter_(out: torch.Tensor, chunks: list[torch.Tensor],
+                    group) -> torch.Tensor:
+    """Sum chunk j of every rank of `group` into `out` on the group's
+    member j (every chunk `out`'s shape); returns `out` (chunks[0]'s sum
+    for a group of None or of one rank)."""
+    if _trivial(group):
+        return out.copy_(chunks[0])
+    dist.reduce_scatter(out, [c.contiguous() for c in chunks], group=group)
+    return out
 
 
 def all_gather_blocks(t: torch.Tensor, group) -> list[torch.Tensor]:
@@ -92,6 +103,16 @@ FLAT_BUCKET_BYTES = 256 * 2**20
 _TWO_BYTE = (torch.bfloat16, torch.float16)
 
 
+def sum_dtype(dtype: torch.dtype, group) -> torch.dtype:
+    """The dtype a sum of `dtype` tensors over `group` runs in: float32
+    for a 2-byte dtype over more than two ranks (the exact sum rounded
+    once, see `all_reduce_flat_`), else `dtype` itself."""
+    if dtype in _TWO_BYTE and not _trivial(group) \
+            and dist.get_world_size(group) > 2:
+        return torch.float32
+    return dtype
+
+
 def all_reduce_flat_(tensors: list[torch.Tensor], group) -> None:
     """Sum every tensor of `tensors` (contiguous, one device) over
     `group`, in place: the tensors of each dtype in order, in flat
@@ -117,9 +138,8 @@ def all_reduce_flat_(tensors: list[torch.Tensor], group) -> None:
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    wide = dist.get_world_size(group) > 2
     for dtype, same in by_dtype.items():
-        acc = torch.float32 if wide and dtype in _TWO_BYTE else dtype
+        acc = sum_dtype(dtype, group)
         bucket: list[torch.Tensor] = []
         size = 0
         for t in same:

@@ -16,11 +16,15 @@ need no left padding; the divisibility fallback is the same.
 `shard_params` keeps on every rank only its block of each split dense
 leaf (`DenseBlocks`, the model's `placement`) and its rows of a
 row-sharded table.  The two differ in how they compute: the table's
-rows stay apart (the range gather reads them, `sharded_lram`), while a
-dense leaf is gathered whole before a forward (an all-gather over the
-leaf's axes, as GSPMD's FSDP does: `DenseBlocks.gathered`) and released
-after it.  A forward over bare blocks raises.  Megatron-style compute on
-the blocks (heads split over ``model``) is not ported.
+rows stay apart (the range gather reads them, `sharded_lram`), while the
+dense leaves are gathered whole one unit at a time (the embedding, each
+layer, the head: `transformer.dense_units`), as GSPMD's FSDP does: an
+all-gather over the leaves' axes just before the unit runs, released
+just after it, gathered again just before its backward, whose gradients
+are summed over the batch axes straight into this rank's blocks (a
+reduce-scatter).  A forward outside `gathered(model)` raises.
+Megatron-style compute on the blocks (heads split over ``model``) is not
+ported: a leaf split over ``model`` is gathered whole too.
 
 Between a rank's blocks and the global array, for checkpoints (the
 reference checkpoints a split leaf as its global array): `gather_block`
@@ -47,7 +51,7 @@ from torch import nn
 from repro_torch.core import lookup
 from repro_torch.core.lram import LRAM
 from repro_torch.distributed import collectives
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, dense_units
 from repro_torch.quant import QuantizedTable
 
 
@@ -226,24 +230,123 @@ def _member_coords(mesh, axes: tuple[str, ...], j: int) -> dict:
     return coords
 
 
+class _Unit:
+    """The split leaves of one unit (a module the forward runs whole: the
+    embedding, a layer, the head), in `named_parameters` order; `shared`
+    for a unit that several call sites use (a tied embedding, a hybrid's
+    `shared_attn`)."""
+
+    def __init__(self, name: str, keys: list[str], shared: bool):
+        self.name, self.keys, self.shared = name, keys, shared
+        self.gather_buckets: list[tuple[tuple[str, ...], list[str]]] = []
+        self.sum_buckets: list[tuple[str, list[str]]] = []
+
+
 class DenseBlocks:
     """This rank's blocks of a model's split dense leaves, and their
-    gather.  Between steps every such `Parameter` holds its block (and
-    Adam steps it and its moments there); `gather` replaces each by its
-    whole value, all-gathered over the leaf's axes (one all-gather a set
-    of axes, the blocks flattened and concatenated), and `release` puts
-    the blocks back, dropping the whole values.  `check` raises unless
-    the leaves are whole: `Transformer` calls it before every forward."""
+    gather one unit at a time.
 
-    def __init__(self, model: nn.Module, mesh, specs: dict[str, tuple]):
+    Between steps every such `Parameter` holds its block (and Adam steps
+    it and its moments there).  Under `gathered()` each unit the forward
+    runs (`run`) is all-gathered whole over its leaves' axes just before
+    it runs (an all-gather a flat bucket: the blocks of one set of axes
+    and dtype concatenated in `named_parameters` order, alike on every
+    rank, at most `collectives.FLAT_BUCKET_BYTES` of whole leaves) and
+    dropped just after.  In grad mode the whole leaves are the
+    outputs of one autograd node a unit (`_Gather`), whose storage is
+    freed after the forward (`untyped_storage().resize_(0)`: the tensors
+    autograd saved keep their shapes) and gathered again into it just
+    before the unit's backward (`_PreBackward`, an identity on the unit's
+    outputs whose backward runs once their gradients are complete); the
+    node's backward, once every whole leaf's gradient is complete, frees
+    the storage again and sums the gradients over the batch axes into
+    this rank's blocks (`_sum_blocks`), which autograd accumulates into
+    the block Parameters' `.grad`.  A shared unit keeps one node a pass:
+    it is gathered at each use, and its gradients are summed (and its
+    storage dropped) once, after its last use in the backward.  A
+    forward outside `gathered()` raises (`check`)."""
+
+    def __init__(self, model: nn.Module, mesh, specs: dict[str, tuple],
+                 units: dict[str, bool]):
         self.mesh = mesh
         self.specs = specs
         self.params = {k: model.get_parameter(k) for k in specs}
         self.shapes = {k: tuple(p.shape) for k, p in self.params.items()}
         self.index = {k: block_index(self.shapes[k], s, mesh)
                       for k, s in specs.items()}
-        self._held: dict[str, torch.Tensor] | None = None
-        self._depth = 0
+        self._owner = {}
+        for k in specs:
+            prefix, _, attr = k.rpartition(".")
+            self._owner[k] = (model.get_submodule(prefix), attr)
+        axes = MeshAxes.for_mesh(mesh).fsdp
+        self.batch_axes = mesh.axes_key(tuple(a for a in axes
+                                              if a in mesh.axis_names))
+        self.batch_group = (mesh.group(self.batch_axes)
+                            if self.batch_axes
+                            and mesh.size(self.batch_axes) > 1 else None)
+        self.units: dict[str, _Unit] = {}
+        for k in specs:
+            name = max((u for u in units if k.startswith(u + ".")),
+                       key=len, default=None)
+            if name is None:
+                raise ValueError(f"{k}: a split leaf of no unit")
+            self.units.setdefault(name, _Unit(name, [], units[name]))
+            self.units[name].keys.append(k)
+        for unit in self.units.values():
+            self._plan(unit)
+        self._unit_of = {model.get_submodule(name): unit
+                         for name, unit in self.units.items()}
+        self._armed = 0
+        self._held: set[str] = set()
+        self._live: dict[str, tuple] = {}  # a shared unit's node, this pass
+        # on every gather and release: recorder(event, unit, phase, held)
+        self.recorder = None
+        self.stats = {"gathered_bytes": 0, "summed_bytes": 0,
+                      "units_held_peak": 0, "shared_held_peak": 0}
+
+    def _plan(self, unit: _Unit) -> None:
+        """A unit's gather buckets (a set of axes and a dtype each) and
+        sum buckets (a dtype and how a batch rank keeps its block each:
+        "scatter" where the leaf is split over the batch axes, "block"
+        where every batch rank keeps the same block), each cut into
+        flat buffers of at most `collectives.FLAT_BUCKET_BYTES` of whole
+        leaves (a leaf as large alone): the transient buffers of a
+        gather or a sum stay that small beside the unit itself."""
+        gather: dict[tuple, list[str]] = {}
+        summed: dict[tuple, list[str]] = {}
+        batch = set(self.batch_axes)
+        for k in unit.keys:
+            axes = self.mesh.axes_key(spec_axes(self.specs[k]))
+            dtype = self.params[k].dtype
+            gather.setdefault((axes, dtype), []).append(k)
+            if batch <= set(axes):
+                kind = "scatter"
+            elif not batch & set(axes):
+                kind = "block"
+            else:
+                raise ValueError(f"{k}: split over {axes}, part of the "
+                                 f"batch axes {self.batch_axes}")
+            summed.setdefault((kind, dtype), []).append(k)
+        unit.gather_buckets = [(axes, part)
+                               for (axes, _), keys in gather.items()
+                               for part in self._cut(keys)]
+        unit.sum_buckets = [(kind, part)
+                            for (kind, _), keys in summed.items()
+                            for part in self._cut(keys)]
+
+    def _cut(self, keys: list[str]) -> list[list[str]]:
+        """`keys` in order, cut where their whole leaves' bytes would pass
+        `collectives.FLAT_BUCKET_BYTES`."""
+        parts: list[list[str]] = [[]]
+        size = 0
+        for k in keys:
+            nbytes = math.prod(self.shapes[k]) * self.params[k].element_size()
+            if parts[-1] and size + nbytes > collectives.FLAT_BUCKET_BYTES:
+                parts.append([])
+                size = 0
+            parts[-1].append(k)
+            size += nbytes
+        return parts
 
     @torch.no_grad()
     def keep_blocks(self) -> None:
@@ -252,68 +355,252 @@ class DenseBlocks:
         for k, p in self.params.items():
             p.data = p.data[self.index[k]].clone()
 
+    # -- gather and release ------------------------------------------------
+
+    def _record(self, event: str, unit: _Unit, phase: str) -> None:
+        if event == "gather":
+            self._held.add(unit.name)
+            own = sum(not self.units[u].shared for u in self._held)
+            self.stats["units_held_peak"] = max(
+                self.stats["units_held_peak"], own)
+            self.stats["shared_held_peak"] = max(
+                self.stats["shared_held_peak"], len(self._held) - own)
+        else:
+            self._held.discard(unit.name)
+        if self.recorder is not None:
+            self.recorder(event, unit.name, phase, sorted(self._held))
+
     @torch.no_grad()
-    def gather(self) -> None:
-        """Make every split leaf whole (a collective: every rank, in the
-        same order).  Nested calls gather once."""
-        self._depth += 1
-        if self._held is not None:
-            return
-        # one all-gather a set of axes (mesh order), the leaves in
-        # `named_parameters` order: alike on every rank
-        by_axes: dict[tuple[str, ...], list[str]] = {}
-        for k, spec in self.specs.items():
-            by_axes.setdefault(self.mesh.axes_key(spec_axes(spec)),
-                               []).append(k)
-        held, whole = {}, {}
-        for axes, names in by_axes.items():
-            blocks = [self.params[k].data for k in names]
+    def _fill(self, unit: _Unit, whole: list[torch.Tensor],
+              phase: str) -> None:
+        """All-gather the unit's blocks into `whole` (its leaves' whole
+        tensors, in `unit.keys` order, their storage allocated): a
+        collective over each bucket's axes."""
+        pos = {k: i for i, k in enumerate(unit.keys)}
+        for axes, keys in unit.gather_buckets:
+            blocks = [self.params[k].data for k in keys]
             flat = torch.cat([b.reshape(-1) for b in blocks])
-            parts = collectives.all_gather_blocks(flat, self.mesh.group(axes))
-            for k, b in zip(names, blocks):
-                held[k] = b
-                whole[k] = b.new_empty(self.shapes[k])
+            parts = collectives.all_gather_blocks(flat,
+                                                  self.mesh.group(axes))
             for j, part in enumerate(parts):
                 coords = _member_coords(self.mesh, axes, j)
-                for k, piece in zip(names, part.split(
+                for k, b, piece in zip(keys, blocks, part.split(
                         [b.numel() for b in blocks])):
-                    whole[k][block_index(self.shapes[k], self.specs[k],
-                                         self.mesh, coords)] = \
-                        piece.view(held[k].shape)
-        for k, p in self.params.items():
-            p.data = whole[k]
-        self._held = held
+                    whole[pos[k]][block_index(
+                        self.shapes[k], self.specs[k], self.mesh,
+                        coords)] = piece.view(b.shape)
+            self.stats["gathered_bytes"] += sum(
+                math.prod(self.shapes[k]) * self.params[k].element_size()
+                for k in keys)
+        self._record("gather", unit, phase)
 
-    def release(self) -> None:
-        """Back to the blocks (the whole values are dropped)."""
-        self._depth = max(0, self._depth - 1)
-        if self._depth or self._held is None:
-            return
-        for k, p in self.params.items():
-            p.data = self._held[k]
-        self._held = None
+    def _gather(self, unit: _Unit, phase: str) -> list[torch.Tensor]:
+        """The unit's leaves whole, in new tensors."""
+        whole = [self.params[k].new_empty(self.shapes[k])
+                 for k in unit.keys]
+        self._fill(unit, whole, phase)
+        return whole
+
+    def _regather(self, unit: _Unit, aliases: list[torch.Tensor],
+                  phase: str) -> None:
+        """Gather the unit again into its freed storage (`aliases`: the
+        whole leaves' `.data`, whose writes leave the saved tensors'
+        version counters alone)."""
+        for t in aliases:
+            t.untyped_storage().resize_(t.numel() * t.element_size())
+        self._fill(unit, aliases, phase)
+
+    def _release(self, unit: _Unit, aliases, phase: str) -> None:
+        """Drop the unit's whole values: free their storage (`aliases`),
+        or leave them to their last reference (None)."""
+        for t in aliases or ():
+            t.untyped_storage().resize_(0)
+        self._record("release", unit, phase)
+
+    # -- the gradients -----------------------------------------------------
+
+    @torch.no_grad()
+    def _sum_blocks(self, unit: _Unit, grads) -> list[torch.Tensor]:
+        """The unit's whole gradients summed over the batch axes, this
+        rank's block of each (in `unit.keys` order): one reduce-scatter a
+        "scatter" bucket (chunk j the blocks batch rank j keeps), one
+        all-reduce of this rank's blocks a "block" bucket.  A 2-byte sum
+        is the exact sum rounded once (`collectives.sum_dtype`)."""
+        pos = {k: i for i, k in enumerate(unit.keys)}
+        group = self.batch_group
+        n = 1 if group is None else self.mesh.size(self.batch_axes)
+        out: list = [None] * len(unit.keys)
+        for kind, keys in unit.sum_buckets:
+            dtype = self.params[keys[0]].dtype
+            acc = collectives.sum_dtype(dtype, group)
+            g = [grads[pos[k]] for k in keys]
+            if kind == "scatter":
+                chunks = [torch.cat([
+                    gk[block_index(self.shapes[k], self.specs[k], self.mesh,
+                                   _member_coords(self.mesh,
+                                                  self.batch_axes, j))
+                       ].reshape(-1) for k, gk in zip(keys, g)]).to(acc)
+                    for j in range(n)]
+                mine = collectives.reduce_scatter_(
+                    torch.empty_like(chunks[0]), chunks, group)
+                sent = n * mine.numel() * mine.element_size()
+            else:
+                mine = collectives.all_reduce_(torch.cat([
+                    gk[self.index[k]].reshape(-1)
+                    for k, gk in zip(keys, g)]).to(acc), group)
+                sent = mine.numel() * mine.element_size()
+            self.stats["summed_bytes"] += sent if group is not None else 0
+            for k, piece in zip(keys, mine.split(
+                    [self.params[k].numel() for k in keys])):
+                out[pos[k]] = piece.view(self.params[k].shape).to(dtype)
+        return out
+
+    # -- running a unit ----------------------------------------------------
 
     @contextlib.contextmanager
     def gathered(self):
-        self.gather()
+        """Forwards in the body may run: each unit is gathered as it runs
+        (a collective: every rank must run the same forwards)."""
+        self._armed += 1
         try:
             yield
         finally:
-            self.release()
+            self._armed -= 1
+            if not self._armed:
+                self._live.clear()
 
     @property
     def whole(self) -> bool:
-        return self._held is not None
+        """Whether some unit's leaves are whole now."""
+        return bool(self._held)
 
-    def check(self) -> None:
-        if self._held is None:
-            k = next(iter(self.params))
-            raise RuntimeError(
-                f"this rank holds only its blocks of the dense weights "
-                f"({k}: {tuple(self.params[k].shape)} of "
-                f"{self.shapes[k]}); run the forward under "
-                f"`sharding.gathered(model)` (an embedding block indexed "
-                f"with the global token ids would read other rows)")
+    def check(self, units: list[_Unit]) -> None:
+        """Raise unless the units about to run may be gathered (the
+        forward runs under `gathered()`)."""
+        if self._armed:
+            return
+        k = units[0].keys[0]
+        raise RuntimeError(
+            f"this rank holds only its blocks of the dense weights "
+            f"({k}: {tuple(self.params[k].shape)} of {self.shapes[k]}); "
+            f"run the forward under `sharding.gathered(model)`, which "
+            f"gathers each unit whole as it runs (an embedding block "
+            f"indexed with the global token ids would read other rows)")
+
+    def run(self, modules, fn, *args, **kw):
+        """fn(*args, **kw) with the split leaves of the units of `modules`
+        (those of them that are units) whole, released after it; in grad
+        mode gathered again around their backward."""
+        units = [self._unit_of[m] for m in modules if m in self._unit_of]
+        if not units:
+            return fn(*args, **kw)
+        self.check(units)
+        track = torch.is_grad_enabled()
+        uses = []
+        for unit in units:
+            if not track:
+                whole = self._gather(unit, "forward")
+                uses.append((unit, whole, None))
+                continue
+            live = self._live.get(unit.name)
+            if live is None:
+                whole = _Gather.apply(self, unit,
+                                      *(self.params[k] for k in unit.keys))
+                live = (list(whole), [t.data for t in whole])
+                if unit.shared:
+                    self._live[unit.name] = live
+            elif unit.name not in self._held:
+                self._regather(unit, live[1], "forward")
+            uses.append((unit, *live))
+        with _swapped(self._owner, uses):
+            out = fn(*args, **kw)
+        for unit, _, aliases in uses:
+            self._release(unit, aliases, "forward")
+        if not track:
+            return out
+        return _PreBackward.wrap(self, [(u, a) for u, _, a in uses], out)
+
+
+@contextlib.contextmanager
+def _swapped(owner: dict, uses):
+    """Each used unit's leaves read as its whole tensors in the body (the
+    owning modules' `_parameters` entries swapped, then put back)."""
+    saved = []
+    for unit, whole, _ in uses:
+        for k, t in zip(unit.keys, whole):
+            module, attr = owner[k]
+            saved.append((module, attr, module._parameters[attr]))
+            module._parameters[attr] = t
+    try:
+        yield
+    finally:
+        for module, attr, p in saved:
+            module._parameters[attr] = p
+
+
+class _Gather(torch.autograd.Function):
+    """blocks -> the unit's whole leaves (gathered); backward: the whole
+    gradients summed into this rank's blocks, the storage dropped."""
+
+    @staticmethod
+    def forward(ctx, owner: DenseBlocks, unit: _Unit, *blocks):
+        whole = owner._gather(unit, "forward")
+        ctx.owner, ctx.unit = owner, unit
+        ctx.aliases = [t.data for t in whole]
+        return tuple(whole)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        owner, unit = ctx.owner, ctx.unit
+        owner._release(unit, ctx.aliases, "backward")
+        owner._live.pop(unit.name, None)
+        return (None, None, *owner._sum_blocks(unit, grads))
+
+
+class _PreBackward(torch.autograd.Function):
+    """The identity on a unit call's outputs; backward: gather the units
+    the call used again (unless held) before their backward runs."""
+
+    @staticmethod
+    def forward(ctx, owner: DenseBlocks, uses, *xs):
+        ctx.owner, ctx.uses = owner, uses
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        for unit, aliases in ctx.uses:
+            if unit.name not in ctx.owner._held:
+                ctx.owner._regather(unit, aliases, "backward")
+        return (None, None, *grads)
+
+    @staticmethod
+    def wrap(owner: DenseBlocks, uses, out):
+        """`out` (a tensor or nested tuples of them) with every tensor
+        that requires grad passed through the identity."""
+        found: list[torch.Tensor] = []
+
+        def collect(o):
+            if isinstance(o, torch.Tensor):
+                if o.requires_grad:
+                    found.append(o)
+            elif isinstance(o, (tuple, list)):
+                for x in o:
+                    collect(x)
+
+        collect(out)
+        if not found:
+            return out
+        done = iter(_PreBackward.apply(owner, uses, *found))
+
+        def rebuild(o):
+            if isinstance(o, torch.Tensor):
+                return next(done) if o.requires_grad else o
+            if isinstance(o, (tuple, list)):
+                return type(o)(rebuild(x) for x in o)
+            return o
+
+        return rebuild(out)
 
 
 def dense_blocks(model: nn.Module) -> Optional[DenseBlocks]:
@@ -323,15 +610,29 @@ def dense_blocks(model: nn.Module) -> Optional[DenseBlocks]:
 
 @contextlib.contextmanager
 def gathered(model: nn.Module):
-    """Run the body with the model's dense leaves whole (a collective on a
-    mesh: every rank must enter it); a no-op for a model without
-    blocks."""
+    """Run the body's forwards with the model's dense leaves gathered one
+    unit at a time (a collective on a mesh: every rank must enter it and
+    run the same forwards); a no-op for a model without blocks."""
     blocks = dense_blocks(model)
     if blocks is None:
         yield
         return
     with blocks.gathered():
         yield
+
+
+def all_gather_block(block: torch.Tensor, mesh, spec: tuple
+                     ) -> torch.Tensor:
+    """The global value of a leaf split by `spec` on every rank, from
+    this rank's `block` (an all-gather over the spec's axes)."""
+    axes = mesh.axes_key(spec_axes(spec))
+    parts = collectives.all_gather_blocks(block, mesh.group(axes))
+    shape = global_shape(block.shape, spec, mesh)
+    out = block.new_empty(shape)
+    for j, part in enumerate(parts):
+        out[block_index(shape, spec, mesh,
+                        _member_coords(mesh, axes, j))] = part
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -381,8 +682,9 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
       of R rows;
     * on a `Transformer`, every dense leaf that `param_specs` splits
       keeps this rank's block, and the model's `placement` (a
-      `DenseBlocks`) gathers them for a forward.  Another module (a
-      memory layer alone) keeps its dense leaves whole."""
+      `DenseBlocks`) gathers them a unit at a time for a forward
+      (`transformer.dense_units`).  Another module (a memory layer
+      alone) keeps its dense leaves whole."""
     tables = sharded_tables(model, mesh)
     for name, axis in tables.items():
         layer = model.get_submodule(name.rpartition(".")[0]) \
@@ -409,7 +711,8 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
                  if k not in tables
                  and math.prod(mesh.size(a) for a in spec_axes(s)) > 1}
         if specs:
-            model.placement = DenseBlocks(model, mesh, specs)
+            model.placement = DenseBlocks(model, mesh, specs,
+                                          dense_units(model))
             model.placement.keep_blocks()
     return model
 

@@ -78,13 +78,18 @@ keeps its block of every dense leaf the reference's GSPMD rules split
 (FSDP over the batch axes, TP over ``model``) and its rows of a
 `--placement sharded` table (`distributed.sharding.shard_params`), and
 moves to its device.  A step takes the rank's slice of the global
-batch, gathers the dense blocks whole for the forward and backward and
-releases them, sums the gradients over the batch axes (one all-reduce
-for the dense weights, one for the table shard), clips by the global
-norm that counts every table row once, and steps Adam on its blocks and
-rows alone.  The losses it reports are the global batch's.  Rank 0
-prints; every rank evaluates the whole eval batch (under the gathered
-weights), so that all of them issue the same collectives.
+batch and gathers the dense blocks whole one unit at a time (the
+embedding, each layer, the head), in the forward and again in the
+backward, releasing each after it; each unit's gradients are summed
+over the batch axes into the rank's blocks as its backward ends (a
+reduce-scatter), the rest in one all-reduce for the replicated leaves
+and one for the table shard; the clip's global norm counts every
+element once, and Adam steps the rank's blocks and rows alone.  The
+losses it reports are the global batch's; `--json` lines add the
+bytes the rank gathered and summed in the step and the most units it
+held whole at once.  Rank 0 prints; every rank evaluates the whole eval
+batch (a unit at a time), so that all of them issue the same
+collectives.
 
 `--compression int8|topk` codes the summed gradients with error feedback
 before Adam (`optim.compression`), as the reference's step does.
@@ -231,20 +236,27 @@ def build_train_step(model: transformer.Transformer,
     are device tensors: loss, xent, aux, ntokens, grad_norm, lr.
 
     With a mesh (the ambient one, `context.set_mesh`) `batch` is the
-    global batch: the step takes this data rank's slice, gathers the
-    dense leaves' blocks whole (`sharding.gathered`), runs the forward and
-    backward, releases them, sums the gradients over the batch axes (one
-    flattened all-reduce for the dense weights, whole, one for the row
-    shards of the tables), clips by the global norm (the shards' squares
-    summed over their axis) and steps Adam on its own blocks and rows.
+    global batch: the step takes this data rank's slice and runs the
+    forward and backward under `sharding.gathered`, which gathers the
+    dense blocks whole one unit at a time (the embedding, each layer, the
+    head), releases each after its forward, gathers it again for its
+    backward and sums its gradients over the batch axes straight into
+    this rank's blocks (`sharding.DenseBlocks`).  The step then sums the
+    other gradients over the batch axes (one flattened all-reduce for the
+    replicated dense leaves, one for the row shards of the tables), clips
+    by the global norm (the blocks' and shards' squares summed over their
+    axes: each element once) and steps Adam on its own blocks and rows.
     loss and xent are the global batch's (the parts summed over the batch
-    axes).
+    axes); on a mesh with blocks the metrics also carry the bytes the
+    rank gathered and summed in the step and the most units it held
+    whole at once (`gathered_bytes`, `summed_bytes`, `units_held_peak`).
 
     `compression` ("int8", "topk") codes the summed gradients with error
     feedback before Adam (`optim.compress_gradients`, as the reference's
-    step does): a row-sharded table's gradient as its global array.  The
-    residual mirrors the gradients (the dense ones whole) from the first
-    step on.
+    step does): a row-sharded table's gradient and a dense block as
+    their global arrays (the int8 scale and top-k's threshold the whole
+    leaf's).  The residual mirrors the gradients (the blocks' shapes)
+    from the first step on.
 
     `train_step(opt_state, batch, tel)` with a telemetry dict (from
     `init_telemetry`) also runs the loss with `collect_access` and adds
@@ -253,6 +265,9 @@ def build_train_step(model: transformer.Transformer,
     params = dict(model.named_parameters())
     shards = sharding.sharded_tables(model, mesh)
     blocks = sharding.dense_blocks(model)
+    # each dense block's group: the ranks its leaf is split over
+    split = {k: mesh.group(sharding.spec_axes(s))
+             for k, s in blocks.specs.items()} if blocks else {}
     batch_group = context.batch_group() if mesh is not None else None
     shard_group = (mesh.group(next(iter(shards.values()))) if shards
                    else None)
@@ -261,6 +276,10 @@ def build_train_step(model: transformer.Transformer,
     def train_step(opt_state, batch, tel=None):
         nonlocal comp
         batch = sharding.batch_slice(mesh, batch)
+        if blocks is not None:
+            before = dict(blocks.stats, units_held_peak=0,
+                          shared_held_peak=0)
+            blocks.stats.update(units_held_peak=0, shared_held_peak=0)
         with sharding.gathered(model):
             if tel is None:
                 loss, metrics = transformer.loss_fn(model, batch, train=True)
@@ -274,10 +293,10 @@ def build_train_step(model: transformer.Transformer,
                      else torch.zeros_like(p) for k, p in params.items()}
             for p in params.values():
                 p.grad = None
-        if batch_group is not None:
+        if batch_group is not None:  # the blocks are summed already
             collectives.all_reduce_flat_(
-                [g for k, g in grads.items() if k not in shards],
-                batch_group)
+                [g for k, g in grads.items()
+                 if k not in shards and k not in split], batch_group)
             collectives.all_reduce_flat_([grads[k] for k in shards],
                                          batch_group)
             for key in ("xent", "aux"):
@@ -289,10 +308,15 @@ def build_train_step(model: transformer.Transformer,
             if comp is None:
                 comp = optim.compression_init(grads, compression)
             grads, comp = optim.compress_gradients(
-                grads, comp, groups={k: shard_group for k in shards})
+                grads, comp,
+                groups={**{k: shard_group for k in shards}, **split})
         stats = optim.adam_update(
             params, grads, opt_state, opt_cfg, sharded=tuple(shards),
-            group=shard_group, blocks=blocks.index if blocks else None)
+            group=shard_group, split=split)
+        if blocks is not None:
+            stats.update({k: blocks.stats[k] - before[k] for k in (
+                "gathered_bytes", "summed_bytes", "units_held_peak",
+                "shared_held_peak")})
         return {**{k: v.detach() for k, v in metrics.items()}, **stats,
                 "loss": loss.detach()}
 
@@ -303,8 +327,9 @@ def build_train_step(model: transformer.Transformer,
 def evaluate(model: transformer.Transformer, dcfg: data.DataConfig, *,
              steps: int = 4):
     """(mean held-out loss over `steps` batches, fact recall on the probe),
-    under the dense leaves gathered whole (a collective on a mesh: every
-    rank evaluates the whole batches)."""
+    the dense leaves gathered whole one unit at a time (a collective on a
+    mesh: every rank evaluates the whole batches; no backward, so no
+    unit is gathered twice)."""
     device = next(model.parameters()).device
     table = data.make_fact_table(dcfg)
     losses = []
@@ -527,6 +552,9 @@ def main(argv=None) -> TrainRun:
             rec = {"step": step,
                    **{k: float(metrics[k])  # the host sync ends the step
                       for k in ("loss", "xent", "aux", "grad_norm", "lr")}}
+        rec.update({k: metrics[k] for k in (
+            "gathered_bytes", "summed_bytes", "units_held_peak",
+            "shared_held_peak") if k in metrics})
         dt = time.perf_counter() - t0
         rec["step_ms"] = 1e3 * dt
         timer.record(dt)

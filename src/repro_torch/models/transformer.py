@@ -359,8 +359,17 @@ class Transformer(nn.Module):
                                                 generator=generator)
         self.segments = nn.ModuleDict(segs)
         # on a mesh, this rank's blocks of the dense leaves and their
-        # gather (`distributed.sharding.shard_params`); None: whole
+        # gather a unit at a time (`distributed.sharding.shard_params`);
+        # None: whole
         self.placement = None
+
+    def run_unit(self, modules, fn, *args, **kw):
+        """fn(*args, **kw), the units of `modules` whole: on a mesh the
+        placement gathers them for the call and releases them after it
+        (and again around the call's backward); else a plain call."""
+        if self.placement is None:
+            return fn(*args, **kw)
+        return self.placement.run(modules, fn, *args, **kw)
 
     def embed_tokens(self, tokens: torch.Tensor, positions,
                      vision: torch.Tensor | None = None) -> torch.Tensor:
@@ -368,12 +377,10 @@ class Transformer(nn.Module):
         `vision` (B, vision_tokens, d) where given, plus the learned
         position rows where configured: `positions` (an int tensor
         broadcastable to tokens, or one int) clamped to the table, as the
-        reference's decode does.  Every forward starts here: it raises
-        while the dense leaves are this rank's blocks
-        (`sharding.gathered` makes them whole)."""
-        if self.placement is not None:
-            self.placement.check()
-        x = self.embed(tokens)
+        reference's decode does.  On a mesh it runs the embedding unit,
+        which raises outside `sharding.gathered` (the dense leaves are
+        this rank's blocks)."""
+        x = self.run_unit((self.embed,), self.embed, tokens)
         if vision is not None and self.cfg.vision_tokens:
             x = torch.cat([vision.to(x.dtype),
                            x[:, self.cfg.vision_tokens:]], dim=1)
@@ -384,10 +391,33 @@ class Transformer(nn.Module):
         return x + self.pos_embed[pos].to(x.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the head (a tied embedding's transpose): on
+        a mesh the head's unit, or the shared embedding unit."""
+        head = self.embed if self.lm_head is None else self.lm_head
+        return self.run_unit((self.final_norm, head), self._head, x)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
         if self.lm_head is None:
             return x @ self.embed.embedding.to(x.dtype).T
         return self.lm_head(x)
+
+
+def dense_units(model: Transformer) -> dict[str, bool]:
+    """{module name: shared} of the units whose dense leaves a mesh
+    gathers whole one at a time (`distributed.sharding.DenseBlocks`):
+    the embedding (shared when tied: the head reads it), each encoder
+    layer, each decoder layer in order (a hybrid unit's Mamba layers and
+    the shared block, shared: called after every unit) and the head."""
+    names = {m: n for n, m in model.named_modules()}
+    units = {"embed": model.lm_head is None}
+    for layer in model.encoder or ():
+        units[names[layer]] = False
+    for _, layer, _ in _walk(model):
+        units.setdefault(names[layer], layer is model.shared_attn)
+    if model.lm_head is not None:
+        units["lm_head"] = False
+    return units
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
@@ -448,7 +478,8 @@ def _run_encoder(model: Transformer, batch: dict):
     x = x + model.enc_pos_embed[:s][None].to(x.dtype)
     positions = torch.arange(s, device=x.device).expand(b, s)
     for layer in model.encoder:
-        x = layer.full(x, positions, causal=False)[0]
+        x = model.run_unit((layer,), layer.full, x, positions,
+                           causal=False)[0]
     return model.enc_norm(x)
 
 
@@ -472,11 +503,12 @@ def _walk(model: Transformer, cache=None):
                                             if k in ("k", "v")}
 
 
-def _full(layer, x, positions, enc, **kw):
-    """`layer.full`, the encoder's output passed to a cross layer."""
+def _full(model, layer, x, positions, enc, **kw):
+    """`layer.full` as its unit, the encoder's output passed to a cross
+    layer."""
     if isinstance(layer, CrossLayer):
         kw["enc"] = enc
-    return layer.full(x, positions, **kw)
+    return model.run_unit((layer,), layer.full, x, positions, **kw)
 
 
 def _forward(model: Transformer, batch: dict, *, train: bool,
@@ -491,8 +523,8 @@ def _forward(model: Transformer, batch: dict, *, train: bool,
     accesses = {}
     auxs = {name: [] for name in model.segments}
     for name, layer, _ in _walk(model):
-        x, _, access, aux = _full(layer, x, positions, enc, causal=causal,
-                                  train=train,
+        x, _, access, aux = _full(model, layer, x, positions, enc,
+                                  causal=causal, train=train,
                                   collect_access=collect_access)
         if access is not None:
             accesses[name] = access
@@ -671,9 +703,9 @@ def prefill(model: Transformer, tokens: torch.Tensor, max_len: int, *,
     enc = _run_encoder(model, batch)
     for _, layer, lc in _walk(model, cache):
         if isinstance(layer, SSMLayer):
-            x = layer.prefill(x, lc)
+            x = model.run_unit((layer,), layer.prefill, x, lc)
             continue
-        x, kv, _, _ = _full(layer, x, positions, enc, causal=True)
+        x, kv, _, _ = _full(model, layer, x, positions, enc, causal=True)
         if kv is None:  # a memory layer on an SSM host
             continue
         k, v = kv[:2]
@@ -698,5 +730,5 @@ def decode_step(model: Transformer, tokens: torch.Tensor, pos,
     x = model.embed_tokens(tokens, pos[:, None] if torch.is_tensor(pos)
                            else pos)
     for _, layer, lc in _walk(model, cache):
-        x = layer.decode(x, pos, lc)
+        x = model.run_unit((layer,), layer.decode, x, pos, lc)
     return model.logits(x)

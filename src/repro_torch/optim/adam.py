@@ -52,15 +52,24 @@ def schedule_lr(cfg: OptimConfig, step: torch.Tensor) -> torch.Tensor:
     return lr
 
 
-def global_norm(tensors, sharded=(), group=None) -> torch.Tensor:
-    """The l2 norm of every tensor of `tensors` and `sharded` together.
-    `sharded` are this rank's row shards of tables split over `group`:
-    their squared sum is summed over the group first, so every table row
-    counts once, and each of `tensors` (alike on every rank) once."""
+def global_norm(tensors, sharded=(), group=None, *, split=()
+                ) -> torch.Tensor:
+    """The l2 norm of every tensor of `tensors`, `sharded` and `split`
+    together.  `sharded` are this rank's row shards of tables split over
+    `group`, and `split` (tensor, group) pairs this rank's blocks of
+    leaves split over their group's ranks: the squared sums are summed
+    over each group (one sum a group, in the order the pairs first name
+    it), so every element counts once, and each of `tensors` (alike on
+    every rank) once."""
     sq = sum(torch.sum(torch.square(t.float())) for t in tensors)
-    if sharded:
-        part = sum(torch.sum(torch.square(t.float())) for t in sharded)
-        sq = sq + collectives.all_reduce_(part, group)
+    by_group: dict = {}
+    for t, g in ((t, group) for t in sharded):
+        by_group.setdefault(g, []).append(t)
+    for t, g in split:
+        by_group.setdefault(g, []).append(t)
+    for g, ts in by_group.items():
+        part = sum(torch.sum(torch.square(t.float())) for t in ts)
+        sq = sq + collectives.all_reduce_(part, g)
     return torch.sqrt(sq)
 
 
@@ -84,27 +93,26 @@ def adam_init(params: dict[str, torch.Tensor]) -> dict:
 def adam_update(params: dict[str, torch.Tensor],
                 grads: dict[str, torch.Tensor | None], opt_state: dict,
                 cfg: OptimConfig, *, sharded=(), group=None,
-                blocks: dict | None = None) -> dict[str, torch.Tensor]:
+                split: dict | None = None) -> dict[str, torch.Tensor]:
     """One step over `params` (name -> tensor, updated in place) with
     `grads` (name -> tensor; None counts as zero, as a leaf the loss does
     not reach has a zero gradient in the reference).  The names in
     `sharded` are row shards of tables split over `group` (the mesh's
     ``model`` axis): the clip's global norm counts their rows once across
-    the group (`global_norm`).  `blocks` ({name: index}) names the
-    parameters that are this rank's block `whole[index]` of a dense leaf
-    (`distributed.sharding.DenseBlocks`) while their gradient is whole:
-    the norm and the clip are taken on the whole gradients, alike on
-    every rank, and the block of each steps the block and its moments.
-    Advances `opt_state` in place; returns the stats {"grad_norm",
-    "lr"}."""
+    the group (`global_norm`).  `split` ({name: process group}) names
+    the parameters that are this rank's block of a dense leaf split over
+    the group's ranks (`distributed.sharding.DenseBlocks`), with their
+    gradients summed into the block: the norm counts each element of the
+    leaf once (the blocks' squares summed over the group).  Advances
+    `opt_state` in place; returns the stats {"grad_norm", "lr"}."""
     step = opt_state["step"] + 1
-    blocks = blocks or {}
+    split = split or {}
     grads = {k: (g if g is not None else torch.zeros_like(params[k]))
              for k, g in grads.items()}
-    gnorm = global_norm([g for k, g in grads.items() if k not in sharded],
-                        [grads[k] for k in sharded], group)
-    grads = {k: g[blocks[k]] if k in blocks and g.shape != params[k].shape
-             else g for k, g in grads.items()}
+    gnorm = global_norm(
+        [g for k, g in grads.items() if k not in sharded and k not in split],
+        [grads[k] for k in sharded], group,
+        split=[(grads[k], split[k]) for k in grads if k in split])
     scale = None
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),

@@ -14,10 +14,14 @@ The codec is applied to the gradients after their sum over the batch
 axes and before Adam, as the reference's train step does; the wire form
 over a mesh axis is `distributed.collectives.compressed_psum`.  A leaf
 split over a group of ranks (a row-sharded table's gradient, this
-rank's rows) is coded as its global array: the int8 scale is the
-maximum over the group, and top-k's threshold is the k-th largest
-magnitude of the whole leaf (each rank's own k largest, gathered over
-the group, hold it).  The residual is state of the step: it is not
+rank's rows; a dense leaf's gradient summed into this rank's block,
+`distributed.sharding.DenseBlocks`) is coded as its global array: the
+int8 scale is the maximum over the group, and top-k's threshold is the
+k-th largest magnitude of the whole leaf (each rank's own k largest,
+gathered over the group, hold it), so each element is coded as the
+whole leaf's code codes it.  The residual has the shapes of the
+gradients it is made from (on a mesh the blocks and shards: no rank
+holds a whole leaf's).  It is state of the step: it is not
 checkpointed, as in the reference.
 """
 
@@ -35,7 +39,8 @@ KINDS = ("none", "int8", "topk")
 def compression_init(params: dict[str, torch.Tensor], kind: str = "none",
                      rho: float = 0.01) -> dict:
     """The codec's state: {"kind", "rho", "residual": {name: fp32 zeros of
-    the leaf's shape}} (residual None for "none")."""
+    the shape of `params[name]`}} (residual None for "none"): give it
+    the gradients as the step codes them (a rank's blocks and rows)."""
     if kind not in KINDS:
         raise ValueError(f"unknown compression {kind!r}; known: {KINDS}")
     if kind == "none":

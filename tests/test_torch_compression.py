@@ -155,8 +155,17 @@ RANK_CODE = textwrap.dedent("""
     cfg = configs.get_smoke_config("lram-bert-medium")
     cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
         cfg.lram, interp_impl="sharded"))
+    compress, captured = optim.compress_gradients, []
+
+    def capture(grads, comp_state, **kw):  # steps 1 and 2, as coded
+        sent, new = compress(grads, comp_state, **kw)
+        captured.append((grads, comp_state, sent))
+        return sent, new
+
+    optim.compress_gradients = capture
     res = {}
     for kind in ("int8", "topk"):
+        captured.clear()
         model = convert.model_from_jax(params, state, cfg, device="cpu")
         sharding.shard_params(model, mesh)
         step = train.build_train_step(model, optim.OptimConfig(lr=1e-4),
@@ -165,6 +174,21 @@ RANK_CODE = textwrap.dedent("""
         res[kind] = np.array([
             [m["loss"].item(), m["grad_norm"].item()] for m in (
                 step(opt, train.batch_to(b, "cpu")) for b in batches)])
+        # step 2 (a residual fed back): the residual in the blocks'
+        # shapes, and each dense block coded as the whole leaf's code of
+        # the same summed gradient and residual codes it
+        grads, comp_state, sent = captured[1]
+        res[kind + "_residual_shapes"] = all(
+            tuple(comp_state["residual"][k].shape) == tuple(p.shape)
+            for k, p in model.named_parameters())
+        specs, err = sharding.dense_blocks(model).specs, 0.0
+        for k, spec in specs.items():
+            g, r, got = (sharding.all_gather_block(t, mesh, spec) for t in (
+                grads[k], comp_state["residual"][k], sent[k]))
+            want, _ = compress({k: g}, dict(comp_state, residual={k: r}))
+            err = max(err, (want[k] - got).abs().max().item())
+        res[kind + "_whole_leaf_err"] = err
+        res[kind + "_split_leaves"] = len(specs)
     x = np.load(os.path.join(out_dir, "psum_x.npy"))
     res["psum"] = collectives.compressed_psum(
         torch.from_numpy(x[2 * rank:2 * rank + 2]),
@@ -206,10 +230,16 @@ def test_mesh_training_matches_jax(ref, ranks, kind):
     """5 steps on data 2 x model 2 with the table row-sharded over model
     (its int8 scale the maximum over model, top-k's threshold the k-th
     largest of the global gradient) against the JAX single-device step
-    with the same codec, on every rank: rtol 1e-4."""
+    with the same codec, on every rank: rtol 1e-4.  The residual has the
+    shapes of the rank's blocks and rows, and at step 2 every dense
+    block's code equals the whole leaf's code of the same summed
+    gradient and residual, gathered (0 apart)."""
     losses = ref[3][kind]
     for r in ranks[0]:
         np.testing.assert_allclose(r[kind], losses, rtol=1e-4)
+        assert bool(r[kind + "_residual_shapes"])
+        assert int(r[kind + "_split_leaves"]) >= 15
+        assert float(r[kind + "_whole_leaf_err"]) == 0.0
 
 
 def test_compressed_psum_matches_reference(ranks):

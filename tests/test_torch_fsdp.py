@@ -17,10 +17,15 @@ training on the blocks, against the JAX package.
   mesh step is red under jax 0.9.0, ROADMAP C1, and its contract is
   "sharded equals single-device"): losses, grad norms and the trained
   blocks.  Between steps each rank holds only its blocks and their
-  moments, and a forward over bare blocks raises.  The 2 x 2 run's
-  checkpoint restores onto the pod mesh (each rank its block of the
-  global arrays), and the training CLI trains on the pod mesh
-  (`--mesh-shape 2x1x2`) as one process does.
+  moments, and a forward outside `sharding.gathered` raises.  A
+  recorder on the gather and release of every unit shows that no rank
+  ever holds more than one unit's whole leaves (plus a shared unit) in
+  a forward, a backward or an eval, and the gradients reach Adam as
+  blocks; the 2 x 2 launch also trains the same model with a tied
+  embedding (the head reads the shared embedding unit) against the JAX
+  step.  The 2 x 2 run's checkpoint restores onto the pod mesh (each
+  rank its block of the global arrays), and the training CLI trains on
+  the pod mesh (`--mesh-shape 2x1x2`) as one process does.
 """
 
 import dataclasses
@@ -210,7 +215,7 @@ RANK_CODE = textwrap.dedent("""
     import dataclasses, json, os, pickle
     import numpy as np, torch
     import torch.distributed as dist
-    from repro_torch import configs, optim
+    from repro_torch import configs, data, optim
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.distributed import sharding
     from repro_torch.launch import convert, mesh as mesh_lib, train
@@ -227,15 +232,46 @@ RANK_CODE = textwrap.dedent("""
     cfg = configs.get_smoke_config("lram-bert-medium")
     cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
         cfg.lram, interp_impl=placement))
+    adam_update, grad_shapes = optim.adam_update, []
+
+    def capture(params, grads, *args, **kw):  # the shapes Adam is given
+        grad_shapes.append({k: list(g.shape) for k, g in grads.items()})
+        return adam_update(params, grads, *args, **kw)
+
+    optim.adam_update = capture
+
+    def recorded(model, events):
+        # every gather and release: (event, phase, whole units held
+        # but shared ones, shared units held)
+        blocks = sharding.dense_blocks(model)
+
+        def record(event, unit, phase, held):
+            own = sum(not blocks.units[u].shared for u in held)
+            events.append([event, phase, own, len(held) - own])
+
+        blocks.recorder = record
+        return blocks
+
+    def train_on(model, batches):
+        step = train.build_train_step(model, optim.OptimConfig(lr=1e-4),
+                                      mesh)
+        opt = optim.adam_init(dict(model.named_parameters()))
+        losses = []
+        for b in batches:
+            m = step(opt, train.batch_to(b, "cpu"))
+            losses.append((m["loss"].item(), m["grad_norm"].item()))
+        return opt, losses
+
     model = convert.model_from_jax(params, state, cfg, device="cpu")
     sharding.shard_params(model, mesh)
-    step = train.build_train_step(model, optim.OptimConfig(lr=1e-4), mesh)
-    opt = optim.adam_init(dict(model.named_parameters()))
-    losses = []
-    for b in batches:
-        m = step(opt, train.batch_to(b, "cpu"))
-        losses.append((m["loss"].item(), m["grad_norm"].item()))
-    blocks = sharding.dense_blocks(model)
+    events = []
+    blocks = recorded(model, events)
+    opt, losses = train_on(model, batches)
+    train_events = len(events)
+    dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                           global_batch=4, objective=cfg.objective)
+    train.evaluate(model, dcfg, steps=1)
+    blocks.recorder = None
     try:
         transformer.forward(model, train.batch_to(batches[0], "cpu"))
         bare = ""
@@ -247,7 +283,27 @@ RANK_CODE = textwrap.dedent("""
     res = {"losses": np.array(losses), "bare": bare,
            "whole": blocks.whole, "coords": json.dumps(mesh.coords),
            "held": json.dumps(held),
-           "specs": json.dumps(blocks.specs)}
+           "specs": json.dumps(blocks.specs),
+           "events": json.dumps(events), "train_events": train_events,
+           "units": len(blocks.units),
+           "grad_shapes": json.dumps(grad_shapes)}
+    if os.environ.get("TIED"):  # the embedding tied: a shared unit
+        with open(os.path.join(out_dir, "..", "tied.pkl"), "rb") as f:
+            tparams, tstate = pickle.load(f)
+        tied = convert.model_from_jax(
+            tparams, tstate, dataclasses.replace(cfg, tie_embeddings=True),
+            device="cpu")
+        sharding.shard_params(tied, mesh)
+        tied_events = []
+        tblocks = recorded(tied, tied_events)
+        _, tied_losses = train_on(tied, batches)
+        res.update({"tied_losses": np.array(tied_losses),
+                    "tied_events": json.dumps(tied_events),
+                    "tied_specs": json.dumps(tblocks.specs),
+                    "tied_units": json.dumps(
+                        {u: x.shared for u, x in tblocks.units.items()})})
+        res.update({f"tied/{k}": p.detach().numpy()
+                    for k, p in tied.named_parameters()})
     res.update({f"param/{k}": p.detach().numpy()
                 for k, p in model.named_parameters()})
     spread = convert.reference_sharding(model, opt)
@@ -303,24 +359,45 @@ def ref(tmp_path_factory):
         losses.append((float(m["loss"]), float(m["grad_norm"])))
     trained = convert.state_dict_from_jax(jax.tree.map(np.asarray, p),
                                           {}, j_cfg)
+    # the same model with a tied embedding (no lm_head): its init, saved
+    # for the ranks, and the single-device step's losses and parameters
+    t_cfg = dataclasses.replace(j_cfg, tie_embeddings=True)
+    tp, ts = jax.jit(j_tf.init, static_argnums=1)(jax.random.PRNGKey(0),
+                                                  t_cfg)
+    with open(root / "tied.pkl", "wb") as f:
+        pickle.dump((jax.tree.map(np.asarray, tp),
+                     jax.tree.map(np.asarray, ts)), f)
+    t_step = j_train.build_train_step(t_cfg, j_optim.OptimConfig(lr=1e-4))
+    t_opt, t_res, t_losses = j_optim.adam_init(tp), jnp.zeros(()), []
+    for b in batches:
+        tp, t_opt, ts, t_res, m = t_step(tp, t_opt, ts, t_res,
+                                         jax.tree.map(jnp.asarray, b))
+        t_losses.append((float(m["loss"]), float(m["grad_norm"])))
+    tied = convert.state_dict_from_jax(jax.tree.map(np.asarray, tp), {},
+                                       t_cfg)
     return {"root": root, "losses": np.array(losses),
-            "trained": {k: v.numpy() for k, v in trained.items()}}
+            "trained": {k: v.numpy() for k, v in trained.items()},
+            "tied_losses": np.array(t_losses),
+            "tied": {k: v.numpy() for k, v in tied.items()}}
 
 
-def _launch(ref, name, placement, shape, restore=None):
+def _launch(ref, name, placement, shape, restore=None, tied=False):
     out = ref["root"] / name
     out.mkdir()
     env = {"OUT": str(out), "PLACEMENT": placement, "SHAPE": shape}
     if restore:
         env["RESTORE"] = str(restore)
+    if tied:
+        env["TIED"] = "1"
     run_ranks(RANK_CODE, 4, out, timeout=180, env=env)
     return out, [dict(np.load(out / f"rank{r}.npz")) for r in range(4)]
 
 
 @pytest.fixture(scope="module")
 def mesh_2x2(ref):
-    """`--placement pallas` (a replicated table) on data 2 x model 2."""
-    return _launch(ref, "pallas_2x2", "pallas", "2x2")
+    """`--placement pallas` (a replicated table) on data 2 x model 2,
+    then the tied-embedding model."""
+    return _launch(ref, "pallas_2x2", "pallas", "2x2", tied=True)
 
 
 @pytest.fixture(scope="module")
@@ -403,6 +480,69 @@ def test_ranks_hold_only_their_blocks_between_steps(ref, mesh_2x2,
                  if math.prod(mesh.size(a) for a in sharding.spec_axes(s))
                  == 4]
         assert "embed.embedding" in split and len(split) >= 15
+
+
+def _held_at_once(events) -> tuple[int, int]:
+    """The most whole units a rank held at once, (not shared, shared)."""
+    return (max(e[2] for e in events), max(e[3] for e in events))
+
+
+@pytest.mark.parametrize("which", ["2x2", "2x1x2"])
+def test_one_unit_whole_at_a_time(mesh_2x2, pod_mesh, which):
+    """Through 5 steps and an evaluation, every rank gathers each unit
+    (the embedding, each layer, the head) whole just before its forward
+    and again before its backward, and releases it after each: it never
+    holds two units' whole leaves at once; the evaluation gathers each
+    unit once a forward (no backward), and after it nothing is whole."""
+    for r in _runs(mesh_2x2, pod_mesh)[which]:
+        events = json.loads(str(r["events"]))
+        n = int(r["train_events"])
+        train, evals = events[:n], events[n:]
+        assert _held_at_once(events) == (1, 0)
+        for part, phases in ((train, {"forward", "backward"}),
+                             (evals, {"forward"})):
+            gathers = [e for e in part if e[0] == "gather"]
+            assert {e[1] for e in gathers} == phases
+            assert len(gathers) == sum(e[0] == "release" for e in part)
+        per_step = sum(e[0] == "gather" for e in train) / STEPS
+        assert per_step == 2 * int(r["units"])  # forward and backward
+        assert events[-1][2:] == [0, 0]
+
+
+def test_gradients_reach_adam_as_blocks(ref, mesh_2x2, pod_mesh):
+    """Every step's gradients reach Adam in the shapes the rank holds its
+    parameters in (a split leaf's block, the table's rows), on both
+    meshes: no split leaf's gradient is whole."""
+    for r in mesh_2x2[1] + pod_mesh[1]:
+        held = json.loads(str(r["held"]))
+        steps = json.loads(str(r["grad_shapes"]))
+        assert len(steps) == STEPS
+        for shapes in steps:
+            assert shapes == {k: v[0] for k, v in held.items()}
+            for k in _specs(r):
+                assert shapes[k] != list(ref["trained"][k].shape), k
+
+
+def test_tied_embedding_trains_as_single_device_jax(ref, mesh_2x2):
+    """The model with its embedding tied (the head reads it: one shared
+    unit, gathered at both uses and summed once, after its last use in
+    the backward) on data 2 x model 2: 5 steps' losses and grad norms to
+    rtol 1e-4 and every rank's trained blocks to rtol 1e-4 / atol 1e-5
+    of the JAX single-device step; at most one unit whole at once beside
+    the embedding."""
+    for r in mesh_2x2[1]:
+        np.testing.assert_allclose(r["tied_losses"], ref["tied_losses"],
+                                   rtol=1e-4)
+        assert json.loads(str(r["tied_units"]))["embed"] is True
+        assert "lm_head" not in json.loads(str(r["tied_units"]))
+        assert _held_at_once(json.loads(str(r["tied_events"]))) == (1, 1)
+        specs = {k: tuple(tuple(e) if isinstance(e, list) else e for e in v)
+                 for k, v in json.loads(str(r["tied_specs"])).items()}
+        coords = json.loads(str(r["coords"]))
+        for key, whole in ref["tied"].items():
+            want = _part(whole, key, specs, SHAPES["2x2"], coords, False)
+            np.testing.assert_allclose(r[f"tied/{key}"], want, rtol=1e-4,
+                                       atol=1e-5, err_msg=key)
 
 
 def test_checkpoint_restores_on_the_pod_mesh(mesh_2x2, pod_mesh):

@@ -84,11 +84,19 @@ MOE_CODE = textwrap.dedent("""
 
     def capture(params, grads, *args, **kw):  # the step-1 gradients
         if not captured:
-            captured.update({k: g.detach().clone().numpy()
+            captured.update({k: g.detach().clone()
                              for k, g in grads.items()})
         return adam_update(params, grads, *args, **kw)
 
     optim.adam_update = capture
+
+    def whole_grads(model, mesh, grads):
+        # a dense block's gradient (summed into the block) as its global
+        # array; every other leaf's as it reached Adam
+        specs = sharding.dense_blocks(model).specs
+        return {k: (sharding.all_gather_block(g, mesh, specs[k])
+                    if k in specs else g).numpy() for k, g in grads.items()}
+
     step = train.build_train_step(model, optim.OptimConfig(lr=1e-4), mesh)
     opt_state = optim.adam_init(dict(model.named_parameters()))
     metrics = []
@@ -97,7 +105,8 @@ MOE_CODE = textwrap.dedent("""
         metrics.append([m[k].item() for k in ("loss", "xent", "aux")])
     np.savez(os.path.join(out_dir, f"rank{dist.get_rank()}.npz"),
              metrics=np.array(metrics), evals=np.array(evals),
-             **{f"grad/{k}": v for k, v in captured.items()})
+             **{f"grad/{k}": v for k, v in whole_grads(
+                 model, mesh, captured).items()})
     dist.destroy_process_group()
 """)
 
@@ -170,10 +179,11 @@ def test_moe_losses_on_the_mesh_match_one_process(moe_ranks,
 
 
 def test_moe_step1_gradients_match_single_device_jax(moe_ref, moe_ranks):
-    """Step 1's gradients on every rank (summed over the data ranks)
-    against jax.grad of the single-device train-mode loss on the global
-    batch, every leaf, to rtol 1e-4 / atol 1e-5: the router's included,
-    which the router loss's global means shape."""
+    """Step 1's gradients on every rank (summed over the data ranks; a
+    dense block's gathered into its global array) against jax.grad of
+    the single-device train-mode loss on the global batch, every leaf, to
+    rtol 1e-4 / atol 1e-5: the router's included, which the router
+    loss's global means shape."""
     j_cfg, params, state, batches, cfg = moe_ref
     _, grads = jax.jit(jax.value_and_grad(
         lambda p, b: j_tf.loss_fn(p, state, b, j_cfg, train=True),

@@ -55,11 +55,19 @@ STEP_CODE = textwrap.dedent("""
 
     def capture(params, grads, *args, **kw):  # the step-1 gradients
         if not captured:
-            captured.update({k: g.detach().clone().numpy()
+            captured.update({k: g.detach().clone()
                              for k, g in grads.items()})
         return adam_update(params, grads, *args, **kw)
 
     optim.adam_update = capture
+
+    def whole_grads(model, mesh, grads):
+        # a dense block's gradient (summed into the block) as its global
+        # array; every other leaf's as it reached Adam
+        specs = sharding.dense_blocks(model).specs
+        return {k: (sharding.all_gather_block(g, mesh, specs[k])
+                    if k in specs else g).numpy() for k, g in grads.items()}
+
     step = train.build_train_step(model, optim.OptimConfig(lr=1e-4), mesh)
     opt_state = optim.adam_init(dict(model.named_parameters()))
     losses, stats = [], {}
@@ -73,7 +81,8 @@ STEP_CODE = textwrap.dedent("""
     np.savez(os.path.join(out_dir, f"rank{dist.get_rank()}.npz"),
              losses=np.array(losses), coords=np.array(
                  [mesh.index("data"), mesh.index("model")]),
-             **{f"grad/{k}": v for k, v in captured.items()},
+             **{f"grad/{k}": v for k, v in whole_grads(
+                 model, mesh, captured).items()},
              **{f"bn/{k}": v for k, v in stats.items()})
     dist.destroy_process_group()
 """)
@@ -148,8 +157,9 @@ def test_step1_gradients_match_single_device_jax(ranks, jax_run):
     """Every leaf's step-1 gradient, summed over the data ranks, against
     jax.grad of the single-device loss on the global batch, to rtol 1e-4 /
     atol 1e-5 (as the single-process train test holds it): the dense
-    leaves on every rank, the table as the model ranks' shards put back in
-    order (on both data rows of the mesh)."""
+    leaves on every rank (a block, summed into the rank's block, gathered
+    into its global array), the table as the model ranks' shards put back
+    in order (on both data rows of the mesh)."""
     j_grads, _, _ = jax_run
     for r in ranks:
         grads = {k[5:]: v for k, v in r.items() if k.startswith("grad/")}

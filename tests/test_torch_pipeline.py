@@ -3,8 +3,10 @@ the production mesh (`launch.mesh.make_production_mesh`), against the
 JAX package: 4 `torch.distributed` ranks (fresh gloo processes) run
 `pipeline_apply` over a ("pod",) mesh (4 stages, 4 microbatches) and
 over the pod axis of a pod 2 x data 2 mesh (2 stages, each data rank its
-own pipeline), against the reference's `pipeline_apply` on 4 fake JAX
-devices and against the stages applied in sequence."""
+own pipeline), forward and backward, against the reference's
+`pipeline_apply` (its output, and `jax.grad` of a loss on it under
+`jax.set_mesh`) on 4 fake JAX devices and against the stages applied in
+sequence."""
 
 import textwrap
 
@@ -28,12 +30,21 @@ REF_CODE = textwrap.dedent("""
     def stage(W, x):
         return jnp.tanh(x @ W)
 
-    four = pipeline_apply(stage, Ws, x, mesh=jax.make_mesh((4,), ("pod",)),
-                          axis="pod", num_microbatches=4)
-    two = pipeline_apply(stage, Ws[:2], x,
-                         mesh=jax.make_mesh((2, 2), ("pod", "data")),
-                         axis="pod", num_microbatches=2)
-    np.savez("PATH/ref.npz", four=np.asarray(four), two=np.asarray(two))
+    def run(Ws, x, mesh, m):
+        return pipeline_apply(stage, Ws, x, mesh=mesh, axis="pod",
+                              num_microbatches=m)
+
+    out = {}
+    for name, shape, axes, stages in (("four", (4,), ("pod",), 4),
+                                      ("two", (2, 2), ("pod", "data"), 2)):
+        mesh = jax.make_mesh(shape, axes)
+        out[name] = np.asarray(run(Ws[:stages], x, mesh, stages))
+        with jax.set_mesh(mesh):  # jax.grad of the shard_map needs it
+            dW, dx = jax.grad(lambda W, h: jnp.sum(run(W, h, mesh, stages)
+                                                   ** 2),
+                              argnums=(0, 1))(Ws[:stages], x)
+        out[name + "_dW"], out[name + "_dx"] = np.asarray(dW), np.asarray(dx)
+    np.savez("PATH/ref.npz", **out)
 """)
 
 RANK_CODE = textwrap.dedent("""
@@ -64,6 +75,16 @@ RANK_CODE = textwrap.dedent("""
         lambda p, h: stage(p["W"], h), {"W": Ws[:2]}, x, mesh=grid,
         axis="pod", num_microbatches=2).numpy()
     res["stage"] = pod.index("pod")
+    res["two_stage"] = grid.index("pod")
+    # the backward: a loss on the output, x and the stacked W requiring
+    # grad; every rank's x.grad, and W.grad whose rows are the stages
+    for name, mesh, stages in (("four", pod, 4), ("two", grid, 2)):
+        W = Ws[:stages].clone().requires_grad_()
+        h = x.clone().requires_grad_()
+        y = pipeline.pipeline_apply(stage, W, h, mesh=mesh, axis="pod",
+                                    num_microbatches=stages)
+        (y ** 2).sum().backward()
+        res[name + "_dW"], res[name + "_dx"] = W.grad.numpy(), h.grad.numpy()
     try:
         mesh_lib.make_production_mesh(multi_pod=True)
         res["production"] = ""
@@ -93,6 +114,18 @@ def _sequential(Ws, x):
     return x
 
 
+def _sequential_grads(Ws, x):
+    """(d W, d x) of sum(out ** 2), the stages applied in sequence (torch
+    autograd on one process)."""
+    W = torch.from_numpy(Ws).requires_grad_()
+    h0 = torch.from_numpy(x).requires_grad_()
+    h = h0
+    for i in range(W.shape[0]):
+        h = torch.tanh(h @ W[i])
+    (h ** 2).sum().backward()
+    return W.grad.numpy(), h0.grad.numpy()
+
+
 @pytest.mark.parametrize("which,stages", [("four", 4), ("two", 2)])
 def test_pipeline_matches_reference_and_sequential(runs, which, stages):
     """Every rank returns the whole output, within 1e-5 of the reference's
@@ -107,6 +140,32 @@ def test_pipeline_matches_reference_and_sequential(runs, which, stages):
         np.testing.assert_allclose(r[which], ref[which], rtol=1e-5,
                                    atol=1e-5)
     assert sorted(int(r["stage"]) for r in ranks) == [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("which,stages", [("four", 4), ("two", 2)])
+def test_pipeline_gradients_match_reference_and_sequential(runs, which,
+                                                           stages):
+    """The backward of sum(out ** 2): every rank's d x is whole and each
+    rank's d W holds its own stage's row alone (the others zero), within
+    rtol 1e-5 / atol 1e-6 of the reference's `jax.grad` under
+    `jax.set_mesh` (4 fake JAX devices) and of the stages applied in
+    sequence: 4 stages of 4 microbatches on ("pod",), 2 of 2 on the pod
+    axis of pod 2 x data 2."""
+    Ws, x, ref, ranks = runs
+    want_dW, want_dx = _sequential_grads(Ws[:stages], x)
+    np.testing.assert_allclose(ref[which + "_dW"], want_dW, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(ref[which + "_dx"], want_dx, rtol=1e-5,
+                               atol=1e-6)
+    for r in ranks:
+        s = int(r["stage"] if which == "four" else r["two_stage"])
+        dW = r[which + "_dW"]
+        for want in (ref, {which + "_dW": want_dW, which + "_dx": want_dx}):
+            np.testing.assert_allclose(r[which + "_dx"], want[which + "_dx"],
+                                       rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(dW[s], want[which + "_dW"][s],
+                                       rtol=1e-5, atol=1e-6)
+        assert not np.delete(dW, s, axis=0).any()
 
 
 def test_production_mesh_names_the_world_it_needs(runs):
@@ -131,13 +190,13 @@ class _Mesh:
 
 
 def test_pipeline_refuses_grad_and_uneven_microbatches():
-    """Forward only: an input that requires grad raises (the backward is
-    not ported); a batch that does not split into the microbatches
-    raises."""
-    x = torch.zeros(8, D, requires_grad=True)
-    with pytest.raises(ValueError, match="forward only"):
-        pipeline.pipeline_apply(lambda w, h: h, [None] * 4, x, mesh=_Mesh(),
-                                num_microbatches=4)
+    """A batch that does not split into the microbatches raises, whether
+    or not the input requires grad (the pipeline is differentiable: an
+    input that requires grad is taken)."""
+    with pytest.raises(ValueError, match="microbatches"):
+        pipeline.pipeline_apply(lambda w, h: h, [None] * 4,
+                                torch.zeros(6, D, requires_grad=True),
+                                mesh=_Mesh(), num_microbatches=4)
     with pytest.raises(ValueError, match="microbatches"):
         pipeline.pipeline_apply(lambda w, h: h, [None] * 4,
                                 torch.zeros(6, D), mesh=_Mesh(),
