@@ -354,6 +354,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
      in bfloat16 (the PKM's leaves with it), 20 steps at 7b's size, no
      kernel of the port launched, the loss falls, step ms and peak
      printed beside 7b's after it.  Prints `path_q_s`;
+ 5r. phase (r), the dry-run (`repro_torch.launch.dryrun`) on this
+     machine's host, never the card: three subprocesses started together
+     (a fake world is process-global), each a step on `meta` tensors in
+     a one-process fake world, all done within `R_TIMEOUT_S`: (r1) (p1)'s
+     own cell (its config, 8 x 256, one rank), failing unless its
+     products, less the memory layer's lookup (run alone), are within 1%
+     of (p1)'s `train_flops` reckoning (the lookup's printed by op), its
+     peak of live bytes printed beside (p1)'s measured steps' peak;
+     (r2) (p4c)'s config on a fake 4-rank world (data 4 x model 1),
+     failing unless the tally's gathered and summed bytes of the dense
+     blocks equal every (p4c) rank's measured bytes of every step;
+     (r3) one production cell, qwen2-1.5b+lram20 x train_4k on the
+     16 x 16 mesh: its roofline row (at the H100 data sheet's peaks)
+     and seconds.  Printed with the card's name and power limit;
   6. train `lram-bert-medium` at full width through
      `repro_torch.launch.train.main` (`--placement pallas --batch 8 --seq
      256 --steps 20`: 2,048 tokens, n = 65,536 lookups a step), with every
@@ -532,6 +546,9 @@ from repro_torch.checkpoint.manager import _load, _tree_items  # noqa: E402
 from repro_torch.core import indexing, lattice, lookup  # noqa: E402
 from repro_torch.core.lram import LRAM  # noqa: E402
 from repro_torch.core.pkm import PKM  # noqa: E402
+from repro_torch.analysis import roofline  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    train_bytes, train_flops, whole_leaves)
 from repro_torch.distributed import (  # noqa: E402
     collectives, context, fault, pipeline, sharding)
 from repro_torch.kernels import (  # noqa: E402
@@ -2712,6 +2729,7 @@ M6_ARGS = ["--arch", "lram-bert-medium", "--placement", "sharded",
 MESH_TABLES = {BF16: "m6_mesh_bf16", F16: "q4_mesh_f16"}
 FILL_MS: dict = {}  # phase 4's serve paths: fill bytes and host ms a lookup
 PHASE6: dict = {}   # phase 6's step-time median and peak memory
+P_NUMBERS: dict = {}  # path (p)'s printed numbers, by path; (p4c)'s by rank
 PATH_M: dict = {}   # (m4)'s, (q3)'s and the PKM runs', set beside at the end
 
 
@@ -5927,87 +5945,6 @@ def held_backward(name: str, kept: dict, device) -> dict:
             "max_abs_err": errs, "dvalues_rounded": rounded}
 
 
-def whole_leaves(model) -> dict[str, tuple[tuple[int, ...], int]]:
-    """{parameter key: (its whole shape, bytes an element)}: a dense
-    leaf kept as this rank's block between steps by its global shape, a
-    row-sharded table by the rows this rank holds."""
-    blocks = sharding.dense_blocks(model)
-    shapes = blocks.shapes if blocks is not None else {}
-    return {k: (tuple(shapes.get(k, p.shape)), p.element_size())
-            for k, p in model.named_parameters()}
-
-
-def train_flops(leaves: dict, cfg, tied: bool, batch: int,
-                seq: int) -> float:
-    """The products one train step computes (2 flops a multiply-add
-    forward, 4 backward), from `whole_leaves`: every Dense kernel once a
-    token (the hybrid's shared block once a call), a tied embedding as
-    the logits' product, an MoE's stacked experts on every row of its
-    dispatch buffers (B x E x C, the capacity's, dropped or empty rows
-    too) and the attention's two S x S products a head and layer.  Not
-    counted: the memory layer's gathers (K1's bytes), norms, the SSD
-    scan and convolutions."""
-    tokens = batch * seq
-    calls = (cfg.num_layers // cfg.hybrid_pattern
-             if cfg.family == "hybrid" else 1)
-    flops = 0.0
-    for key, (shape, _) in leaves.items():
-        size = math.prod(shape)
-        if key == "embed.embedding":
-            flops += 6 * tokens * size * tied
-        elif ".experts." in key:
-            flops += 6 * batch * moe.capacity(cfg, seq) * size
-        elif key.endswith(".kernel") and len(shape) == 2:
-            flops += 6 * tokens * size * (
-                calls if key.startswith("shared_attn.") else 1)
-    attn_layers = {"ssm": 0, "hybrid": calls}.get(cfg.family,
-                                                  cfg.num_layers)
-    return flops + 12.0 * batch * cfg.num_heads * seq * seq \
-        * cfg.head_dim * attn_layers
-
-
-def train_bytes(leaves: dict, cfg, tokens: int, model=None) -> dict:
-    """The memory a train step should hold, reckoned from `whole_leaves`:
-    the parameters and their gradients (the leaves' dtypes), Adam's two
-    fp32 moments, and three fp32 copies of the logits (the log-softmax,
-    its gradient and the logits' own; `tokens` a rank's).  On a mesh
-    (`model` given, its `DenseBlocks`: a rank's view) the leaves as this
-    rank holds them (blocks, replicated leaves, a table's rows), their
-    gradients and moments, plus the largest unit whole with its whole
-    gradient (the forward and backward gather one unit at a time; a
-    shared unit is held through the backward) and the buffers of its
-    sum (the blocks of every batch rank, float32 for a 2-byte leaf over
-    more than 2 ranks)."""
-    params = sum(math.prod(shape) for shape, _ in leaves.values())
-    pbytes = sum(math.prod(shape) * size for shape, size in leaves.values())
-    logits = 3 * 4 * tokens * cfg.vocab_size
-    blocks = None if model is None else sharding.dense_blocks(model)
-    if blocks is None:
-        parts = {"params": pbytes, "grads": pbytes, "adam_moments":
-                 8 * params, "logits_fp32_x3": logits}
-    else:
-        held = [p for p in model.parameters()]
-        hbytes = sum(p.numel() * p.element_size() for p in held)
-
-        def unit_bytes(unit, acc: bool) -> int:
-            return sum(math.prod(blocks.shapes[k]) * (
-                collectives.sum_dtype(blocks.params[k].dtype,
-                                      blocks.batch_group).itemsize
-                if acc else blocks.params[k].element_size())
-                for k in unit.keys)
-
-        largest = max(blocks.units.values(),
-                      key=lambda u: unit_bytes(u, False))
-        parts = {"params_held": hbytes, "grads_held": hbytes,
-                 "adam_moments_held": 8 * sum(p.numel() for p in held),
-                 "largest_unit_whole_and_grad": 2 * unit_bytes(largest,
-                                                               False),
-                 "largest_unit_sum_buffers": unit_bytes(largest, True),
-                 "logits_fp32_x3": logits}
-    return {**parts, "params": params,
-            "reckoned_bytes": sum(parts.values())}
-
-
 def p_numbers(name: str, out: dict, steps: int, ranks: int = 1) -> dict:
     """The numbers a sub-path prints: losses, router terms, step ms
     (median from step 6 on), tokens/s, the step against its FLOP bound
@@ -6093,6 +6030,7 @@ def p_path(name: str) -> tuple[dict, list]:
           f"{name}: the loss did not fall: {losses}")
     numbers["step1_backward"] = held_backward(
         name, out["kept"], run.model.embed.embedding.device)
+    P_NUMBERS[name] = numbers
     if cfg.num_experts:
         blocks = moe_blocks(cfg)
         per_step = [int(sum(int(d) for d in drops[s * blocks:
@@ -6238,6 +6176,7 @@ def p4_path(p1_records: list, p3_records: list,
             got.update(loss_max_abs_err_vs_one_process=err, loss_bound=tol)
         totals[f"{part}_mesh"] = {k: sum(r[part]["launches"].get(k, 0)
                                          for r in ranks) for k in KERNELS}
+    P_NUMBERS["p4c"] = [r["p4c"] for r in ranks]
     print(json.dumps({"path": "p4 mesh", "ranks": MESH_RANKS,
                       "mesh": ranks[0]["mesh"],
                       "backend": ranks[0]["backend"],
@@ -6258,6 +6197,129 @@ def p_paths(launches: dict) -> None:
     launches.update(p4_path(records["p1_qwen2_1_5b"],
                             records["p3_phi3_5_moe"]))
     print(json.dumps({"path_p_s": time.perf_counter() - t_p}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase (r): the dry-run on the host (meta tensors, fake worlds)
+# ---------------------------------------------------------------------------
+
+# the three subprocesses' wall seconds, together; (r1)'s products against
+# (p1)'s reckoning, relative
+R_TIMEOUT_S, R_FLOPS_TOL = 60, 0.01
+# (r3): arch, shape, memory table 2^N rows
+R3_CELL = ("qwen2-1.5b", "train_4k", 20)
+R_CODE = """
+import dataclasses, json, sys
+from repro_torch import configs
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.launch import dryrun
+a = json.loads(sys.argv[1])
+if "mesh" not in a:
+    art = dryrun.run_cell(a["arch"], a["shape"], False, a["log2"])
+else:
+    cfg = configs.with_lram(configs.get_config(a["arch"]), a["log2"])
+    cfg = dataclasses.replace(cfg, lram=dataclasses.replace(
+        cfg.lram, interp_impl="pallas"))
+    art = dryrun.run_cell(cfg.name, "train", False, cfg=cfg, cell=ShapeCell(
+        "train", a["seq"], a["batch"], "train"), mesh_shape=tuple(a["mesh"]))
+print(json.dumps(art))
+"""
+
+
+def dryrun_phase(card: str) -> None:
+    """Phase (r): (r1) (p1)'s cell on one rank, (r2) (p4c)'s on a fake
+    4-rank world, (r3) `R3_CELL` on the 16 x 16 mesh, each a dry-run in
+    a subprocess with no card (CUDA_VISIBLE_DEVICES empty), started
+    together.  Fails unless all end within `R_TIMEOUT_S`, (r1)'s
+    products less the memory lookup's are within `R_FLOPS_TOL` of (p1)'s
+    `train_flops`, and (r2)'s tallied block bytes equal (p4c)'s measured
+    ones on every rank and step."""
+    arch, _ = P_PATHS["p1_qwen2_1_5b"]
+    cells = {
+        "r1": {"arch": arch, "log2": LOG2_LOCATIONS, "batch": P_BATCH,
+               "seq": P_SEQ, "mesh": [1, 1]},
+        "r2": {"arch": arch, "log2": LOG2_LOCATIONS, "batch": P_BATCH,
+               "seq": P_SEQ, "mesh": list(P4C_MESH)},
+        "r3": dict(zip(("arch", "shape", "log2"), R3_CELL)),
+    }
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", R_CODE, json.dumps(a)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, a in cells.items()}
+    arts = {}
+    try:
+        for name, proc in procs.items():
+            left = R_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                out, err = proc.communicate(timeout=max(left, 0.1))
+            except subprocess.TimeoutExpired:
+                fail(f"phase (r): ({name}) outlasted {R_TIMEOUT_S} s")
+            check(proc.returncode == 0,
+                  f"phase (r): ({name}) failed:\n{err[-3000:]}")
+            arts[name] = json.loads(out.strip().splitlines()[-1])
+            check(arts[name]["status"] == "ok",
+                  f"phase (r): ({name}) {arts[name]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall_s = time.perf_counter() - t0
+
+    r1 = arts["r1"]
+    p1 = P_NUMBERS["p1_qwen2_1_5b"]
+    rk, full = r1["reckoned"], r1["full_depth"]
+    counted = full["flops_per_device"] - rk["memory_lookup_flops"]
+    rel = counted / p1["train_flops"] - 1
+    check(abs(rel) <= R_FLOPS_TOL,
+          f"(r1): the dry-run's products less the memory lookup's, "
+          f"{counted}, are {rel:+.2%} from (p1)'s train_flops "
+          f"{p1['train_flops']} (bound {R_FLOPS_TOL:.0%})")
+    peak = full["memory_analysis"]["peak_live_bytes"]
+
+    r2 = arts["r2"]
+    tallied = r2["dense_blocks_tallied"]
+    for rank, got in enumerate(P_NUMBERS["p4c"]):
+        for key in ("gathered_bytes", "summed_bytes"):
+            check(all(b == tallied[key] for b in got[f"{key}_by_step"]),
+                  f"(r2): the tally's {key} {tallied[key]} differ from "
+                  f"(p4c) rank {rank}'s measured {got[f'{key}_by_step']}")
+
+    r3 = arts["r3"]
+    row = roofline.analyze_artifact(r3)
+    check(row is not None and math.isfinite(row["step_time_bound_s"]),
+          f"(r3): no roofline row: {r3}")
+    print(json.dumps({
+        "phase": "r", "card": card, "wall_s": wall_s,
+        "r1": {"cell": r1["arch"], "batch": P_BATCH, "seq": P_SEQ,
+               "flops": full["flops_per_device"],
+               "memory_lookup_flops": rk["memory_lookup_flops"],
+               "memory_lookup_flops_by_op": rk["memory_lookup_flops_by_op"],
+               "flops_by_op": full["flops_by_op"],
+               "flops_less_lookup": counted,
+               "p1_train_flops": p1["train_flops"], "rel_err": rel,
+               "rel_bound": R_FLOPS_TOL,
+               "peak_live_bytes": peak,
+               "p1_steps_peak_memory_bytes": p1["steps_peak_memory_bytes"],
+               "peak_over_measured": peak / p1["steps_peak_memory_bytes"],
+               "memory_analysis": full["memory_analysis"],
+               "run_s": r1["run_s"]},
+        "r2": {"mesh": r2["mesh_shape"], "tallied": tallied,
+               "dense_blocks": r2["dense_blocks"],
+               "p4c_gathered_bytes_by_step": [
+                   r["gathered_bytes_by_step"] for r in P_NUMBERS["p4c"]],
+               "p4c_summed_bytes_by_step": [
+                   r["summed_bytes_by_step"] for r in P_NUMBERS["p4c"]],
+               "collective_counts": r2["full_depth"]["collective_counts"],
+               "run_s": r2["run_s"]},
+        "r3": {"cell": f"{r3['arch']} x {r3['shape']} x {r3['mesh']}",
+               "run_s": r3["run_s"], "roofline": row,
+               "table": roofline.render_table([row]),
+               "peak_live_bytes": r3["full_depth"]["memory_analysis"][
+                   "peak_live_bytes"]}}), flush=True)
 
 
 def main() -> None:
@@ -6347,6 +6409,8 @@ def main() -> None:
     lap("h_n_o")
     p_paths(launches)
     lap("p")
+    dryrun_phase(card)
+    lap("r")
     f16_path(launches)
     lap("q")
     launches["train"], run = train_path()

@@ -24,21 +24,73 @@ for values that every rank of the group computes alike downstream:
     loss, so the statistics' gradient is the sum of the parts).
 
 A group of None or of one rank makes each of them the identity.
+
+Every collective a step issues goes through this module, the pipeline's
+paired sends and receives too (`exchange`), so it is also where they are
+recorded: under `recording()` each one that moves bytes appends (op,
+bytes, group size, site) to the list it yields, in the names and byte
+convention of the reference's HLO collectives (`repro_torch.analysis.
+collectives` applies their ring factors).  The bytes are the op's result
+on this rank: the whole gathered tensor of an all-gather, this rank's
+chunk of a reduce-scatter, the tensor of an all-reduce, the tensor sent
+by a collective-permute.  `site(name)` labels the records made in its
+body (the dense blocks' gathers and sums, `distributed.sharding`).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+_RECORDS: list | None = None   # the list `recording()` yields, when armed
+_SITE: list = [None]
 
 
 def _trivial(group) -> bool:
     return group is None or dist.get_world_size(group) == 1
 
 
+def _record(op: str, nbytes: int, group) -> None:
+    if _RECORDS is not None:
+        _RECORDS.append((op, int(nbytes), dist.get_world_size(group),
+                         _SITE[-1]))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@contextlib.contextmanager
+def recording():
+    """Yield a list that every collective issued in the body appends to:
+    (op, bytes, group size, site), op one of the reference's HLO names
+    ("all-reduce", "all-gather", "reduce-scatter", "collective-permute").
+    A collective over a group of None or of one rank issues nothing and
+    records nothing.  One recording at a time."""
+    global _RECORDS
+    _RECORDS = records = []
+    try:
+        yield records
+    finally:
+        _RECORDS = None
+
+
+@contextlib.contextmanager
+def site(name: str):
+    """Label the records of the collectives issued in the body."""
+    _SITE.append(name)
+    try:
+        yield
+    finally:
+        _SITE.pop()
+
+
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum `t` over the ranks of `group`, in place; returns it."""
     if not _trivial(group):
+        _record("all-reduce", _nbytes(t), group)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -50,6 +102,7 @@ def reduce_scatter_(out: torch.Tensor, chunks: list[torch.Tensor],
     for a group of None or of one rank)."""
     if _trivial(group):
         return out.copy_(chunks[0])
+    _record("reduce-scatter", _nbytes(out), group)
     dist.reduce_scatter(out, [c.contiguous() for c in chunks], group=group)
     return out
 
@@ -61,6 +114,7 @@ def all_gather_blocks(t: torch.Tensor, group) -> list[torch.Tensor]:
         return [t]
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    _record("all-gather", len(parts) * _nbytes(t), group)
     dist.all_gather(parts, t, group=group)
     return parts
 
@@ -78,6 +132,7 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
 def all_max_(t: torch.Tensor, group) -> torch.Tensor:
     """The elementwise maximum of `t` over `group`, in place; returns it."""
     if not _trivial(group):
+        _record("all-reduce", _nbytes(t), group)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
 
@@ -94,6 +149,28 @@ def compressed_psum(x: torch.Tensor, group) -> torch.Tensor:
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     total = all_reduce_(q.to(torch.int32), group)
     return total.float() * scale
+
+
+def exchange(send: torch.Tensor | None, send_to: int | None,
+             recv: torch.Tensor | None, recv_from: int | None,
+             group) -> None:
+    """Send `send` to group rank `send_to` and receive into `recv` from
+    group rank `recv_from` (either None: that half is not posted), both
+    posted before either is waited on: a collective-permute of the
+    tensor that moves."""
+    ops = []
+    if send is not None:
+        ops.append(dist.P2POp(dist.isend, send,
+                              dist.get_global_rank(group, send_to), group))
+    if recv is not None:
+        ops.append(dist.P2POp(dist.irecv, recv,
+                              dist.get_global_rank(group, recv_from), group))
+    if not ops:
+        return
+    _record("collective-permute",
+            _nbytes(send if send is not None else recv), group)
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
 
 
 #: bytes of one flat buffer of `all_reduce_flat_`

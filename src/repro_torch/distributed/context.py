@@ -7,7 +7,9 @@ A :class:`Mesh` names the axes of the ranks of a `torch.distributed` run,
 axes (rank = d * M + m for a data x model mesh), and holds one
 `ProcessGroup` for every set of its axes: the ranks that differ from this
 one in those axes alone (and a gloo twin of each for the checkpoint's
-host gathers).  `set_mesh` makes it ambient: the lookup registry
+host gathers; in a world whose backend makes no gloo group, the fake
+one-process world of the dry-run, `launch.dryrun`, each twin is the
+world's own group).  `set_mesh` makes it ambient: the lookup registry
 resolves the `sharded` placement against it (`repro_torch.core.lookup`),
 and in train mode, where each data rank holds its slice of the global
 batch, the batchnorm statistics and the loss's denominator sum over the
@@ -44,6 +46,9 @@ class Mesh:
         self.coords = {a: (rank // s) % n
                        for a, s, n in zip(axes, strides, shape)}
         self._groups, self._io_groups = {}, {}
+        # a fake world (the dry-run's) makes no gloo group: its io groups
+        # are its own groups
+        fake = dist.get_backend() == "fake"
         # every rank creates every group, in the same order: for each set
         # of axes (in mesh order), one group per coordinate of the others,
         # its ranks ascending (row-major over the set's axes)
@@ -59,7 +64,8 @@ class Mesh:
                                         for c, j in zip(pos, subset))
                              for pos in itertools.product(*inner)]
                     group = dist.new_group(ranks)
-                    io_group = dist.new_group(ranks, backend="gloo")
+                    io_group = (group if fake else
+                                dist.new_group(ranks, backend="gloo"))
                     if rank in ranks:
                         key = tuple(axes[j] for j in subset)
                         self._groups[key] = group
@@ -100,7 +106,9 @@ class Mesh:
         """`group(axes)`'s ranks in a gloo group of their own, for the
         checkpoint's gathers of host arrays: no collective of it
         interleaves with the training's on `group(axes)`, and the arrays
-        stay in host memory under any backend."""
+        stay in host memory under any backend.  Under the fake backend
+        (the dry-run's one-process world, which can make no gloo group)
+        it is `group(axes)` itself."""
         return self._io_groups[self.axes_key(axes)]
 
 

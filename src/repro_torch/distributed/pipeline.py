@@ -46,20 +46,14 @@ def _exchange(out, recv_shape, dtype, device, group, send_to, recv_from):
     tensor from `recv_from` (or nothing), both posted before either is
     waited on; returns what was received (None if nothing)."""
     host = dist.get_backend(group) == "gloo" and device.type != "cpu"
-    ops, buf = [], None
+    t = buf = None
     if out is not None:
         t = out.detach().contiguous()
         t = t.cpu() if host else t
-        ops.append(dist.P2POp(dist.isend, t,
-                              dist.get_global_rank(group, send_to), group))
     if recv_from is not None:
         buf = torch.empty(recv_shape, dtype=dtype,
                           device="cpu" if host else device)
-        ops.append(dist.P2POp(dist.irecv, buf,
-                              dist.get_global_rank(group, recv_from), group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+    collectives.exchange(t, send_to, buf, recv_from, group)
     if buf is not None and host:
         buf = buf.to(device)
     return buf

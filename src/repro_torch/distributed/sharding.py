@@ -26,6 +26,12 @@ reduce-scatter).  A forward outside `gathered(model)` raises.
 Megatron-style compute on the blocks (heads split over ``model``) is not
 ported: a leaf split over ``model`` is gathered whole too.
 
+`batch_spec` and `cache_pspecs` are the reference's placements of the
+input batch and of the decode cache (the dry-run reports a decode
+rank's cache beside `cache_pspecs`' bytes: the port's decode keeps its
+batch rows with every head); `batch_slice` takes a rank's rows, a VLM's
+(3, B, S) M-RoPE positions along their batch axis.
+
 Between a rank's blocks and the global array, for checkpoints (the
 reference checkpoints a split leaf as its global array): `gather_block`
 joins the blocks of one leaf on the first rank of its group, and
@@ -230,6 +236,11 @@ def _member_coords(mesh, axes: tuple[str, ...], j: int) -> dict:
     return coords
 
 
+#: the site label of the dense blocks' gathers and sums
+#: (`collectives.site`): `analysis.collectives` reads their bytes by it
+SITE = "dense_blocks"
+
+
 class _Unit:
     """The split leaves of one unit (a module the forward runs whole: the
     embedding, a layer, the head), in `named_parameters` order; `shared`
@@ -380,8 +391,9 @@ class DenseBlocks:
         for axes, keys in unit.gather_buckets:
             blocks = [self.params[k].data for k in keys]
             flat = torch.cat([b.reshape(-1) for b in blocks])
-            parts = collectives.all_gather_blocks(flat,
-                                                  self.mesh.group(axes))
+            with collectives.site(SITE):
+                parts = collectives.all_gather_blocks(
+                    flat, self.mesh.group(axes))
             for j, part in enumerate(parts):
                 coords = _member_coords(self.mesh, axes, j)
                 for k, b, piece in zip(keys, blocks, part.split(
@@ -441,13 +453,15 @@ class DenseBlocks:
                                                   self.batch_axes, j))
                        ].reshape(-1) for k, gk in zip(keys, g)]).to(acc)
                     for j in range(n)]
-                mine = collectives.reduce_scatter_(
-                    torch.empty_like(chunks[0]), chunks, group)
+                with collectives.site(SITE):
+                    mine = collectives.reduce_scatter_(
+                        torch.empty_like(chunks[0]), chunks, group)
                 sent = n * mine.numel() * mine.element_size()
             else:
-                mine = collectives.all_reduce_(torch.cat([
-                    gk[self.index[k]].reshape(-1)
-                    for k, gk in zip(keys, g)]).to(acc), group)
+                with collectives.site(SITE):
+                    mine = collectives.all_reduce_(torch.cat([
+                        gk[self.index[k]].reshape(-1)
+                        for k, gk in zip(keys, g)]).to(acc), group)
                 sent = mine.numel() * mine.element_size()
             self.stats["summed_bytes"] += sent if group is not None else 0
             for k, piece in zip(keys, mine.split(
@@ -639,21 +653,81 @@ def all_gather_block(block: torch.Tensor, mesh, spec: tuple
 # the batch, the tables, the placement
 # ---------------------------------------------------------------------------
 
+def batch_spec(mesh) -> tuple:
+    """Input batches: the global batch over (pod?, data) (the reference's
+    `batch_pspec`), a spec of one entry in `param_specs`' convention."""
+    ax = MeshAxes.for_mesh(mesh)
+    return (ax.fsdp if len(ax.fsdp) > 1 else ax.fsdp[0],)
+
+
 def batch_slice(mesh, batch: dict) -> dict:
-    """This data rank's rows of the global batch (the reference's
-    `batch_pspec`: the batch axis over ``data``, or ("pod", "data"), row-
-    major, pod first); the batch itself without a mesh or a data axis."""
+    """This data rank's rows of the global batch (`batch_spec`: the batch
+    axis over ``data``, or ("pod", "data"), row-major, pod first), each
+    leaf sliced along its batch axis: dim 0, but dim 1 of a VLM's (3, B,
+    S) M-RoPE positions; the batch itself without a mesh or a data
+    axis."""
     if mesh is None or "data" not in mesh.axis_names:
         return batch
-    axes = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    axes = _axes(batch_spec(mesh)[0])
     d, n = mesh.index(axes), mesh.size(axes)
     out = {}
     for key, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"batch[{key!r}] has {v.shape[0]} rows, not "
+        dim = 1 if key == "positions" and v.ndim == 3 else 0
+        if v.shape[dim] % n:
+            raise ValueError(f"batch[{key!r}] has {v.shape[dim]} rows, not "
                              f"divisible by the {n} data ranks")
-        size = v.shape[0] // n
-        out[key] = v[d * size:(d + 1) * size]
+        size = v.shape[dim] // n
+        out[key] = v.narrow(dim, d * size, size)
+    return out
+
+
+def _shard_dim(dim: int, axis: str, mesh):
+    return axis if dim % mesh.shape[axis] == 0 else None
+
+
+def cache_pspecs(cache_shapes, cfg, mesh) -> dict:
+    """Decode-cache placement (the reference's `cache_pspecs`), spec
+    tuples in `param_specs`' convention, with divisibility fallbacks,
+    keyed by the cache-entry name (structural, not shape-guessing):
+
+      k/v/ck/cv  (..., B, T, Kh, D): B->data when divisible (else T->data,
+                 the long_500k B=1 case); Kh->model, else D->model (low-kv
+                 GQA archs: kv=2 cannot split 16 ways, head_dim=128 can).
+      ssm        (..., B, H, N, P): B->data, H->model.
+      conv       (..., B, W, C):    B->data, C->model.
+
+    `cache_shapes` is `transformer.cache_shapes`' nested dict (leaves
+    (shape, dtype)) or a cache of tensors; `mesh` anything with `shape`
+    (a dict of axis sizes) and `axis_names`."""
+    del cfg
+    ax = MeshAxes.for_mesh(mesh)
+    data_ax = ax.fsdp[-1]
+    out = {}
+    for seg, leaves in cache_shapes.items():
+        out[seg] = {}
+        for name, leaf in leaves.items():
+            shape = tuple(leaf.shape if torch.is_tensor(leaf) else leaf[0])
+            nd = len(shape)
+            if name in ("k", "v", "ck", "cv"):
+                b, t, kh, d = shape[-4:]
+                sb = _shard_dim(b, data_ax, mesh)
+                st = _shard_dim(t, data_ax, mesh) if sb is None else None
+                skh = _shard_dim(kh, ax.tp, mesh)
+                sd = None if skh else _shard_dim(d, ax.tp, mesh)
+                spec = (None,) * (nd - 4) + (sb, st, skh, sd)
+            elif name == "ssm":
+                b, h = shape[-4], shape[-3]
+                spec = (None,) * (nd - 4) + (
+                    _shard_dim(b, data_ax, mesh),
+                    _shard_dim(h, ax.tp, mesh), None, None)
+            elif name == "conv":
+                b, c = shape[-3], shape[-1]
+                spec = (None,) * (nd - 3) + (
+                    _shard_dim(b, data_ax, mesh), None,
+                    _shard_dim(c, ax.tp, mesh))
+            else:
+                spec = ()
+            out[seg][name] = spec
     return out
 
 

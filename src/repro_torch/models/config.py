@@ -175,3 +175,17 @@ class ModelConfig:
         inactive = (self.num_experts - self.top_k_experts) * mlp
         return self.param_count() - self.num_layers * inactive
 
+
+def validate_cell(cfg: ModelConfig, shape_name: str) -> Optional[str]:
+    """Return a skip-reason if (arch x shape) is not runnable, else None
+    (the reference's, word for word)."""
+    if shape_name.startswith("long"):
+        sub_quadratic = (
+            cfg.family in ("ssm", "hybrid") or cfg.attention == "swa"
+        )
+        if not sub_quadratic:
+            return (
+                "long_500k needs sub-quadratic attention; "
+                f"{cfg.name} is pure full-attention (see DESIGN.md §5)"
+            )
+    return None

@@ -387,7 +387,9 @@ class Transformer(nn.Module):
         if self.pos_embed is None:
             return x
         pos = torch.as_tensor(positions, device=tokens.device).long()
-        pos = torch.clamp(pos, max=self.pos_embed.shape[0] - 1)
+        # one int as a 1-vector: a 0-d index would be read on the host
+        pos = torch.clamp(pos.reshape(pos.shape or (1,)),
+                          max=self.pos_embed.shape[0] - 1)
         return x + self.pos_embed[pos].to(x.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -429,9 +431,11 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
     generator on that device: a full-width model never passes through
     host memory, and only its largest leaf is ever held in float32 at
     once.  A seed drawn on "cuda" gives other weights than the same seed
-    on the CPU."""
+    on the CPU.  On "meta" (the dry-run's) the leaves have shapes and
+    dtypes and no values: nothing is drawn."""
     device = torch.device("cpu" if device is None else device)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(
+        device="cpu" if device.type == "meta" else device).manual_seed(seed)
     place = (contextlib.nullcontext() if device.type == "cpu"
              else torch.device(device))
     with place:

@@ -5,7 +5,7 @@ and import no triton or CUDA build at import; a CPU serve with a live
 spill, multi-tenant serves with the overlay lifecycle, a serve from an
 mmap-backed table, serves of the dense public archs (one with the memory
 FFN, one in bfloat16, the sliding window's ring), serves of the MoE, SSM
-and hybrid archs, a training run with
+and hybrid archs, a dry-run cell on meta tensors, a training run with
 growth and telemetry, and a serve and a training run with obs armed
 (`--metrics-dir`, `--profile-dir`) load none of them either."""
 
@@ -57,6 +57,12 @@ def test_port_files_have_no_forbidden_imports():
         "h2o_danube3_4b.py", "phi3_5_moe.py", "mixtral_8x7b.py",
         "mamba2_1_3b.py", "zamba2_2_7b.py", "whisper_small.py",
         "qwen2_vl_72b.py"}
+    # and so are the dry-run and its analysis (the shape set, the
+    # collective tally, the roofline)
+    assert {f.name for f in files if f.parent.name == "analysis"} == {
+        "__init__.py", "collectives.py", "roofline.py"}
+    assert PORT / "launch" / "dryrun.py" in files
+    assert PORT / "configs" / "shapes.py" in files
     # and so are the MoE and SSM blocks
     assert {str(f.relative_to(PORT)) for f in files
             if f.name in ("moe.py", "mamba2.py")} == {"models/moe.py",
@@ -135,6 +141,14 @@ from repro_torch.launch import train
 run = train.main(["--arch", "lram-bert-medium", "--smoke", "--device", "cpu",
                   "--placement", "pallas", "--steps", "2", "--batch", "2",
                   "--seq", "8", "--grow-at", "1:17", "--telemetry"])
+from repro_torch.analysis import roofline
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.launch import dryrun
+art = dryrun.run_cell("yi-9b", "train", False,
+                      cfg=configs.get_smoke_config("yi-9b"),
+                      cell=ShapeCell("train", 8, 2, "train"),
+                      mesh_shape=(1, 2))
+assert roofline.analyze_artifact(dict(art, shape="train_4k"))
 bad = sorted(n for n in sys.modules if n.split(".")[0]
              in ("jax", "jaxlib", "repro", "triton", "ml_dtypes"))
 print(json.dumps({"bad": bad, "requests": served,
